@@ -1,0 +1,139 @@
+"""The port's kernel wrappers against the JAX package, on the CPU.
+
+On a CPU tensor each wrapper takes its plain PyTorch version; these tests
+hold that version against the JAX reference and the Pallas kernel (run in
+interpret mode, as tests/test_kernels.py runs it), and pin the wrappers'
+input contract. The CUDA kernels themselves are held against the plain
+versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tfrec_tpu.kernels.cross import cross_stack_xla
+from tfrec_tpu.kernels.cross_pallas import cross_stack_pallas
+from tfrec_tpu.kernels.gather_pallas import gather_pallas
+from tfrec_tpu.ops.embedding import gather as jax_gather
+from tfrec_tpu_torch.kernels import _build
+from tfrec_tpu_torch.kernels.cross import cross_stack, cross_stack_ref
+from tfrec_tpu_torch.kernels.cross_cuda import cross_v1_fwd
+from tfrec_tpu_torch.kernels.gather_cuda import gather_rows
+from tfrec_tpu_torch.ops.embedding import gather
+
+torch.set_num_threads(1)
+
+
+def _normal(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale).astype(np.float32)
+
+
+def _ids_with_edge_cases(seed, vocab, n):
+    """Duplicates, negatives and sentinels (>= vocab) among real ids."""
+    rng = np.random.default_rng(seed)
+    fixed = np.array([3, 3, 3, 0, vocab - 1, vocab, vocab + 7, -1, -5, 7, 7], np.int32)
+    return np.concatenate([fixed, rng.integers(-3, vocab + 3, n - fixed.size)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("dim", [8, 13, 32])
+def test_gather_matches_jax_gather_and_pallas_exactly(dim):
+    vocab = 40  # a multiple of 128/32, so D=32 takes gather_pallas' packed path
+    table = _normal(0, (vocab, dim))
+    ids = _ids_with_edge_cases(1, vocab, 37)
+    got = gather(torch.from_numpy(table), torch.from_numpy(ids)).numpy()
+    assert got.shape == (37, dim)
+    np.testing.assert_array_equal(got, np.asarray(jax_gather(jnp.asarray(table), jnp.asarray(ids))))
+    np.testing.assert_array_equal(got, np.asarray(gather_pallas(jnp.asarray(table), jnp.asarray(ids))))
+
+
+def test_gather_rows_contract():
+    """int32 ids only (the JAX package's id type); 2-D f32 tables; the
+    same device; contiguous inputs. A CPU call launches nothing."""
+    table = torch.from_numpy(_normal(2, (10, 4)))
+    ids = torch.tensor([0, 9, 10, -1], dtype=torch.int32)
+    before = gather_rows.launches
+    np.testing.assert_array_equal(gather_rows(table, ids).numpy(), table.numpy()[[0, 9, 9, 0]])
+    assert gather_rows.launches == before
+    assert gather_rows(table, ids[:0]).shape == (0, 4)
+    with pytest.raises(TypeError, match="int32"):
+        gather_rows(table, ids.long())
+    with pytest.raises(TypeError, match="float32"):
+        gather_rows(table.double(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows(table.t(), ids)
+    with pytest.raises(NotImplementedError, match="cuda or cpu"):
+        gather_rows(table.to("meta"), ids.to("meta"))
+
+
+@pytest.mark.parametrize("batch,dim,layers", [(64, 32, 3), (50, 45, 2)])
+def test_cross_v1_ref_matches_pallas_and_xla(batch, dim, layers):
+    x0 = _normal(3, (batch, dim))
+    # w at DCN's own init scale, 1/sqrt(d): each row dot stays O(1).
+    w, b = _normal(4, (layers, dim), dim**-0.5), _normal(5, (layers, dim), 0.1)
+    jparams = {"w": jnp.asarray(w), "b": jnp.asarray(b)}
+    tparams = {"w": torch.from_numpy(w), "b": torch.from_numpy(b)}
+    ref = cross_stack_ref(torch.from_numpy(x0), tparams).numpy()
+    np.testing.assert_allclose(ref, np.asarray(cross_stack_pallas(jnp.asarray(x0), jparams)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ref, np.asarray(cross_stack_xla(jnp.asarray(x0), jparams)),
+                               rtol=1e-5, atol=1e-6)
+    # On the CPU the dispatcher and the wrapper take the same plain version.
+    np.testing.assert_array_equal(cross_stack(torch.from_numpy(x0), tparams).numpy(), ref)
+
+
+@pytest.mark.parametrize("rank", [0, 4])
+def test_cross_v2_ref_matches_xla(rank):
+    batch, dim, layers = 48, 24, 3
+    x0 = _normal(6, (batch, dim))
+    if rank:
+        np_params = {"u": _normal(7, (layers, dim, rank), 0.2),
+                     "v": _normal(8, (layers, dim, rank), 0.2)}
+    else:
+        np_params = {"w": _normal(9, (layers, dim, dim), 0.2)}
+    np_params["b"] = _normal(10, (layers, dim), 0.1)
+    want = np.asarray(cross_stack_xla(jnp.asarray(x0), {k: jnp.asarray(v) for k, v in np_params.items()}))
+    tparams = {k: torch.from_numpy(v) for k, v in np_params.items()}
+    for fn in (cross_stack_ref, cross_stack):
+        np.testing.assert_allclose(fn(torch.from_numpy(x0), tparams).numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_cross_dispatch_refuses_unported_kernels_off_cpu():
+    """Low-rank v2 has no kernel in the port yet: off the CPU it is refused,
+    never run plain; v1 off cpu/cuda is refused by its wrapper."""
+    x0 = torch.empty((4, 8), device="meta")
+    lowrank = {k: torch.empty(s, device="meta") for k, s in
+               (("u", (2, 8, 2)), ("v", (2, 8, 2)), ("b", (2, 8)))}
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+        cross_stack(x0, lowrank)
+    v1 = {"w": torch.empty((2, 8), device="meta"), "b": torch.empty((2, 8), device="meta")}
+    with pytest.raises(NotImplementedError, match="cuda or cpu"):
+        cross_stack(x0, v1)
+
+
+def test_cross_v1_fwd_contract():
+    x0 = torch.from_numpy(_normal(11, (5, 6)))
+    w = torch.from_numpy(_normal(12, (2, 6)))
+    before = cross_v1_fwd.launches
+    cross_v1_fwd(x0, w, w.clone())
+    assert cross_v1_fwd.launches == before
+    with pytest.raises(ValueError, match=r"\[L, 6\]"):
+        cross_v1_fwd(x0, w, w[:, :5].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        cross_v1_fwd(x0.double(), w, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        cross_v1_fwd(x0, w, torch.from_numpy(_normal(13, (6, 2))).t())
+
+
+def test_build_targets_hopper_from_repo_sources(tmp_path, monkeypatch):
+    assert _build.sources() == ["cross", "gather"]
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "tfrec_tpu_torch")
+    cmd = _build.nvcc_command("nvcc", "gather", Path("lib.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    assert cmd[-1] == str(_build.CSRC_DIR / "gather.cu")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()

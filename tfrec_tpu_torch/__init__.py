@@ -1,0 +1,23 @@
+"""tfrec_tpu_torch — the PyTorch/CUDA port of tfrec_tpu for NVIDIA Hopper.
+
+The JAX package ``tfrec_tpu`` stays the reference; this package keeps its
+module names so each file's counterpart is easy to find. Plain tensor code
+is PyTorch; every Pallas kernel of the reference becomes a CUDA C++ kernel
+for ``sm_90a`` under ``kernels/csrc/``, built with ``nvcc`` on first use
+and bound with ``ctypes`` (``kernels/_build.py``). Each kernel wrapper runs
+its plain PyTorch version only for tensors that lie on the CPU.
+
+Ported so far (the serving slice of ``zoo_configs.dcn_criteo``):
+
+- ``configs``, ``zoo_configs.dcn_criteo``;
+- ``ops.embedding`` (table specs, seeded init, clip-semantics gather);
+- ``kernels``: the row gather and the DCN-v1 cross-stack forward;
+- ``models``: ``DCN`` (v1, v2 full-rank, v2 low-rank) over per-field tables;
+- ``convert.params_from_jax``: JAX params of any table layout -> the port's;
+- ``serve.Recommender.predict_ctr``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+This package never imports ``jax`` or any module of ``tfrec_tpu``.
+"""
+
+__version__ = "0.1.0"
