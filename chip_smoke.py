@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving slice on one NVIDIA GPU and check it.
+"""Drive tfrec_tpu_torch's serving and training slices on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
 non-zero if any phase fails:
 
 1. environment: CUDA present; the card's name and power limit; TF32 off;
-2. build: nvcc compiles every kernel source into build/tfrec_tpu_torch/;
+2. build: nvcc compiles every kernel source into build/tfrec_tpu_torch/,
+   one process per source, all started together;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at edge cases;
-4. the main path: ``dcn_criteo`` at Criteo's shape (26 fields of 100 000
-   rows, d=32, 13 dense features, 3 cross layers, MLP 512/256/128) from a
-   seeded generator, serving batches of 8192 through
-   ``Recommender.predict_ctr``; the logits must be finite, match the same
-   model run through the plain versions on the card and, on a small input,
-   on the CPU; launch counters prove both kernels ran;
-5. times with CUDA events: each kernel beside its bound, its plain version
-   and the one PyTorch call that computes the same function where there
-   is one; predict_ctr's latency; a profile of one request batch.
+   paths' shapes and at edge cases, and each repeating bit for bit; the
+   duplicate-id combine repeating bit for bit and matching the CPU;
+4. serving: ``dcn_criteo`` at Criteo's shape (26 fields of 100 000 rows,
+   d=32, 13 dense features, 3 cross layers, MLP 512/256/128) from a seeded
+   generator, batches of 8192 through ``Recommender.predict_ctr``; the
+   logits must be finite, match the same model run through the plain
+   versions on the card and, on a small input, on the CPU; launch counters
+   prove the gather and cross kernels ran;
+5. serving times with CUDA events: each kernel beside its bound, its plain
+   version and the one PyTorch call that computes the same function where
+   there is one; predict_ctr's latency; a profile of one request batch;
+6. training: the same model trained by ``TrainStepBuilder`` on the default
+   device (dense Adam, rowwise Adagrad, logloss), ``multi_step`` over
+   K = train.steps_per_dispatch batches of 8192 from ``synthetic_ctr``;
+   launch counters prove every kernel of the step ran; the loss is finite
+   and falls on a held batch; one step repeats bit for bit and matches
+   the same step on the CPU (plain versions) from the same state;
+7. training times: the backward cross kernel and the Adagrad kernel beside
+   their bounds and plain versions, the step's median, a profile of one
+   step.
 
 The last lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
@@ -34,12 +45,21 @@ import numpy as np
 import torch
 
 from tfrec_tpu_torch import zoo_configs
+from tfrec_tpu_torch.data.synthetic import _zipf_ids, synthetic_ctr
 from tfrec_tpu_torch.kernels import _build
+from tfrec_tpu_torch.kernels.adagrad_cuda import fused_rowwise_adagrad, fused_rowwise_adagrad_ref
 from tfrec_tpu_torch.kernels.cross import cross_stack_ref
-from tfrec_tpu_torch.kernels.cross_cuda import cross_v1_fwd, cross_v1_fwd_ref
+from tfrec_tpu_torch.kernels.cross_cuda import (
+    cross_v1_bwd,
+    cross_v1_bwd_ref,
+    cross_v1_fwd,
+    cross_v1_fwd_ref,
+)
 from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_ref
 from tfrec_tpu_torch.models import DataSpec, build_model
+from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
 from tfrec_tpu_torch.serve import Recommender
+from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, tree_leaves
 
 SEED = 0
 DEVICE = "cuda"
@@ -54,6 +74,21 @@ RTOL = 1e-5
 ATOL_REL = 1e-5
 # Logits add the cross output's error over a head of d + 128 inputs.
 LOGIT_TOL = 1e-4
+# One train step on the card against the CPU. Every matmul sums in another
+# order (cuBLAS against the CPU's BLAS, over a batch of 8192), so the
+# gradients are held to 1e-4 of their largest value. A ReLU input that lies
+# within that rounding of 0 can fall on the other side on the other device:
+# its example's gradient then differs by a finite amount (2 of 8192
+# examples in the measured batch). Such flips are found and checked to lie
+# within rounding of 0; the rows the flipped examples touch are reported,
+# and every other row is held tightly: a table moves by lr * g / rms(g)
+# (up to ~0.1), its error is the rounding of g relative to its row.
+GRAD_TOL = 1e-4
+FLIP_TOL = 10  # a flipped ReLU input is within 10x the largest input error of 0
+MAX_FLIPPED = 0.01  # of the batch's examples
+TABLE_TOL = 1e-6
+ACC_RTOL = 1e-4
+LOSS_RTOL = 1e-5
 
 KERNELS = {
     "gather_rows": {
@@ -64,7 +99,17 @@ KERNELS = {
         "source": "tfrec_tpu_torch/kernels/csrc/cross.cu",
         "replaces": "tfrec_tpu/kernels/cross_pallas.py:123",
     },
+    "cross_v1_bwd": {
+        "source": "tfrec_tpu_torch/kernels/csrc/cross.cu",
+        "replaces": "tfrec_tpu/kernels/cross_pallas.py:157",
+    },
+    "fused_rowwise_adagrad": {
+        "source": "tfrec_tpu_torch/kernels/csrc/adagrad.cu",
+        "replaces": "tfrec_tpu/kernels/scatter_pallas.py:182",
+    },
 }
+WRAPPERS = {"gather_rows": gather_rows, "cross_v1_fwd": cross_v1_fwd,
+            "cross_v1_bwd": cross_v1_bwd, "fused_rowwise_adagrad": fused_rowwise_adagrad}
 
 
 def check(ok: bool, what: str) -> None:
@@ -199,7 +244,90 @@ def phase_kernels(rng) -> dict:
         check(within(got, want, RTOL, ATOL_REL), f"cross_v1_fwd B={batch} within tolerance")
         check(torch.equal(got, again), f"cross_v1_fwd B={batch} repeats bit for bit")
         errs["cross_v1_fwd"] = max(errs["cross_v1_fwd"], err)
+    errs["cross_v1_bwd"] = check_cross_v1_bwd(rng, dim, layers)
+    errs["fused_rowwise_adagrad"] = check_adagrad(rng)
     return errs
+
+
+def check_cross_v1_bwd(rng, dim: int, layers: int) -> float:
+    """The backward kernel against its plain version, given the same s from
+    the forward kernel; each output held to the forward's tolerance."""
+    worst = 0.0
+    for batch in (BATCH, 1000):
+        x0 = torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32)).to(DEVICE)
+        g = torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32)).to(DEVICE)
+        w = torch.from_numpy((rng.normal(size=(layers, dim)) / dim**0.5).astype(np.float32)).to(DEVICE)
+        b = torch.from_numpy((0.1 * rng.normal(size=(layers, dim))).astype(np.float32)).to(DEVICE)
+        _, s = cross_v1_fwd(x0, w, b, want_s=True)
+        got = cross_v1_bwd(x0, w, b, s, g)
+        want = cross_v1_bwd_ref(x0, w, b, g, s)
+        again = cross_v1_bwd(x0, w, b, s, g)
+        torch.cuda.synchronize()
+        for name, a, e, r in zip(("dx0", "dw", "db"), got, want, again):
+            err = max_err(a, e)
+            print(f"cross_v1_bwd B={batch} d={dim} L={layers} {name}: max_abs_err {err:.3e} "
+                  f"(max |ref| {e.abs().max().item():.3e}, rtol {RTOL}, atol {ATOL_REL} x max|ref|)")
+            check(within(a, e, RTOL, ATOL_REL), f"cross_v1_bwd B={batch} {name} within tolerance")
+            check(torch.equal(a, r), f"cross_v1_bwd B={batch} {name} repeats bit for bit")
+            worst = max(worst, err)
+    return worst
+
+
+def adagrad_ids(rng, vocab: int, n: int) -> np.ndarray:
+    """Zipf(1.2) ids, as the training data has them (many duplicates), kept
+    off rows 0 and vocab-1, where a clamped negative or sentinel id would
+    land; then ~1% negative ids and ~1% sentinels (vocab and beyond)."""
+    ids = _zipf_ids(rng, vocab, n).astype(np.int32)
+    ids = np.clip(ids, 1, vocab - 2)
+    flip = rng.random(n)
+    ids[flip < 0.01] = vocab + (ids[flip < 0.01] % 3)
+    ids[(flip >= 0.01) & (flip < 0.02)] = -1 - (ids[(flip >= 0.01) & (flip < 0.02)] % 5)
+    return ids
+
+
+def check_adagrad(rng) -> float:
+    """The duplicate combine (bit for bit on repeat; equal to the CPU's) and
+    the fused Adagrad kernel against its plain version, at one field of the
+    training path: table [100000, 32], 8192 ids."""
+    vocab, dim, lr = 100_000, 32, 0.02
+    table = torch.from_numpy(rng.normal(size=(vocab, dim)).astype(np.float32) / dim**0.5).to(DEVICE)
+    acc = torch.from_numpy(rng.uniform(0.0, 0.1, vocab).astype(np.float32)).to(DEVICE)
+    ids_np = adagrad_ids(rng, vocab, BATCH)
+    grads_np = (1e-3 * rng.normal(size=(BATCH, dim))).astype(np.float32)
+    ids, grads = torch.from_numpy(ids_np).to(DEVICE), torch.from_numpy(grads_np).to(DEVICE)
+
+    uids, g = combine_duplicate_ids(ids, grads, sentinel=vocab)
+    uids2, g2 = combine_duplicate_ids(ids, grads, sentinel=vocab)
+    cpu_u, cpu_g = combine_duplicate_ids(torch.from_numpy(ids_np), torch.from_numpy(grads_np), vocab)
+    torch.cuda.synchronize()
+    check(torch.equal(uids, uids2) and torch.equal(g, g2), "combine_duplicate_ids repeats bit for bit")
+    check(torch.equal(uids.cpu(), cpu_u), "combine_duplicate_ids: uids equal the CPU's")
+    comb_err = max_err(g.cpu(), cpu_g)
+    check(within(g.cpu(), cpu_g, 1e-6, 1e-6), "combine_duplicate_ids: sums match the CPU's")
+    distinct = int((uids < vocab).sum().item())
+    print(f"combine_duplicate_ids [{BATCH}] ids, {distinct} distinct real: repeats bit for bit, "
+          f"max_abs_err vs CPU {comb_err:.3e}, bitwise {torch.equal(g.cpu(), cpu_g)}")
+
+    t_k, a_k = table.clone(), acc.clone()
+    out = fused_rowwise_adagrad(t_k, a_k, uids, g, lr)
+    t_r, a_r = fused_rowwise_adagrad_ref(table.clone(), acc.clone(), uids, g, lr)
+    t_2, a_2 = fused_rowwise_adagrad(table.clone(), acc.clone(), uids, g, lr)
+    torch.cuda.synchronize()
+    check(out[0] is t_k and out[1] is a_k, "fused_rowwise_adagrad updates in place")
+    err = max(max_err(t_k, t_r), max_err(a_k, a_r))
+    print(f"fused_rowwise_adagrad [{vocab}, {dim}], {BATCH} slots: max_abs_err table "
+          f"{max_err(t_k, t_r):.3e} acc {max_err(a_k, a_r):.3e} (rtol {RTOL}, atol {ATOL_REL} x max|ref|), "
+          f"bitwise table {torch.equal(t_k, t_r)} acc {torch.equal(a_k, a_r)}")
+    check(within(t_k, t_r, RTOL, ATOL_REL) and within(a_k, a_r, RTOL, ATOL_REL),
+          "fused_rowwise_adagrad within tolerance")
+    check(torch.equal(t_k, t_2) and torch.equal(a_k, a_2), "fused_rowwise_adagrad repeats bit for bit")
+    touched = torch.zeros(vocab, dtype=torch.bool, device=DEVICE)
+    touched[uids[uids < vocab].long()] = True
+    check(not bool(touched[0]) and not bool(touched[vocab - 1]), "rows 0 and V-1 are not real ids here")
+    check(torch.equal(t_k[~touched], table[~touched]) and torch.equal(a_k[~touched], acc[~touched]),
+          "untouched rows (incl. 0 and V-1, where clamped negatives and sentinels would land) unchanged")
+    check(bool((t_k[touched] != table[touched]).any(dim=1).all()), "every real id's row moved")
+    return err
 
 
 def phase_main_path(rng):
@@ -287,7 +415,7 @@ def phase_times(model, rec, requests, launches, errs) -> list:
     latency = statistics.median(lat[1:])
     print(f"predict_ctr batch {BATCH} (host clock, request copy and logits included): "
           f"median {latency:.3f} ms over {len(lat) - 1} calls")
-    profile(rec, dense, cat, latency)
+    profile(lambda: rec.predict_ctr(dense, cat), "predict_ctr", latency)
     return [
         {"name": "gather_rows", "route": "cuda", "launches": launches["gather_rows"],
          "max_abs_err": errs["gather_rows"], "ms": g_ms, "plain_ms": g_plain,
@@ -298,25 +426,246 @@ def phase_times(model, rec, requests, launches, errs) -> list:
     ]
 
 
-def profile(rec, dense, cat, latency_ms: float) -> None:
-    """Device time by kernel and copy over one predict_ctr call, and the
+def profile(fn, what: str, latency_ms: float) -> None:
+    """Device time by kernel and copy over one call of ``fn``, and the
     device's busy share of the unprofiled median latency."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rec.predict_ctr(dense, cat)
+        fn()
+        torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not events:
         print("profile: the profiler recorded no device time")
         return
     busy_us = sum(e.self_device_time_total for e in events)
-    print(f"profile of one predict_ctr: device busy {busy_us:.1f} us = "
-          f"{100 * busy_us / (latency_ms * 1e3):.1f}% of the median latency")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+    print(f"profile of one {what}: device busy {busy_us:.1f} us = "
+          f"{100 * busy_us / (latency_ms * 1e3):.1f}% of the median latency, "
+          f"{sum(e.count for e in events)} kernels and copies")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total:9.1f} us  x{e.count:<3d} {e.key[:100]}")
+
+
+def to_device(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+
+def held_loss(builder, state, batch) -> float:
+    """The loss of ``state`` on ``batch``, without gradients (the forward
+    kernels only)."""
+    with torch.no_grad():
+        gathered, _ = builder.lookup(state["tables"], builder.model.lookup_ids(batch))
+        return builder.loss_fn(builder.model(state["dense"], gathered, batch), batch).item()
+
+
+def phase_train():
+    """Train dcn_criteo at Criteo's shape on the default device: one
+    multi_step of K batches, counted; then the loss, repeat and CPU checks."""
+    cfg = zoo_configs.dcn_criteo(path="criteo")  # Criteo's shape; data is synthetic
+    vocabs = tuple(cfg.data.categorical_vocab_sizes)
+    model = build_model(cfg.model, DataSpec.ctr(vocabs, cfg.data.num_dense_features))
+    builder = TrainStepBuilder(model, cfg.train.loss, cfg.optim)  # the default device, the card
+    check(builder.device.type == "cuda", "TrainStepBuilder defaults to the card")
+    state = builder.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+    k = cfg.train.steps_per_dispatch
+    t0 = time.perf_counter()
+    dense, cat, label = synthetic_ctr((k + 1) * BATCH, cfg.data.num_dense_features, vocabs,
+                                      seed=SEED + 1)
+    n = k * BATCH
+    batches = {"dense": to_device(dense[:n].reshape(k, BATCH, -1)),
+               "cat": to_device(cat[:n].reshape(k, BATCH, -1)),
+               "label": to_device(label[:n].reshape(k, BATCH))}
+    held = {"dense": to_device(dense[n:]), "cat": to_device(cat[n:]), "label": to_device(label[n:])}
+    print(f"train: dcn_criteo, {cfg.optim.dense_optimizer} dense lr {cfg.optim.learning_rate}, "
+          f"{cfg.optim.sparse_optimizer} lr {cfg.optim.sparse_learning_rate}, {cfg.train.loss}; "
+          f"multi_step K={k} x {BATCH} from synthetic_ctr (made in {time.perf_counter() - t0:.1f} s) "
+          f"and a held batch of {BATCH}")
+    start = copy_state(state)
+    before = held_loss(builder, state, held)
+
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    state, metrics = builder.multi_step(state, batches)
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+    expected = {"gather_rows": len(vocabs), "cross_v1_fwd": 1, "cross_v1_bwd": 1,
+                "fused_rowwise_adagrad": len(vocabs)}
+    print(f"train main path: {k} steps, launches {launches}, per step "
+          f"{ {name: c / k for name, c in launches.items()} }")
+    for name, per_step in expected.items():
+        check(launches[name] == per_step * k, f"{name} ran {per_step} times a step")
+
+    after = held_loss(builder, state, held)
+    loss_mean = metrics["loss_mean"].item()
+    print(f"train loss: mean over the {k} steps {loss_mean:.6f}, last {metrics['loss'].item():.6f}; "
+          f"held batch {before:.6f} -> {after:.6f}")
+    check(bool(np.isfinite([loss_mean, metrics["loss"].item(), after]).all()), "the loss is finite")
+    check(after < before, "the loss on the held batch falls")
+    check(state["step"] == k, "the state counts K steps")
+    check_step(builder, start, {name: v[0] for name, v in batches.items()}, cfg.train.loss)
+    return builder, state, batches, launches
+
+
+def relu_inputs(builder, state, batch) -> list:
+    """The inputs of the deep tower's ReLUs, [B, width] a layer, on the CPU."""
+    with torch.no_grad():
+        gathered, _ = builder.lookup(state["tables"], builder.model.lookup_ids(batch))
+        h = builder.model.flat_input(gathered, batch)
+        out = []
+        for w, b in state["dense"]["mlp"]:
+            pre = h @ w + b
+            out.append(pre.cpu())
+            h = torch.relu(pre)
+        return out
+
+
+def check_step(builder, start, batch, loss: str) -> None:
+    """One step from ``start`` repeats bit for bit on the card, and matches
+    the same step on the CPU (the kernels' plain versions): the loss, the
+    gradients of the dense leaves and of the gathered rows, and the tables
+    and accumulators after the update, apart from the rows of examples
+    whose ReLU flipped (see GRAD_TOL). Adam's first update is not compared:
+    its size is lr whatever the gradient, so a near-zero gradient flips it."""
+    one, m_one = builder.step(copy_state(start), batch)
+    two, m_two = builder.step(copy_state(start), batch)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(tree_leaves(one), tree_leaves(two)))
+    check(same and torch.equal(m_one["loss"], m_two["loss"]), "one train step repeats bit for bit")
+
+    cpu = TrainStepBuilder(builder.model, loss, builder.optim_cfg, device="cpu")
+    cpu_start = copy_state(start, "cpu")
+    cpu_batch = {name: v.cpu() for name, v in batch.items()}
+    t0 = time.perf_counter()
+    flipped = torch.zeros(cpu_batch["label"].shape[0], dtype=torch.bool)
+    flip_ok = True
+    for got, want in zip(relu_inputs(builder, start, batch), relu_inputs(cpu, cpu_start, cpu_batch)):
+        flips = (got > 0) != (want > 0)
+        flipped |= flips.any(dim=1)
+        if flips.any():
+            flip_ok &= want[flips].abs().max().item() <= FLIP_TOL * max_err(got, want)
+    n_flipped = int(flipped.sum())
+
+    loss_c, dense_c, rows_c, ids = cpu.loss_and_grads(cpu_start, cpu_batch)
+    loss_g, dense_g, rows_g, _ = builder.loss_and_grads(start, batch)
+    after_c, _ = cpu.step(cpu_start, cpu_batch)
+    errs = {"loss": abs(loss_g.item() - loss_c.item())}
+    dense_pairs = [(a.cpu(), e) for a, e in zip(tree_leaves(dense_g), tree_leaves(dense_c))]
+    row_pairs = [(rows_g[name].cpu()[~flipped], rows_c[name][~flipped]) for name in rows_c]
+    errs["dense grads"] = max(max_err(a, e) for a, e in dense_pairs)
+    errs["row grads"] = max(max_err(a, e) for a, e in row_pairs)
+    table_ok, acc_ok, flipped_rows, flipped_err = True, True, 0, 0.0
+    errs["tables"] = errs["acc (relative)"] = 0.0
+    for name, field_ids in ids.items():
+        vocab = after_c["tables"][name].shape[0]
+        t_g, t_c = one["tables"][name].cpu(), after_c["tables"][name]
+        a_g, a_c = one["sparse_opt"][name]["acc"].cpu(), after_c["sparse_opt"][name]["acc"]
+        real = field_ids[(field_ids >= 0) & (field_ids < vocab)].long()
+        touched = torch.zeros(vocab, dtype=torch.bool)
+        touched[real] = True
+        by_flip = torch.zeros(vocab, dtype=torch.bool)
+        by_flip[field_ids[flipped.repeat_interleave(field_ids.shape[0] // flipped.shape[0])]
+                .clamp(0, vocab - 1).long()] = True
+        clean = ~by_flip
+        flipped_rows += int((by_flip & touched).sum())
+        if (by_flip & touched).any():
+            flipped_err = max(flipped_err, max_err(t_g[by_flip], t_c[by_flip]))
+        errs["tables"] = max(errs["tables"], max_err(t_g[clean], t_c[clean]))
+        rel = ((a_g[clean & touched] - a_c[clean & touched]).abs()
+               / a_c[clean & touched].clamp_min(1e-30))
+        errs["acc (relative)"] = max(errs["acc (relative)"], rel.max().item() if rel.numel() else 0.0)
+        table_ok &= within(t_g[clean], t_c[clean], TABLE_TOL, TABLE_TOL)
+        acc_ok &= bool((rel <= ACC_RTOL).all()) and torch.equal(a_g[~touched], a_c[~touched])
+    print(f"one step: repeats bit for bit on the card; against the CPU ({time.perf_counter() - t0:.1f} s): "
+          f"{n_flipped} of {flipped.shape[0]} examples have a ReLU input on the other side of 0 "
+          f"(within {FLIP_TOL}x the input error of 0: {flip_ok}), their {flipped_rows} table rows differ "
+          f"by up to {flipped_err:.3e}; elsewhere max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (loss rtol {LOSS_RTOL}; grads rtol {GRAD_TOL} atol {GRAD_TOL} x max|ref|; tables rtol "
+          f"{TABLE_TOL} atol {TABLE_TOL} x max|ref|; acc rtol {ACC_RTOL})")
+    check(flip_ok and n_flipped <= MAX_FLIPPED * flipped.shape[0],
+          "ReLU flips between card and CPU are few and within rounding of 0")
+    check(errs["loss"] <= LOSS_RTOL * abs(loss_c.item()), "card loss matches the CPU's")
+    check(all(within(a, e, GRAD_TOL, GRAD_TOL) for a, e in dense_pairs), "card dense grads match the CPU's")
+    check(all(within(a, e, GRAD_TOL, GRAD_TOL) for a, e in row_pairs), "card row grads match the CPU's")
+    check(table_ok, "card tables match the CPU's (rows of flipped examples aside)")
+    check(acc_ok, "card accumulators match the CPU's (rows of flipped examples aside)")
+
+
+def phase_train_times(builder, state, batches, launches, errs) -> list:
+    model = builder.model
+    batch = {name: v[0] for name, v in batches.items()}
+    ids = model.lookup_ids(batch)
+    _, _, row_grads, _ = builder.loss_and_grads(state, batch)
+
+    # cross_v1_bwd at the step's shapes: x0 from the batch, 3 sets of
+    # x0/g/dx0 (3 x 83 MB) rotate past L2.
+    gathered, _ = builder.lookup(state["tables"], ids)
+    x0 = model.flat_input(gathered, batch)
+    cross = state["dense"]["cross"]
+    w, b = cross["w"], cross["b"]
+    sets = []
+    for x in (x0, torch.randn_like(x0), torch.randn_like(x0)):
+        sets.append((x, cross_v1_fwd(x, w, b, want_s=True)[1], torch.randn_like(x0)))
+    cb_ms = device_ms(lambda: [cross_v1_bwd(x, w, b, s, g) for x, s, g in sets], len(sets))
+    cb_plain = device_ms(lambda: [cross_v1_bwd_ref(x, w, b, g, s) for x, s, g in sets], len(sets))
+    bsz, dim = x0.shape
+    layers = w.shape[0]
+    cb_bound, cb_by = bound_ms(3 * bsz * dim * 4 + bsz * layers * 4 + 4 * layers * dim * 4,
+                               12 * layers * bsz * dim)
+
+    # fused_rowwise_adagrad on the step's combined gradients, one launch a
+    # field (26 tables of 12.8 MB: L2 is cold). The plain version syncs on
+    # its boolean mask, so it cannot be captured: it is timed eagerly.
+    lr = builder.sparse_schedule(state["step"])
+    work = []
+    for name, field_ids in ids.items():
+        table = state["tables"][name]
+        uids, g = combine_duplicate_ids(field_ids, row_grads[name], sentinel=table.shape[0])
+        work.append((table, state["sparse_opt"][name]["acc"], uids, g))
+    f = len(work)
+    distinct = [int((u < t.shape[0]).sum().item()) for t, _, u, _ in work]
+    n_slots, d = work[0][2].shape[0], work[0][0].shape[1]
+    a_ms = device_ms(lambda: [fused_rowwise_adagrad(t, a, u, g, lr) for t, a, u, g in work], f)
+    a_eager = dispatch_ms(lambda: [fused_rowwise_adagrad(t, a, u, g, lr) for t, a, u, g in work], f)
+    a_plain = dispatch_ms(lambda: [fused_rowwise_adagrad_ref(t, a, u, g, lr) for t, a, u, g in work], f)
+    mean_distinct = sum(distinct) / f
+    a_bound, a_by = bound_ms(mean_distinct * (3 * d * 4 + 2 * 4) + n_slots * 4, 4 * mean_distinct * d)
+
+    step_ms = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        state, _ = builder.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    state, _ = builder.multi_step(state, batches)
+    torch.cuda.synchronize()
+    k = next(iter(batches.values())).shape[0]
+    multi_ms = (time.perf_counter() - t0) * 1e3 / k
+
+    print(f"cross_v1_bwd [{bsz}, {dim}] L={layers}: kernel {cb_ms:.4f} ms, plain {cb_plain:.4f} ms, "
+          f"bound {cb_bound:.4f} ms ({cb_by}) [device time, CUDA graph]")
+    print(f"fused_rowwise_adagrad [{work[0][0].shape[0]}, {d}], {n_slots} slots, distinct real ids a "
+          f"field: mean {mean_distinct:.1f}, min {min(distinct)}, max {max(distinct)}: kernel "
+          f"{a_ms:.4f} ms [device time, CUDA graph], {a_eager:.4f} ms issued eagerly; plain "
+          f"{a_plain:.4f} ms issued eagerly (its mask syncs); bound {a_bound:.4f} ms ({a_by})")
+    median = statistics.median(step_ms[1:])
+    print(f"train step batch {BATCH} (host clock, batch already on the card): median {median:.3f} ms "
+          f"over {len(step_ms) - 1} steps; multi_step K={k}: {multi_ms:.3f} ms a step")
+    profile(lambda: builder.step(state, batch), "train step", median)
+    return [
+        {"name": "cross_v1_bwd", "route": "cuda", "launches": launches["cross_v1_bwd"],
+         "max_abs_err": errs["cross_v1_bwd"], "ms": cb_ms, "plain_ms": cb_plain,
+         "bound_ms": cb_bound, "bound_by": cb_by, "library_ms": None},
+        {"name": "fused_rowwise_adagrad", "route": "cuda",
+         "launches": launches["fused_rowwise_adagrad"],
+         "max_abs_err": errs["fused_rowwise_adagrad"], "ms": a_ms, "plain_ms": a_plain,
+         "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
+    ]
 
 
 def main() -> int:
@@ -328,9 +677,13 @@ def main() -> int:
     phase_environment()
     phase_build()
     errs = phase_kernels(rng)
-    model, rec, requests, launches = phase_main_path(rng)
-    records = phase_times(model, rec, requests, launches, errs)
+    model, rec, requests, serve_launches = phase_main_path(rng)
+    records = phase_times(model, rec, requests, serve_launches, errs)
+    builder, state, batches, train_launches = phase_train()
+    records += phase_train_times(builder, state, batches, train_launches, errs)
     for r in records:
+        by_path = {"serve": serve_launches.get(r["name"], 0), "train": train_launches[r["name"]]}
+        r.update({"launches": sum(by_path.values()), "launches_by_path": by_path})
         r.update({k: KERNELS[r["name"]][k] for k in ("source", "replaces")})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,20 @@ import numpy as np
 import pytest
 import torch
 
+from tfrec_tpu_torch.configs import ModelConfig, OptimConfig
+from tfrec_tpu_torch.data.synthetic import synthetic_ctr
+from tfrec_tpu_torch.kernels.adagrad_cuda import fused_rowwise_adagrad, fused_rowwise_adagrad_ref
 from tfrec_tpu_torch.kernels.cross import cross_stack
-from tfrec_tpu_torch.kernels.cross_cuda import cross_v1_fwd, cross_v1_fwd_ref
+from tfrec_tpu_torch.kernels.cross_cuda import (
+    cross_v1_bwd,
+    cross_v1_bwd_ref,
+    cross_v1_fwd,
+    cross_v1_fwd_ref,
+)
 from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_ref
+from tfrec_tpu_torch.models import DataSpec, build_model
+from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
+from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -58,3 +69,97 @@ def test_cross_v1_fwd_matches_the_plain_version(device, batch, dim, layers):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
     assert torch.equal(got, cross_v1_fwd(x0, w, b))  # fixed order: bit for bit
     assert torch.equal(cross_stack(x0, {"w": w, "b": b}), got)
+
+
+def _close(got, want, tol=1e-5):
+    """f32 sums in another order: errors scale with the terms, so the
+    absolute tolerance is relative to the largest value."""
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * max(want.abs().max().item(), 1e-30))
+
+
+@pytest.mark.parametrize("batch,dim,layers", [(1000, 845, 3), (33, 31, 2), (257, 2048, 1), (70, 2048, 6)])
+def test_cross_v1_bwd_matches_the_plain_version(device, batch, dim, layers):
+    """(70, 2048, 6) needs 96 KB of shared memory: the opt-in above 48 KB."""
+    rng = np.random.default_rng(batch + dim)
+    x0, g = (torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32)).to(device)
+             for _ in range(2))
+    w = torch.from_numpy((rng.normal(size=(layers, dim)) / dim**0.5).astype(np.float32)).to(device)
+    b = torch.from_numpy(rng.normal(size=(layers, dim)).astype(np.float32) * 0.1).to(device)
+    _, s = cross_v1_fwd(x0, w, b, want_s=True)
+    before = cross_v1_bwd.launches
+    got = cross_v1_bwd(x0, w, b, s, g)
+    torch.cuda.synchronize()
+    assert cross_v1_bwd.launches == before + 1
+    for a, e in zip(got, cross_v1_bwd_ref(x0, w, b, g, s)):
+        _close(a, e)
+    for a, e in zip(got, cross_v1_bwd(x0, w, b, s, g)):
+        assert torch.equal(a, e)  # fixed-order sums, no atomics: bit for bit
+    # The autograd Function behind cross_stack runs both kernels.
+    leaves = [t.clone().requires_grad_() for t in (x0, w, b)]
+    y = cross_stack(leaves[0], {"w": leaves[1], "b": leaves[2]})
+    for a, e in zip(torch.autograd.grad(y, leaves, g), got):
+        assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("dim", [1, 8, 32, 100])
+def test_fused_rowwise_adagrad_matches_the_plain_version(device, dim):
+    rng = np.random.default_rng(dim)
+    vocab, n = 5000, 3000
+    table = torch.from_numpy(rng.normal(size=(vocab, dim)).astype(np.float32)).to(device)
+    acc = torch.from_numpy(rng.uniform(0, 0.1, vocab).astype(np.float32)).to(device)
+    ids = rng.integers(1, vocab - 1, n).astype(np.int32)
+    ids[:6] = [vocab, vocab + 2, -1, -3, 7, 7]
+    uids, g = combine_duplicate_ids(torch.from_numpy(ids).to(device),
+                                    torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32)).to(device),
+                                    sentinel=vocab)
+    before = fused_rowwise_adagrad.launches
+    t_k, a_k = fused_rowwise_adagrad(table.clone(), acc.clone(), uids, g, 0.05)
+    torch.cuda.synchronize()
+    assert fused_rowwise_adagrad.launches == before + 1
+    t_r, a_r = fused_rowwise_adagrad_ref(table.clone(), acc.clone(), uids, g, 0.05)
+    _close(t_k, t_r)
+    _close(a_k, a_r)
+    t_2, a_2 = fused_rowwise_adagrad(table.clone(), acc.clone(), uids, g, 0.05)
+    assert torch.equal(t_k, t_2) and torch.equal(a_k, a_2)
+    # Row 0 and row V-1, where a clamped negative id or sentinel would land,
+    # are no real id here and stay as they were.
+    for row in (0, vocab - 1):
+        assert torch.equal(t_k[row], table[row]) and torch.equal(a_k[row], acc[row])
+
+
+def test_combine_duplicate_ids_repeats_and_matches_the_cpu(device):
+    rng = np.random.default_rng(5)
+    ids = rng.zipf(1.2, 8192).clip(max=100_000).astype(np.int32) - 1
+    ids[:4] = [-1, 100_000, 100_003, 3]
+    grads = rng.normal(size=(8192, 32)).astype(np.float32)
+    got = combine_duplicate_ids(torch.from_numpy(ids).to(device), torch.from_numpy(grads).to(device), 100_000)
+    again = combine_duplicate_ids(torch.from_numpy(ids).to(device), torch.from_numpy(grads).to(device), 100_000)
+    cpu = combine_duplicate_ids(torch.from_numpy(ids), torch.from_numpy(grads), 100_000)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[0].cpu(), cpu[0])
+    _close(got[1].cpu(), cpu[1], 1e-6)
+
+
+def test_train_step_on_the_card_matches_the_cpu(device):
+    """One DCN-v1 step (dense Adam, rowwise Adagrad) from the same state on
+    the card and on the CPU: loss, tables and accumulators. Dense params
+    are not compared after Adam's first update (its size is lr whatever
+    the gradient)."""
+    vocabs, widths = (37, 52, 45, 60), (1, 1, 3, 1)
+    model = build_model(ModelConfig(name="dcn", embed_dim=8, num_cross_layers=2, mlp_dims=(16, 8)),
+                        DataSpec.ctr(vocabs, 3, widths))
+    optim = OptimConfig(learning_rate=0.01, dense_optimizer="adam",
+                        sparse_optimizer="rowwise_adagrad", sparse_learning_rate=0.05)
+    card = TrainStepBuilder(model, "logloss", optim)
+    cpu = TrainStepBuilder(model, "logloss", optim, device="cpu")
+    state = card.init_state(torch.Generator(device="cuda").manual_seed(0))
+    cpu_state = copy_state(state, "cpu")
+    dense, cat, label = synthetic_ctr(64, 3, vocabs, seed=1, field_widths=widths)
+    batch = {"dense": torch.from_numpy(dense), "cat": torch.from_numpy(cat), "label": torch.from_numpy(label)}
+    new, m = card.step(state, {k: v.to(device) for k, v in batch.items()})
+    want, m_cpu = cpu.step(cpu_state, batch)
+    torch.testing.assert_close(m["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
+    for name in want["tables"]:
+        _close(new["tables"][name].cpu(), want["tables"][name], 1e-4)
+        _close(new["sparse_opt"][name]["acc"].cpu(), want["sparse_opt"][name]["acc"], 1e-4)
+    assert new["step"] == 1 and all(t.device.type == "cuda" for t in tree_leaves(new["tables"]))

@@ -106,7 +106,7 @@ def test_cross_dispatch_refuses_unported_kernels_off_cpu():
     x0 = torch.empty((4, 8), device="meta")
     lowrank = {k: torch.empty(s, device="meta") for k, s in
                (("u", (2, 8, 2)), ("v", (2, 8, 2)), ("b", (2, 8)))}
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
         cross_stack(x0, lowrank)
     v1 = {"w": torch.empty((2, 8), device="meta"), "b": torch.empty((2, 8), device="meta")}
     with pytest.raises(NotImplementedError, match="cuda or cpu"):
@@ -128,7 +128,7 @@ def test_cross_v1_fwd_contract():
 
 
 def test_build_targets_hopper_from_repo_sources(tmp_path, monkeypatch):
-    assert _build.sources() == ["cross", "gather"]
+    assert _build.sources() == ["adagrad", "cross", "gather"]
     assert _build.BUILD_DIR.parts[-2:] == ("build", "tfrec_tpu_torch")
     cmd = _build.nvcc_command("nvcc", "gather", Path("lib.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd

@@ -13,6 +13,11 @@ tables, whichever of the three table layouts the JAX model used:
 - one stacked table ``fields`` [sum V_f, d], split at the vocab offsets.
 
 Dense weights keep their layout (MLP weights are ``[in, out]`` in both).
+
+``train_state_from_jax`` takes a whole JAX train state as numpy (the
+``TrainStepBuilder.init_state`` tree after ``jax.tree.map(np.asarray,
+...)``) and returns the port's train state, so that a state trained in JAX
+carries on training in the port.
 """
 
 from __future__ import annotations
@@ -90,4 +95,67 @@ def params_from_jax(np_params: Dict[str, Any], model: CTRBase) -> Dict[str, Any]
     return {
         "tables": {k: _tensor(np.ascontiguousarray(v)) for k, v in tables.items()},
         "dense": _tree(np_params["dense"]),
+    }
+
+
+def _optax_state(tree: Any, field: str):
+    """The first optax state in ``tree`` (optax states are NamedTuples,
+    nested in tuples by ``optax.chain``) that has ``field``, else None."""
+    if hasattr(tree, "_fields"):
+        if field in tree._fields:
+            return tree
+        children = list(tree)
+    elif isinstance(tree, (list, tuple)):
+        children = list(tree)
+    elif isinstance(tree, dict):
+        children = list(tree.values())
+    else:
+        return None
+    for child in children:
+        found = _optax_state(child, field)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(np_state: Dict[str, Any], model: CTRBase) -> Dict[str, Any]:
+    """A JAX train state of numpy arrays -> the port's train state (CPU
+    tensors; ``train.step.copy_state(state, "cuda")`` moves it).
+
+    Reads ``step``, ``tables`` (any layout, as ``params_from_jax``),
+    ``dense``, the per-field ``sparse_opt`` states (rowwise Adagrad's
+    ``acc``, rowwise Adam's ``m``/``v``/``t``, SGD's none) and the optax
+    ``dense_opt``: Adam's ``mu``/``nu``/``count``, Adagrad's
+    ``sum_of_squares`` and the schedule's ``count``, or SGD's ``count``.
+    """
+    params = params_from_jax({"tables": np_state["tables"], "dense": np_state["dense"]}, model)
+    names = [spec.name for spec in model.table_specs()]
+    sparse = np_state["sparse_opt"]
+    if set(sparse) != set(names):
+        raise NotImplementedError(
+            f"sparse optimizer state of tables {sorted(sparse)}: the port reads per-field "
+            "state only; lane-packed and stacked state is ROADMAP Queue 1 item 15"
+        )
+    sparse_opt = {
+        name: {k: torch.from_numpy(np.array(v)) for k, v in sparse[name].items()}
+        for name in names
+    }
+    opt = np_state["dense_opt"]
+    adam = _optax_state(opt, "mu")
+    rss = _optax_state(opt, "sum_of_squares")
+    counter = _optax_state(opt, "count")
+    if adam is not None:
+        dense_opt = {"count": int(adam.count), "mu": _tree(adam.mu), "nu": _tree(adam.nu)}
+    elif rss is not None:
+        dense_opt = {"count": int(counter.count), "sum_of_squares": _tree(rss.sum_of_squares)}
+    elif counter is not None:
+        dense_opt = {"count": int(counter.count)}
+    else:
+        raise ValueError("dense_opt holds no optax state with a count")
+    return {
+        "step": int(np.asarray(np_state["step"])),
+        "tables": params["tables"],
+        "dense": params["dense"],
+        "sparse_opt": sparse_opt,
+        "dense_opt": dense_opt,
     }

@@ -5,12 +5,14 @@ low-rank U_l V_l^T x. ``cross_stack_ref`` is the plain PyTorch reference of
 all three (the counterpart of ``tfrec_tpu.kernels.cross.cross_stack_xla``);
 ``cross_stack`` dispatches on the device:
 
-- v1 goes to the CUDA kernel (``cross_cuda.cross_v1_fwd``), which takes the
-  plain version itself for a CPU tensor;
+- v1 goes to the CUDA kernels (``cross_cuda``), which take the plain
+  versions themselves for a CPU tensor: ``CrossV1`` (forward and backward
+  kernels) when a gradient is needed, else ``cross_v1_fwd`` alone;
 - v2 full-rank has no kernel in the reference either (its [L, d, d] stack
-  does not fit the TPU's scoped VMEM) and stays ``torch.matmul`` everywhere;
-- v2 low-rank runs plain on the CPU and is refused elsewhere until its
-  kernel is ported (ROADMAP Queue 2 item 4).
+  does not fit the TPU's scoped VMEM) and stays ``torch.matmul`` everywhere,
+  differentiated by autograd;
+- v2 low-rank runs plain on the CPU and is refused elsewhere, forward and
+  backward, until its kernel is ported (ROADMAP Queue 2 item 3).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Dict
 
 import torch
 
-from tfrec_tpu_torch.kernels.cross_cuda import cross_v1_fwd, cross_v1_fwd_ref
+from tfrec_tpu_torch.kernels.cross_cuda import CrossV1, cross_v1_fwd, cross_v1_fwd_ref
 
 
 def cross_stack_ref(x0: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -43,14 +45,17 @@ def cross_stack_ref(x0: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.
 
 
 def cross_stack(x0: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """All cross layers; the CUDA kernel for v1 on a CUDA tensor."""
+    """All cross layers; the CUDA kernels for v1 on a CUDA tensor."""
     if "u" in params:
         if x0.device.type != "cpu":
             raise NotImplementedError(
                 "the DCN-v2 low-rank cross kernel (tfrec_tpu cross_stack_pallas_v2) "
-                "is not ported yet: ROADMAP Queue 2 item 4"
+                "is not ported yet: ROADMAP Queue 2 item 3"
             )
         return cross_stack_ref(x0, params)
-    if params["w"].dim() == 3:
+    w, b = params["w"], params["b"]
+    if w.dim() == 3:
         return cross_stack_ref(x0, params)
-    return cross_v1_fwd(x0, params["w"], params["b"])
+    if torch.is_grad_enabled() and (x0.requires_grad or w.requires_grad or b.requires_grad):
+        return CrossV1.apply(x0, w, b)
+    return cross_v1_fwd(x0, w, b)

@@ -1,26 +1,57 @@
-// DCN-v1 cross stack, forward: for l in 0..L-1
+// DCN-v1 cross stack, forward and backward.
+//
+// Forward: for l in 0..L-1
 //     s_l     = x_l . w_l                (one scalar per row)
 //     x_{l+1} = x0 * s_l + b_l + x_l
-// out = x_L.
+// out = x_L; the per-row scalars s [B, L] are written too when asked for
+// (the training forward saves them for the backward).
 //
-// Replaces the TPU kernel tfrec_tpu/kernels/cross_pallas.py
-// cross_stack_pallas forward (_cross_fwd_impl, body _fwd_kernel).
+// Backward, from the top layer down, with g = dL/dx_L:
+//     ds   = sum_j g_j * x0_j            (one scalar per row)
+//     dw_l = sum_batch x_l * ds
+//     db_l = sum_batch g
+//     dx0 += g * s_l
+//     g   += ds * w_l                    (the gradient with respect to x_l)
+// and finally dx0 += g (the input of layer 0 is x0 itself).
 //
-// Bound: bytes. Each layer is a row dot and an elementwise chain (5*d
-// operations per row), far below the card's operations-per-byte balance;
-// the least traffic is one read of x0 and one write of x_L, B*d*4*2 bytes,
-// plus 2*L*d*4 of weights (B=8192, d=845, L=3: 55.4 MB, 16.5 us at
-// 3.35 TB/s). Design: one warp per row. Lane j keeps elements j, j+32,
-// j+64, ... of x0 and of the running x in registers (K = chunks per lane,
-// a template parameter rounded up to a power of two), so device memory is
-// touched once for x0 and once for x_L however many layers there are; w
-// and b are small and come through the read-only cache. Loads and stores
-// are scalar and coalesced: d = 845 is odd, so rows are not 16-byte aligned
-// and vector loads would not line up. The row dot is reduced in f32 in a
-// fixed order (each lane sums its chunks in order, then a butterfly of
+// Replaces the TPU kernels of tfrec_tpu/kernels/cross_pallas.py
+// cross_stack_pallas: the forward (_cross_fwd_impl, body _fwd_kernel) and
+// the backward (_cross_bwd_rule, body _bwd_kernel).
+//
+// Forward. Bound: bytes. Each layer is a row dot and an elementwise chain
+// (5*d operations per row), far below the card's operations-per-byte
+// balance; the least traffic is one read of x0 and one write of x_L,
+// B*d*4*2 bytes, plus 2*L*d*4 of weights (B=8192, d=845, L=3: 55.4 MB,
+// 16.5 us at 3.35 TB/s). Design: one warp per row. Lane j keeps elements j,
+// j+32, j+64, ... of x0 and of the running x in registers (K = chunks per
+// lane, a template parameter rounded up to a power of two), so device
+// memory is touched once for x0 and once for x_L however many layers there
+// are; w and b are small and come through the read-only cache. Loads and
+// stores are scalar and coalesced: d = 845 is odd, so rows are not 16-byte
+// aligned and vector loads would not line up. The row dot is reduced in f32
+// in a fixed order (each lane sums its chunks in order, then a butterfly of
 // warp shuffles) with no atomics, so runs repeat bit for bit. The update is
 // written with __fmul_rn/__fadd_rn so the compiler does not fuse it into an
 // FMA: it rounds as the plain PyTorch version does.
+//
+// Backward. Bound: bytes. It must read x0 and g and write dx0, 3*B*d*4
+// bytes (83.1 MB at B=8192, d=845: 24.8 us at 3.35 TB/s); its ~12
+// operations per element and layer are far below the balance. Design: the
+// forward saved s [B, L] (98 KB), so x_l is rebuilt elementwise from x0, s
+// and b exactly as the forward computed it, with no row dot; only ds needs
+// one per layer. A block of 256 threads walks its rows (row = blockIdx.x,
+// + gridDim.x, ...); thread t keeps elements t, t+256, ... (K <= 8 of them)
+// of x0, g and dx0 in registers, so a row is split over the whole block and
+// registers stay few (the one-warp-per-row forward needs 144 a thread at
+// d=845). ds is a block reduction in a fixed order: each thread sums its
+// elements in order, a butterfly inside each warp, then every thread adds
+// the 8 warp sums in warp order from shared memory (one barrier a
+// reduction; the two slots alternate). dw and db are sums over the batch,
+// and blocks on Hopper share nothing: each block accumulates its rows into
+// [2, L, d] in shared memory (each element owned by one thread, in row
+// order), writes that partial to device memory, and a second kernel sums
+// the partials of all blocks in a fixed order. No atomics anywhere, so runs
+// repeat bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,7 +64,7 @@ template <int K>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 cross_v1_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ out,
-                    int64_t batch, int d, int layers) {
+                    float* __restrict__ s_out, int64_t batch, int d, int layers) {
   const int lane = threadIdx.x & 31;
   const int64_t first = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
@@ -62,6 +93,7 @@ cross_v1_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
       for (int off = 16; off > 0; off >>= 1) {
         s += __shfl_xor_sync(0xffffffffu, s, off);
       }
+      if (s_out != nullptr && lane == 0) s_out[row * layers + l] = s;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int j = lane + 32 * k;
@@ -80,39 +112,222 @@ cross_v1_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
 }
 
 template <int K>
-void launch(const float* x0, const float* w, const float* b, float* out,
-            int64_t batch, int d, int layers, cudaStream_t s) {
+void launch_fwd(const float* x0, const float* w, const float* b, float* out,
+                float* s_out, int64_t batch, int d, int layers, cudaStream_t s) {
   const int64_t max_blocks = 132 * 32;  // grid-stride beyond this
   int64_t blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > max_blocks) blocks = max_blocks;
   if (blocks < 1) blocks = 1;
   cross_v1_fwd_kernel<K><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
-      x0, w, b, out, batch, d, layers);
+      x0, w, b, out, s_out, batch, d, layers);
+}
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+// Dynamic shared memory: [2, L, d] floats (dw then db accumulators).
+template <int K>
+__global__ void __launch_bounds__(kBwdThreads)
+cross_v1_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
+                    const float* __restrict__ b, const float* __restrict__ s,
+                    const float* __restrict__ g_in, float* __restrict__ dx0,
+                    float* __restrict__ partial, int64_t batch, int d, int layers) {
+  extern __shared__ float acc[];
+  __shared__ float red[2][kBwdWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t width = (int64_t)layers * d;  // one of dw, db
+  // Each thread zeroes, accumulates and writes only its own elements
+  // (j = tid + 256*k), so the accumulators need no barrier.
+  for (int64_t l = 0; l < 2 * layers; ++l) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = tid + kBwdThreads * k;
+      if (j < d) acc[l * d + j] = 0.0f;
+    }
+  }
+  int slot = 0;
+  for (int64_t row = blockIdx.x; row < batch; row += gridDim.x) {
+    const float* xr = x0 + row * d;
+    const float* gr = g_in + row * d;
+    const float* sr = s + row * layers;
+    float a[K];
+    float g[K];
+    float dx[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = tid + kBwdThreads * k;
+      a[k] = j < d ? xr[j] : 0.0f;
+      g[k] = j < d ? gr[j] : 0.0f;
+      dx[k] = 0.0f;
+    }
+    for (int l = layers - 1; l >= 0; --l) {
+      float p = 0.0f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) p = fmaf(g[k], a[k], p);  // 0 past d
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        p += __shfl_xor_sync(0xffffffffu, p, off);
+      }
+      if (lane == 0) red[slot][warp] = p;
+      __syncthreads();
+      float ds = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kBwdWarps; ++i) ds += red[slot][i];
+      // The other slot's last readers passed this barrier before anyone
+      // writes it again at the next reduction.
+      slot ^= 1;
+      const float sl = __ldg(sr + l);
+      const float* wl = w + (int64_t)l * d;
+      float* dw = acc + (int64_t)l * d;
+      float* db = acc + width + (int64_t)l * d;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = tid + kBwdThreads * k;
+        if (j < d) {
+          // x_l, rebuilt as the forward computed it.
+          float x = a[k];
+          for (int m = 0; m < l; ++m) {
+            x = __fadd_rn(__fadd_rn(__fmul_rn(a[k], __ldg(sr + m)),
+                                    __ldg(b + (int64_t)m * d + j)), x);
+          }
+          dw[j] = fmaf(x, ds, dw[j]);
+          db[j] += g[k];
+          dx[k] = fmaf(g[k], sl, dx[k]);
+          g[k] = fmaf(ds, __ldg(wl + j), g[k]);
+        }
+      }
+    }
+    float* dr = dx0 + row * d;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = tid + kBwdThreads * k;
+      if (j < d) dr[j] = dx[k] + g[k];
+    }
+  }
+  float* mine = partial + (int64_t)blockIdx.x * 2 * width;
+  for (int64_t l = 0; l < 2 * layers; ++l) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = tid + kBwdThreads * k;
+      if (j < d) mine[l * d + j] = acc[l * d + j];
+    }
+  }
+}
+
+// out[e] = sum over blocks of partial[block][e], e < 2*width, blocks in
+// order: a block of 32x8 threads takes 32 columns; thread row y sums the
+// partials y, y+8, ... in order, then row 0 adds the 8 row sums in order.
+constexpr int kSumCols = 32;
+constexpr int kSumRows = 8;
+
+__global__ void __launch_bounds__(kSumCols * kSumRows)
+sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                    float* __restrict__ db, int nblocks, int64_t width) {
+  __shared__ float rows[kSumRows][kSumCols];
+  const int tx = threadIdx.x % kSumCols;
+  const int ty = threadIdx.x / kSumCols;
+  const int64_t e = (int64_t)blockIdx.x * kSumCols + tx;
+  const int64_t total = 2 * width;
+  float sum = 0.0f;
+  if (e < total) {
+    for (int blk = ty; blk < nblocks; blk += kSumRows) {
+      sum += __ldg(partial + (int64_t)blk * total + e);
+    }
+  }
+  rows[ty][tx] = sum;
+  __syncthreads();
+  if (ty == 0 && e < total) {
+    float out = 0.0f;
+#pragma unroll
+    for (int y = 0; y < kSumRows; ++y) out += rows[y][tx];
+    if (e < width) dw[e] = out;
+    else db[e - width] = out;
+  }
+}
+
+template <int K>
+int launch_bwd(const float* x0, const float* w, const float* b, const float* sv,
+               const float* g, float* dx0, float* dw, float* db, float* partial,
+               int64_t batch, int d, int layers, int nblocks, cudaStream_t s) {
+  const size_t smem = (size_t)2 * layers * d * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cross_v1_bwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cross_v1_bwd_kernel<K><<<(unsigned)nblocks, kBwdThreads, smem, s>>>(
+      x0, w, b, sv, g, dx0, partial, batch, d, layers);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t width = (int64_t)layers * d;
+  const int64_t sum_blocks = (2 * width + kSumCols - 1) / kSumCols;
+  sum_partials_kernel<<<(unsigned)sum_blocks, kSumCols * kSumRows, 0, s>>>(
+      partial, dw, db, nblocks, width);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x0 [batch, d] f32, w and b [layers, d] f32, out [batch, d] f32, all
-// contiguous on the current device; runs on `stream`. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for d outside [1, 2048].
+// x0 [batch, d] f32, w and b [layers, d] f32, out [batch, d] f32, s_out
+// [batch, layers] f32 or null, all contiguous on the current device; runs
+// on `stream`. Returns cudaGetLastError(), or cudaErrorInvalidValue for d
+// outside [1, 2048].
 extern "C" int tfrec_cross_v1_fwd(const void* x0, const void* w, const void* b,
-                                  void* out, long long batch, long long d,
-                                  long long layers, void* stream) {
+                                  void* out, void* s_out, long long batch,
+                                  long long d, long long layers, void* stream) {
   const float* px0 = static_cast<const float*>(x0);
   const float* pw = static_cast<const float*>(w);
   const float* pb = static_cast<const float*>(b);
   float* po = static_cast<float*>(out);
+  float* ps = static_cast<float*>(s_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int di = static_cast<int>(d);
   const int li = static_cast<int>(layers);
   const int64_t chunks = (d + 31) / 32;
   if (d < 1 || chunks > 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (chunks <= 1) launch<1>(px0, pw, pb, po, batch, di, li, s);
-  else if (chunks <= 2) launch<2>(px0, pw, pb, po, batch, di, li, s);
-  else if (chunks <= 4) launch<4>(px0, pw, pb, po, batch, di, li, s);
-  else if (chunks <= 8) launch<8>(px0, pw, pb, po, batch, di, li, s);
-  else if (chunks <= 16) launch<16>(px0, pw, pb, po, batch, di, li, s);
-  else if (chunks <= 32) launch<32>(px0, pw, pb, po, batch, di, li, s);
-  else launch<64>(px0, pw, pb, po, batch, di, li, s);
+  if (chunks <= 1) launch_fwd<1>(px0, pw, pb, po, ps, batch, di, li, s);
+  else if (chunks <= 2) launch_fwd<2>(px0, pw, pb, po, ps, batch, di, li, s);
+  else if (chunks <= 4) launch_fwd<4>(px0, pw, pb, po, ps, batch, di, li, s);
+  else if (chunks <= 8) launch_fwd<8>(px0, pw, pb, po, ps, batch, di, li, s);
+  else if (chunks <= 16) launch_fwd<16>(px0, pw, pb, po, ps, batch, di, li, s);
+  else if (chunks <= 32) launch_fwd<32>(px0, pw, pb, po, ps, batch, di, li, s);
+  else launch_fwd<64>(px0, pw, pb, po, ps, batch, di, li, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x0 and g [batch, d] f32, w and b [layers, d] f32, s [batch, layers] f32
+// (the forward's row scalars); writes dx0 [batch, d], dw and db [layers, d]
+// and uses partial [nblocks, 2, layers, d] as scratch, all contiguous on the
+// current device; runs on `stream` (two launches). Returns the first
+// launch error, or cudaErrorInvalidValue for d outside [1, 2048], nblocks
+// < 1 or more than 227 KB of shared memory.
+extern "C" int tfrec_cross_v1_bwd(const void* x0, const void* w, const void* b,
+                                  const void* s, const void* g, void* dx0,
+                                  void* dw, void* db, void* partial,
+                                  long long batch, long long d, long long layers,
+                                  long long nblocks, void* stream) {
+  const float* px0 = static_cast<const float*>(x0);
+  const float* pw = static_cast<const float*>(w);
+  const float* pb = static_cast<const float*>(b);
+  const float* ps = static_cast<const float*>(s);
+  const float* pg = static_cast<const float*>(g);
+  float* pdx0 = static_cast<float*>(dx0);
+  float* pdw = static_cast<float*>(dw);
+  float* pdb = static_cast<float*>(db);
+  float* pp = static_cast<float*>(partial);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t per_thread = (d + kBwdThreads - 1) / kBwdThreads;
+  if (d < 1 || per_thread > 8 || nblocks < 1 ||
+      2 * layers * d * (long long)sizeof(float) > 227 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int di = static_cast<int>(d);
+  const int li = static_cast<int>(layers);
+  const int nb = static_cast<int>(nblocks);
+  if (per_thread <= 1) return launch_bwd<1>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
+  if (per_thread <= 2) return launch_bwd<2>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
+  if (per_thread <= 4) return launch_bwd<4>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
+  return launch_bwd<8>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
 }

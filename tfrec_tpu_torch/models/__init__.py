@@ -39,6 +39,7 @@ def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
             cfg.mlp_dims,
             v2=(name == "dcnv2"),
             cross_rank=cfg.cross_rank,
+            dropout=cfg.dropout,
             field_dims=cfg.field_dims or None,
         )
     raise ValueError(

@@ -4,8 +4,9 @@ The counterpart of ``tfrec_tpu/models/dcn.py``: explicit feature crosses
 x_{l+1} = x0*f(x_l) + b + x_l beside a ReLU MLP, both over the concatenated
 field embeddings and dense features, then a linear head. v1 uses rank-one
 cross weights; v2 a full (cross_rank=0) or low-rank matrix. The cross stack
-runs through ``kernels/cross.py``, which launches the CUDA kernel for v1 on
-a CUDA tensor; the MLP and head are plain matmuls.
+runs through ``kernels/cross.py``, which launches the CUDA kernels for v1
+on a CUDA tensor (forward, and backward when training); the MLP and head
+are plain matmuls, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class DCN(CTRBase):
         *,
         v2: bool = False,
         cross_rank: int = 0,
+        dropout: float = 0.0,
         field_dims=None,
     ):
         super().__init__(data_spec, embed_dim, field_dims)
@@ -37,6 +39,7 @@ class DCN(CTRBase):
         self.mlp_dims = tuple(mlp_dims)
         self.v2 = v2
         self.cross_rank = cross_rank
+        self.dropout = dropout
 
     @property
     def input_dim(self) -> int:
@@ -64,16 +67,18 @@ class DCN(CTRBase):
             "b_out": torch.zeros((), device=device),
         }
 
-    def forward(self, dense, gathered, batch) -> torch.Tensor:
-        """Logits [B] (eval: the reference's dropout runs only in training)."""
+    def forward(self, dense, gathered, batch, *, generator=None) -> torch.Tensor:
+        """Logits [B]. The deep tower's dropout runs only when a training
+        step passes a ``generator``; serving passes none."""
         x0 = self.flat_input(gathered, batch)
-        return self.head(dense, x0, cross_stack(x0, dense["cross"]))
+        return self.head(dense, x0, cross_stack(x0, dense["cross"]), generator=generator)
 
-    def head(self, dense, x0, x_cross) -> torch.Tensor:
+    def head(self, dense, x0, x_cross, *, generator=None) -> torch.Tensor:
         """The deep tower over x0, concatenated with the cross output, then
         the linear head: everything of ``forward`` after the cross stack."""
         if self.mlp_dims:
-            deep = apply_mlp(dense["mlp"], x0, final_linear=False)
+            deep = apply_mlp(dense["mlp"], x0, final_linear=False,
+                             dropout=self.dropout, generator=generator)
             fused = torch.cat([x_cross, deep], dim=-1)
         else:
             fused = x_cross

@@ -36,15 +36,27 @@ def init_mlp(
     ]
 
 
-def apply_mlp(params: MLPParams, x: torch.Tensor, *, final_linear: bool = True) -> torch.Tensor:
+def apply_mlp(
+    params: MLPParams,
+    x: torch.Tensor,
+    *,
+    final_linear: bool = True,
+    dropout: float = 0.0,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
     """ReLU MLP; if final_linear, the last layer has no activation (a head).
 
-    No dropout: the reference applies it only on training steps (when an
-    rng is passed), and training comes with a later slice.
+    Dropout (inverted scaling: kept units are divided by 1 - dropout) runs
+    after each ReLU only when a ``generator`` is passed, as the reference
+    runs it only when an rng is; eval paths pass none. The generator must
+    live on x's device. Its numbers differ from JAX's for any seed.
     """
     n = len(params)
     for i, (w, b) in enumerate(params):
         x = x @ w + b
         if not (final_linear and i == n - 1):
             x = torch.relu(x)
+            if dropout > 0.0 and generator is not None:
+                keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - dropout
+                x = torch.where(keep, x / (1.0 - dropout), 0.0)
     return x

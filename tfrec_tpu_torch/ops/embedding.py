@@ -1,10 +1,13 @@
-"""Embedding-table primitives: specs, seeded init and the row gather.
+"""Embedding-table primitives: specs, seeded init, the row gather and the
+duplicate-id combine.
 
-The counterpart of ``tfrec_tpu/ops/embedding.py`` for serving. The
-sentinel row id ``vocab`` (one past the end) marks bag padding; ``gather``
-clamps it, and negative ids, to a real row as ``jnp.take(mode="clip")``
-does, and callers mask those rows. The duplicate-id combine and the sparse
-update come with the training slice.
+The counterpart of ``tfrec_tpu/ops/embedding.py``. The sentinel row id
+``vocab`` (one past the end) marks bag padding; ``gather`` clamps it, and
+negative ids, to a real row as ``jnp.take(mode="clip")`` does, and callers
+mask those rows. ``combine_duplicate_ids`` sums the gradient rows that
+share an id before a sparse update; the batched variants of the reference
+(``combine_duplicate_ids_grouped`` and ``_multi``) and host-computed sort
+orders are not ported (ROADMAP Queue 1 items 2 and 5).
 """
 
 from __future__ import annotations
@@ -59,3 +62,46 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Row gather ``table[clip(ids, 0, V-1)]``: table [V, D] f32, ids [N]
     int32 -> [N, D]. Launches the CUDA kernel for CUDA tensors."""
     return gather_rows(table, ids)
+
+
+def combine_duplicate_ids(
+    ids: torch.Tensor, grads: torch.Tensor, sentinel: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum gradient rows that share an id, with static output shapes.
+
+    ids [N] int32 (may repeat; negative ids count as the sentinel), grads
+    [N, D] f32 aligned with them, ``sentinel`` normally the vocab size ->
+    (uids [N] int32, combined [N, D]): slot j < number of distinct ids
+    holds the j-th smallest distinct id and the sum of its rows, taken in
+    the order of a stable sort of the ids (so in batch order); the other
+    slots hold ``sentinel`` and zeros. ``uids`` ascends and each real id
+    appears once, as the reference promises its scatters.
+
+    The sums are ``torch.segment_reduce`` over the sorted rows: each output
+    element is one sequential pass over its segment in sorted order (one
+    thread each on CUDA, a loop on the CPU), with no atomics, so results
+    repeat bit for bit on either device (``chip_smoke.py`` checks it on the
+    card at the training path's shapes and against the CPU). Neither
+    ``index_add_`` (float atomics on CUDA) nor ``index_put_(accumulate=True)``
+    (parallel adds on a multi-threaded CPU) repeats. This serves every
+    sparse optimizer, not only the fused Adagrad kernel, and keeps that
+    kernel's inputs the reference's.
+    """
+    n = ids.shape[0]
+    # Negative ids become the sentinel BEFORE the sort, as in the
+    # reference: they are dropped by every update and keep uids ascending.
+    ids = torch.where(ids < 0, torch.full_like(ids, sentinel), ids)
+    sids, order = torch.sort(ids, stable=True)
+    sorted_grads = grads.index_select(0, order)
+    starts = torch.ones(n, dtype=torch.int64, device=ids.device)
+    if n > 1:
+        starts[1:] = (sids[1:] != sids[:-1]).to(torch.int64)
+    seg = torch.cumsum(starts, dim=0) - 1  # segment of each sorted slot
+    # Segment lengths, [N] with zeros past the last segment (integer adds
+    # are exact in any order). Empty segments sum to zero.
+    lengths = torch.zeros(n, dtype=torch.int64, device=ids.device).index_add_(
+        0, seg, torch.ones_like(seg))
+    combined = torch.segment_reduce(sorted_grads, "sum", lengths=lengths, axis=0, unsafe=True)
+    # Every member of a segment writes the same id, so the result is fixed.
+    uids = torch.full_like(ids, sentinel).scatter_(0, seg, sids)
+    return uids, combined

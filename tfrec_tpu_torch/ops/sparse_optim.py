@@ -1,0 +1,174 @@
+"""Rowwise sparse optimizers for embedding tables.
+
+The counterpart of ``tfrec_tpu/ops/sparse_optim.py``. A dense optimizer
+step would read and write every row of a table and of its state; these
+touch only the rows a batch gathered. Duplicate ids are combined first
+(``ops.embedding.combine_duplicate_ids``), then each distinct real id's
+state and row are updated; sentinel slots (ids >= V) are dropped.
+
+- ``sgd``: no state.
+- ``rowwise_adagrad``: one accumulator per row. Its ``apply_deduped`` is
+  ``kernels.adagrad_cuda.fused_rowwise_adagrad``: the CUDA kernel on a CUDA
+  tensor, its plain version on a CPU tensor.
+- ``rowwise_adam``: per-element first moment, per-row second moment and
+  per-row step count (lazy bias correction).
+
+Unlike the reference, which returns new arrays, tables and their states are
+updated IN PLACE and returned (the TPU kernel aliases them too). Duplicate
+ids give one combined update, not two in turn, as in the reference.
+
+Not ported: the lane-grouped ``[V, G]`` states of lane-packed tables
+(ROADMAP Queue 1 item 15), column-sharded row statistics (``stat_axis``,
+Queue 1 item 11), and the reference's XLA lowering switches
+(``TFREC_SCATTER_HINT_MAX_ELEMS``, ``TFREC_PACKED_SCATTER``), which chose
+between TPU scatter lowerings and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from tfrec_tpu_torch.kernels.adagrad_cuda import fused_rowwise_adagrad
+from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
+
+State = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseOptimizer:
+    """init(table) -> state; apply(table, state, ids, grads, lr) -> (table,
+    state); ``apply_deduped`` is ``apply`` after the duplicate combine
+    (uids and summed grads from ``combine_duplicate_ids``)."""
+
+    name: str
+    init: Callable[..., State]
+    apply: Callable[..., Tuple[torch.Tensor, State]]
+    apply_deduped: Callable[..., Tuple[torch.Tensor, State]]
+
+
+def _real(table: torch.Tensor, uids: torch.Tensor, g: torch.Tensor):
+    """The real slots: (row indices, their grads). Sentinels drop here."""
+    valid = (uids >= 0) & (uids < table.shape[0])
+    return uids[valid].long(), g[valid]
+
+
+def scatter_add_rows(table: torch.Tensor, uids: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """``table[u] += upd`` for each real id u in place (ids >= V and < 0
+    dropped); real ids must be distinct, as ``combine_duplicate_ids`` gives
+    them. Returns the table."""
+    rows, upd = _real(table, uids, upd)
+    table[rows] = table[rows] + upd
+    return table
+
+
+def _lane_grouped(state: State, key: str) -> None:
+    if state[key].dim() != 1:
+        raise NotImplementedError(
+            "lane-grouped [V, G] optimizer state (lane-packed tables) is not "
+            "ported yet: ROADMAP Queue 1 item 15"
+        )
+
+
+def _no_groups(lane_groups: int) -> None:
+    if lane_groups > 1:
+        raise NotImplementedError(
+            "lane-grouped optimizer state (lane_groups > 1) is not ported yet: "
+            "ROADMAP Queue 1 item 15"
+        )
+
+
+def _row_stat(g: torch.Tensor) -> torch.Tensor:
+    """Rowwise mean square, as the sum over the row divided by its width."""
+    return (g * g).sum(dim=-1) / g.shape[-1]
+
+
+def _sgd_init(table: torch.Tensor, lane_groups: int = 1) -> State:
+    _no_groups(lane_groups)
+    return {}
+
+
+def _sgd_apply_deduped(table, state, uids, g, lr):
+    return scatter_add_rows(table, uids, -lr * g), state
+
+
+def _sgd_apply(table, state, ids, grads, lr):
+    uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0])
+    return _sgd_apply_deduped(table, state, uids, g, lr)
+
+
+def _adagrad_init_fn(initial_accumulator: float):
+    def init(table: torch.Tensor, lane_groups: int = 1) -> State:
+        _no_groups(lane_groups)
+        return {"acc": torch.full((table.shape[0],), initial_accumulator,
+                                  dtype=torch.float32, device=table.device)}
+
+    return init
+
+
+def _adagrad_apply_fn(eps: float):
+    def apply_deduped(table, state, uids, g, lr):
+        _lane_grouped(state, "acc")
+        table, acc = fused_rowwise_adagrad(table, state["acc"], uids, g, lr, eps)
+        return table, {"acc": acc}
+
+    def apply(table, state, ids, grads, lr):
+        uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0])
+        return apply_deduped(table, state, uids, g, lr)
+
+    return apply, apply_deduped
+
+
+def _adam_init(table: torch.Tensor, lane_groups: int = 1) -> State:
+    _no_groups(lane_groups)
+    v, d = table.shape
+    return {
+        "m": torch.zeros((v, d), dtype=torch.float32, device=table.device),
+        "v": torch.zeros((v,), dtype=torch.float32, device=table.device),
+        "t": torch.zeros((v,), dtype=torch.int32, device=table.device),
+    }
+
+
+def _adam_apply_fn(b1: float, b2: float, eps: float):
+    def apply_deduped(table, state, uids, g, lr):
+        _lane_grouped(state, "v")
+        rows, g = _real(table, uids, g)
+        t_rows = state["t"][rows] + 1
+        m_rows = b1 * state["m"][rows] + (1.0 - b1) * g
+        v_rows = b2 * state["v"][rows] + (1.0 - b2) * _row_stat(g)
+        tf = t_rows.to(torch.float32)
+        m_hat = m_rows / (1.0 - b1**tf)[:, None]
+        v_hat = v_rows / (1.0 - b2**tf)
+        table[rows] = table[rows] + -lr * m_hat / (v_hat.sqrt() + eps)[:, None]
+        state["m"][rows] = m_rows
+        state["v"][rows] = v_rows
+        state["t"][rows] = t_rows
+        return table, state
+
+    def apply(table, state, ids, grads, lr):
+        uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0])
+        return apply_deduped(table, state, uids, g, lr)
+
+    return apply, apply_deduped
+
+
+def make_sparse_optimizer(
+    name: str,
+    *,
+    adagrad_init: float = 0.0,
+    adam_b1: float = 0.9,
+    adam_b2: float = 0.999,
+    eps: float = 1e-8,
+) -> SparseOptimizer:
+    if name == "sgd":
+        return SparseOptimizer("sgd", _sgd_init, _sgd_apply, _sgd_apply_deduped)
+    if name == "rowwise_adagrad":
+        apply, apply_deduped = _adagrad_apply_fn(eps)
+        return SparseOptimizer("rowwise_adagrad", _adagrad_init_fn(adagrad_init),
+                               apply, apply_deduped)
+    if name == "rowwise_adam":
+        apply, apply_deduped = _adam_apply_fn(adam_b1, adam_b2, eps)
+        return SparseOptimizer("rowwise_adam", _adam_init, apply, apply_deduped)
+    raise ValueError(f"unknown sparse optimizer {name!r}")

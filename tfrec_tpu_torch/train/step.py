@@ -1,0 +1,349 @@
+"""The train step: the counterpart of ``tfrec_tpu/train/step.py``.
+
+One step, on the builder's device::
+
+    lookup ids -> gather rows -> gradients with respect to (dense params,
+    gathered rows) -> dense update (optax's rules) -> per table the
+    duplicate-id combine and the rowwise sparse update of the touched rows.
+
+As in the reference, autograd stops at the gathered rows: the tables are
+never differentiated, so no [V, D] gradient is ever written, and the sparse
+optimizer updates only the rows the batch touched. On a card the gather,
+the DCN-v1 cross stack (forward and backward) and the rowwise-Adagrad
+update are the hand-written CUDA kernels; the rest is plain PyTorch.
+
+State is a dict ``{"step": int, "tables", "dense", "sparse_opt",
+"dense_opt"}``. The step updates the tables and the sparse optimizer state
+IN PLACE (as the TPU kernel aliases them) and returns them in the new
+state; the dense params and their optimizer state are new tensors.
+``copy_state`` makes an independent copy, on any device.
+
+Not ported, and refused by name rather than ignored: ``group_dedup``
+(ROADMAP Queue 1 item 2), host-computed dedup sorts (``_sort_*`` batch keys,
+train.host_dedup, item 5) and negatives drawn on the device (item 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from tfrec_tpu_torch.configs import OptimConfig
+from tfrec_tpu_torch.models.base import RecModel
+from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids, gather
+from tfrec_tpu_torch.ops.sparse_optim import SparseOptimizer, make_sparse_optimizer
+from tfrec_tpu_torch.train.losses import make_loss
+
+State = Dict[str, Any]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts, lists and tuples (the dense
+    params' layout), with matching trees in ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """Leaves in ``tree_map``'s order (dict insertion order)."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _unflatten(template: Any, leaves) -> Any:
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def copy_state(state: State, device: torch.device | str | None = None) -> State:
+    """An independent copy of a train state (every tensor cloned), on
+    ``device`` if one is given."""
+
+    def copy(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return x.clone() if device is None else x.to(device, copy=True)
+
+    return tree_map(copy, state)
+
+
+def make_schedule(cfg: OptimConfig, base_lr: float) -> Callable[[int], float]:
+    """Step -> lr, shared by the dense and the sparse updates. Computed on
+    the host in Python floats (the reference traces it in f32): the sparse
+    kernel takes its lr by value."""
+    if cfg.lr_schedule == "constant" and cfg.warmup_steps == 0:
+        return lambda step: base_lr
+    if cfg.lr_schedule not in ("constant", "cosine", "linear"):
+        raise ValueError(
+            f"unknown lr_schedule {cfg.lr_schedule!r}; options: constant, cosine, linear"
+        )
+    if cfg.lr_schedule in ("cosine", "linear") and cfg.decay_steps <= 0:
+        raise ValueError(
+            f"lr_schedule={cfg.lr_schedule!r} requires decay_steps > 0 "
+            "(with decay_steps=0 the LR would collapse to the floor after one step)"
+        )
+    end = base_lr * cfg.end_lr_factor
+    decay_steps = max(cfg.decay_steps, 1)
+
+    def schedule(step: int) -> float:
+        step = float(step)
+        warm = min(1.0, (step + 1.0) / max(cfg.warmup_steps, 1))
+        if cfg.lr_schedule == "cosine":
+            frac = min(max(step / decay_steps, 0.0), 1.0)
+            decayed = end + 0.5 * (base_lr - end) * (1 + math.cos(math.pi * frac))
+        elif cfg.lr_schedule == "linear":
+            frac = min(max(step / decay_steps, 0.0), 1.0)
+            decayed = base_lr + (end - base_lr) * frac
+        else:  # constant, after warmup
+            decayed = base_lr
+        return decayed * (warm if cfg.warmup_steps > 0 else 1.0)
+
+    return schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseTx:
+    """A dense optimizer with optax's interface: ``init(params) -> state``,
+    ``update(grads, state, params) -> (updates, state)``; the new params are
+    ``apply_updates(params, updates)``."""
+
+    init: Callable[[Any], Dict]
+    update: Callable[[Any, Dict, Any], Tuple[Any, Dict]]
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    # 1 - decay**count in f32, as optax computes it.
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+def make_dense_tx(cfg: OptimConfig) -> DenseTx:
+    """Adam, Adagrad or SGD written to optax's update rules (optax 0.2.6
+    ``adam``, ``adagrad``, ``sgd``, chained after ``add_decayed_weights``
+    when ``weight_decay > 0``), not ``torch.optim``'s: ``torch.optim.Adagrad``
+    divides by sqrt(acc) + eps where optax multiplies by rsqrt(acc + eps)
+    and gives 0 where acc == 0. The lr schedule reads the update count
+    before it is incremented, Adam's bias correction after."""
+    lr = make_schedule(cfg, cfg.learning_rate)
+    name = cfg.dense_optimizer
+    if name not in ("adam", "adagrad", "sgd"):
+        raise ValueError(f"unknown dense optimizer {name!r}")
+    b1, b2, eps, wd = cfg.adam_b1, cfg.adam_b2, cfg.eps, cfg.weight_decay
+    adagrad_eps = max(cfg.eps, 1e-10)
+
+    def init(params):
+        state: Dict[str, Any] = {"count": 0}
+        if name == "adam":
+            state["mu"] = tree_map(torch.zeros_like, params)
+            state["nu"] = tree_map(torch.zeros_like, params)
+        elif name == "adagrad":
+            state["sum_of_squares"] = tree_map(
+                lambda p: torch.full_like(p, cfg.adagrad_init), params)
+        return state
+
+    def update(grads, state, params):
+        if wd > 0:
+            grads = tree_map(lambda g, p: g + wd * p, grads, params)
+        count = state["count"]
+        step_size = -lr(count)
+        new = {"count": count + 1}
+        if name == "adam":
+            new["mu"] = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
+            new["nu"] = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state["nu"])
+            bc1, bc2 = _bias_correction(b1, count + 1), _bias_correction(b2, count + 1)
+            updates = tree_map(
+                lambda m, v: (m / bc1) / ((v / bc2).sqrt() + eps) * step_size,
+                new["mu"], new["nu"])
+        elif name == "adagrad":
+            new["sum_of_squares"] = tree_map(lambda g, t: g * g + t, grads,
+                                             state["sum_of_squares"])
+            updates = tree_map(
+                lambda g, t: torch.where(t > 0, torch.rsqrt(t + adagrad_eps), 0.0) * g * step_size,
+                grads, new["sum_of_squares"])
+        else:
+            updates = tree_map(lambda g: g * step_size, grads)
+        return updates, new
+
+    return DenseTx(init, update)
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: p + u, params, updates)
+
+
+class TrainStepBuilder:
+    """The step for a (model, loss, optimizers) triple on one device.
+
+    ``lookup``, ``sparse_update``, ``sparse_update_deduped`` and
+    ``sparse_update_all`` are the seams where a sharded embedding subsystem
+    plugs in, as in the reference. The default device is the card: without
+    CUDA this raises rather than train on the CPU; pass ``device="cpu"``
+    for that (the kernels' plain versions).
+    """
+
+    def __init__(
+        self,
+        model: RecModel,
+        loss_name: str,
+        optim_cfg: OptimConfig,
+        *,
+        l2_reg: float = 0.0,
+        seed: int = 0,
+        device: torch.device | str = "cuda",
+        device_negatives: bool = False,
+        group_dedup: bool | str = False,
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TrainStepBuilder trains on device='cuda' by default, but CUDA is "
+                "not available; pass device='cpu' to train on the CPU"
+            )
+        if device_negatives:
+            raise NotImplementedError(
+                "device_negatives (negatives drawn on the device for bpr/hinge) "
+                "is not ported yet: ROADMAP Queue 1 item 8"
+            )
+        if group_dedup:
+            raise NotImplementedError(
+                f"group_dedup={group_dedup!r} (one batched combine over same-shaped "
+                "tables) is not ported yet: ROADMAP Queue 1 item 2; the port "
+                "combines per table"
+            )
+        self.model = model
+        self.loss_fn = make_loss(loss_name)
+        self.optim_cfg = optim_cfg
+        self.l2_reg = l2_reg
+        self.seed = seed
+        self.dense_tx = make_dense_tx(optim_cfg)
+        self.sparse_opt: SparseOptimizer = make_sparse_optimizer(
+            optim_cfg.sparse_optimizer,
+            adagrad_init=optim_cfg.adagrad_init,
+            adam_b1=optim_cfg.adam_b1,
+            adam_b2=optim_cfg.adam_b2,
+            eps=optim_cfg.eps,
+        )
+        self.sparse_lr = (
+            optim_cfg.sparse_learning_rate
+            if optim_cfg.sparse_learning_rate is not None
+            else optim_cfg.learning_rate
+        )
+        self.sparse_schedule = make_schedule(optim_cfg, self.sparse_lr)
+
+    def init_state(self, generator: torch.Generator) -> State:
+        """A fresh state, params drawn from ``generator`` (on this device)."""
+        params = self.model.init(generator, self.device)
+        return {
+            "step": 0,
+            "tables": params["tables"],
+            "dense": params["dense"],
+            "sparse_opt": {name: self.sparse_opt.init(t) for name, t in params["tables"].items()},
+            "dense_opt": self.dense_tx.init(params["dense"]),
+        }
+
+    # ---- seams a sharded subsystem overrides ----
+
+    def lookup(self, tables: Dict[str, torch.Tensor], ids: Dict[str, torch.Tensor]):
+        """(gathered rows per table, aux metrics): the local gather."""
+        return {name: gather(tables[name], t_ids) for name, t_ids in ids.items()}, {}
+
+    def sparse_update(self, name: str, table, opt_state, ids, grads, lr):
+        """One table's duplicate combine and sparse update -> (table, state)."""
+        uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0])
+        return self.sparse_update_deduped(name, table, opt_state, uids, g, lr)
+
+    def sparse_update_deduped(self, name: str, table, opt_state, uids, g, lr):
+        """The update after the combine; for rowwise Adagrad the fused kernel."""
+        return self.sparse_opt.apply_deduped(table, opt_state, uids, g, lr)
+
+    def sparse_update_all(self, state: State, ids, gathered_grad, lr):
+        """The sparse update of every table, one after another."""
+        new_tables = dict(state["tables"])
+        new_sparse = dict(state["sparse_opt"])
+        for name in gathered_grad:
+            new_tables[name], new_sparse[name] = self.sparse_update(
+                name, state["tables"][name], state["sparse_opt"][name],
+                ids[name], gathered_grad[name], lr,
+            )
+        return new_tables, new_sparse
+
+    def _generator(self, step: int) -> torch.Generator | None:
+        """The step's dropout generator (from the seed and the step, as the
+        reference folds the step into its rng); None without dropout."""
+        if getattr(self.model, "dropout", 0.0) <= 0.0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(
+            (self.seed * 1_000_003 + step) % (1 << 63))
+
+    def loss_and_grads(self, state: State, batch: Dict[str, torch.Tensor]):
+        """(loss, dense grads, gathered-row grads per table, ids per table)
+        of one batch. Autograd runs from the dense leaves and the gathered
+        rows, never from the tables."""
+        model = self.model
+        ids = model.lookup_ids(batch)
+        gathered, _ = self.lookup(state["tables"], ids)
+        dense = tree_map(lambda p: p.detach().requires_grad_(), state["dense"])
+        gathered = {k: v.requires_grad_() for k, v in gathered.items()}
+        dense_leaves = tree_leaves(dense)
+        names = list(gathered)
+        with torch.enable_grad():
+            logits = model(dense, gathered, batch, generator=self._generator(state["step"]))
+            loss = self.loss_fn(logits, batch)
+            if self.l2_reg > 0:
+                reg = sum((v * v).sum() for v in gathered.values())
+                reg = reg + sum((p * p).sum() for p in dense_leaves)
+                loss = loss + self.l2_reg * reg / logits.shape[0]
+            grads = torch.autograd.grad(loss, dense_leaves + [gathered[n] for n in names])
+        dense_grad = _unflatten(state["dense"], grads[: len(dense_leaves)])
+        return loss.detach(), dense_grad, dict(zip(names, grads[len(dense_leaves):])), ids
+
+    def step(self, state: State, batch: Dict[str, torch.Tensor]) -> Tuple[State, Dict]:
+        """One step on a batch of tensors on this device ({"dense", "cat",
+        "label"}) -> (new state, {"loss"}); the loss stays on the device."""
+        host_sort = sorted(k for k in batch if k.startswith("_sort_"))
+        if host_sort:
+            raise NotImplementedError(
+                f"host-computed dedup sorts (train.host_dedup; batch keys {host_sort}) "
+                "are not ported yet: ROADMAP Queue 1 item 5"
+            )
+        loss, dense_grad, gathered_grad, ids = self.loss_and_grads(state, batch)
+        updates, new_dense_opt = self.dense_tx.update(dense_grad, state["dense_opt"], state["dense"])
+        new_dense = apply_updates(state["dense"], updates)
+        lr = self.sparse_schedule(state["step"])
+        new_tables, new_sparse = self.sparse_update_all(state, ids, gathered_grad, lr)
+        new_state = {
+            "step": state["step"] + 1,
+            "tables": new_tables,
+            "dense": new_dense,
+            "sparse_opt": new_sparse,
+            "dense_opt": new_dense_opt,
+        }
+        return new_state, {"loss": loss}
+
+    def multi_step(self, state: State, batches: Dict[str, torch.Tensor]):
+        """K steps, one after another: every tensor of ``batches`` has a
+        leading [K] axis (train.steps_per_dispatch). Returns the final state
+        and the last step's metrics with ``loss_mean`` over the K steps."""
+        k = next(iter(batches.values())).shape[0]
+        losses = []
+        metrics: Dict[str, torch.Tensor] = {}
+        for i in range(k):
+            state, metrics = self.step(state, {name: v[i] for name, v in batches.items()})
+            losses.append(metrics["loss"])
+        out = dict(metrics)
+        out["loss_mean"] = torch.stack(losses).mean()
+        return state, out
+
+
+def init_state(
+    model: RecModel, optim_cfg: OptimConfig, generator: torch.Generator, **kw
+) -> Tuple[TrainStepBuilder, State]:
+    builder = TrainStepBuilder(model, kw.pop("loss", "bpr"), optim_cfg, **kw)
+    return builder, builder.init_state(generator)
