@@ -16,7 +16,7 @@ non-zero if any phase fails:
    generator, batches of 8192 through ``Recommender.predict_ctr``; the
    logits must be finite, match the same model run through the plain
    versions on the card and, on a small input, on the CPU; launch counters
-   prove the gather and cross kernels ran;
+   prove the gather and the v1 cross kernels ran, and no other;
 5. serving times with CUDA events: each kernel beside its bound, its plain
    version and the one PyTorch call that computes the same function where
    there is one; predict_ctr's latency; a profile of one request batch;
@@ -28,13 +28,19 @@ non-zero if any phase fails:
    the same step on the CPU (plain versions) from the same state;
 7. training times: the backward cross kernel and the Adagrad kernel beside
    their bounds and plain versions, the step's median, a profile of one
-   step.
+   step;
+8. phases 4 and 6 again for the same model as low-rank DCN-v2
+   (``model.name="dcnv2"``, ``cross_rank=64``: U and V [3, 845, 64]), whose
+   cross stack runs the v2 kernels; then their times beside their bounds
+   and plain versions, predict_ctr's latency, the step's median and a
+   profile of one step.
 
 The last lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -55,6 +61,12 @@ from tfrec_tpu_torch.kernels.cross_cuda import (
     cross_v1_fwd,
     cross_v1_fwd_ref,
 )
+from tfrec_tpu_torch.kernels.cross_v2_cuda import (
+    cross_v2_bwd,
+    cross_v2_bwd_ref,
+    cross_v2_fwd,
+    cross_v2_fwd_ref,
+)
 from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_ref
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
@@ -65,11 +77,14 @@ SEED = 0
 DEVICE = "cuda"
 BATCH = 8192
 NUM_BATCHES = 4
+V2_RANK = 64  # the DCN-v2 phases' cross_rank
 # H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Reordered f32 row dots: the error scales with the size of the terms, not
-# of the sum, so the absolute tolerance is relative to the largest value.
+# Reordered f32 row dots and products (the v2 kernels sum over d = 845, and
+# over 8192 rows for dU, dV and db, in another fixed order than cuBLAS): the
+# error scales with the size of the terms, not of the sum, so the absolute
+# tolerance is relative to the largest value.
 RTOL = 1e-5
 ATOL_REL = 1e-5
 # Logits add the cross output's error over a head of d + 128 inputs.
@@ -107,9 +122,18 @@ KERNELS = {
         "source": "tfrec_tpu_torch/kernels/csrc/adagrad.cu",
         "replaces": "tfrec_tpu/kernels/scatter_pallas.py:182",
     },
+    "cross_v2_fwd": {
+        "source": "tfrec_tpu_torch/kernels/csrc/cross_v2.cu",
+        "replaces": "tfrec_tpu/kernels/cross_pallas.py:299",
+    },
+    "cross_v2_bwd": {
+        "source": "tfrec_tpu_torch/kernels/csrc/cross_v2.cu",
+        "replaces": "tfrec_tpu/kernels/cross_pallas.py:342",
+    },
 }
 WRAPPERS = {"gather_rows": gather_rows, "cross_v1_fwd": cross_v1_fwd,
-            "cross_v1_bwd": cross_v1_bwd, "fused_rowwise_adagrad": fused_rowwise_adagrad}
+            "cross_v1_bwd": cross_v1_bwd, "fused_rowwise_adagrad": fused_rowwise_adagrad,
+            "cross_v2_fwd": cross_v2_fwd, "cross_v2_bwd": cross_v2_bwd}
 
 
 def check(ok: bool, what: str) -> None:
@@ -246,7 +270,48 @@ def phase_kernels(rng) -> dict:
         errs["cross_v1_fwd"] = max(errs["cross_v1_fwd"], err)
     errs["cross_v1_bwd"] = check_cross_v1_bwd(rng, dim, layers)
     errs["fused_rowwise_adagrad"] = check_adagrad(rng)
+    errs["cross_v2_fwd"], errs["cross_v2_bwd"] = check_cross_v2(rng, dim, layers)
     return errs
+
+
+def check_cross_v2(rng, dim: int, layers: int) -> tuple[float, float]:
+    """Both v2 kernels against their plain versions, at the v2 path's shape
+    (B=8192, d=845, r=64, L=3), on a ragged tile (B=1000) and at an odd
+    small shape; the forward's saved f and xv too; each repeating bit for
+    bit. The backward takes the forward kernel's f and xv, as in training."""
+    worst_f = worst_b = 0.0
+    for batch, d, rank, nl in ((BATCH, dim, V2_RANK, layers), (1000, dim, V2_RANK, layers),
+                               (257, 13, 7, 1)):
+        def normal(shape, scale):
+            return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(DEVICE)
+
+        x0, g = normal((batch, d), 1.0), normal((batch, d), 1.0)
+        u, v = normal((nl, d, rank), d**-0.5), normal((nl, d, rank), d**-0.5)
+        b = normal((nl, d), 0.1)
+        got = cross_v2_fwd(x0, u, v, b)
+        out, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
+        want, f_ref, xv_ref = cross_v2_fwd_ref(x0, u, v, b, want_saved=True)
+        again = cross_v2_fwd(x0, u, v, b)
+        grads = cross_v2_bwd(x0, u, v, f, xv, g)
+        grads_ref = cross_v2_bwd_ref(x0, u, v, f, xv, g)
+        grads_again = cross_v2_bwd(x0, u, v, f, xv, g)
+        torch.cuda.synchronize()
+        shape = f"B={batch} d={d} r={rank} L={nl}"
+        for name, a, e in (("x_L", got, want), ("f", f, f_ref), ("xv", xv, xv_ref)):
+            err = max_err(a, e)
+            print(f"cross_v2_fwd {shape} {name}: max_abs_err {err:.3e} (max |ref| "
+                  f"{e.abs().max().item():.3e}, rtol {RTOL}, atol {ATOL_REL} x max|ref|)")
+            check(within(a, e, RTOL, ATOL_REL), f"cross_v2_fwd {shape} {name} within tolerance")
+            worst_f = max(worst_f, err)
+        check(torch.equal(got, again) and torch.equal(got, out), f"cross_v2_fwd {shape} repeats bit for bit")
+        for name, a, e, r in zip(("dx0", "du", "dv", "db"), grads, grads_ref, grads_again):
+            err = max_err(a, e)
+            print(f"cross_v2_bwd {shape} {name}: max_abs_err {err:.3e} (max |ref| "
+                  f"{e.abs().max().item():.3e}, rtol {RTOL}, atol {ATOL_REL} x max|ref|)")
+            check(within(a, e, RTOL, ATOL_REL), f"cross_v2_bwd {shape} {name} within tolerance")
+            check(torch.equal(a, r), f"cross_v2_bwd {shape} {name} repeats bit for bit")
+            worst_b = max(worst_b, err)
+    return worst_f, worst_b
 
 
 def check_cross_v1_bwd(rng, dim: int, layers: int) -> float:
@@ -330,27 +395,52 @@ def check_adagrad(rng) -> float:
     return err
 
 
-def phase_main_path(rng):
-    cfg = zoo_configs.dcn_criteo(path="criteo")  # Criteo's shape; data is synthetic
+def configs() -> dict:
+    """The two configurations the main paths run: ``dcn_criteo`` at Criteo's
+    shape (the data is synthetic), as DCN-v1 and as low-rank DCN-v2."""
+    v1 = zoo_configs.dcn_criteo(path="criteo")
+    v2 = dataclasses.replace(v1, model=dataclasses.replace(v1.model, name="dcnv2", cross_rank=V2_RANK))
+    return {"v1": v1, "v2": v2}
+
+
+def cross_kernels(cfg) -> tuple[str, str]:
+    """The forward and backward cross kernels of ``cfg``'s model."""
+    return ("cross_v2_fwd", "cross_v2_bwd") if cfg.model.name == "dcnv2" else ("cross_v1_fwd", "cross_v1_bwd")
+
+
+def reset_launches() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+
+
+def phase_main_path(rng, cfg):
     vocabs = tuple(cfg.data.categorical_vocab_sizes)
     spec = DataSpec.ctr(vocabs, cfg.data.num_dense_features)
     model = build_model(cfg.model, spec)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
     table_mb = sum(t.numel() * t.element_size() for t in params["tables"].values()) / 1e6
-    print(f"model: dcn_criteo, {len(vocabs)} fields x {vocabs[0]} rows, d={cfg.model.embed_dim}, "
-          f"input_dim {model.input_dim}, {cfg.model.num_cross_layers} cross layers, "
+    cross_shapes = {k: tuple(t.shape) for k, t in params["dense"]["cross"].items()}
+    print(f"model: dcn_criteo as {cfg.model.name} (cross_rank {cfg.model.cross_rank}), "
+          f"{len(vocabs)} fields x {vocabs[0]} rows, d={cfg.model.embed_dim}, "
+          f"input_dim {model.input_dim}, {cfg.model.num_cross_layers} cross layers {cross_shapes}, "
           f"MLP {cfg.model.mlp_dims}; tables {table_mb:.1f} MB")
     rec = Recommender(model, params)  # the default device, the card
     requests = make_requests(rng, vocabs, cfg.data.num_dense_features)
 
-    for wrapper in (gather_rows, cross_v1_fwd):
-        wrapper.launches = 0
+    reset_launches()
     logits = [rec.predict_ctr(dense, cat) for dense, cat in requests]
     torch.cuda.synchronize()
-    launches = {"gather_rows": gather_rows.launches, "cross_v1_fwd": cross_v1_fwd.launches}
-    print(f"main path: {NUM_BATCHES} batches of {BATCH}, launches {launches}")
+    launches = read_launches()
+    fwd = cross_kernels(cfg)[0]
+    print(f"main path ({cfg.model.name} serving): {NUM_BATCHES} batches of {BATCH}, launches {launches}")
     check(launches["gather_rows"] == len(vocabs) * NUM_BATCHES, "gather_rows ran once per field per batch")
-    check(launches["cross_v1_fwd"] == NUM_BATCHES, "cross_v1_fwd ran once per batch")
+    check(launches[fwd] == NUM_BATCHES, f"{fwd} ran once per batch")
+    check(all(c == 0 for name, c in launches.items() if name not in ("gather_rows", fwd)),
+          "serving launched no other kernel")
 
     logit_err = 0.0
     for (dense, cat), got in zip(requests, logits):
@@ -373,7 +463,7 @@ def phase_main_path(rng):
     return model, rec, requests, launches
 
 
-def phase_times(model, rec, requests, launches, errs) -> list:
+def phase_times(model, rec, requests, errs) -> list:
     dense, cat = requests[0]
     batch = {"dense": torch.from_numpy(dense).to(DEVICE), "cat": torch.from_numpy(cat).to(DEVICE)}
     ids = model.lookup_ids(batch)
@@ -417,12 +507,10 @@ def phase_times(model, rec, requests, launches, errs) -> list:
           f"median {latency:.3f} ms over {len(lat) - 1} calls")
     profile(lambda: rec.predict_ctr(dense, cat), "predict_ctr", latency)
     return [
-        {"name": "gather_rows", "route": "cuda", "launches": launches["gather_rows"],
-         "max_abs_err": errs["gather_rows"], "ms": g_ms, "plain_ms": g_plain,
-         "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib},
-        {"name": "cross_v1_fwd", "route": "cuda", "launches": launches["cross_v1_fwd"],
-         "max_abs_err": errs["cross_v1_fwd"], "ms": c_ms, "plain_ms": c_plain,
-         "bound_ms": c_bound, "bound_by": c_by, "library_ms": None},
+        {"name": "gather_rows", "route": "cuda", "max_abs_err": errs["gather_rows"], "ms": g_ms,
+         "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib},
+        {"name": "cross_v1_fwd", "route": "cuda", "max_abs_err": errs["cross_v1_fwd"], "ms": c_ms,
+         "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by, "library_ms": None},
     ]
 
 
@@ -461,10 +549,9 @@ def held_loss(builder, state, batch) -> float:
         return builder.loss_fn(builder.model(state["dense"], gathered, batch), batch).item()
 
 
-def phase_train():
-    """Train dcn_criteo at Criteo's shape on the default device: one
+def phase_train(cfg):
+    """Train ``cfg``'s model at Criteo's shape on the default device: one
     multi_step of K batches, counted; then the loss, repeat and CPU checks."""
-    cfg = zoo_configs.dcn_criteo(path="criteo")  # Criteo's shape; data is synthetic
     vocabs = tuple(cfg.data.categorical_vocab_sizes)
     model = build_model(cfg.model, DataSpec.ctr(vocabs, cfg.data.num_dense_features))
     builder = TrainStepBuilder(model, cfg.train.loss, cfg.optim)  # the default device, the card
@@ -479,21 +566,21 @@ def phase_train():
                "cat": to_device(cat[:n].reshape(k, BATCH, -1)),
                "label": to_device(label[:n].reshape(k, BATCH))}
     held = {"dense": to_device(dense[n:]), "cat": to_device(cat[n:]), "label": to_device(label[n:])}
-    print(f"train: dcn_criteo, {cfg.optim.dense_optimizer} dense lr {cfg.optim.learning_rate}, "
+    print(f"train: dcn_criteo as {cfg.model.name}, {cfg.optim.dense_optimizer} dense lr {cfg.optim.learning_rate}, "
           f"{cfg.optim.sparse_optimizer} lr {cfg.optim.sparse_learning_rate}, {cfg.train.loss}; "
           f"multi_step K={k} x {BATCH} from synthetic_ctr (made in {time.perf_counter() - t0:.1f} s) "
           f"and a held batch of {BATCH}")
     start = copy_state(state)
     before = held_loss(builder, state, held)
 
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    reset_launches()
     state, metrics = builder.multi_step(state, batches)
     torch.cuda.synchronize()
-    launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
-    expected = {"gather_rows": len(vocabs), "cross_v1_fwd": 1, "cross_v1_bwd": 1,
-                "fused_rowwise_adagrad": len(vocabs)}
-    print(f"train main path: {k} steps, launches {launches}, per step "
+    launches = read_launches()
+    expected = dict.fromkeys(WRAPPERS, 0)
+    expected.update(dict.fromkeys(cross_kernels(cfg), 1))
+    expected["gather_rows"] = expected["fused_rowwise_adagrad"] = len(vocabs)
+    print(f"train main path ({cfg.model.name}): {k} steps, launches {launches}, per step "
           f"{ {name: c / k for name, c in launches.items()} }")
     for name, per_step in expected.items():
         check(launches[name] == per_step * k, f"{name} ran {per_step} times a step")
@@ -595,7 +682,7 @@ def check_step(builder, start, batch, loss: str) -> None:
     check(acc_ok, "card accumulators match the CPU's (rows of flipped examples aside)")
 
 
-def phase_train_times(builder, state, batches, launches, errs) -> list:
+def phase_train_times(builder, state, batches, errs) -> list:
     model = builder.model
     batch = {name: v[0] for name, v in batches.items()}
     ids = model.lookup_ids(batch)
@@ -635,6 +722,25 @@ def phase_train_times(builder, state, batches, launches, errs) -> list:
     mean_distinct = sum(distinct) / f
     a_bound, a_by = bound_ms(mean_distinct * (3 * d * 4 + 2 * 4) + n_slots * 4, 4 * mean_distinct * d)
 
+    print(f"cross_v1_bwd [{bsz}, {dim}] L={layers}: kernel {cb_ms:.4f} ms, plain {cb_plain:.4f} ms, "
+          f"bound {cb_bound:.4f} ms ({cb_by}) [device time, CUDA graph]")
+    print(f"fused_rowwise_adagrad [{work[0][0].shape[0]}, {d}], {n_slots} slots, distinct real ids a "
+          f"field: mean {mean_distinct:.1f}, min {min(distinct)}, max {max(distinct)}: kernel "
+          f"{a_ms:.4f} ms [device time, CUDA graph], {a_eager:.4f} ms issued eagerly; plain "
+          f"{a_plain:.4f} ms issued eagerly (its mask syncs); bound {a_bound:.4f} ms ({a_by})")
+    step_times(builder, state, batches)
+    return [
+        {"name": "cross_v1_bwd", "route": "cuda", "max_abs_err": errs["cross_v1_bwd"], "ms": cb_ms,
+         "plain_ms": cb_plain, "bound_ms": cb_bound, "bound_by": cb_by, "library_ms": None},
+        {"name": "fused_rowwise_adagrad", "route": "cuda", "max_abs_err": errs["fused_rowwise_adagrad"],
+         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
+    ]
+
+
+def step_times(builder, state, batches) -> None:
+    """The step's median on the host clock (ended by a synchronize), a
+    multi_step's time a step, and a profile of one step."""
+    batch = {name: v[0] for name, v in batches.items()}
     step_ms = []
     for _ in range(11):
         t0 = time.perf_counter()
@@ -646,25 +752,67 @@ def phase_train_times(builder, state, batches, launches, errs) -> list:
     torch.cuda.synchronize()
     k = next(iter(batches.values())).shape[0]
     multi_ms = (time.perf_counter() - t0) * 1e3 / k
-
-    print(f"cross_v1_bwd [{bsz}, {dim}] L={layers}: kernel {cb_ms:.4f} ms, plain {cb_plain:.4f} ms, "
-          f"bound {cb_bound:.4f} ms ({cb_by}) [device time, CUDA graph]")
-    print(f"fused_rowwise_adagrad [{work[0][0].shape[0]}, {d}], {n_slots} slots, distinct real ids a "
-          f"field: mean {mean_distinct:.1f}, min {min(distinct)}, max {max(distinct)}: kernel "
-          f"{a_ms:.4f} ms [device time, CUDA graph], {a_eager:.4f} ms issued eagerly; plain "
-          f"{a_plain:.4f} ms issued eagerly (its mask syncs); bound {a_bound:.4f} ms ({a_by})")
     median = statistics.median(step_ms[1:])
-    print(f"train step batch {BATCH} (host clock, batch already on the card): median {median:.3f} ms "
+    print(f"train step ({builder.model.__class__.__name__}, cross {sorted(state['dense']['cross'])}) "
+          f"batch {BATCH} (host clock, batch already on the card): median {median:.3f} ms "
           f"over {len(step_ms) - 1} steps; multi_step K={k}: {multi_ms:.3f} ms a step")
     profile(lambda: builder.step(state, batch), "train step", median)
+
+
+def phase_v2_times(rec, requests, builder, state, batches, errs) -> list:
+    """Both v2 kernels at the v2 path's shapes beside their bounds (f32
+    operations at 67 TFLOP/s, or bytes at 3.35 TB/s) and plain versions;
+    predict_ctr's latency and the step's times for the v2 model."""
+    model = builder.model
+    batch = {name: v[0] for name, v in batches.items()}
+    gathered, _ = builder.lookup(state["tables"], model.lookup_ids(batch))
+    x0 = model.flat_input(gathered, batch)
+    cross = state["dense"]["cross"]
+    u, v, b = cross["u"], cross["v"], cross["b"]
+    layers, dim, rank = u.shape
+    bsz = x0.shape[0]
+    # 3 sets of x0 (27.7 MB each) rotate past L2; the backward's sets hold
+    # x0, g, f (83 MB) and xv each.
+    x0s = [x0, torch.randn_like(x0), torch.randn_like(x0)]
+    f_ms = device_ms(lambda: [cross_v2_fwd(x, u, v, b) for x in x0s], len(x0s))
+    f_train_ms = device_ms(lambda: [cross_v2_fwd(x, u, v, b, want_saved=True) for x in x0s], len(x0s))
+    f_plain = device_ms(lambda: [cross_v2_fwd_ref(x, u, v, b) for x in x0s], len(x0s))
+    f_bound, f_by = bound_ms((2 * bsz * dim + 2 * layers * dim * rank + layers * dim) * 4,
+                             layers * (4 * bsz * dim * rank + 3 * bsz * dim))
+    sets = []
+    for x in x0s:
+        _, f, xv = cross_v2_fwd(x, u, v, b, want_saved=True)
+        sets.append((x, f, xv, torch.randn_like(x)))
+    b_ms = device_ms(lambda: [cross_v2_bwd(x, u, v, f, xv, g) for x, f, xv, g in sets], len(sets))
+    b_plain = device_ms(lambda: [cross_v2_bwd_ref(x, u, v, f, xv, g) for x, f, xv, g in sets], len(sets))
+    # In: x0, g, f, xv, U, V; out: dx0, dU, dV, db. Per layer: 4 products
+    # and ~7 elementwise operations an element (df, db, g*f, dx0, g, x_l).
+    b_bytes = ((2 + layers) * bsz * dim + layers * bsz * rank + 2 * layers * dim * rank
+               + bsz * dim + 2 * layers * dim * rank + layers * dim) * 4
+    b_bound, b_by = bound_ms(b_bytes, layers * (8 * bsz * dim * rank + 7 * bsz * dim))
+    print(f"cross_v2_fwd [{bsz}, {dim}] r={rank} L={layers}: kernel {f_ms:.4f} ms (saving f and xv "
+          f"for training {f_train_ms:.4f} ms), plain {f_plain:.4f} ms, bound {f_bound:.4f} ms ({f_by}) "
+          f"[device time, CUDA graph]")
+    print(f"cross_v2_bwd [{bsz}, {dim}] r={rank} L={layers}: kernel {b_ms:.4f} ms, plain {b_plain:.4f} ms, "
+          f"bound {b_bound:.4f} ms ({b_by}) [device time, CUDA graph]")
+    del sets, x0s
+
+    dense, cat = requests[0]
+    lat = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        rec.predict_ctr(dense, cat)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    latency = statistics.median(lat[1:])
+    print(f"predict_ctr ({model.__class__.__name__}, cross {sorted(cross)}) batch {BATCH} (host clock, "
+          f"request copy and logits included): median {latency:.3f} ms over {len(lat) - 1} calls")
+    profile(lambda: rec.predict_ctr(dense, cat), "predict_ctr", latency)
+    step_times(builder, state, batches)
     return [
-        {"name": "cross_v1_bwd", "route": "cuda", "launches": launches["cross_v1_bwd"],
-         "max_abs_err": errs["cross_v1_bwd"], "ms": cb_ms, "plain_ms": cb_plain,
-         "bound_ms": cb_bound, "bound_by": cb_by, "library_ms": None},
-        {"name": "fused_rowwise_adagrad", "route": "cuda",
-         "launches": launches["fused_rowwise_adagrad"],
-         "max_abs_err": errs["fused_rowwise_adagrad"], "ms": a_ms, "plain_ms": a_plain,
-         "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
+        {"name": "cross_v2_fwd", "route": "cuda", "max_abs_err": errs["cross_v2_fwd"], "ms": f_ms,
+         "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by, "library_ms": None},
+        {"name": "cross_v2_bwd", "route": "cuda", "max_abs_err": errs["cross_v2_bwd"], "ms": b_ms,
+         "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by, "library_ms": None},
     ]
 
 
@@ -677,12 +825,18 @@ def main() -> int:
     phase_environment()
     phase_build()
     errs = phase_kernels(rng)
-    model, rec, requests, serve_launches = phase_main_path(rng)
-    records = phase_times(model, rec, requests, serve_launches, errs)
-    builder, state, batches, train_launches = phase_train()
-    records += phase_train_times(builder, state, batches, train_launches, errs)
+    cfgs = configs()
+    paths = {}
+    model, rec, requests, paths["serve_v1"] = phase_main_path(rng, cfgs["v1"])
+    records = phase_times(model, rec, requests, errs)
+    builder, state, batches, paths["train_v1"] = phase_train(cfgs["v1"])
+    records += phase_train_times(builder, state, batches, errs)
+    del model, rec, requests, builder, state, batches
+    _, rec, requests, paths["serve_v2"] = phase_main_path(rng, cfgs["v2"])
+    builder, state, batches, paths["train_v2"] = phase_train(cfgs["v2"])
+    records += phase_v2_times(rec, requests, builder, state, batches, errs)
     for r in records:
-        by_path = {"serve": serve_launches.get(r["name"], 0), "train": train_launches[r["name"]]}
+        by_path = {path: launches[r["name"]] for path, launches in paths.items()}
         r.update({"launches": sum(by_path.values()), "launches_by_path": by_path})
         r.update({k: KERNELS[r["name"]][k] for k in ("source", "replaces")})
     print(json.dumps({"kernels": records}))

@@ -1,0 +1,143 @@
+"""The port's low-rank DCN-v2 cross stack against the JAX package, on the CPU.
+
+On CPU tensors ``cross_v2_fwd`` and ``cross_v2_bwd`` take their plain
+versions; these tests hold them against ``cross_stack_pallas_v2`` (run in
+interpret mode, as tests/test_kernels.py runs it), against
+``cross_stack_xla`` and its JAX VJP, and against torch autograd, and pin
+the wrappers' input contract. The CUDA kernels are held against the plain
+versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tfrec_tpu.kernels.cross import cross_stack_xla
+from tfrec_tpu.kernels.cross_pallas import cross_stack_pallas_v2
+from tfrec_tpu_torch.kernels.cross import cross_stack, cross_stack_ref
+from tfrec_tpu_torch.kernels.cross_v2_cuda import (
+    CrossV2,
+    _smem_bytes,
+    cross_v2_bwd,
+    cross_v2_bwd_ref,
+    cross_v2_fwd,
+    cross_v2_fwd_ref,
+)
+
+torch.set_num_threads(1)
+
+# (batch, d, r, L): tests/test_kernels.py's two shapes, and one with an odd
+# d and r, as the flagship's d = 845.
+SHAPES = [(64, 32, 8, 3), (48, 140, 16, 2), (50, 45, 7, 2)]
+
+
+def _normal(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale).astype(np.float32)
+
+
+def _close(got, want, rtol):
+    """Sums in another order: an element's error scales with the terms
+    summed, not with the element, so the absolute tolerance is 1e-6 of the
+    largest magnitude (the outputs reach ~100 at d=140)."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6 * np.abs(want).max())
+
+
+def _inputs(seed, batch, dim, rank, layers):
+    return (_normal(seed, (batch, dim)), _normal(seed + 1, (layers, dim, rank), 0.2),
+            _normal(seed + 2, (layers, dim, rank), 0.2), _normal(seed + 3, (layers, dim), 0.1))
+
+
+@pytest.mark.parametrize("batch,dim,rank,layers", SHAPES)
+def test_cross_v2_fwd_ref_matches_pallas_and_xla(batch, dim, rank, layers):
+    x0, u, v, b = _inputs(20, batch, dim, rank, layers)
+    jparams = {"u": jnp.asarray(u), "v": jnp.asarray(v), "b": jnp.asarray(b)}
+    ref = cross_v2_fwd_ref(*(torch.from_numpy(a) for a in (x0, u, v, b))).numpy()
+    # rtol 1e-4 as tests/test_kernels.py: the Pallas kernel sums over the
+    # lane-padded d and r, another order than the unpadded products.
+    _close(ref, cross_stack_pallas_v2(jnp.asarray(x0), jparams), 1e-4)
+    _close(ref, cross_stack_xla(jnp.asarray(x0), jparams), 1e-5)
+    # The wrapper, the dispatcher and cross_stack_ref take the same plain
+    # version on the CPU; with want_saved it also returns f and xv.
+    tparams = {"u": torch.from_numpy(u), "v": torch.from_numpy(v), "b": torch.from_numpy(b)}
+    before = cross_v2_fwd.launches
+    for fn in (cross_stack, cross_stack_ref):
+        np.testing.assert_array_equal(fn(torch.from_numpy(x0), tparams).numpy(), ref)
+    out, f, xv = cross_v2_fwd(torch.from_numpy(x0), *tparams.values(), want_saved=True)
+    assert cross_v2_fwd.launches == before
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert f.shape == (layers, batch, dim) and xv.shape == (layers, batch, rank)
+    np.testing.assert_allclose(xv[0].numpy(), x0 @ v[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(f[0].numpy(), (x0 @ v[0]) @ u[0].T + b[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch,dim,rank,layers", SHAPES)
+def test_cross_v2_bwd_ref_matches_jax_vjp_and_autograd(batch, dim, rank, layers):
+    x0, u, v, b = _inputs(30, batch, dim, rank, layers)
+    g = _normal(34, (batch, dim))
+    tx0, tu, tv, tb, tg = (torch.from_numpy(a) for a in (x0, u, v, b, g))
+    _, f, xv = cross_v2_fwd_ref(tx0, tu, tv, tb, want_saved=True)
+    got = cross_v2_bwd_ref(tx0, tu, tv, f, xv, tg)
+    jparams = {"u": jnp.asarray(u), "v": jnp.asarray(v), "b": jnp.asarray(b)}
+    for fn in (cross_stack_pallas_v2, cross_stack_xla):
+        _, vjp = jax.vjp(fn, jnp.asarray(x0), jparams)
+        jdx0, jgrads = vjp(jnp.asarray(g))
+        want = (jdx0, jgrads["u"], jgrads["v"], jgrads["b"])
+        for a, e in zip(got, want):
+            # The JAX package's own tolerance for its v2 kernel's VJP
+            # (tests/test_kernels.py): sums in another order, over the
+            # batch and the padded lanes.
+            _close(a.numpy(), e, 1e-4)
+    # Torch autograd of the plain forward: du, dv and db are batch sums
+    # taken in another order, so an element that nearly cancels is held to
+    # 1e-6 of the largest magnitude rather than to its own.
+    leaves = [t.clone().requires_grad_() for t in (tx0, tu, tv, tb)]
+    auto = torch.autograd.grad(cross_v2_fwd_ref(*leaves), leaves, tg)
+    for a, e in zip(got, auto):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-6 * e.abs().max().item())
+    # The wrapper on CPU tensors and the autograd Function behind
+    # cross_stack run the same plain formula and launch nothing.
+    before = (cross_v2_fwd.launches, cross_v2_bwd.launches)
+    for a, e in zip(cross_v2_bwd(tx0, tu, tv, f, xv, tg), got):
+        torch.testing.assert_close(a, e, rtol=0, atol=0)
+    leaves = [t.clone().requires_grad_() for t in (tx0, tu, tv, tb)]
+    y = cross_stack(leaves[0], {"u": leaves[1], "v": leaves[2], "b": leaves[3]})
+    assert y.grad_fn is not None and type(y.grad_fn).__name__ == "CrossV2Backward"
+    for a, e in zip(torch.autograd.grad(y, leaves, tg), got):
+        torch.testing.assert_close(a, e, rtol=0, atol=0)
+    assert (cross_v2_fwd.launches, cross_v2_bwd.launches) == before
+
+
+def test_cross_v2_contract():
+    """f32 only, matching shapes, one device, contiguous inputs; cpu or cuda."""
+    x0, u, v, b = (torch.from_numpy(a) for a in _inputs(40, 5, 6, 3, 2))
+    with pytest.raises(TypeError, match="float32"):
+        cross_v2_fwd(x0.double(), u, v, b)
+    with pytest.raises(ValueError, match="u and v"):
+        cross_v2_fwd(x0, u, v[:, :, :2].contiguous(), b)
+    with pytest.raises(ValueError, match=r"b must be \[2, 6\]"):
+        cross_v2_fwd(x0, u, v, b[:1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        cross_v2_fwd(x0, u.transpose(1, 2).contiguous().transpose(1, 2), v, b)
+    with pytest.raises(ValueError, match="x0 must be"):
+        cross_v2_fwd(x0[0].contiguous(), u, v, b)
+    with pytest.raises(NotImplementedError, match="cuda or cpu"):
+        cross_v2_fwd(*(t.to("meta") for t in (x0, u, v, b)))
+    _, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
+    with pytest.raises(ValueError, match=r"xv \[2, 5, 3\]"):
+        cross_v2_bwd(x0, u, v, f, xv[:, :, :2].contiguous(), x0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cross_v2_bwd(x0, u, v, f, xv, x0.t().contiguous().t())
+    with pytest.raises(NotImplementedError, match="cuda or cpu"):
+        cross_v2_bwd(*(t.to("meta") for t in (x0, u, v, f, xv, x0)))
+    # No layer: x_L = x0, and the gradient passes through.
+    empty = (u[:0].contiguous(), v[:0].contiguous(), b[:0].contiguous())
+    assert torch.equal(cross_v2_fwd(x0, *empty), x0)
+    out = CrossV2.apply(x0.clone().requires_grad_(), *empty)
+    assert torch.equal(out, x0)
+    # The tile of the forward and the row pass at the flagship's shape:
+    # 16 rows of x0 and x (d = 845 padded to 848) and of xv (r = 64).
+    assert _smem_bytes(845, 64) == (2 * 16 * 848 + 16 * 64) * 4 <= 227 * 1024
+    assert _smem_bytes(2048, 64) > 227 * 1024

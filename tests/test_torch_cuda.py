@@ -21,6 +21,12 @@ from tfrec_tpu_torch.kernels.cross_cuda import (
     cross_v1_fwd,
     cross_v1_fwd_ref,
 )
+from tfrec_tpu_torch.kernels.cross_v2_cuda import (
+    cross_v2_bwd,
+    cross_v2_bwd_ref,
+    cross_v2_fwd,
+    cross_v2_fwd_ref,
+)
 from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_ref
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
@@ -101,6 +107,65 @@ def test_cross_v1_bwd_matches_the_plain_version(device, batch, dim, layers):
         assert torch.equal(a, e)
 
 
+def _v2_inputs(device, batch, dim, rank, layers):
+    rng = np.random.default_rng(batch + dim + rank)
+
+    def normal(shape, scale):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+
+    return (normal((batch, dim), 1.0), normal((layers, dim, rank), dim**-0.5),
+            normal((layers, dim, rank), dim**-0.5), normal((layers, dim), 0.1))
+
+
+# (batch, d, r, L): the flagship's shape on a ragged batch; odd small
+# shapes; a rank past one 64-wide tile of the weight pass; a batch of one.
+V2_SHAPES = [(1000, 845, 64, 3), (33, 13, 7, 1), (257, 140, 16, 2), (300, 1500, 130, 2), (1, 8, 3, 2)]
+
+
+@pytest.mark.parametrize("batch,dim,rank,layers", V2_SHAPES)
+def test_cross_v2_fwd_matches_the_plain_version(device, batch, dim, rank, layers):
+    x0, u, v, b = _v2_inputs(device, batch, dim, rank, layers)
+    before = cross_v2_fwd.launches
+    got = cross_v2_fwd(x0, u, v, b)
+    torch.cuda.synchronize()
+    assert cross_v2_fwd.launches == before + 1
+    _close(got, cross_v2_fwd_ref(x0, u, v, b))
+    assert torch.equal(got, cross_v2_fwd(x0, u, v, b))  # fixed order: bit for bit
+    out, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
+    assert torch.equal(out, got)
+    _, f_ref, xv_ref = cross_v2_fwd_ref(x0, u, v, b, want_saved=True)
+    _close(f, f_ref)
+    _close(xv, xv_ref)
+    assert torch.equal(cross_stack(x0, {"u": u, "v": v, "b": b}), got)
+
+
+@pytest.mark.parametrize("batch,dim,rank,layers", V2_SHAPES)
+def test_cross_v2_bwd_matches_the_plain_version(device, batch, dim, rank, layers):
+    x0, u, v, b = _v2_inputs(device, batch, dim, rank, layers)
+    g = torch.randn(x0.shape, generator=torch.Generator(device=device).manual_seed(batch),
+                    device=device)
+    _, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
+    before = cross_v2_bwd.launches
+    got = cross_v2_bwd(x0, u, v, f, xv, g)
+    torch.cuda.synchronize()
+    assert cross_v2_bwd.launches == before + 1
+    for a, e in zip(got, cross_v2_bwd_ref(x0, u, v, f, xv, g)):
+        _close(a, e)
+    for a, e in zip(got, cross_v2_bwd(x0, u, v, f, xv, g)):
+        assert torch.equal(a, e)  # fixed-order sums, no atomics: bit for bit
+    # The autograd Function behind cross_stack runs both kernels.
+    leaves = [t.clone().requires_grad_() for t in (x0, u, v, b)]
+    y = cross_stack(leaves[0], {"u": leaves[1], "v": leaves[2], "b": leaves[3]})
+    for a, e in zip(torch.autograd.grad(y, leaves, g), got):
+        assert torch.equal(a, e)
+
+
+def test_cross_v2_refuses_more_shared_memory_than_a_block_gets(device):
+    x0, u, v, b = _v2_inputs(device, 4, 2048, 64, 1)
+    with pytest.raises(ValueError, match="227 KB"):
+        cross_v2_fwd(x0, u, v, b)
+
+
 @pytest.mark.parametrize("dim", [1, 8, 32, 100])
 def test_fused_rowwise_adagrad_matches_the_plain_version(device, dim):
     rng = np.random.default_rng(dim)
@@ -140,14 +205,15 @@ def test_combine_duplicate_ids_repeats_and_matches_the_cpu(device):
     _close(got[1].cpu(), cpu[1], 1e-6)
 
 
-def test_train_step_on_the_card_matches_the_cpu(device):
-    """One DCN-v1 step (dense Adam, rowwise Adagrad) from the same state on
-    the card and on the CPU: loss, tables and accumulators. Dense params
-    are not compared after Adam's first update (its size is lr whatever
-    the gradient)."""
+@pytest.mark.parametrize("name,rank", [("dcn", 0), ("dcnv2", 4)])
+def test_train_step_on_the_card_matches_the_cpu(device, name, rank):
+    """One DCN step, v1 or low-rank v2 (dense Adam, rowwise Adagrad), from
+    the same state on the card and on the CPU: loss, tables and
+    accumulators. Dense params are not compared after Adam's first update
+    (its size is lr whatever the gradient)."""
     vocabs, widths = (37, 52, 45, 60), (1, 1, 3, 1)
-    model = build_model(ModelConfig(name="dcn", embed_dim=8, num_cross_layers=2, mlp_dims=(16, 8)),
-                        DataSpec.ctr(vocabs, 3, widths))
+    model = build_model(ModelConfig(name=name, embed_dim=8, num_cross_layers=2, mlp_dims=(16, 8),
+                                    cross_rank=rank), DataSpec.ctr(vocabs, 3, widths))
     optim = OptimConfig(learning_rate=0.01, dense_optimizer="adam",
                         sparse_optimizer="rowwise_adagrad", sparse_learning_rate=0.05)
     card = TrainStepBuilder(model, "logloss", optim)

@@ -100,13 +100,12 @@ def test_cross_v2_ref_matches_xla(rank):
         np.testing.assert_allclose(fn(torch.from_numpy(x0), tparams).numpy(), want, rtol=1e-5, atol=1e-6)
 
 
-def test_cross_dispatch_refuses_unported_kernels_off_cpu():
-    """Low-rank v2 has no kernel in the port yet: off the CPU it is refused,
-    never run plain; v1 off cpu/cuda is refused by its wrapper."""
+def test_cross_dispatch_refuses_devices_other_than_cuda_and_cpu():
+    """Off cpu/cuda the v2 low-rank and v1 wrappers refuse, never run plain."""
     x0 = torch.empty((4, 8), device="meta")
     lowrank = {k: torch.empty(s, device="meta") for k, s in
                (("u", (2, 8, 2)), ("v", (2, 8, 2)), ("b", (2, 8)))}
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+    with pytest.raises(NotImplementedError, match="cuda or cpu"):
         cross_stack(x0, lowrank)
     v1 = {"w": torch.empty((2, 8), device="meta"), "b": torch.empty((2, 8), device="meta")}
     with pytest.raises(NotImplementedError, match="cuda or cpu"):
@@ -128,7 +127,7 @@ def test_cross_v1_fwd_contract():
 
 
 def test_build_targets_hopper_from_repo_sources(tmp_path, monkeypatch):
-    assert _build.sources() == ["adagrad", "cross", "gather"]
+    assert _build.sources() == ["adagrad", "cross", "cross_v2", "gather"]
     assert _build.BUILD_DIR.parts[-2:] == ("build", "tfrec_tpu_torch")
     cmd = _build.nvcc_command("nvcc", "gather", Path("lib.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd

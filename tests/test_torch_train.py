@@ -307,17 +307,23 @@ def _batches(seed, steps):
              label[i * BATCH:(i + 1) * BATCH]) for i in range(steps)]
 
 
-def _jax_builder(kernels, l2_reg, optim):
+# model name -> cross_rank: DCN-v1, and low-rank DCN-v2 (its cross through
+# cross_stack_pallas_v2 in JAX with kernels="pallas", CrossV2 in the port).
+RANKS = {"dcn": 0, "dcnv2": 4}
+
+
+def _jax_builder(kernels, l2_reg, optim, name="dcn"):
     jmodel = jax_build_model(
-        JaxModelConfig(name="dcn", embed_dim=8, num_cross_layers=2, mlp_dims=(16, 8),
-                       lane_pack=False),
+        JaxModelConfig(name=name, embed_dim=8, num_cross_layers=2, mlp_dims=(16, 8),
+                       cross_rank=RANKS[name], lane_pack=False),
         JaxDataSpec.ctr(VOCABS, NUM_DENSE, WIDTHS), backend=kernels)
     return jax_step.TrainStepBuilder(jmodel, "logloss", JaxOptimConfig(**optim),
                                      l2_reg=l2_reg, kernels=kernels)
 
 
-def _port_builder(l2_reg, optim):
-    model = build_model(ModelConfig(name="dcn", embed_dim=8, num_cross_layers=2, mlp_dims=(16, 8)),
+def _port_builder(l2_reg, optim, name="dcn"):
+    model = build_model(ModelConfig(name=name, embed_dim=8, num_cross_layers=2, mlp_dims=(16, 8),
+                                    cross_rank=RANKS[name]),
                         DataSpec.ctr(VOCABS, NUM_DENSE, WIDTHS))
     return TrainStepBuilder(model, "logloss", OptimConfig(**optim), l2_reg=l2_reg, device="cpu")
 
@@ -326,15 +332,19 @@ OPTIM = dict(learning_rate=0.01, dense_optimizer="adam", sparse_optimizer="rowwi
              sparse_learning_rate=0.05)
 
 
+@pytest.mark.parametrize("name", sorted(RANKS))
 @pytest.mark.parametrize("kernels", ["xla", "pallas"])
 @pytest.mark.parametrize("l2_reg", [0.0, 1e-3])
-def test_three_train_steps_match_jax(kernels, l2_reg):
-    """DCN-v1, dense Adam plus rowwise Adagrad: the port (plain versions)
-    against the JAX step with kernels="xla" and with kernels="pallas"
-    (model backend "pallas", interpret mode), from the same JAX state."""
-    jb = _jax_builder(kernels, l2_reg, OPTIM)
+def test_three_train_steps_match_jax(kernels, l2_reg, name):
+    """DCN-v1 and low-rank DCN-v2, dense Adam plus rowwise Adagrad: the port
+    (plain versions) against the JAX step with kernels="xla" and with
+    kernels="pallas" (model backend "pallas", interpret mode), from the same
+    JAX state."""
+    jb = _jax_builder(kernels, l2_reg, OPTIM, name)
     jstate = jb.init_state(jax.random.PRNGKey(0))
-    builder = _port_builder(l2_reg, OPTIM)
+    builder = _port_builder(l2_reg, OPTIM, name)
+    if name == "dcnv2":
+        assert set(jstate["dense"]["cross"]) == {"u", "v", "b"}
     state = train_state_from_jax(_np(jstate), builder.model)
     jstep = jax.jit(jb.step)
     for dense, cat, label in _batches(1, 3):

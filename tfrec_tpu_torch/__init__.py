@@ -7,14 +7,17 @@ for ``sm_90a`` under ``kernels/csrc/``, built with ``nvcc`` on first use
 and bound with ``ctypes`` (``kernels/_build.py``). Each kernel wrapper runs
 its plain PyTorch version only for tensors that lie on the CPU.
 
-Ported so far (the serving slice of ``zoo_configs.dcn_criteo``):
+Ported so far (serving and training ``zoo_configs.dcn_criteo``, as DCN-v1
+and as low-rank DCN-v2):
 
 - ``configs``, ``zoo_configs.dcn_criteo``;
-- ``ops.embedding`` (table specs, seeded init, clip-semantics gather);
-- ``kernels``: the row gather and the DCN-v1 cross-stack forward;
+- ``ops.embedding`` (table specs, seeded init, clip-semantics gather, the
+  duplicate-id combine) and ``ops.sparse_optim``;
+- ``kernels``: the row gather, the DCN-v1 and low-rank DCN-v2 cross stacks
+  (forward and backward) and the fused rowwise-Adagrad update;
 - ``models``: ``DCN`` (v1, v2 full-rank, v2 low-rank) over per-field tables;
-- ``convert.params_from_jax``: JAX params of any table layout -> the port's;
-- ``serve.Recommender.predict_ctr``.
+- ``convert``: JAX params of any table layout, and JAX train states;
+- ``serve.Recommender.predict_ctr``, ``train.step.TrainStepBuilder``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 This package never imports ``jax`` or any module of ``tfrec_tpu``.

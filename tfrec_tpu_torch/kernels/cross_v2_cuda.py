@@ -1,0 +1,241 @@
+"""DCN-v2 low-rank cross stack: ``x_{l+1} = x0 * ((x_l V_l) U_l^T + b_l) + x_l``,
+and its VJP.
+
+The counterpart of ``tfrec_tpu/kernels/cross_pallas.py``
+``cross_stack_pallas_v2``: the forward (``_fwd_kernel_v2``) is
+``cross_v2_fwd``, the backward (``_bwd_kernel_v2``) is ``cross_v2_bwd``;
+both kernels are in ``csrc/cross_v2.cu`` and run f32 on the CUDA cores (no
+TF32). The TPU wrapper pads d and r to 128 lanes; here the shapes are used
+as they are. Every product is summed in a fixed order, so the kernels agree
+with the plain versions up to the order of those sums and repeat bit for
+bit. For training the forward also returns what the backward needs, f
+[L, B, d] and xv = x_l V_l [L, B, r]: the backward then replays no product
+(it rebuilds x_l elementwise from x0 and f) and sums dU, dV and db over the
+batch in fixed-order chunks, with no atomics. The wrappers hand the
+kernels the weights zero padded to multiples of 4 (16-byte loads), and U
+(forward) or V (backward) also transposed, so that the product over r
+reads neighbouring addresses: one copy of [L, d, r] a call (650 KB at the
+flagship's shape). ``CrossV2`` is the ``torch.autograd.Function`` that
+joins the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from tfrec_tpu_torch.kernels import _build
+
+_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
+# A block of the forward and of the backward's row pass holds 16 rows of two
+# [B, d] arrays and one [B, r] array in shared memory, rows padded to a
+# multiple of 4 floats (csrc/cross_v2.cu tile_smem_bytes); Hopper gives a
+# block at most 227 KB.
+_TILE = 16
+_MAX_SMEM = 227 * 1024
+# The weight pass walks the batch in at most 16 chunks of at least 256 rows,
+# whose partial sums a second kernel adds in chunk order.
+_MAX_CHUNKS = 16
+_MIN_CHUNK_ROWS = 256
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _smem_bytes(dim: int, rank: int) -> int:
+    return (2 * _TILE * _round4(dim) + _TILE * _round4(rank)) * 4
+
+
+def _layout(w: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """A weight stack [L, d, r] as the kernels read it: zero padded to
+    [L, d, r4], or transposed and zero padded to [L, r4, d4] (r4, d4: r and
+    d rounded up to 4), 16-byte aligned."""
+    layers, dim, rank = w.shape
+    if transpose:
+        return F.pad(w.transpose(1, 2), (0, _round4(dim) - dim, 0, _round4(rank) - rank)).contiguous()
+    if rank % 4:
+        return F.pad(w, (0, _round4(rank) - rank))
+    return w if w.data_ptr() % 16 == 0 else w.clone()
+
+
+def _check(named, what: str) -> None:
+    first_name, first = named[0]
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.device != first.device:
+            raise ValueError(f"{what}: {first_name} on {first.device} but {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} needs a contiguous {name}")
+
+
+def _check_shapes(x0, u, v, what: str) -> None:
+    if x0.dim() != 2 or u.dim() != 3:
+        raise ValueError(f"{what}: x0 must be [B, d] and u [L, d, r], got "
+                         f"{tuple(x0.shape)} and {tuple(u.shape)}")
+    if u.shape[1] != x0.shape[1] or v.shape != u.shape:
+        raise ValueError(f"{what}: u and v must be [L, {x0.shape[1]}, r] alike, got "
+                         f"{tuple(u.shape)} and {tuple(v.shape)}")
+
+
+def _check_device(x0: torch.Tensor, rank: int, what: str) -> None:
+    if x0.device.type != "cuda":
+        raise NotImplementedError(f"{what} runs on cuda or cpu tensors, not {x0.device}")
+    if rank < 1:
+        raise ValueError(f"{what} is the low-rank cross and takes r >= 1, got r={rank}")
+    smem = _smem_bytes(x0.shape[1], rank)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{what} keeps 16 rows of x0, x and xv in shared memory: d={x0.shape[1]}, "
+                         f"r={rank} needs {smem} bytes, more than 227 KB")
+
+
+def cross_v2_fwd_ref(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, b: torch.Tensor, *,
+                     want_saved: bool = False):
+    """Plain PyTorch version of the forward kernel (the reference's
+    ``cross_stack_xla`` for low-rank v2). ``want_saved``: also return f
+    [L, B, d] and xv [L, B, r]."""
+    x = x0
+    fs, xvs = [], []
+    for l in range(b.shape[0]):
+        xv = x @ v[l]
+        f = xv @ u[l].T + b[l]
+        fs.append(f)
+        xvs.append(xv)
+        x = x0 * f + x
+    if not want_saved:
+        return x
+    if not fs:
+        return x, x0.new_empty((0, *x0.shape)), x0.new_empty((0, x0.shape[0], u.shape[2]))
+    return x, torch.stack(fs), torch.stack(xvs)
+
+
+def cross_v2_fwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, b: torch.Tensor, *,
+                 want_saved: bool = False):
+    """x0 [B, d], u and v [L, d, r], b [L, d], all f32 -> x_L [B, d], and
+    with ``want_saved`` also f [L, B, d] and xv [L, B, r] for ``cross_v2_bwd``.
+
+    A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
+    """
+    _check([("x0", x0), ("u", u), ("v", v), ("b", b)], "cross_v2_fwd")
+    _check_shapes(x0, u, v, "cross_v2_fwd")
+    layers, dim, rank = u.shape
+    if b.shape != (layers, dim):
+        raise ValueError(f"cross_v2_fwd: b must be [{layers}, {dim}], got {tuple(b.shape)}")
+    if x0.device.type == "cpu":
+        return cross_v2_fwd_ref(x0, u, v, b, want_saved=want_saved)
+    _check_device(x0, rank, "cross_v2_fwd")
+    batch = x0.shape[0]
+    out = x0.clone() if layers == 0 else torch.empty_like(x0)
+    f = xv = None
+    if want_saved:
+        f = torch.empty((layers, batch, dim), dtype=x0.dtype, device=x0.device)
+        xv = torch.empty((layers, batch, rank), dtype=x0.dtype, device=x0.device)
+    if batch == 0 or layers == 0:  # nothing to launch
+        return (out, f, xv) if want_saved else out
+    fn = _build.function("cross_v2", "tfrec_cross_v2_fwd", _FWD_ARGTYPES)
+    v4, ut4 = _layout(v, transpose=False), _layout(u, transpose=True)
+    with torch.cuda.device(x0.device):
+        rc = fn(x0.data_ptr(), v4.data_ptr(), ut4.data_ptr(), b.data_ptr(), out.data_ptr(),
+                f.data_ptr() if want_saved else None, xv.data_ptr() if want_saved else None,
+                batch, dim, rank, layers, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, "cross_v2_fwd")
+    cross_v2_fwd.launches += 1
+    return (out, f, xv) if want_saved else out
+
+
+cross_v2_fwd.launches = 0  # kernel launches since the last reset
+
+
+def cross_v2_bwd_ref(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, f: torch.Tensor,
+                     xv: torch.Tensor, g: torch.Tensor):
+    """Plain PyTorch version of the backward kernels: (dx0, du, dv, db) for
+    the output gradient g [B, d], from the forward's f [L, B, d] and xv
+    [L, B, r] (``cross_v2_fwd_ref(..., want_saved=True)``); x_l is rebuilt
+    from x0 and f as the forward computed it."""
+    layers = u.shape[0]
+    xs = [x0]
+    for l in range(layers - 1):
+        xs.append(x0 * f[l] + xs[-1])
+    dx0 = torch.zeros_like(x0)
+    du = torch.empty_like(u)
+    dv = torch.empty_like(v)
+    db = x0.new_empty((layers, x0.shape[1]))
+    for l in range(layers - 1, -1, -1):
+        df = g * x0
+        db[l] = df.sum(dim=0)
+        du[l] = df.T @ xv[l]
+        t = df @ u[l]
+        dv[l] = xs[l].T @ t
+        dx0 = dx0 + g * f[l]
+        g = g + t @ v[l].T
+    return dx0 + g, du, dv, db
+
+
+def cross_v2_bwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, f: torch.Tensor,
+                 xv: torch.Tensor, g: torch.Tensor):
+    """x0 and g [B, d], u and v [L, d, r], f [L, B, d] and xv [L, B, r] (from
+    ``cross_v2_fwd(..., want_saved=True)``), all f32 -> (dx0 [B, d], du and
+    dv [L, d, r], db [L, d]).
+
+    A CUDA tensor launches the kernels (the row pass, the weight pass and the
+    fixed-order sum of its chunks); a CPU tensor takes the plain version.
+    """
+    _check([("x0", x0), ("u", u), ("v", v), ("f", f), ("xv", xv), ("g", g)], "cross_v2_bwd")
+    _check_shapes(x0, u, v, "cross_v2_bwd")
+    layers, dim, rank = u.shape
+    batch = x0.shape[0]
+    if (g.shape != x0.shape or f.shape != (layers, batch, dim)
+            or xv.shape != (layers, batch, rank)):
+        raise ValueError(f"cross_v2_bwd: g must be [{batch}, {dim}], f [{layers}, {batch}, {dim}] "
+                         f"and xv [{layers}, {batch}, {rank}], got {tuple(g.shape)}, "
+                         f"{tuple(f.shape)} and {tuple(xv.shape)}")
+    if x0.device.type == "cpu":
+        return cross_v2_bwd_ref(x0, u, v, f, xv, g)
+    _check_device(x0, rank, "cross_v2_bwd")
+    # The kernels write dU, dV and db into one buffer; the results are views.
+    width = layers * dim * rank
+    grads = torch.zeros(2 * width + layers * dim, dtype=x0.dtype, device=x0.device)
+    split = (grads[:width].view(layers, dim, rank), grads[width:2 * width].view(layers, dim, rank),
+             grads[2 * width:].view(layers, dim))
+    if batch == 0 or layers == 0:  # nothing to launch
+        return (g.clone(), *split)
+    dx0 = torch.empty_like(x0)
+    chunks = min(_MAX_CHUNKS, -(-batch // _MIN_CHUNK_ROWS))
+    df = torch.empty_like(f)
+    t = torch.empty_like(xv)
+    partial = torch.empty((chunks, grads.numel()), dtype=x0.dtype, device=x0.device)
+    fn = _build.function("cross_v2", "tfrec_cross_v2_bwd", _BWD_ARGTYPES)
+    u4, vt4 = _layout(u, transpose=False), _layout(v, transpose=True)
+    with torch.cuda.device(x0.device):
+        rc = fn(x0.data_ptr(), u4.data_ptr(), vt4.data_ptr(), f.data_ptr(), xv.data_ptr(),
+                g.data_ptr(), dx0.data_ptr(), grads.data_ptr(), df.data_ptr(), t.data_ptr(),
+                partial.data_ptr(), batch, dim, rank, layers, chunks,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, "cross_v2_bwd")
+    cross_v2_bwd.launches += 1
+    return (dx0, *split)
+
+
+cross_v2_bwd.launches = 0  # kernel launches since the last reset
+
+
+class CrossV2(torch.autograd.Function):
+    """The low-rank v2 cross stack with its hand-written VJP: the forward
+    kernel saves f and xv, the backward kernels take them. On CPU tensors
+    both are the plain versions, so the CPU tests exercise the formula the
+    kernels implement."""
+
+    @staticmethod
+    def forward(ctx, x0, u, v, b):
+        out, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
+        ctx.save_for_backward(x0, u, v, f, xv)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x0, u, v, f, xv = ctx.saved_tensors
+        return cross_v2_bwd(x0, u, v, f, xv, g.contiguous())

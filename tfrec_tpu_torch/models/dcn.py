@@ -5,8 +5,9 @@ x_{l+1} = x0*f(x_l) + b + x_l beside a ReLU MLP, both over the concatenated
 field embeddings and dense features, then a linear head. v1 uses rank-one
 cross weights; v2 a full (cross_rank=0) or low-rank matrix. The cross stack
 runs through ``kernels/cross.py``, which launches the CUDA kernels for v1
-on a CUDA tensor (forward, and backward when training); the MLP and head
-are plain matmuls, differentiated by autograd.
+and v2 low-rank on a CUDA tensor (forward, and backward when training);
+v2 full-rank, the MLP and the head are plain matmuls, differentiated by
+autograd.
 """
 
 from __future__ import annotations

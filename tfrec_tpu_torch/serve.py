@@ -4,7 +4,8 @@
 on one device and serves ``predict_ctr(dense, cat)`` -> logits [N]: it
 copies the request to the device, gathers one row per field id through
 ``ops.embedding.gather`` (the CUDA gather kernel on a card), runs the
-model's forward (the CUDA cross-stack kernel for DCN-v1) and returns numpy.
+model's forward (the CUDA cross-stack kernel for DCN-v1 and low-rank
+DCN-v2) and returns numpy.
 ``predict``, ``score_catalog``, ``recommend``, ``from_checkpoint`` and
 quantized serving come in later slices.
 """

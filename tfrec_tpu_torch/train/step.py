@@ -9,8 +9,9 @@ One step, on the builder's device::
 As in the reference, autograd stops at the gathered rows: the tables are
 never differentiated, so no [V, D] gradient is ever written, and the sparse
 optimizer updates only the rows the batch touched. On a card the gather,
-the DCN-v1 cross stack (forward and backward) and the rowwise-Adagrad
-update are the hand-written CUDA kernels; the rest is plain PyTorch.
+the DCN cross stack (v1 or v2 low-rank, forward and backward) and the
+rowwise-Adagrad update are the hand-written CUDA kernels; the rest is plain
+PyTorch.
 
 State is a dict ``{"step": int, "tables", "dense", "sparse_opt",
 "dense_opt"}``. The step updates the tables and the sparse optimizer state
