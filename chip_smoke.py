@@ -32,8 +32,9 @@ non-zero if any phase fails:
 8. phases 4 and 6 again for the same model as low-rank DCN-v2
    (``model.name="dcnv2"``, ``cross_rank=64``: U and V [3, 845, 64]), whose
    cross stack runs the v2 kernels; then their times beside their bounds
-   and plain versions, predict_ctr's latency, the step's median and a
-   profile of one step.
+   and plain versions (the backward's bound counts its 3xTF32 products on
+   the tensor cores) and the backward's time by kernel, predict_ctr's
+   latency, the step's median and a profile of one step.
 
 The last lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
@@ -81,6 +82,7 @@ V2_RANK = 64  # the DCN-v2 phases' cross_rank
 # H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12  # dense, on the tensor cores
 # Reordered f32 row dots and products (the v2 kernels sum over d = 845, and
 # over 8192 rows for dU, dV and db, in another fixed order than cuBLAS): the
 # error scales with the size of the terms, not of the sum, so the absolute
@@ -191,6 +193,27 @@ def dispatch_ms(fn, calls: int, reps: int = 7) -> float:
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tensor_core_bound_ms(nbytes: float, tf32_ops: float, f32_ops: float) -> tuple[float, str]:
+    """The bound of a kernel whose products run on the tensor cores in TF32
+    and the rest on the CUDA cores in f32: the operations' times add."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = tf32_ops / TF32_OPS_PER_S + f32_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_times_us(fn) -> dict:
+    """Device time by kernel name over one call of ``fn`` (the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def edge_case_ids(rng, vocab: int, n: int) -> np.ndarray:
@@ -760,9 +783,12 @@ def step_times(builder, state, batches) -> None:
 
 
 def phase_v2_times(rec, requests, builder, state, batches, errs) -> list:
-    """Both v2 kernels at the v2 path's shapes beside their bounds (f32
-    operations at 67 TFLOP/s, or bytes at 3.35 TB/s) and plain versions;
-    predict_ctr's latency and the step's times for the v2 model."""
+    """Both v2 kernels at the v2 path's shapes beside their bounds (bytes at
+    3.35 TB/s, or operations: the forward's f32 at 67 TFLOP/s, the
+    backward's 3xTF32 products at 495 TFLOP/s plus its elementwise steps at
+    67) and plain versions; the backward's time by kernel (row pass, weight
+    pass, chunk sum); predict_ctr's latency and the step's times for the v2
+    model."""
     model = builder.model
     batch = {name: v[0] for name, v in batches.items()}
     gathered, _ = builder.lookup(state["tables"], model.lookup_ids(batch))
@@ -785,16 +811,24 @@ def phase_v2_times(rec, requests, builder, state, batches, errs) -> list:
         sets.append((x, f, xv, torch.randn_like(x)))
     b_ms = device_ms(lambda: [cross_v2_bwd(x, u, v, f, xv, g) for x, f, xv, g in sets], len(sets))
     b_plain = device_ms(lambda: [cross_v2_bwd_ref(x, u, v, f, xv, g) for x, f, xv, g in sets], len(sets))
-    # In: x0, g, f, xv, U, V; out: dx0, dU, dV, db. Per layer: 4 products
-    # and ~7 elementwise operations an element (df, db, g*f, dx0, g, x_l).
+    # In: x0, g, f, xv, U, V; out: dx0, dU, dV, db. Per layer: 4 products,
+    # each 3xTF32 on the tensor cores (three TF32 products for one f32
+    # product), and ~7 elementwise operations an element (df, db, g*f, dx0,
+    # g, x_l) on the CUDA cores.
     b_bytes = ((2 + layers) * bsz * dim + layers * bsz * rank + 2 * layers * dim * rank
                + bsz * dim + 2 * layers * dim * rank + layers * dim) * 4
-    b_bound, b_by = bound_ms(b_bytes, layers * (8 * bsz * dim * rank + 7 * bsz * dim))
+    b_bound, b_by = tensor_core_bound_ms(b_bytes, 3 * layers * 8 * bsz * dim * rank,
+                                         layers * 7 * bsz * dim)
+    x, f, xv, g = sets[0]
+    parts = kernel_times_us(lambda: cross_v2_bwd(x, u, v, f, xv, g))
     print(f"cross_v2_fwd [{bsz}, {dim}] r={rank} L={layers}: kernel {f_ms:.4f} ms (saving f and xv "
           f"for training {f_train_ms:.4f} ms), plain {f_plain:.4f} ms, bound {f_bound:.4f} ms ({f_by}) "
           f"[device time, CUDA graph]")
     print(f"cross_v2_bwd [{bsz}, {dim}] r={rank} L={layers}: kernel {b_ms:.4f} ms, plain {b_plain:.4f} ms, "
-          f"bound {b_bound:.4f} ms ({b_by}) [device time, CUDA graph]")
+          f"bound {b_bound:.4f} ms ({b_by}; 3xTF32 products at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s) "
+          f"[device time, CUDA graph]; one call by kernel (profiler): "
+          + ", ".join(f"{name} {parts[k]:.1f} us" for name in ("bwd_rows", "bwd_weights", "sum_chunks")
+                      for k in parts if name in k))
     del sets, x0s
 
     dense, cat = requests[0]

@@ -4,8 +4,10 @@ On CPU tensors ``cross_v2_fwd`` and ``cross_v2_bwd`` take their plain
 versions; these tests hold them against ``cross_stack_pallas_v2`` (run in
 interpret mode, as tests/test_kernels.py runs it), against
 ``cross_stack_xla`` and its JAX VJP, and against torch autograd, and pin
-the wrappers' input contract. The CUDA kernels are held against the plain
-versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+the wrappers' input contract, and check the arithmetic of the backward
+kernels' 3xTF32 products in an emulation. The CUDA kernels are held against
+the plain versions on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
 """
 
 import jax
@@ -137,7 +139,76 @@ def test_cross_v2_contract():
     assert torch.equal(cross_v2_fwd(x0, *empty), x0)
     out = CrossV2.apply(x0.clone().requires_grad_(), *empty)
     assert torch.equal(out, x0)
-    # The tile of the forward and the row pass at the flagship's shape:
-    # 16 rows of x0 and x (d = 845 padded to 848) and of xv (r = 64).
-    assert _smem_bytes(845, 64) == (2 * 16 * 848 + 16 * 64) * 4 <= 227 * 1024
+    # The larger of the forward's tile and the row pass's smaller one at the
+    # flagship's shape: the row pass's 16 rows of g (d = 845 padded to 848),
+    # of df (padded to 856 against bank conflicts) and of t (r = 64, to 72).
+    assert _smem_bytes(845, 64) == 16 * (848 + 856 + 72) * 4 <= 227 * 1024
     assert _smem_bytes(2048, 64) > 227 * 1024
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest, ties
+    away from zero, on the bit pattern."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the backward kernels compute it: each operand split into
+    TF32 hi = tf32(x) and lo = tf32(x - hi), and a_lo b_hi + a_hi b_lo +
+    a_hi b_hi summed in f32 (the products of two TF32 values are exact)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _tf32(a) @ _tf32(b)
+
+
+def _bwd_with(mm, x0, u, v, f, xv, g):
+    """cross_v2_bwd_ref with its four products a layer taken by ``mm``."""
+    layers = u.shape[0]
+    xs = [x0]
+    for l in range(layers - 1):
+        xs.append(x0 * f[l] + xs[-1])
+    dx0 = torch.zeros_like(x0)
+    du, dv = torch.empty_like(u), torch.empty_like(v)
+    db = x0.new_empty((layers, x0.shape[1]))
+    for l in range(layers - 1, -1, -1):
+        df = g * x0
+        db[l] = df.sum(dim=0)
+        du[l] = mm(df.T, xv[l])
+        t = mm(df, u[l])
+        dv[l] = mm(xs[l].T, t)
+        dx0 = dx0 + g * f[l]
+        g = g + mm(t, v[l].T)
+    return dx0 + g, du, dv, db
+
+
+def test_3xtf32_products_keep_the_f32_tolerance_and_tf32_alone_does_not():
+    """At the flagship's width (d=845, r=64, L=3) on 1024 rows, the backward
+    with every product taken as 3xTF32 stays within chip_smoke.py's
+    tolerance (rtol 1e-5, atol 1e-5 x max |ref|) of a float64 reference for
+    dx0, dU, dV and db; with plain TF32 (a_hi b_hi) it does not, which is
+    why the kernels split their operands."""
+    batch, dim, rank, layers = 1024, 845, 64, 3
+    rng = np.random.default_rng(50)
+    x0, g = (torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32)) for _ in range(2))
+    u, v = (torch.from_numpy((rng.normal(size=(layers, dim, rank)) * dim**-0.5).astype(np.float32))
+            for _ in range(2))
+    b = torch.from_numpy((0.1 * rng.normal(size=(layers, dim))).astype(np.float32))
+    _, f, xv = cross_v2_fwd_ref(x0, u, v, b, want_saved=True)
+    want = cross_v2_bwd_ref(*(t.double() for t in (x0, u, v, f, xv, g)))
+
+    def within(got, ref):
+        atol = 1e-5 * ref.abs().max().item()
+        return bool(((got.double() - ref).abs() <= atol + 1e-5 * ref.abs()).all())
+
+    split = _bwd_with(_mm_3xtf32, x0, u, v, f, xv, g)
+    assert all(within(a, e) for a, e in zip(split, want))
+    plain = _bwd_with(_mm_1xtf32, x0, u, v, f, xv, g)
+    missed = [name for name, a, e in zip(("dx0", "dU", "dV", "db"), plain, want) if not within(a, e)]
+    # db has no product of its own, but below the top layer its df = g * x0
+    # takes g from the products above.
+    assert missed == ["dx0", "dU", "dV", "db"]

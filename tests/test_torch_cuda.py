@@ -118,8 +118,11 @@ def _v2_inputs(device, batch, dim, rank, layers):
 
 
 # (batch, d, r, L): the flagship's shape on a ragged batch; odd small
-# shapes; a rank past one 64-wide tile of the weight pass; a batch of one.
-V2_SHAPES = [(1000, 845, 64, 3), (33, 13, 7, 1), (257, 140, 16, 2), (300, 1500, 130, 2), (1, 8, 3, 2)]
+# shapes; a rank past one 64-wide tile of the weight pass; a batch of one;
+# a ragged last k-step of the weight pass (4099 rows in chunks of 257) with
+# an r past one 64-wide tile, not a multiple of 16.
+V2_SHAPES = [(1000, 845, 64, 3), (33, 13, 7, 1), (257, 140, 16, 2), (300, 1500, 130, 2), (1, 8, 3, 2),
+             (4099, 200, 72, 3)]
 
 
 @pytest.mark.parametrize("batch,dim,rank,layers", V2_SHAPES)

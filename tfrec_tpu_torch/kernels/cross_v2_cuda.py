@@ -4,19 +4,23 @@ and its VJP.
 The counterpart of ``tfrec_tpu/kernels/cross_pallas.py``
 ``cross_stack_pallas_v2``: the forward (``_fwd_kernel_v2``) is
 ``cross_v2_fwd``, the backward (``_bwd_kernel_v2``) is ``cross_v2_bwd``;
-both kernels are in ``csrc/cross_v2.cu`` and run f32 on the CUDA cores (no
-TF32). The TPU wrapper pads d and r to 128 lanes; here the shapes are used
-as they are. Every product is summed in a fixed order, so the kernels agree
-with the plain versions up to the order of those sums and repeat bit for
-bit. For training the forward also returns what the backward needs, f
-[L, B, d] and xv = x_l V_l [L, B, r]: the backward then replays no product
-(it rebuilds x_l elementwise from x0 and f) and sums dU, dV and db over the
-batch in fixed-order chunks, with no atomics. The wrappers hand the
-kernels the weights zero padded to multiples of 4 (16-byte loads), and U
-(forward) or V (backward) also transposed, so that the product over r
-reads neighbouring addresses: one copy of [L, d, r] a call (650 KB at the
-flagship's shape). ``CrossV2`` is the ``torch.autograd.Function`` that
-joins the two.
+both kernels are in ``csrc/cross_v2.cu``. The forward runs f32 on the CUDA
+cores. The backward runs its four products a layer on the tensor cores as
+3xTF32 (``mma.sync`` TF32, each f32 operand split into a TF32 high part and
+a TF32 remainder, three products summed in f32), which keeps about f32
+accuracy. The TPU wrapper pads d and r to 128 lanes; here the shapes are
+used as they are. Every product is summed in a fixed order, so the kernels
+agree with the plain versions up to the order and rounding of those sums
+and repeat bit for bit. For training the forward also returns what the
+backward needs, f [L, B, d] and xv = x_l V_l [L, B, r]: the backward then
+replays no product (it rebuilds x_l elementwise from x0 and f) and sums dU,
+dV and db over the batch in fixed-order chunks, with no atomics. The
+forward's wrapper hands the kernel V zero padded to a multiple of 4 and U
+transposed and zero padded (16-byte loads, neighbouring threads on
+neighbouring addresses); the backward's hands it U and V^T in the order of
+the mma's B fragments (one 8-byte load a lane a k-step). Either is one
+small copy a call (650 KB at the flagship's shape). ``CrossV2`` is the
+``torch.autograd.Function`` that joins the two.
 """
 
 from __future__ import annotations
@@ -30,14 +34,18 @@ from tfrec_tpu_torch.kernels import _build
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
-# A block of the forward and of the backward's row pass holds 16 rows of two
-# [B, d] arrays and one [B, r] array in shared memory, rows padded to a
-# multiple of 4 floats (csrc/cross_v2.cu tile_smem_bytes); Hopper gives a
-# block at most 227 KB.
+# A block of the forward holds 16 rows of two [B, d] arrays and one [B, r]
+# array in shared memory, rows padded to a multiple of 4 floats
+# (csrc/cross_v2.cu tile_smem_bytes); a block of the backward's row pass
+# holds the same for 32 rows, or 16 where 32 do not fit, rows padded as
+# _frag_stride says (rows_smem_bytes). Hopper gives a block at most 227 KB.
 _TILE = 16
 _MAX_SMEM = 227 * 1024
 # The weight pass walks the batch in at most 16 chunks of at least 256 rows,
-# whose partial sums a second kernel adds in chunk order.
+# whose partial sums a second kernel adds in chunk order. Its rows arrive in
+# stages of 32 (fewer where many layers would not fit): two stages of df,
+# x0, xv, t and f_0..f_{L-2}, [rows, 72] floats each (csrc/cross_v2.cu
+# weights_smem_bytes).
 _MAX_CHUNKS = 16
 _MIN_CHUNK_ROWS = 256
 
@@ -46,8 +54,44 @@ def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _frag_stride(n: int) -> int:
+    """Row stride of the row pass's tiles (csrc/cross_v2.cu frag_stride)."""
+    n8 = _round8(n)
+    return n8 if n8 % 16 else n8 + 8
+
+
 def _smem_bytes(dim: int, rank: int) -> int:
-    return (2 * _TILE * _round4(dim) + _TILE * _round4(rank)) * 4
+    """Shared memory a block of the forward, or of the backward's row pass
+    at its smaller tile of 16 rows, takes, whichever is more."""
+    fwd = 2 * _TILE * _round4(dim) + _TILE * _round4(rank)
+    rows = _TILE * (_round8(dim) + _frag_stride(dim) + _frag_stride(rank))
+    return max(fwd, rows) * 4
+
+
+def _weights_rows(layers: int) -> int:
+    """Rows a stage of the weight pass (csrc/cross_v2.cu weights_rows): 32,
+    16 or 8, whichever is the most that fits; 0 if none does."""
+    for rows in (32, 16, 8):
+        if 2 * (3 + layers) * rows * 72 * 4 <= _MAX_SMEM:
+            return rows
+    return 0
+
+
+def _fragments(w: torch.Tensor) -> torch.Tensor:
+    """A stack of B operands [L, K, N] (B[k][n] = w[l, k, n]) as the
+    backward's kernels read them: zero padded to multiples of 8, in the
+    order of the m16n8k8 B fragments, [L, K8/8, N8/8, 32 lanes, 2]. Lane
+    4 gid + tid4 of k-step ks and n8 tile nt holds (B[8 ks + 2 tid4][8 nt +
+    gid], B[8 ks + 2 tid4 + 1][8 nt + gid]) (the kernels read the A
+    fragments' k in the same order)."""
+    layers, k, n = w.shape
+    k8, n8 = _round8(k), _round8(n)
+    w = F.pad(w, (0, n8 - n, 0, k8 - k)).view(layers, k8 // 8, 4, 2, n8 // 8, 8)
+    return w.permute(0, 1, 4, 5, 2, 3).reshape(layers, k8 // 8, n8 // 8, 32, 2)
 
 
 def _layout(w: torch.Tensor, transpose: bool) -> torch.Tensor:
@@ -196,6 +240,9 @@ def cross_v2_bwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, f: torch.Te
     if x0.device.type == "cpu":
         return cross_v2_bwd_ref(x0, u, v, f, xv, g)
     _check_device(x0, rank, "cross_v2_bwd")
+    if not _weights_rows(layers):
+        raise ValueError(f"cross_v2_bwd stages df, x0, xv, t and L - 1 layers of f in shared memory: "
+                         f"L={layers} needs more than 227 KB")
     # The kernels write dU, dV and db into one buffer; the results are views.
     width = layers * dim * rank
     grads = torch.zeros(2 * width + layers * dim, dtype=x0.dtype, device=x0.device)
@@ -205,13 +252,17 @@ def cross_v2_bwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, f: torch.Te
         return (g.clone(), *split)
     dx0 = torch.empty_like(x0)
     chunks = min(_MAX_CHUNKS, -(-batch // _MIN_CHUNK_ROWS))
-    df = torch.empty_like(f)
-    t = torch.empty_like(xv)
+    # The row pass writes df and t with rows padded to multiples of 8 for the
+    # weight pass's 16-byte copies, which also read xv 16 bytes at a time.
+    df = torch.empty((layers, batch, _round8(dim)), dtype=x0.dtype, device=x0.device)
+    t = torch.empty((layers, batch, _round8(rank)), dtype=x0.dtype, device=x0.device)
+    if xv.data_ptr() % 16:
+        xv = xv.clone()
     partial = torch.empty((chunks, grads.numel()), dtype=x0.dtype, device=x0.device)
     fn = _build.function("cross_v2", "tfrec_cross_v2_bwd", _BWD_ARGTYPES)
-    u4, vt4 = _layout(u, transpose=False), _layout(v, transpose=True)
+    ufrag, vtfrag = _fragments(u), _fragments(v.transpose(1, 2))
     with torch.cuda.device(x0.device):
-        rc = fn(x0.data_ptr(), u4.data_ptr(), vt4.data_ptr(), f.data_ptr(), xv.data_ptr(),
+        rc = fn(x0.data_ptr(), ufrag.data_ptr(), vtfrag.data_ptr(), f.data_ptr(), xv.data_ptr(),
                 g.data_ptr(), dx0.data_ptr(), grads.data_ptr(), df.data_ptr(), t.data_ptr(),
                 partial.data_ptr(), batch, dim, rank, layers, chunks,
                 torch.cuda.current_stream().cuda_stream)

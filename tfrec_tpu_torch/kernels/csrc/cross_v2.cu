@@ -22,12 +22,17 @@
 // _bwd_kernel_v2). The TPU wrapper pads d and r to 128 lanes (_v2_prep);
 // these kernels take the unpadded shapes.
 //
-// Bound: operations, in f32 on the CUDA cores. Each layer is two products
-// of 2*B*d*r operations in the forward and four in the backward (B=8192,
-// d=845, r=64, L=3: 5.38 GFLOP forward, 80 us at 67 TFLOP/s, against 56.7
-// MB of x0, x_L and weights, 17 us at 3.35 TB/s; 10.6 GFLOP backward,
-// 159 us). No tensor cores (no TF32, no mma): the plain version these are
-// held to runs f32 with TF32 off.
+// Bound: operations. Each layer is two products of 2*B*d*r operations in
+// the forward and four in the backward (B=8192, d=845, r=64, L=3: 5.38
+// GFLOP forward, 80 us at 67 TFLOP/s in f32 on the CUDA cores, against
+// 56.7 MB of x0, x_L and weights, 17 us at 3.35 TB/s; 10.6 GFLOP backward).
+// The forward runs f32 on the CUDA cores. The backward runs its products on
+// the tensor cores (mma.sync m16n8k8 TF32) as 3xTF32: each f32 operand is
+// split into a TF32 high part and a TF32 remainder, and a*b is summed as
+// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in f32, which keeps about f32 accuracy
+// (the plain version these are held to runs f32 with TF32 off). Its bound
+// is 3 x 10.6 G TF32 operations at 495 TFLOP/s, 64.4 us, plus its
+// elementwise steps, 2.2 us at 67 TFLOP/s: 66.6 us (159 us in f32).
 //
 // Forward design (cross_v2_fwd_kernel). A block of 256 threads holds a tile
 // of 16 rows of x0 and of the running x in shared memory across all L
@@ -52,19 +57,36 @@
 // layer, 5.3 GFLOP in all. x_l is rebuilt elementwise from x0 and f exactly
 // as the forward rounded it. Three kernels:
 // - cross_v2_bwd_rows_kernel: the per-row chain (df, t, dx0, g), a tile of
-//   16 rows a block with g and df in shared memory, as the forward (t = df
-//   U_l from U padded, g += t V_l^T from V transposed and padded); it
-//   writes df [L, B, d] and t [L, B, r] for the weight pass, and keeps dx0
-//   in its output, each element read and written by one thread. The
-//   elementwise steps of a layer (dx0, and the next layer's df) run in the
-//   epilogue of g += t V^T, by the thread that owns the column.
+//   32 rows a block of 512 threads (two m16 tiles of the mma; 16 rows and
+//   256 threads, two blocks an SM, where 32 rows of a wide d do not fit)
+//   with g, df and t in shared memory (222 KB at d=845). The weights come
+//   from L2 as B fragments (the wrapper lays U and V^T out in fragment
+//   order: one 8-byte load a lane a k-step, read 8 k-steps ahead), and
+//   each feeds both m16 tiles, so a row reads half the weight bytes that a
+//   16-row tile would. t = df U_l: a warp owns an n8 tile of r and half of
+//   d (the two halves added in order). g += t V_l^T: a warp owns the n8
+//   tiles w, w+16, ... of d. The elementwise steps of a layer (g, dx0 += g
+//   * f_l, the next layer's df = g * x0) run in that product's epilogue on
+//   the elements a thread's accumulators hold (rows gid and gid+8 of each
+//   m16 tile, columns 2 tid4 and 2 tid4 + 1), so each element belongs to
+//   one thread in every layer; their loads of f, x0 and dx0 are issued a
+//   tile ahead. It writes df [L, B, d8] and t [L, B, r8] (rows padded to
+//   multiples of 8 with zeros) for the weight pass.
 // - cross_v2_bwd_weights_kernel: dU, dV and db, sums over the batch. A
 //   [2, L, d, r] partial a row block would take 1.3 MB a block, so instead a
-//   block owns a 64 x 64 tile of one layer's [d, r] outputs and walks a
-//   fixed chunk of the batch in row order (32 rows staged in shared memory
-//   at a time); a thread keeps 16 sums of dU and 16 of dV in registers.
+//   block owns a 64 (j of d) x 64 (k of r) tile of one layer's outputs and
+//   walks a fixed chunk of the batch in row order: dU = df^T xv and dV =
+//   x_l^T t as mma with M = j, N = k and the batch rows as K. Eight warps,
+//   each two m16 tiles x four n8 tiles of one of the two outputs. Rows are
+//   staged in shared memory with cp.async, 32 at a time, two stages in
+//   flight, so that the next stage loads while this one's mma run; x_l is
+//   rebuilt in place from the staged x0 and f_0..f_{l-1} once a stage,
+//   rounded as the forward rounded it. db is a CUDA-core sum: four partial
+//   sums a column, each over a quarter of every stage's rows in row order,
+//   added in order at the end.
 // - sum_chunks_kernel: adds the chunks' partials in chunk order.
-// No atomics anywhere, so the gradients repeat bit for bit.
+// Each output takes its k-steps in one fixed order, with no atomics, so the
+// gradients repeat bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,17 +94,20 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 16;  // rows a block of the forward and the row pass holds
+constexpr int kTile = 16;  // rows a block of the forward holds
 constexpr int kRows = 8;  // rows of a thread's block of outputs in the products
 // tile_times_w: kSplit lanes share each block of outputs, summing every
 // kSplit-th group of 4 j; 16 groups of 4 k cover 64 k.
 constexpr int kSplit = kThreads / 16 / (kTile / kRows);
 static_assert(kSplit >= 1 && kSplit <= 32 && (kSplit & (kSplit - 1)) == 0, "kSplit lanes of a warp");
 constexpr int kWThreads = 256;  // weight pass: threads a block
+constexpr int kAhead = 4;  // row pass: k-steps a weight fragment is read ahead
+constexpr int kLoad = 8;  // row pass: elements a thread loads at once
 constexpr int kWTile = 64;  // weight pass: a 64 (j of d) x 64 (k of r) tile
-constexpr int kWRows = 32;  // weight pass: rows staged at a time
-constexpr int kWk = kWTile / (kWThreads / kWTile);  // k a thread sums: 16
-constexpr int kStage = kWRows * kWTile / kWThreads;  // rows a thread stages: 8
+// Weight pass: row stride of a staged [rows][64] tile. 72 = 8 mod 32, so the
+// fragment reads (row tid4, column gid) hit 32 distinct banks.
+constexpr int kWStride = kWTile + 8;
+constexpr int kWMaxRows = 32;  // weight pass: rows a stage, at most
 constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's most on Hopper
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -268,65 +293,359 @@ cross_v2_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ v4,
   }
 }
 
-// Dynamic shared memory: g and df [kTile][d4], t [kTile][r4].
-__global__ void __launch_bounds__(kThreads, 2)
-cross_v2_bwd_rows_kernel(const float* __restrict__ x0, const float* __restrict__ u4,
-                         const float* __restrict__ vt4, const float* __restrict__ f,
+// ---- The backward: 3xTF32 products on the tensor cores ----
+
+__host__ __device__ inline int round8(int n) { return (n + 7) & ~7; }
+
+// Row stride of the row pass's df and t tiles: n rounded up to 8, and 8
+// more where that is a multiple of 16, so that the stride is 8 or 24 mod 32
+// and the A fragments' 8-byte reads (rows gid, columns 2 tid4) hit 32
+// distinct banks in each half warp.
+__host__ __device__ inline int frag_stride(int n) {
+  const int n8 = round8(n);
+  return n8 % 16 ? n8 : n8 + 8;
+}
+
+// Shared memory of a row-pass block of m m16 tiles.
+size_t rows_smem_bytes(int d, int r, int m) {
+  return (size_t)16 * m * (round8(d) + frag_stride(d) + frag_stride(r)) * sizeof(float);
+}
+
+// Shared memory of the weight pass: two stages of df, x0, xv, t and
+// f_0..f_{L-2}, each [rows][kWStride].
+size_t weights_smem_bytes(int layers, int rows) {
+  return (size_t)2 * (3 + layers) * rows * kWStride * sizeof(float);
+}
+
+// Rows a stage of the weight pass: 32, or fewer where many layers' f would
+// not fit; 0 where not even 8 fit.
+int weights_rows(int layers) {
+  for (int rows = kWMaxRows; rows >= 8; rows /= 2) {
+    if (weights_smem_bytes(layers, rows) <= kMaxSmem) return rows;
+  }
+  return 0;
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero), as a 32-bit pattern whose low 13 bits are zero. It is
+// computed on the bit pattern with an integer add and an and: with cvt.rna
+// the weight pass took 410 us against 353 us (tools/ab_cross_v2.py).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi and lo TF32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// c += a b for a 16 x 8 (row) by 8 x 8 (col) product in TF32, f32 sums.
+// Fragments (gid = lane / 4, tid4 = lane % 4): a = A[gid][tid4],
+// A[gid+8][tid4], A[gid][tid4+4], A[gid+8][tid4+4]; b = B[tid4][gid],
+// B[tid4+4][gid]; c = C[gid][2 tid4], C[gid][2 tid4+1], C[gid+8][2 tid4],
+// C[gid+8][2 tid4+1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b as 3xTF32: the tensor cores sum a_lo b_hi, then a_hi b_lo, then
+// a_hi b_hi (small terms first) into a fresh accumulator, which is then
+// added to c on the CUDA cores, rounded to nearest. The tensor cores' own
+// f32 sums do not round to nearest: letting the mma add every k-step into
+// c left errors ten times those of f32 (dU 2.2e-3 at max |ref| 438 over
+// 512-row chunks, against 2.3e-4), so c is only ever added to with
+// __fadd_rn. b holds B's two elements as (b0 hi, b1 hi, b0 lo, b1 lo).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint4& b) {
+  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(p, alo, b.x, b.y);
+  mma_tf32(p, ahi, b.z, b.w);
+  mma_tf32(p, ahi, b.x, b.y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] = __fadd_rn(c[i], p[i]);
+}
+
+__device__ __forceinline__ uint4 split2(float b0, float b1) {
+  uint4 b;
+  split(b0, b.x, b.z);
+  split(b1, b.y, b.w);
+  return b;
+}
+
+// The A fragment of a k-step from a [16][stride] tile in shared memory.
+// Within a k-step the k order is free as long as A and B agree, so logical
+// k = tid4 and tid4 + 4 are read from columns 2 tid4 and 2 tid4 + 1 (one
+// 8-byte load a row); the B fragments in the wrapper's layout follow the
+// same order.
+__device__ __forceinline__ void a_frag(const float* s, int stride, int k0, int gid, int tid4,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 top = *reinterpret_cast<const float2*>(s + gid * stride + k0 + 2 * tid4);
+  const float2 bot = *reinterpret_cast<const float2*>(s + (gid + 8) * stride + k0 + 2 * tid4);
+  split(top.x, hi[0], lo[0]);
+  split(bot.x, hi[1], lo[1]);
+  split(top.y, hi[2], lo[2]);
+  split(bot.y, hi[3], lo[3]);
+}
+
+// acc[mi] += A_mi B over the k-steps [ks0, ks1): A_mi the mi-th m16 tile of
+// rows of s (row stride `stride`), B's fragment of k-step ks at w + ks *
+// step (a float2 a lane), read kAhead k-steps ahead of its use. The k-steps
+// go in groups of kAhead with no branch inside a group, so that the
+// compiler can overlap one k-step's loads and splits with another's mma;
+// the ring's loads past ks1 - 1 reread that k-step and go unused.
+template <int kM>
+__device__ __forceinline__ void tile_times_frags(const float* s, int stride, const float2* w,
+                                                 int64_t step, int ks0, int ks1, int gid,
+                                                 int tid4, float (&acc)[kM][4]) {
+  if (ks1 <= ks0) return;
+  auto one_step = [&](int ks, float2 b) {
+    const uint4 bs = split2(b.x, b.y);
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi) {
+      uint32_t ahi[4], alo[4];
+      a_frag(s + mi * 16 * stride, stride, ks * 8, gid, tid4, ahi, alo);
+      mma_3xtf32(acc[mi], ahi, alo, bs);
+    }
+  };
+  float2 ring[kAhead];
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) ring[i] = __ldg(w + min(ks0 + i, ks1 - 1) * step);
+  int ks = ks0;
+  for (; ks + kAhead <= ks1; ks += kAhead) {
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      const float2 b = ring[i];
+      ring[i] = __ldg(w + min(ks + kAhead + i, ks1 - 1) * step);
+      one_step(ks + i, b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) {
+    if (ks + i < ks1) one_step(ks + i, ring[i]);
+  }
+}
+
+// A block of kM * 256 threads holds kM m16 tiles of rows (kM * 16 rows).
+// Dynamic shared memory: g [16 kM][round8(d)], df [16 kM][frag_stride(d)]
+// and t [16 kM][frag_stride(r)]. ufrag and vtfrag: U_l [d, r] and V_l^T
+// [r, d] as B operands in fragment order, [L][k-steps][n8 tiles][32 lanes]
+// of (b0, b1), zero padded to multiples of 8.
+template <int kM>
+__global__ void __launch_bounds__(256 * kM, 2 / kM)
+cross_v2_bwd_rows_kernel(const float* __restrict__ x0, const float2* __restrict__ ufrag,
+                         const float2* __restrict__ vtfrag, const float* __restrict__ f,
                          const float* __restrict__ g_in, float* __restrict__ dx0,
                          float* __restrict__ df_out, float* __restrict__ t_out,
                          int64_t batch, int d, int r, int layers) {
+  constexpr int kRTile = 16 * kM;
+  constexpr int kRWarps = 8 * kM;
   extern __shared__ float4 smem4[];
+  const int d8 = round8(d);
+  const int r8 = round8(r);
+  const int sd = frag_stride(d);
+  const int sr = frag_stride(r);
   float* sg = reinterpret_cast<float*>(smem4);
-  const int d4 = round4(d);
-  const int r4 = round4(r);
-  float* sdf = sg + kTile * d4;
-  float* st = sdf + kTile * d4;
-  const int64_t row0 = (int64_t)blockIdx.x * kTile;
+  float* sdf = sg + kRTile * d8;
+  float* st = sdf + kRTile * sd;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int gid = lane / 4;
+  const int tid4 = lane % 4;
+  const int64_t row0 = (int64_t)blockIdx.x * kRTile;
   const int64_t bd = batch * d;
-  // g = dL/dx_L, and the top layer's df = g * x0.
-  for (int e = threadIdx.x; e < kTile * d4; e += blockDim.x) {
-    const int t = e / d4;
-    const int j = e % d4;
-    const int64_t at = (row0 + t) * d + j;
-    const bool in = j < d && row0 + t < batch;
-    const float gv = in ? g_in[at] : 0.0f;
-    const float df = in ? __fmul_rn(gv, x0[at]) : 0.0f;
-    sg[e] = gv;
-    sdf[e] = df;
-    if (in) df_out[(layers - 1) * bd + at] = df;
+  const int64_t bd8 = batch * d8;
+  // g = dL/dx_L, and the top layer's df = g * x0 (zero past d and past the
+  // batch). A thread issues the loads of kLoad elements before it uses any.
+  for (int e0 = threadIdx.x; e0 < kRTile * d8; e0 += kLoad * blockDim.x) {
+    float gv[kLoad], xv0[kLoad];
+#pragma unroll
+    for (int i = 0; i < kLoad; ++i) {
+      const int e = e0 + i * blockDim.x;
+      const int t = e / d8;
+      const int j = e % d8;
+      const int64_t at = (row0 + t) * d + j;
+      const bool in = e < kRTile * d8 && j < d && row0 + t < batch;
+      gv[i] = in ? __ldg(g_in + at) : 0.0f;
+      xv0[i] = in ? __ldg(x0 + at) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kLoad; ++i) {
+      const int e = e0 + i * blockDim.x;
+      const int t = e / d8;
+      const int j = e % d8;
+      if (e >= kRTile * d8) break;
+      const float df = __fmul_rn(gv[i], xv0[i]);
+      sg[e] = gv[i];
+      sdf[t * sd + j] = df;
+      if (row0 + t < batch) df_out[(layers - 1) * bd8 + (row0 + t) * d8 + j] = df;
+    }
   }
   __syncthreads();
+  const int ksd = d8 / 8;  // k-steps over d, and n8 tiles of d
+  const int ksr = r8 / 8;  // k-steps over r, and n8 tiles of r
+  // t = df U_l: a warp takes an n8 tile of r for all kM m16 tiles of rows,
+  // so that each weight fragment it loads feeds kM products. Where there are
+  // at least twice as many warps as tiles, two warps share a tile, one
+  // summing the first half of d and one the second; the halves are then
+  // added in that order.
+  const bool halves = 2 * ksr <= kRWarps;
   for (int l = layers - 1; l >= 0; --l) {
-    tile_times_w(sdf, d4, u4 + (int64_t)l * d * r4, d, r4, st);  // t = df U_l
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTile * r; e += blockDim.x) {
-      const int t = e / r;
-      if (row0 + t < batch) {
-        t_out[((int64_t)l * batch + row0 + t) * r + e % r] = st[t * r4 + e % r];
+    const float2* ul = ufrag + (int64_t)l * ksd * ksr * 32 + lane;
+    auto product = [&](int nt, int ks0, int ks1, float (&acc)[kM][4]) {
+      tile_times_frags<kM>(sdf, sd, ul + nt * 32, (int64_t)ksr * 32, ks0, ks1, gid, tid4, acc);
+    };
+    // Element q of m16 tile mi of n8 tile nt: row mi * 16 + gid + 8 (q / 2),
+    // column nt * 8 + 2 tid4 + q % 2.
+    auto store_t = [&](int nt, const float (&acc)[kM][4], bool out) {
+      float* tl = t_out + ((int64_t)l * batch + row0) * r8 + nt * 8 + 2 * tid4;
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = mi * 16 + gid + 8 * h;
+          const float2 v = make_float2(acc[mi][2 * h], acc[mi][2 * h + 1]);
+          *reinterpret_cast<float2*>(st + t * sr + nt * 8 + 2 * tid4) = v;
+          if (out && row0 + t < batch) *reinterpret_cast<float2*>(tl + t * r8) = v;
+        }
+      }
+    };
+    if (halves) {
+      float acc[kM][4] = {};
+      const int nt = warp % ksr;
+      const int part = warp / ksr;  // 0, 1, or idle
+      if (part < 2) product(nt, part ? ksd / 2 : 0, part ? ksd : ksd / 2, acc);
+      if (part == 1) store_t(nt, acc, false);
+      __syncthreads();
+      if (part == 0) {
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int t = mi * 16 + gid + 8 * (q / 2);
+            acc[mi][q] = __fadd_rn(acc[mi][q], st[t * sr + nt * 8 + 2 * tid4 + q % 2]);
+          }
+        }
+        store_t(nt, acc, true);
+      }
+    } else {
+      for (int nt = warp; nt < ksr; nt += kRWarps) {
+        float acc[kM][4] = {};
+        product(nt, 0, ksd, acc);
+        store_t(nt, acc, true);
       }
     }
-    // g += t V_l^T; then, for the same element, the layer's elementwise
-    // steps: dx0 += g * f_l (and dx0 += g after layer 0), and the next
-    // layer's df = g * x0. Element (t, j) belongs to the same thread in
-    // every layer, so its read of dx0 follows its own write.
-    tile_times_wt(st, r4, vt4 + (int64_t)l * r4 * d4, d4, d, [&](int t, int j, float acc) {
-      if (row0 + t >= batch) return;
-      const int64_t at = (row0 + t) * d + j;
-      const float g_old = sg[t * d4 + j];
-      const float g_new = __fadd_rn(g_old, acc);
-      sg[t * d4 + j] = g_new;
-      const float gf = __fmul_rn(g_old, f[l * bd + at]);
-      const float dx = l == layers - 1 ? gf : __fadd_rn(dx0[at], gf);
-      if (l > 0) {
-        const float df = __fmul_rn(g_new, x0[at]);
-        sdf[t * d4 + j] = df;
-        df_out[(l - 1) * bd + at] = df;
-        dx0[at] = dx;
-      } else {
-        dx0[at] = __fadd_rn(dx, g_new);
-      }
-    });
     __syncthreads();
+    // g += t V_l^T, [16 kM, r8] x [r8, d8]: a warp takes the n8 tiles w,
+    // w + 8 kM, ... of d, each for all kM m16 tiles of rows; then, for each element of
+    // the accumulators, the layer's elementwise steps: dx0 += g * f_l (and
+    // dx0 += g after layer 0), and the next layer's df = g * x0.
+    const float2* vl = vtfrag + (int64_t)l * ksr * ksd * 32 + lane;
+    const float* fl = f + l * bd;
+    // The epilogue's loads of f, x0 and dx0 do not wait on the product: a
+    // warp issues those of its next tile before the product of this one.
+    auto load_epilogue = [&](int nt, float (&fv)[kM][4], float (&xv0)[kM][4], float (&dxv)[kM][4]) {
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int64_t row = row0 + mi * 16 + gid + 8 * (q / 2);
+          const int j = nt * 8 + 2 * tid4 + q % 2;
+          const bool in = j < d && row < batch;
+          const int64_t at = row * d + j;
+          fv[mi][q] = in ? __ldg(fl + at) : 0.0f;
+          xv0[mi][q] = in && l > 0 ? __ldg(x0 + at) : 0.0f;
+          dxv[mi][q] = in && l < layers - 1 ? dx0[at] : 0.0f;
+        }
+      }
+    };
+    float fv[kM][4], xv0[kM][4], dxv[kM][4];
+    load_epilogue(warp, fv, xv0, dxv);
+    for (int nt = warp; nt < ksd; nt += kRWarps) {
+      float next_f[kM][4], next_x0[kM][4], next_dx[kM][4];
+      load_epilogue(nt + kRWarps, next_f, next_x0, next_dx);
+      float acc[kM][4] = {};
+      tile_times_frags<kM>(st, sr, vl + nt * 32, (int64_t)ksd * 32, 0, ksr, gid, tid4, acc);
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = mi * 16 + gid + 8 * (q / 2);
+          const int64_t row = row0 + t;
+          const int j = nt * 8 + 2 * tid4 + q % 2;
+          if (row >= batch) continue;
+          float* dfl = l > 0 ? df_out + (l - 1) * bd8 + row * d8 + j : nullptr;
+          if (j >= d) {  // padding: df stays 0 for the weight pass
+            if (l > 0) *dfl = 0.0f;
+            continue;
+          }
+          const int64_t at = row * d + j;
+          const float g_old = sg[t * d8 + j];
+          const float g_new = __fadd_rn(g_old, acc[mi][q]);
+          sg[t * d8 + j] = g_new;
+          const float gf = __fmul_rn(g_old, fv[mi][q]);
+          const float dx = l == layers - 1 ? gf : __fadd_rn(dxv[mi][q], gf);
+          if (l > 0) {
+            const float df = __fmul_rn(g_new, xv0[mi][q]);
+            sdf[t * sd + j] = df;
+            *dfl = df;
+            dx0[at] = dx;
+          } else {
+            dx0[at] = __fadd_rn(dx, g_new);
+          }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          fv[mi][q] = next_f[mi][q];
+          xv0[mi][q] = next_x0[mi][q];
+          dxv[mi][q] = next_dx[mi][q];
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// Stage rows [base, base + rows) x columns [c0, c0 + 64) of src (row
+// stride ld) into dst [rows][kWStride] with cp.async, zero filled past row
+// `last` and column `cols`. Vec: 16-byte copies (ld, c0 and cols multiples
+// of 4, src 16-byte aligned); else 4-byte copies.
+template <bool Vec>
+__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int64_t ld,
+                                           int64_t base, int64_t last, int c0, int cols,
+                                           int rows) {
+  constexpr int kPer = Vec ? 4 : 1;
+  constexpr int kAcross = kWTile / kPer;
+  for (int e = threadIdx.x; e < rows * kAcross; e += kWThreads) {
+    const int rr = e / kAcross;
+    const int c = e % kAcross * kPer;
+    const int64_t row = base + rr;
+    const bool ok = row < last && c0 + c < cols;
+    const float* from = ok ? src + row * ld + c0 + c : src;
+    if (Vec) {
+      cp_async16(dst + rr * kWStride + c, from, ok);
+    } else {
+      cp_async4(dst + rr * kWStride + c, from, ok);
+    }
   }
 }
 
@@ -334,107 +653,145 @@ cross_v2_bwd_rows_kernel(const float* __restrict__ x0, const float* __restrict__
 // for the first k tile, its 64 columns of db_l) over rows
 // [chunk * rows_per_chunk, +rows_per_chunk) in row order, and writes them
 // into partial[chunk], laid out as the output [dU (L*d*r), dV (L*d*r), db
-// (L*d)].
-__global__ void __launch_bounds__(kWThreads)
+// (L*d)]. df [L, B, d8] and t [L, B, r8] are the row pass's, padded. A
+// stage holds `rows` rows: 32, or 16 or 8 where many layers' f would not fit.
+template <int rows>
+__global__ void __launch_bounds__(kWThreads, 2)
 cross_v2_bwd_weights_kernel(const float* __restrict__ x0, const float* __restrict__ f,
                             const float* __restrict__ xv, const float* __restrict__ df,
                             const float* __restrict__ tv, float* __restrict__ partial,
                             int64_t batch, int d, int r, int layers,
                             int64_t rows_per_chunk) {
-  __shared__ __align__(16) float sdf[kWRows][kWTile];
-  __shared__ __align__(16) float sx[kWRows][kWTile];
-  __shared__ __align__(16) float sxv[kWRows][kWTile];
-  __shared__ __align__(16) float st[kWRows][kWTile];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int d8 = round8(d);
+  const int r8 = round8(r);
   const int jtiles = (d + kWTile - 1) / kWTile;
   const int j0 = (blockIdx.x % jtiles) * kWTile;
   const int k0 = (blockIdx.x / jtiles) * kWTile;
-  const int64_t l = blockIdx.y;
+  const int l = blockIdx.y;
   const int64_t first = (int64_t)blockIdx.z * rows_per_chunk;
   const int64_t last = first + rows_per_chunk < batch ? first + rows_per_chunk : batch;
-  const int jj = threadIdx.x % kWTile;
-  const int kb = (threadIdx.x / kWTile) * kWk;
-  const int j = j0 + jj;  // the column this thread stages (and owns in dU, dV)
-  const int k = k0 + jj;  // the k this thread stages
-  const bool jvalid = j < d;
-  const bool kvalid = k < r;
-  float au[kWk];
-  float av[kWk];
+  const int tile = rows * kWStride;
+  const int per_stage = (3 + layers) * tile;  // df, x0, xv, t, f_0..f_{L-2}
+  const float* dfl = df + (int64_t)l * batch * d8;
+  const float* xvl = xv + (int64_t)l * batch * r;
+  const float* tl = tv + (int64_t)l * batch * r8;
+  auto issue = [&](int buf, int64_t base) {
+    float* s = smem + buf * per_stage;
+    stage_tile<true>(s, dfl, d8, base, last, j0, d8, rows);
+    stage_tile<false>(s + tile, x0, d, base, last, j0, d, rows);
+    if (r % 4 == 0) {
+      stage_tile<true>(s + 2 * tile, xvl, r, base, last, k0, r, rows);
+    } else {
+      stage_tile<false>(s + 2 * tile, xvl, r, base, last, k0, r, rows);
+    }
+    stage_tile<true>(s + 3 * tile, tl, r8, base, last, k0, r8, rows);
+    for (int m = 0; m < l; ++m) {
+      stage_tile<false>(s + (4 + m) * tile, f + (int64_t)m * batch * d, d, base, last, j0, d, rows);
+    }
+    asm volatile("cp.async.commit_group;");
+  };
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int gid = lane / 4;
+  const int tid4 = lane % 4;
+  const int out = warp / 4;  // 0: dU = df^T xv, 1: dV = x_l^T t
+  const int mrow = (warp / 2) % 2 * 32;  // the warp's two m16 tiles of j
+  const int ncol = warp % 2 * 32;  // and its four n8 tiles of k
+  float acc[2][4][4];
 #pragma unroll
-  for (int q = 0; q < kWk; ++q) {
-    au[q] = 0.0f;
-    av[q] = 0.0f;
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][n][c] = 0.0f;
+    }
   }
   float adb = 0.0f;
-  for (int64_t base = first; base < last; base += kWRows) {
-    // Stage 32 rows: a thread stages column jj (j of df and x_l, k of xv
-    // and t) of rows base + threadIdx.x / 64 + 4 i, i < kStage, issuing all
-    // its loads before it uses any, so a stage waits for device memory
-    // 1 + l times rather than once an element.
-    float a[kStage], xl[kStage], dfv[kStage], xvv[kStage], tt[kStage];
-    const int rr0 = threadIdx.x / kWTile;
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int64_t row = base + rr0 + i * (kWThreads / kWTile);
-      const bool in_j = row < last && jvalid;
-      const bool in_k = row < last && kvalid;
-      a[i] = in_j ? x0[row * d + j] : 0.0f;
-      dfv[i] = in_j ? df[(l * batch + row) * d + j] : 0.0f;
-      xvv[i] = in_k ? xv[(l * batch + row) * r + k] : 0.0f;
-      tt[i] = in_k ? tv[(l * batch + row) * r + k] : 0.0f;
-      xl[i] = a[i];
-    }
-    for (int m = 0; m < l; ++m) {  // x_l, rebuilt as the forward rounded it
-      float fm[kStage];
-#pragma unroll
-      for (int i = 0; i < kStage; ++i) {
-        const int64_t row = base + rr0 + i * (kWThreads / kWTile);
-        fm[i] = row < last && jvalid ? f[(m * batch + row) * d + j] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kStage; ++i) xl[i] = __fadd_rn(__fmul_rn(a[i], fm[i]), xl[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int rr = rr0 + i * (kWThreads / kWTile);
-      sdf[rr][jj] = dfv[i];
-      sx[rr][jj] = xl[i];
-      sxv[rr][jj] = xvv[i];
-      st[rr][jj] = tt[i];
+  const int64_t stages = last > first ? (last - first + rows - 1) / rows : 0;
+  if (stages > 0) issue(0, first);
+  for (int64_t s = 0; s < stages; ++s) {
+    if (s + 1 < stages) {
+      issue((int)((s + 1) & 1), first + (s + 1) * rows);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
     }
     __syncthreads();
-    const int n = last - base < kWRows ? (int)(last - base) : kWRows;
-    for (int rr = 0; rr < n; ++rr) {
-      const float dv = sdf[rr][jj];
-      const float xr = sx[rr][jj];
-      adb += dv;
+    if (l > 0) {  // x0 -> x_l in place, as the forward rounded it
+      float* bx = smem + (s & 1) * per_stage + tile;
+      const float* bf = bx + 3 * tile;
+      for (int e = threadIdx.x; e < rows * kWTile; e += kWThreads) {
+        const int at = e / kWTile * kWStride + e % kWTile;
+        const float a = bx[at];
+        float x = a;
+        for (int m = 0; m < l; ++m) x = __fadd_rn(__fmul_rn(a, bf[m * tile + at]), x);
+        bx[at] = x;
+      }
+      __syncthreads();
+    }
+    const float* sdf = smem + (s & 1) * per_stage;
+    const float* sxl = sdf + tile;
+    const float* sxv = sdf + 2 * tile;
+    const float* st = sdf + 3 * tile;
+    // Not unrolled: unrolled, the loop spills and takes 360 us against 335
+    // (tools/ab_cross_v2.py).
+#pragma unroll 1
+    for (int k8 = 0; k8 < rows; k8 += 8) {
+      // A element q of m16 tile mi: (j = mrow + 16 mi + gid + 8 (q % 2),
+      // row = k8 + tid4 + 4 (q / 2)); B: (row k8 + tid4 (+4), k = ncol +
+      // 8 n + gid).
+      const float* sa = out ? sxl : sdf;
+      const float* sb = out ? st : sxv;
+      uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-      for (int q = 0; q < kWk; q += 4) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&sxv[rr][kb + q]);
-        const float4 t4 = *reinterpret_cast<const float4*>(&st[rr][kb + q]);
-        au[q] = fmaf(dv, a4.x, au[q]);
-        au[q + 1] = fmaf(dv, a4.y, au[q + 1]);
-        au[q + 2] = fmaf(dv, a4.z, au[q + 2]);
-        au[q + 3] = fmaf(dv, a4.w, au[q + 3]);
-        av[q] = fmaf(xr, t4.x, av[q]);
-        av[q + 1] = fmaf(xr, t4.y, av[q + 1]);
-        av[q + 2] = fmaf(xr, t4.z, av[q + 2]);
-        av[q + 3] = fmaf(xr, t4.w, av[q + 3]);
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          split(sa[(k8 + tid4 + 4 * (q / 2)) * kWStride + mrow + 16 * mi + gid + 8 * (q % 2)],
+                ahi[mi][q], alo[mi][q]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int at = (k8 + tid4) * kWStride + ncol + n * 8 + gid;
+        const uint4 bs = split2(sb[at], sb[at + 4 * kWStride]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_3xtf32(acc[mi][n], ahi[mi], alo[mi], bs);
       }
     }
+    if (k0 == 0) {  // thread c + 64 q sums rows [q rows/4, (q+1) rows/4) of column c
+      const int quarter = rows / 4;
+      const int rr0 = threadIdx.x / kWTile * quarter;
+      for (int rr = rr0; rr < rr0 + quarter; ++rr) adb += sdf[rr * kWStride + threadIdx.x % kWTile];
+    }
     __syncthreads();
+  }
+  if (k0 == 0) {  // db = the four quarters' sums, added in order
+    smem[threadIdx.x] = adb;
+    __syncthreads();
+    if (threadIdx.x < kWTile) {
+      adb = smem[threadIdx.x];
+      for (int q = 1; q < kWThreads / kWTile; ++q) adb += smem[q * kWTile + threadIdx.x];
+    }
   }
   const int64_t width = (int64_t)layers * d * r;
   float* p = partial + (int64_t)blockIdx.z * (2 * width + (int64_t)layers * d);
-  if (jvalid) {
 #pragma unroll
-    for (int q = 0; q < kWk; ++q) {
-      const int kq = k0 + kb + q;
-      if (kq < r) {
-        p[(l * d + j) * r + kq] = au[q];
-        p[width + (l * d + j) * r + kq] = av[q];
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = j0 + mrow + 16 * mi + gid + 8 * (c / 2);
+        const int k = k0 + ncol + 8 * n + 2 * tid4 + c % 2;
+        if (j < d && k < r) p[out * width + ((int64_t)l * d + j) * r + k] = acc[mi][n][c];
       }
     }
-    if (k0 == 0 && kb == 0) p[2 * width + l * d + j] = adb;
+  }
+  if (k0 == 0 && threadIdx.x < kWTile && j0 + (int)threadIdx.x < d) {
+    p[2 * width + (int64_t)l * d + j0 + threadIdx.x] = adb;
   }
 }
 
@@ -484,33 +841,44 @@ extern "C" int tfrec_cross_v2_fwd(const void* x0, const void* v4, const void* ut
   return static_cast<int>(cudaGetLastError());
 }
 
-// x0 and g [batch, d], U zero padded to u4 [layers, d, r4], V transposed
-// and zero padded to vt4 [layers, r4, d4], f [layers, batch, d] and xv
-// [layers, batch, r] (from the forward); writes dx0 [batch, d] and grads
+// x0 and g [batch, d], U and V^T as B fragments (ufrag [layers, d8/8,
+// r8/8, 32, 2] and vtfrag [layers, r8/8, d8/8, 32, 2], d8 and r8: d and r
+// rounded up to 8; see cross_v2_bwd_rows_kernel), f [layers, batch, d] and
+// xv [layers, batch, r] (from the forward); writes dx0 [batch, d] and grads
 // [dU (layers*d*r), dV (layers*d*r), db (layers*d)]; uses df [layers,
-// batch, d], t [layers, batch, r] and partial [chunks, grads] as scratch;
+// batch, d8], t [layers, batch, r8] and partial [chunks, grads] as scratch;
 // all f32, contiguous, 16-byte aligned, on the current device; runs on
 // `stream` (three launches). Returns the first launch error, or
 // cudaErrorInvalidValue for d, r, layers, batch or chunks < 1, or shared
 // memory beyond 227 KB.
-extern "C" int tfrec_cross_v2_bwd(const void* x0, const void* u4, const void* vt4,
+extern "C" int tfrec_cross_v2_bwd(const void* x0, const void* ufrag, const void* vtfrag,
                                   const void* f, const void* xv, const void* g,
                                   void* dx0, void* grads, void* df, void* t,
                                   void* partial, long long batch, long long d,
                                   long long r, long long layers, long long chunks,
                                   void* stream) {
-  const size_t smem = tile_smem_bytes((int)d, (int)r);
-  if (d < 1 || r < 1 || layers < 1 || batch < 1 || chunks < 1 || chunks > 65535 ||
-      smem > kMaxSmem) {
+  if (d < 1 || r < 1 || layers < 1 || batch < 1 || chunks < 1 || chunks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // The row pass holds 32 rows a block where they fit in shared memory, else 16.
+  const int m = rows_smem_bytes((int)d, (int)r, 2) <= kMaxSmem ? 2 : 1;
+  const size_t smem = rows_smem_bytes((int)d, (int)r, m);
+  const int rows = weights_rows((int)layers);
+  if (smem > kMaxSmem || rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t wsmem = weights_smem_bytes((int)layers, rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = set_smem((const void*)cross_v2_bwd_rows_kernel, smem);
+  auto rows_kernel = m == 2 ? cross_v2_bwd_rows_kernel<2> : cross_v2_bwd_rows_kernel<1>;
+  int err = set_smem((const void*)rows_kernel, smem);
   if (err != 0) return err;
-  const int64_t blocks = (batch + kTile - 1) / kTile;
-  cross_v2_bwd_rows_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(x0), static_cast<const float*>(u4),
-      static_cast<const float*>(vt4), static_cast<const float*>(f),
+  auto weights_kernel = rows == 32   ? cross_v2_bwd_weights_kernel<32>
+                        : rows == 16 ? cross_v2_bwd_weights_kernel<16>
+                                     : cross_v2_bwd_weights_kernel<8>;
+  err = set_smem((const void*)weights_kernel, wsmem);
+  if (err != 0) return err;
+  const int64_t blocks = (batch + 16 * m - 1) / (16 * m);
+  rows_kernel<<<(unsigned)blocks, 256 * m, smem, s>>>(
+      static_cast<const float*>(x0), static_cast<const float2*>(ufrag),
+      static_cast<const float2*>(vtfrag), static_cast<const float*>(f),
       static_cast<const float*>(g), static_cast<float*>(dx0), static_cast<float*>(df),
       static_cast<float*>(t), batch, (int)d, (int)r, (int)layers);
   err = static_cast<int>(cudaGetLastError());
@@ -518,7 +886,7 @@ extern "C" int tfrec_cross_v2_bwd(const void* x0, const void* u4, const void* vt
   const int64_t rows_per_chunk = (batch + chunks - 1) / chunks;
   const int tiles = (int)(((d + kWTile - 1) / kWTile) * ((r + kWTile - 1) / kWTile));
   const dim3 grid((unsigned)tiles, (unsigned)layers, (unsigned)chunks);
-  cross_v2_bwd_weights_kernel<<<grid, kWThreads, 0, s>>>(
+  weights_kernel<<<grid, kWThreads, wsmem, s>>>(
       static_cast<const float*>(x0), static_cast<const float*>(f),
       static_cast<const float*>(xv), static_cast<const float*>(df),
       static_cast<const float*>(t), static_cast<float*>(partial), batch, (int)d, (int)r,
