@@ -10,7 +10,11 @@ non-zero if any phase fails:
    one process per source, all started together;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at edge cases, and each repeating bit for bit; the
-   duplicate-id combine repeating bit for bit and matching the CPU;
+   duplicate-id combine repeating bit for bit and matching the CPU; then
+   the cross kernels at widths past the flagship's (v1 at d=2093, v2 at
+   d=1885 and 3341, r=64; B=8192, L=3), each through its kernels (launch
+   counters), against its plain version, bit for bit on repeat, with its
+   device time beside its bound;
 4. serving: ``dcn_criteo`` at Criteo's shape (26 fields of 100 000 rows,
    d=32, 13 dense features, 3 cross layers, MLP 512/256/128) from a seeded
    generator, batches of 8192 through ``Recommender.predict_ctr``; the
@@ -32,8 +36,8 @@ non-zero if any phase fails:
 8. phases 4 and 6 again for the same model as low-rank DCN-v2
    (``model.name="dcnv2"``, ``cross_rank=64``: U and V [3, 845, 64]), whose
    cross stack runs the v2 kernels; then their times beside their bounds
-   and plain versions (the backward's bound counts its 3xTF32 products on
-   the tensor cores) and the backward's time by kernel, predict_ctr's
+   and plain versions (both bounds count their 3xTF32 products on the
+   tensor cores) and the backward's time by kernel, predict_ctr's
    latency, the step's median and a profile of one step.
 
 The last lines are the kernels' JSON record and ``{"ok": true, ...}``.
@@ -203,6 +207,36 @@ def tensor_core_bound_ms(nbytes: float, tf32_ops: float, f32_ops: float) -> tupl
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def v1_fwd_bound(bsz: int, dim: int, layers: int) -> tuple[float, str]:
+    """x0 read, x_L written, w and b; a row dot and 3 elementwise steps."""
+    return bound_ms(bsz * dim * 4 * 2 + 2 * layers * dim * 4, 5 * layers * bsz * dim)
+
+
+def v1_bwd_bound(bsz: int, dim: int, layers: int) -> tuple[float, str]:
+    """x0 and g read, dx0 written, s, w and b read, dw and db written."""
+    return bound_ms(3 * bsz * dim * 4 + bsz * layers * 4 + 4 * layers * dim * 4, 12 * layers * bsz * dim)
+
+
+def v2_fwd_bound(bsz: int, dim: int, rank: int, layers: int, saved: bool) -> tuple[float, str]:
+    """x0 read, x_L written, U, V and b read (and, when training, f and xv
+    written); per layer two products, each 3xTF32 on the tensor cores
+    (three TF32 products for one f32 product), and 3 elementwise operations
+    an element (f + b, x0 * f, + x) on the CUDA cores."""
+    nbytes = (2 * bsz * dim + 2 * layers * dim * rank + layers * dim) * 4
+    if saved:
+        nbytes += layers * (bsz * dim + bsz * rank) * 4
+    return tensor_core_bound_ms(nbytes, 3 * layers * 4 * bsz * dim * rank, layers * 3 * bsz * dim)
+
+
+def v2_bwd_bound(bsz: int, dim: int, rank: int, layers: int) -> tuple[float, str]:
+    """In: x0, g, f, xv, U, V; out: dx0, dU, dV, db. Per layer: 4 products,
+    each 3xTF32 on the tensor cores, and ~7 elementwise operations an
+    element (df, db, g*f, dx0, g, x_l) on the CUDA cores."""
+    nbytes = ((2 + layers) * bsz * dim + layers * bsz * rank + 2 * layers * dim * rank
+              + bsz * dim + 2 * layers * dim * rank + layers * dim) * 4
+    return tensor_core_bound_ms(nbytes, 3 * layers * 8 * bsz * dim * rank, layers * 7 * bsz * dim)
+
+
 def kernel_times_us(fn) -> dict:
     """Device time by kernel name over one call of ``fn`` (the profiler)."""
     from torch.autograd import DeviceType
@@ -361,6 +395,78 @@ def check_cross_v1_bwd(rng, dim: int, layers: int) -> float:
     return worst
 
 
+def counted(wrapper, fn):
+    """fn()'s result, checking that it launched ``wrapper``'s kernel once."""
+    before = wrapper.launches
+    out = fn()
+    check(wrapper.launches == before + 1, f"{wrapper.__name__} launched its kernel")
+    return out
+
+
+def phase_wide() -> None:
+    """The cross kernels past the flagship's width, where the reference's
+    ``cross_stack`` still computes: ``dcn_criteo`` with embed_dim 80 as
+    DCN-v1 (d = 26 * 80 + 13 = 2093), and as low-rank DCN-v2 (r=64) with
+    embed_dim 72 and 128 (d = 1885 and 3341). Each kernel runs on the card
+    (its launch counter moves), is held to its plain version at the same
+    tolerances as at the flagship's width and repeats bit for bit; its
+    device time is printed beside its bound and its plain version's."""
+    layers = 3
+    rng = np.random.default_rng(SEED + 1)  # its own, so the main paths' inputs do not depend on it
+
+    def normal(shape, scale):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(DEVICE)
+
+    def hold(name, got, want, again):
+        for part, a, e, r in zip(name.split(","), got, want, again):
+            print(f"  {part}: max_abs_err {max_err(a, e):.3e} (max |ref| {e.abs().max().item():.3e}), "
+                  f"bitwise on repeat {torch.equal(a, r)}")
+            check(within(a, e, RTOL, ATOL_REL), f"wide {part} within tolerance")
+            check(torch.equal(a, r), f"wide {part} repeats bit for bit")
+
+    dim = 26 * 80 + 13
+    x0, g = normal((BATCH, dim), 1.0), normal((BATCH, dim), 1.0)
+    w, b = normal((layers, dim), dim**-0.5), normal((layers, dim), 0.1)
+    print(f"wide: cross_v1 B={BATCH} d={dim} L={layers}")
+    out, s = counted(cross_v1_fwd, lambda: cross_v1_fwd(x0, w, b, want_s=True))
+    want, s_ref = cross_v1_fwd_ref(x0, w, b, want_s=True)
+    hold("x_L,s", (out, s), (want, s_ref), cross_v1_fwd(x0, w, b, want_s=True))
+    grads = counted(cross_v1_bwd, lambda: cross_v1_bwd(x0, w, b, s, g))
+    hold("dx0,dw,db", grads, cross_v1_bwd_ref(x0, w, b, g, s), cross_v1_bwd(x0, w, b, s, g))
+    f_ms = device_ms(lambda: cross_v1_fwd(x0, w, b), 1)
+    f_plain = device_ms(lambda: cross_v1_fwd_ref(x0, w, b), 1)
+    b_ms = device_ms(lambda: cross_v1_bwd(x0, w, b, s, g), 1)
+    b_plain = device_ms(lambda: cross_v1_bwd_ref(x0, w, b, g, s), 1)
+    (fb, fby), (bb, bby) = v1_fwd_bound(BATCH, dim, layers), v1_bwd_bound(BATCH, dim, layers)
+    print(f"  cross_v1_fwd {f_ms:.4f} ms (bound {fb:.4f} ms, {fby}; plain {f_plain:.4f} ms), "
+          f"cross_v1_bwd {b_ms:.4f} ms (bound {bb:.4f} ms, {bby}; plain {b_plain:.4f} ms) "
+          f"[device time, CUDA graph]")
+    for dim in (26 * 72 + 13, 26 * 128 + 13):
+        x0, g = normal((BATCH, dim), 1.0), normal((BATCH, dim), 1.0)
+        u, v = normal((layers, dim, V2_RANK), dim**-0.5), normal((layers, dim, V2_RANK), dim**-0.5)
+        b = normal((layers, dim), 0.1)
+        print(f"wide: cross_v2 B={BATCH} d={dim} r={V2_RANK} L={layers}")
+        saved = counted(cross_v2_fwd, lambda: cross_v2_fwd(x0, u, v, b, want_saved=True))
+        want = cross_v2_fwd_ref(x0, u, v, b, want_saved=True)
+        hold("x_L,f,xv", saved, want, cross_v2_fwd(x0, u, v, b, want_saved=True))
+        check(torch.equal(cross_v2_fwd(x0, u, v, b), saved[0]), "wide: serving x_L equals training's")
+        _, f, xv = saved
+        grads = counted(cross_v2_bwd, lambda: cross_v2_bwd(x0, u, v, f, xv, g))
+        hold("dx0,du,dv,db", grads, cross_v2_bwd_ref(x0, u, v, f, xv, g), cross_v2_bwd(x0, u, v, f, xv, g))
+        f_ms = device_ms(lambda: cross_v2_fwd(x0, u, v, b), 1)
+        ft_ms = device_ms(lambda: cross_v2_fwd(x0, u, v, b, want_saved=True), 1)
+        b_ms = device_ms(lambda: cross_v2_bwd(x0, u, v, f, xv, g), 1)
+        f_plain = device_ms(lambda: cross_v2_fwd_ref(x0, u, v, b), 1)
+        ft_plain = device_ms(lambda: cross_v2_fwd_ref(x0, u, v, b, want_saved=True), 1)
+        b_plain = device_ms(lambda: cross_v2_bwd_ref(x0, u, v, f, xv, g), 1)
+        (fb, fby), (ftb, ftby) = (v2_fwd_bound(BATCH, dim, V2_RANK, layers, saved=t) for t in (False, True))
+        bb, bby = v2_bwd_bound(BATCH, dim, V2_RANK, layers)
+        print(f"  cross_v2_fwd {f_ms:.4f} ms (bound {fb:.4f} ms, {fby}; plain {f_plain:.4f} ms), "
+              f"saving f and xv {ft_ms:.4f} ms (bound {ftb:.4f} ms, {ftby}; plain {ft_plain:.4f} ms), "
+              f"cross_v2_bwd {b_ms:.4f} ms (bound {bb:.4f} ms, {bby}; plain {b_plain:.4f} ms) "
+              f"[device time, CUDA graph]")
+
+
 def adagrad_ids(rng, vocab: int, n: int) -> np.ndarray:
     """Zipf(1.2) ids, as the training data has them (many duplicates), kept
     off rows 0 and vocab-1, where a clamped negative or sentinel id would
@@ -512,7 +618,7 @@ def phase_times(model, rec, requests, errs) -> list:
     c_plain = device_ms(lambda: [cross_v1_fwd_ref(x, w, b) for x in x0s], len(x0s))
     bsz, dim = x0s[0].shape
     layers = w.shape[0]
-    c_bound, c_by = bound_ms(bsz * dim * 4 * 2 + 2 * layers * dim * 4, 5 * layers * bsz * dim)
+    c_bound, c_by = v1_fwd_bound(bsz, dim, layers)
 
     lat = []
     for _ in range(11):
@@ -724,8 +830,7 @@ def phase_train_times(builder, state, batches, errs) -> list:
     cb_plain = device_ms(lambda: [cross_v1_bwd_ref(x, w, b, g, s) for x, s, g in sets], len(sets))
     bsz, dim = x0.shape
     layers = w.shape[0]
-    cb_bound, cb_by = bound_ms(3 * bsz * dim * 4 + bsz * layers * 4 + 4 * layers * dim * 4,
-                               12 * layers * bsz * dim)
+    cb_bound, cb_by = v1_bwd_bound(bsz, dim, layers)
 
     # fused_rowwise_adagrad on the step's combined gradients, one launch a
     # field (26 tables of 12.8 MB: L2 is cold). The plain version syncs on
@@ -784,11 +889,10 @@ def step_times(builder, state, batches) -> None:
 
 def phase_v2_times(rec, requests, builder, state, batches, errs) -> list:
     """Both v2 kernels at the v2 path's shapes beside their bounds (bytes at
-    3.35 TB/s, or operations: the forward's f32 at 67 TFLOP/s, the
-    backward's 3xTF32 products at 495 TFLOP/s plus its elementwise steps at
-    67) and plain versions; the backward's time by kernel (row pass, weight
-    pass, chunk sum); predict_ctr's latency and the step's times for the v2
-    model."""
+    3.35 TB/s, or operations: their 3xTF32 products at 495 TFLOP/s plus
+    their elementwise steps at 67) and plain versions; the backward's time
+    by kernel (row pass, weight pass, chunk sum); predict_ctr's latency and
+    the step's times for the v2 model."""
     model = builder.model
     batch = {name: v[0] for name, v in batches.items()}
     gathered, _ = builder.lookup(state["tables"], model.lookup_ids(batch))
@@ -803,27 +907,21 @@ def phase_v2_times(rec, requests, builder, state, batches, errs) -> list:
     f_ms = device_ms(lambda: [cross_v2_fwd(x, u, v, b) for x in x0s], len(x0s))
     f_train_ms = device_ms(lambda: [cross_v2_fwd(x, u, v, b, want_saved=True) for x in x0s], len(x0s))
     f_plain = device_ms(lambda: [cross_v2_fwd_ref(x, u, v, b) for x in x0s], len(x0s))
-    f_bound, f_by = bound_ms((2 * bsz * dim + 2 * layers * dim * rank + layers * dim) * 4,
-                             layers * (4 * bsz * dim * rank + 3 * bsz * dim))
+    f_bound, f_by = v2_fwd_bound(bsz, dim, rank, layers, saved=False)
+    f_train_bound, f_train_by = v2_fwd_bound(bsz, dim, rank, layers, saved=True)
     sets = []
     for x in x0s:
         _, f, xv = cross_v2_fwd(x, u, v, b, want_saved=True)
         sets.append((x, f, xv, torch.randn_like(x)))
     b_ms = device_ms(lambda: [cross_v2_bwd(x, u, v, f, xv, g) for x, f, xv, g in sets], len(sets))
     b_plain = device_ms(lambda: [cross_v2_bwd_ref(x, u, v, f, xv, g) for x, f, xv, g in sets], len(sets))
-    # In: x0, g, f, xv, U, V; out: dx0, dU, dV, db. Per layer: 4 products,
-    # each 3xTF32 on the tensor cores (three TF32 products for one f32
-    # product), and ~7 elementwise operations an element (df, db, g*f, dx0,
-    # g, x_l) on the CUDA cores.
-    b_bytes = ((2 + layers) * bsz * dim + layers * bsz * rank + 2 * layers * dim * rank
-               + bsz * dim + 2 * layers * dim * rank + layers * dim) * 4
-    b_bound, b_by = tensor_core_bound_ms(b_bytes, 3 * layers * 8 * bsz * dim * rank,
-                                         layers * 7 * bsz * dim)
+    b_bound, b_by = v2_bwd_bound(bsz, dim, rank, layers)
     x, f, xv, g = sets[0]
     parts = kernel_times_us(lambda: cross_v2_bwd(x, u, v, f, xv, g))
     print(f"cross_v2_fwd [{bsz}, {dim}] r={rank} L={layers}: kernel {f_ms:.4f} ms (saving f and xv "
-          f"for training {f_train_ms:.4f} ms), plain {f_plain:.4f} ms, bound {f_bound:.4f} ms ({f_by}) "
-          f"[device time, CUDA graph]")
+          f"for training {f_train_ms:.4f} ms), plain {f_plain:.4f} ms, bound {f_bound:.4f} ms ({f_by}; "
+          f"3xTF32 products at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s; saving f and xv {f_train_bound:.4f} ms, "
+          f"{f_train_by}) [device time, CUDA graph]")
     print(f"cross_v2_bwd [{bsz}, {dim}] r={rank} L={layers}: kernel {b_ms:.4f} ms, plain {b_plain:.4f} ms, "
           f"bound {b_bound:.4f} ms ({b_by}; 3xTF32 products at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s) "
           f"[device time, CUDA graph]; one call by kernel (profiler): "
@@ -859,6 +957,7 @@ def main() -> int:
     phase_environment()
     phase_build()
     errs = phase_kernels(rng)
+    phase_wide()
     cfgs = configs()
     paths = {}
     model, rec, requests, paths["serve_v1"] = phase_main_path(rng, cfgs["v1"])

@@ -3,9 +3,9 @@
 On CPU tensors ``cross_v2_fwd`` and ``cross_v2_bwd`` take their plain
 versions; these tests hold them against ``cross_stack_pallas_v2`` (run in
 interpret mode, as tests/test_kernels.py runs it), against
-``cross_stack_xla`` and its JAX VJP, and against torch autograd, and pin
-the wrappers' input contract, and check the arithmetic of the backward
-kernels' 3xTF32 products in an emulation. The CUDA kernels are held against
+``cross_stack_xla`` and its JAX VJP, and against torch autograd, pin the
+wrappers' input contract and their width limits, and check the arithmetic
+of the kernels' 3xTF32 products, forward and backward, in an emulation. The CUDA kernels are held against
 the plain versions on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
@@ -139,11 +139,36 @@ def test_cross_v2_contract():
     assert torch.equal(cross_v2_fwd(x0, *empty), x0)
     out = CrossV2.apply(x0.clone().requires_grad_(), *empty)
     assert torch.equal(out, x0)
-    # The larger of the forward's tile and the row pass's smaller one at the
-    # flagship's shape: the row pass's 16 rows of g (d = 845 padded to 848),
-    # of df (padded to 856 against bank conflicts) and of t (r = 64, to 72).
-    assert _smem_bytes(845, 64) == 16 * (848 + 856 + 72) * 4 <= 227 * 1024
-    assert _smem_bytes(2048, 64) > 227 * 1024
+    # The least shared memory a block of either kernel takes, at the
+    # flagship's shape: 16 rows of the forward's x and xv, or of the row
+    # pass's df and t (d = 845 padded to 856 against bank conflicts, r = 64
+    # to 72).
+    assert _smem_bytes(845, 64) == 16 * (856 + 72) * 4 <= 227 * 1024
+
+
+# dcn_criteo's widths as low-rank v2 (r=64) at embed_dim 32, 72 and 128
+# (d = 26 e + 13), and the first width past the limit.
+@pytest.mark.parametrize("dim", [845, 1776, 1885, 3341, 3560, 3561])
+def test_cross_v2_takes_wide_inputs_up_to_its_shared_memory_limit(dim):
+    """Both wrappers take d up to 3560 at r=64, where 16 rows of the
+    products' [B, d] and [B, r] operands fill 227 KB, and refuse d = 3561
+    by naming the limit; a meta tensor, past the limit, reaches the device
+    check instead."""
+    x0 = torch.empty((4, dim), device="meta")
+    u = torch.empty((1, dim, 64), device="meta")
+    b = torch.empty((1, dim), device="meta")
+    f, xv = torch.empty((1, 4, dim), device="meta"), torch.empty((1, 4, 64), device="meta")
+    calls = (lambda: cross_v2_fwd(x0, u, u, b), lambda: cross_v2_bwd(x0, u, u, f, xv, x0))
+    if dim > 3560:
+        assert _smem_bytes(dim, 64) > 227 * 1024
+        for call in calls:
+            with pytest.raises(ValueError, match="more than 227 KB"):
+                call()
+    else:
+        assert _smem_bytes(dim, 64) <= 227 * 1024
+        for call in calls:
+            with pytest.raises(NotImplementedError, match="cuda or cpu"):
+                call()
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -164,6 +189,46 @@ def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _tf32(a) @ _tf32(b)
+
+
+def _fwd_with(mm, x0, u, v, b):
+    """cross_v2_fwd_ref(..., want_saved=True) with its two products a layer
+    taken by ``mm``."""
+    x, fs, xvs = x0, [], []
+    for l in range(u.shape[0]):
+        xv = mm(x, v[l])
+        f = mm(xv, u[l].T) + b[l]
+        fs.append(f)
+        xvs.append(xv)
+        x = x0 * f + x
+    return x, torch.stack(fs), torch.stack(xvs)
+
+
+def _within(got, ref):
+    """chip_smoke.py's tolerance, against a float64 reference."""
+    atol = 1e-5 * ref.abs().max().item()
+    return bool(((got.double() - ref).abs() <= atol + 1e-5 * ref.abs()).all())
+
+
+def test_3xtf32_forward_keeps_the_f32_tolerance_and_tf32_alone_does_not():
+    """At the flagship's width (d=845, r=64, L=3) on 1024 rows, the forward
+    with both products a layer taken as 3xTF32, as the forward kernel takes
+    them, stays within chip_smoke.py's tolerance (rtol 1e-5, atol 1e-5 x
+    max |ref|) of a float64 reference for x_L, f and xv; with plain TF32
+    (a_hi b_hi) all three miss it, which is why the kernel splits its
+    operands."""
+    batch, dim, rank, layers = 1024, 845, 64, 3
+    rng = np.random.default_rng(60)
+    x0 = torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32))
+    u, v = (torch.from_numpy((rng.normal(size=(layers, dim, rank)) * dim**-0.5).astype(np.float32))
+            for _ in range(2))
+    b = torch.from_numpy((0.1 * rng.normal(size=(layers, dim))).astype(np.float32))
+    want = cross_v2_fwd_ref(*(t.double() for t in (x0, u, v, b)), want_saved=True)
+    split = _fwd_with(_mm_3xtf32, x0, u, v, b)
+    assert all(_within(a, e) for a, e in zip(split, want))
+    plain = _fwd_with(_mm_1xtf32, x0, u, v, b)
+    missed = [name for name, a, e in zip(("x_L", "f", "xv"), plain, want) if not _within(a, e)]
+    assert missed == ["x_L", "f", "xv"]
 
 
 def _bwd_with(mm, x0, u, v, f, xv, g):
@@ -200,15 +265,10 @@ def test_3xtf32_products_keep_the_f32_tolerance_and_tf32_alone_does_not():
     b = torch.from_numpy((0.1 * rng.normal(size=(layers, dim))).astype(np.float32))
     _, f, xv = cross_v2_fwd_ref(x0, u, v, b, want_saved=True)
     want = cross_v2_bwd_ref(*(t.double() for t in (x0, u, v, f, xv, g)))
-
-    def within(got, ref):
-        atol = 1e-5 * ref.abs().max().item()
-        return bool(((got.double() - ref).abs() <= atol + 1e-5 * ref.abs()).all())
-
     split = _bwd_with(_mm_3xtf32, x0, u, v, f, xv, g)
-    assert all(within(a, e) for a, e in zip(split, want))
+    assert all(_within(a, e) for a, e in zip(split, want))
     plain = _bwd_with(_mm_1xtf32, x0, u, v, f, xv, g)
-    missed = [name for name, a, e in zip(("dx0", "dU", "dV", "db"), plain, want) if not within(a, e)]
+    missed = [name for name, a, e in zip(("dx0", "dU", "dV", "db"), plain, want) if not _within(a, e)]
     # db has no product of its own, but below the top layer its df = g * x0
     # takes g from the products above.
     assert missed == ["dx0", "dU", "dV", "db"]

@@ -63,7 +63,10 @@ def test_gather_rows_is_bitwise_the_plain_version(device, dim):
         assert torch.equal(gather_rows(shifted, ids), gather_rows_ref(table, ids))
 
 
-@pytest.mark.parametrize("batch,dim,layers", [(1000, 845, 3), (33, 31, 2), (257, 2048, 1)])
+# d = 2093 (dcn_criteo at embed_dim 80) and 4109 (past 4096: 32 elements a
+# thread of 256) are wider than the flagship's 845.
+@pytest.mark.parametrize("batch,dim,layers", [(1000, 845, 3), (33, 31, 2), (257, 2048, 1), (300, 2093, 3),
+                                              (70, 4109, 2)])
 def test_cross_v1_fwd_matches_the_plain_version(device, batch, dim, layers):
     rng = np.random.default_rng(batch)
     x0 = torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32)).to(device)
@@ -83,9 +86,11 @@ def _close(got, want, tol=1e-5):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol * max(want.abs().max().item(), 1e-30))
 
 
-@pytest.mark.parametrize("batch,dim,layers", [(1000, 845, 3), (33, 31, 2), (257, 2048, 1), (70, 2048, 6)])
+@pytest.mark.parametrize("batch,dim,layers", [(1000, 845, 3), (33, 31, 2), (257, 2048, 1), (70, 2048, 6),
+                                              (300, 2093, 3), (70, 4109, 2)])
 def test_cross_v1_bwd_matches_the_plain_version(device, batch, dim, layers):
-    """(70, 2048, 6) needs 96 KB of shared memory: the opt-in above 48 KB."""
+    """(70, 2048, 6) needs 96 KB of shared memory: the opt-in above 48 KB;
+    d = 2093 and 4109 keep 16 and 32 elements a thread."""
     rng = np.random.default_rng(batch + dim)
     x0, g = (torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32)).to(device)
              for _ in range(2))
@@ -120,9 +125,11 @@ def _v2_inputs(device, batch, dim, rank, layers):
 # (batch, d, r, L): the flagship's shape on a ragged batch; odd small
 # shapes; a rank past one 64-wide tile of the weight pass; a batch of one;
 # a ragged last k-step of the weight pass (4099 rows in chunks of 257) with
-# an r past one 64-wide tile, not a multiple of 16.
+# an r past one 64-wide tile, not a multiple of 16; dcn_criteo's widths at
+# embed_dim 72 and 128 (d = 1885, 3341), where the forward holds 16 rows a
+# block and the row pass keeps g in device memory.
 V2_SHAPES = [(1000, 845, 64, 3), (33, 13, 7, 1), (257, 140, 16, 2), (300, 1500, 130, 2), (1, 8, 3, 2),
-             (4099, 200, 72, 3)]
+             (4099, 200, 72, 3), (300, 1885, 64, 2), (64, 3341, 64, 3)]
 
 
 @pytest.mark.parametrize("batch,dim,rank,layers", V2_SHAPES)
@@ -164,9 +171,23 @@ def test_cross_v2_bwd_matches_the_plain_version(device, batch, dim, rank, layers
 
 
 def test_cross_v2_refuses_more_shared_memory_than_a_block_gets(device):
-    x0, u, v, b = _v2_inputs(device, 4, 2048, 64, 1)
+    """d = 3561 at r=64 is the first width whose 16 rows of x and xv (or df
+    and t) pass 227 KB."""
+    x0, u, v, b = _v2_inputs(device, 4, 3561, 64, 1)
     with pytest.raises(ValueError, match="227 KB"):
         cross_v2_fwd(x0, u, v, b)
+    f, xv = x0[None].clone(), x0[None, :, :64].clone()
+    with pytest.raises(ValueError, match="227 KB"):
+        cross_v2_bwd(x0, u, v, f, xv, x0)
+
+
+def test_cross_v1_refuses_rows_wider_than_its_registers(device):
+    x0 = torch.zeros((4, 8193), device=device)
+    w = torch.zeros((1, 8193), device=device)
+    with pytest.raises(ValueError, match="d <= 8192"):
+        cross_v1_fwd(x0, w, w)
+    with pytest.raises(ValueError, match="d <= 8192"):
+        cross_v1_bwd(x0, w, w, torch.zeros((4, 1), device=device), x0)
 
 
 @pytest.mark.parametrize("dim", [1, 8, 32, 100])

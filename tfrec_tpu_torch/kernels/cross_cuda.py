@@ -4,9 +4,10 @@ The counterpart of ``tfrec_tpu/kernels/cross_pallas.py``
 ``cross_stack_pallas``: the forward (``_fwd_kernel``) is ``cross_v1_fwd``,
 the backward (``_bwd_kernel``) is ``cross_v1_bwd``; both kernels are in
 ``csrc/cross.cu``. The forward keeps a row of x0 and of the running x in
-registers across all layers and reduces each row dot in f32 in a fixed
-order, so it agrees with the plain version up to the order of that sum
-(about 1e-6 relative at d=845) and repeats bit for bit. For training it
+the registers of a block of 256 threads across all layers and reduces each
+row dot in f32 in a fixed order, so it agrees with the plain version up to
+the order of that sum (about 1e-6 relative at d=845) and repeats bit for
+bit. For training it
 also returns the per-row scalars ``s[:, l] = x_l . w_l`` [B, L], from which
 the backward rebuilds every x_l elementwise; the backward sums dw and db
 over the batch from per-block partials in a fixed order (no atomics), so it
@@ -22,7 +23,9 @@ import torch
 
 from tfrec_tpu_torch.kernels import _build
 
-MAX_DIM = 2048  # forward: 64 register chunks of 32 lanes; backward: 8 of 256
+# Rows live in registers: a block of 256 threads a row takes 32 elements a
+# thread in the forward and in the backward.
+MAX_DIM = 8192
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 # Backward grid: at most 4 blocks of 256 threads an SM (132 SMs), each at
@@ -50,11 +53,11 @@ def _check_weights(x0, w, b) -> None:
 
 
 def _check_device(x0: torch.Tensor, what: str) -> None:
-    if x0.device.type != "cuda":
-        raise NotImplementedError(f"{what} runs on cuda or cpu tensors, not {x0.device}")
     if not 1 <= x0.shape[1] <= MAX_DIM:
         raise ValueError(f"{what} keeps rows in registers and takes 1 <= d <= {MAX_DIM}, "
                          f"got {x0.shape[1]}")
+    if x0.device.type != "cuda":
+        raise NotImplementedError(f"{what} runs on cuda or cpu tensors, not {x0.device}")
 
 
 def cross_v1_fwd_ref(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,

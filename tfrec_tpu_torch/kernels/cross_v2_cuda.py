@@ -4,23 +4,21 @@ and its VJP.
 The counterpart of ``tfrec_tpu/kernels/cross_pallas.py``
 ``cross_stack_pallas_v2``: the forward (``_fwd_kernel_v2``) is
 ``cross_v2_fwd``, the backward (``_bwd_kernel_v2``) is ``cross_v2_bwd``;
-both kernels are in ``csrc/cross_v2.cu``. The forward runs f32 on the CUDA
-cores. The backward runs its four products a layer on the tensor cores as
-3xTF32 (``mma.sync`` TF32, each f32 operand split into a TF32 high part and
-a TF32 remainder, three products summed in f32), which keeps about f32
-accuracy. The TPU wrapper pads d and r to 128 lanes; here the shapes are
-used as they are. Every product is summed in a fixed order, so the kernels
-agree with the plain versions up to the order and rounding of those sums
-and repeat bit for bit. For training the forward also returns what the
-backward needs, f [L, B, d] and xv = x_l V_l [L, B, r]: the backward then
-replays no product (it rebuilds x_l elementwise from x0 and f) and sums dU,
-dV and db over the batch in fixed-order chunks, with no atomics. The
-forward's wrapper hands the kernel V zero padded to a multiple of 4 and U
-transposed and zero padded (16-byte loads, neighbouring threads on
-neighbouring addresses); the backward's hands it U and V^T in the order of
-the mma's B fragments (one 8-byte load a lane a k-step). Either is one
-small copy a call (650 KB at the flagship's shape). ``CrossV2`` is the
-``torch.autograd.Function`` that joins the two.
+both kernels are in ``csrc/cross_v2.cu``. Both run their products (two a
+layer forward, four backward) on the tensor cores as 3xTF32 (``mma.sync``
+TF32, each f32 operand split into a TF32 high part and a TF32 remainder,
+three products summed in f32), which keeps about f32 accuracy. The TPU
+wrapper pads d and r to 128 lanes; here the shapes are used as they are.
+Every product is summed in a fixed order, so the kernels agree with the
+plain versions up to the order and rounding of those sums and repeat bit
+for bit. For training the forward also returns what the backward needs, f
+[L, B, d] and xv = x_l V_l [L, B, r]: the backward then replays no product
+(it rebuilds x_l elementwise from x0 and f) and sums dU, dV and db over the
+batch in fixed-order chunks, with no atomics. Each wrapper hands its kernels
+the weights in the order of the mma's B fragments (``_fragments``: one
+8-byte load a lane a k-step), V and U^T for the forward, U and V^T for the
+backward: one small copy a call (650 KB at the flagship's shape).
+``CrossV2`` is the ``torch.autograd.Function`` that joins the two.
 """
 
 from __future__ import annotations
@@ -33,13 +31,15 @@ import torch.nn.functional as F
 from tfrec_tpu_torch.kernels import _build
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
-# A block of the forward holds 16 rows of two [B, d] arrays and one [B, r]
-# array in shared memory, rows padded to a multiple of 4 floats
-# (csrc/cross_v2.cu tile_smem_bytes); a block of the backward's row pass
-# holds the same for 32 rows, or 16 where 32 do not fit, rows padded as
-# _frag_stride says (rows_smem_bytes). Hopper gives a block at most 227 KB.
-_TILE = 16
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
+_SCRATCH_ARGTYPES = [ctypes.c_longlong] * 3
+# A block of the forward holds 32 rows (16 where 32 do not fit) of x and xv,
+# the A operands of its products, in shared memory, rows padded as
+# _frag_stride says (csrc/cross_v2.cu fwd_smem_bytes); a block of the
+# backward's row pass holds the same of df and t, and of g where that fits
+# (rows_smem_bytes; else g lives in a device-memory scratch whose rows
+# tfrec_cross_v2_bwd_scratch_rows gives). Hopper gives a block at most 227 KB.
+_MIN_ROWS = 16
 _MAX_SMEM = 227 * 1024
 # The weight pass walks the batch in at most 16 chunks of at least 256 rows,
 # whose partial sums a second kernel adds in chunk order. Its rows arrive in
@@ -48,10 +48,6 @@ _MAX_SMEM = 227 * 1024
 # weights_smem_bytes).
 _MAX_CHUNKS = 16
 _MIN_CHUNK_ROWS = 256
-
-
-def _round4(n: int) -> int:
-    return (n + 3) // 4 * 4
 
 
 def _round8(n: int) -> int:
@@ -65,11 +61,10 @@ def _frag_stride(n: int) -> int:
 
 
 def _smem_bytes(dim: int, rank: int) -> int:
-    """Shared memory a block of the forward, or of the backward's row pass
-    at its smaller tile of 16 rows, takes, whichever is more."""
-    fwd = 2 * _TILE * _round4(dim) + _TILE * _round4(rank)
-    rows = _TILE * (_round8(dim) + _frag_stride(dim) + _frag_stride(rank))
-    return max(fwd, rows) * 4
+    """The least shared memory a block of either kernel takes: 16 rows of
+    its products' A operands, [B, d] and [B, r] (the forward's x and xv, the
+    row pass's df and t). It sets the widest d the kernels take."""
+    return _MIN_ROWS * (_frag_stride(dim) + _frag_stride(rank)) * 4
 
 
 def _weights_rows(layers: int) -> int:
@@ -83,7 +78,7 @@ def _weights_rows(layers: int) -> int:
 
 def _fragments(w: torch.Tensor) -> torch.Tensor:
     """A stack of B operands [L, K, N] (B[k][n] = w[l, k, n]) as the
-    backward's kernels read them: zero padded to multiples of 8, in the
+    kernels' products read them: zero padded to multiples of 8, in the
     order of the m16n8k8 B fragments, [L, K8/8, N8/8, 32 lanes, 2]. Lane
     4 gid + tid4 of k-step ks and n8 tile nt holds (B[8 ks + 2 tid4][8 nt +
     gid], B[8 ks + 2 tid4 + 1][8 nt + gid]) (the kernels read the A
@@ -92,18 +87,6 @@ def _fragments(w: torch.Tensor) -> torch.Tensor:
     k8, n8 = _round8(k), _round8(n)
     w = F.pad(w, (0, n8 - n, 0, k8 - k)).view(layers, k8 // 8, 4, 2, n8 // 8, 8)
     return w.permute(0, 1, 4, 5, 2, 3).reshape(layers, k8 // 8, n8 // 8, 32, 2)
-
-
-def _layout(w: torch.Tensor, transpose: bool) -> torch.Tensor:
-    """A weight stack [L, d, r] as the kernels read it: zero padded to
-    [L, d, r4], or transposed and zero padded to [L, r4, d4] (r4, d4: r and
-    d rounded up to 4), 16-byte aligned."""
-    layers, dim, rank = w.shape
-    if transpose:
-        return F.pad(w.transpose(1, 2), (0, _round4(dim) - dim, 0, _round4(rank) - rank)).contiguous()
-    if rank % 4:
-        return F.pad(w, (0, _round4(rank) - rank))
-    return w if w.data_ptr() % 16 == 0 else w.clone()
 
 
 def _check(named, what: str) -> None:
@@ -127,14 +110,14 @@ def _check_shapes(x0, u, v, what: str) -> None:
 
 
 def _check_device(x0: torch.Tensor, rank: int, what: str) -> None:
-    if x0.device.type != "cuda":
-        raise NotImplementedError(f"{what} runs on cuda or cpu tensors, not {x0.device}")
     if rank < 1:
         raise ValueError(f"{what} is the low-rank cross and takes r >= 1, got r={rank}")
     smem = _smem_bytes(x0.shape[1], rank)
     if smem > _MAX_SMEM:
-        raise ValueError(f"{what} keeps 16 rows of x0, x and xv in shared memory: d={x0.shape[1]}, "
-                         f"r={rank} needs {smem} bytes, more than 227 KB")
+        raise ValueError(f"{what} keeps 16 rows of its products' [B, d] and [B, r] operands in shared "
+                         f"memory: d={x0.shape[1]}, r={rank} needs {smem} bytes, more than 227 KB")
+    if x0.device.type != "cuda":
+        raise NotImplementedError(f"{what} runs on cuda or cpu tensors, not {x0.device}")
 
 
 def cross_v2_fwd_ref(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, b: torch.Tensor, *,
@@ -181,9 +164,9 @@ def cross_v2_fwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, b: torch.Te
     if batch == 0 or layers == 0:  # nothing to launch
         return (out, f, xv) if want_saved else out
     fn = _build.function("cross_v2", "tfrec_cross_v2_fwd", _FWD_ARGTYPES)
-    v4, ut4 = _layout(v, transpose=False), _layout(u, transpose=True)
+    vfrag, utfrag = _fragments(v), _fragments(u.transpose(1, 2))
     with torch.cuda.device(x0.device):
-        rc = fn(x0.data_ptr(), v4.data_ptr(), ut4.data_ptr(), b.data_ptr(), out.data_ptr(),
+        rc = fn(x0.data_ptr(), vfrag.data_ptr(), utfrag.data_ptr(), b.data_ptr(), out.data_ptr(),
                 f.data_ptr() if want_saved else None, xv.data_ptr() if want_saved else None,
                 batch, dim, rank, layers, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "cross_v2_fwd")
@@ -259,12 +242,17 @@ def cross_v2_bwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, f: torch.Te
     if xv.data_ptr() % 16:
         xv = xv.clone()
     partial = torch.empty((chunks, grads.numel()), dtype=x0.dtype, device=x0.device)
+    scratch_rows = _build.function("cross_v2", "tfrec_cross_v2_bwd_scratch_rows",
+                                   _SCRATCH_ARGTYPES)(batch, dim, rank)
+    g_scratch = (torch.empty((scratch_rows, _round8(dim)), dtype=x0.dtype, device=x0.device)
+                 if scratch_rows else None)
     fn = _build.function("cross_v2", "tfrec_cross_v2_bwd", _BWD_ARGTYPES)
     ufrag, vtfrag = _fragments(u), _fragments(v.transpose(1, 2))
     with torch.cuda.device(x0.device):
         rc = fn(x0.data_ptr(), ufrag.data_ptr(), vtfrag.data_ptr(), f.data_ptr(), xv.data_ptr(),
                 g.data_ptr(), dx0.data_ptr(), grads.data_ptr(), df.data_ptr(), t.data_ptr(),
-                partial.data_ptr(), batch, dim, rank, layers, chunks,
+                None if g_scratch is None else g_scratch.data_ptr(), partial.data_ptr(),
+                batch, dim, rank, layers, chunks,
                 torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "cross_v2_bwd")
     cross_v2_bwd.launches += 1

@@ -22,17 +22,20 @@
 // (5*d operations per row), far below the card's operations-per-byte
 // balance; the least traffic is one read of x0 and one write of x_L,
 // B*d*4*2 bytes, plus 2*L*d*4 of weights (B=8192, d=845, L=3: 55.4 MB,
-// 16.5 us at 3.35 TB/s). Design: one warp per row. Lane j keeps elements j,
-// j+32, j+64, ... of x0 and of the running x in registers (K = chunks per
-// lane, a template parameter rounded up to a power of two), so device
-// memory is touched once for x0 and once for x_L however many layers there
-// are; w and b are small and come through the read-only cache. Loads and
-// stores are scalar and coalesced: d = 845 is odd, so rows are not 16-byte
-// aligned and vector loads would not line up. The row dot is reduced in f32
-// in a fixed order (each lane sums its chunks in order, then a butterfly of
-// warp shuffles) with no atomics, so runs repeat bit for bit. The update is
-// written with __fmul_rn/__fadd_rn so the compiler does not fuse it into an
-// FMA: it rounds as the plain PyTorch version does.
+// 16.5 us at 3.35 TB/s). Design: a block of 256 threads per row (row =
+// blockIdx.x, + gridDim.x, ...). Thread t keeps elements t, t+256, ... of x0
+// and of the running x in registers (K of them, a template parameter rounded
+// up to a power of two, at most 32: d <= 8192), so device memory is touched
+// once for x0 and once for x_L however many layers there are; w and b are
+// small and come through the read-only cache. Loads and stores are scalar
+// and coalesced: d = 845 is odd, so rows are not 16-byte aligned and vector
+// loads would not line up. The row dot is reduced in f32 in a fixed order
+// with no atomics (block_sum, shared with the backward), so runs repeat bit
+// for bit. The update is written with __fmul_rn/__fadd_rn so the compiler
+// does not fuse it into an FMA: it rounds as the plain PyTorch version does.
+// A warp a row (K <= 64 a lane: 145 registers at d=845, so one block of 8
+// warps an SM) took 79.1-79.6 us at the flagship's shape against this
+// kernel's 38.8-39.3 us (tools/ab_cross_v2.py, one call).
 //
 // Backward. Bound: bytes. It must read x0 and g and write dx0, 3*B*d*4
 // bytes (83.1 MB at B=8192, d=845: 24.8 us at 3.35 TB/s); its ~12
@@ -40,13 +43,12 @@
 // forward saved s [B, L] (98 KB), so x_l is rebuilt elementwise from x0, s
 // and b exactly as the forward computed it, with no row dot; only ds needs
 // one per layer. A block of 256 threads walks its rows (row = blockIdx.x,
-// + gridDim.x, ...); thread t keeps elements t, t+256, ... (K <= 8 of them)
+// + gridDim.x, ...); thread t keeps elements t, t+256, ... (K <= 32 of them)
 // of x0, g and dx0 in registers, so a row is split over the whole block and
-// registers stay few (the one-warp-per-row forward needs 144 a thread at
-// d=845). ds is a block reduction in a fixed order: each thread sums its
+// registers stay few. ds is a block reduction in a fixed order: each thread sums its
 // elements in order, a butterfly inside each warp, then every thread adds
 // the 8 warp sums in warp order from shared memory (one barrier a
-// reduction; the two slots alternate). dw and db are sums over the batch,
+// reduction; the two slots alternate), as in the forward. dw and db are sums over the batch,
 // and blocks on Hopper share nothing: each block accumulates its rows into
 // [2, L, d] in shared memory (each element owned by one thread, in row
 // order), writes that partial to device memory, and a second kernel sums
@@ -58,45 +60,63 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kRowThreads = 256;  // a block, which takes a row at a time
+constexpr int kRowWarps = kRowThreads / 32;
 
+// The sum of p over a block of kRowThreads threads, in a fixed order: a
+// butterfly inside each warp, then every thread adds the 8 warp sums in
+// warp order from shared memory. One barrier a call; red's two slots
+// alternate (the other slot's last readers passed this barrier before
+// anyone writes it again at the next call).
+__device__ __forceinline__ float block_sum(float p, float (&red)[2][kRowWarps], int& slot) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    p += __shfl_xor_sync(0xffffffffu, p, off);
+  }
+  if ((threadIdx.x & 31) == 0) red[slot][threadIdx.x >> 5] = p;
+  __syncthreads();
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kRowWarps; ++i) sum += red[slot][i];
+  slot ^= 1;
+  return sum;
+}
+
+// A block of kRowThreads threads a row (row = blockIdx.x, + gridDim.x, ...);
+// thread t keeps elements t, t+256, ... (K of them) of x0 and of the running
+// x in registers.
 template <int K>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kRowThreads)
 cross_v1_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ out,
                     float* __restrict__ s_out, int64_t batch, int d, int layers) {
-  const int lane = threadIdx.x & 31;
-  const int64_t first = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
-  for (int64_t row = first; row < batch; row += stride) {
+  __shared__ float red[2][kRowWarps];
+  const int tid = threadIdx.x;
+  int slot = 0;
+  for (int64_t row = blockIdx.x; row < batch; row += gridDim.x) {
     const float* xr = x0 + row * d;
     float a[K];
     float x[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int j = lane + 32 * k;
+      const int j = tid + kRowThreads * k;
       a[k] = j < d ? xr[j] : 0.0f;
       x[k] = a[k];
     }
     for (int l = 0; l < layers; ++l) {
       const float* wl = w + (int64_t)l * d;
       const float* bl = b + (int64_t)l * d;
-      float s = 0.0f;
+      float p = 0.0f;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int j = lane + 32 * k;
-        if (j < d) s = fmaf(x[k], __ldg(wl + j), s);
+        const int j = tid + kRowThreads * k;
+        if (j < d) p = fmaf(x[k], __ldg(wl + j), p);
       }
-      // Butterfly: lanes i and i^off add the same two values, so every
-      // lane ends with the same, fixed-order sum.
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      }
-      if (s_out != nullptr && lane == 0) s_out[row * layers + l] = s;
+      const float s = block_sum(p, red, slot);
+      if (s_out != nullptr && tid == 0) s_out[row * layers + l] = s;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int j = lane + 32 * k;
+        const int j = tid + kRowThreads * k;
         if (j < d) {
           x[k] = __fadd_rn(__fadd_rn(__fmul_rn(a[k], s), __ldg(bl + j)), x[k]);
         }
@@ -105,7 +125,7 @@ cross_v1_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
     float* orow = out + row * d;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int j = lane + 32 * k;
+      const int j = tid + kRowThreads * k;
       if (j < d) orow[j] = x[k];
     }
   }
@@ -114,36 +134,30 @@ cross_v1_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
 template <int K>
 void launch_fwd(const float* x0, const float* w, const float* b, float* out,
                 float* s_out, int64_t batch, int d, int layers, cudaStream_t s) {
-  const int64_t max_blocks = 132 * 32;  // grid-stride beyond this
-  int64_t blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > max_blocks) blocks = max_blocks;
+  const int64_t max_blocks = 132 * 8;  // grid-stride beyond this
+  int64_t blocks = batch < max_blocks ? batch : max_blocks;
   if (blocks < 1) blocks = 1;
-  cross_v1_fwd_kernel<K><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
+  cross_v1_fwd_kernel<K><<<(unsigned)blocks, kRowThreads, 0, s>>>(
       x0, w, b, out, s_out, batch, d, layers);
 }
 
-constexpr int kBwdThreads = 256;
-constexpr int kBwdWarps = kBwdThreads / 32;
-
 // Dynamic shared memory: [2, L, d] floats (dw then db accumulators).
 template <int K>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kRowThreads)
 cross_v1_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
                     const float* __restrict__ b, const float* __restrict__ s,
                     const float* __restrict__ g_in, float* __restrict__ dx0,
                     float* __restrict__ partial, int64_t batch, int d, int layers) {
   extern __shared__ float acc[];
-  __shared__ float red[2][kBwdWarps];
+  __shared__ float red[2][kRowWarps];
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int64_t width = (int64_t)layers * d;  // one of dw, db
   // Each thread zeroes, accumulates and writes only its own elements
   // (j = tid + 256*k), so the accumulators need no barrier.
   for (int64_t l = 0; l < 2 * layers; ++l) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int j = tid + kBwdThreads * k;
+      const int j = tid + kRowThreads * k;
       if (j < d) acc[l * d + j] = 0.0f;
     }
   }
@@ -157,7 +171,7 @@ cross_v1_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
     float dx[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int j = tid + kBwdThreads * k;
+      const int j = tid + kRowThreads * k;
       a[k] = j < d ? xr[j] : 0.0f;
       g[k] = j < d ? gr[j] : 0.0f;
       dx[k] = 0.0f;
@@ -166,25 +180,14 @@ cross_v1_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
       float p = 0.0f;
 #pragma unroll
       for (int k = 0; k < K; ++k) p = fmaf(g[k], a[k], p);  // 0 past d
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        p += __shfl_xor_sync(0xffffffffu, p, off);
-      }
-      if (lane == 0) red[slot][warp] = p;
-      __syncthreads();
-      float ds = 0.0f;
-#pragma unroll
-      for (int i = 0; i < kBwdWarps; ++i) ds += red[slot][i];
-      // The other slot's last readers passed this barrier before anyone
-      // writes it again at the next reduction.
-      slot ^= 1;
+      const float ds = block_sum(p, red, slot);
       const float sl = __ldg(sr + l);
       const float* wl = w + (int64_t)l * d;
       float* dw = acc + (int64_t)l * d;
       float* db = acc + width + (int64_t)l * d;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int j = tid + kBwdThreads * k;
+        const int j = tid + kRowThreads * k;
         if (j < d) {
           // x_l, rebuilt as the forward computed it.
           float x = a[k];
@@ -202,7 +205,7 @@ cross_v1_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
     float* dr = dx0 + row * d;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int j = tid + kBwdThreads * k;
+      const int j = tid + kRowThreads * k;
       if (j < d) dr[j] = dx[k] + g[k];
     }
   }
@@ -210,7 +213,7 @@ cross_v1_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
   for (int64_t l = 0; l < 2 * layers; ++l) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int j = tid + kBwdThreads * k;
+      const int j = tid + kRowThreads * k;
       if (j < d) mine[l * d + j] = acc[l * d + j];
     }
   }
@@ -257,7 +260,7 @@ int launch_bwd(const float* x0, const float* w, const float* b, const float* sv,
         cross_v1_bwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cross_v1_bwd_kernel<K><<<(unsigned)nblocks, kBwdThreads, smem, s>>>(
+  cross_v1_bwd_kernel<K><<<(unsigned)nblocks, kRowThreads, smem, s>>>(
       x0, w, b, sv, g, dx0, partial, batch, d, layers);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -273,7 +276,7 @@ int launch_bwd(const float* x0, const float* w, const float* b, const float* sv,
 // x0 [batch, d] f32, w and b [layers, d] f32, out [batch, d] f32, s_out
 // [batch, layers] f32 or null, all contiguous on the current device; runs
 // on `stream`. Returns cudaGetLastError(), or cudaErrorInvalidValue for d
-// outside [1, 2048].
+// outside [1, 8192].
 extern "C" int tfrec_cross_v1_fwd(const void* x0, const void* w, const void* b,
                                   void* out, void* s_out, long long batch,
                                   long long d, long long layers, void* stream) {
@@ -285,15 +288,14 @@ extern "C" int tfrec_cross_v1_fwd(const void* x0, const void* w, const void* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int di = static_cast<int>(d);
   const int li = static_cast<int>(layers);
-  const int64_t chunks = (d + 31) / 32;
-  if (d < 1 || chunks > 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (chunks <= 1) launch_fwd<1>(px0, pw, pb, po, ps, batch, di, li, s);
-  else if (chunks <= 2) launch_fwd<2>(px0, pw, pb, po, ps, batch, di, li, s);
-  else if (chunks <= 4) launch_fwd<4>(px0, pw, pb, po, ps, batch, di, li, s);
-  else if (chunks <= 8) launch_fwd<8>(px0, pw, pb, po, ps, batch, di, li, s);
-  else if (chunks <= 16) launch_fwd<16>(px0, pw, pb, po, ps, batch, di, li, s);
-  else if (chunks <= 32) launch_fwd<32>(px0, pw, pb, po, ps, batch, di, li, s);
-  else launch_fwd<64>(px0, pw, pb, po, ps, batch, di, li, s);
+  const int64_t per_thread = (d + kRowThreads - 1) / kRowThreads;
+  if (d < 1 || per_thread > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (per_thread <= 1) launch_fwd<1>(px0, pw, pb, po, ps, batch, di, li, s);
+  else if (per_thread <= 2) launch_fwd<2>(px0, pw, pb, po, ps, batch, di, li, s);
+  else if (per_thread <= 4) launch_fwd<4>(px0, pw, pb, po, ps, batch, di, li, s);
+  else if (per_thread <= 8) launch_fwd<8>(px0, pw, pb, po, ps, batch, di, li, s);
+  else if (per_thread <= 16) launch_fwd<16>(px0, pw, pb, po, ps, batch, di, li, s);
+  else launch_fwd<32>(px0, pw, pb, po, ps, batch, di, li, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -301,7 +303,7 @@ extern "C" int tfrec_cross_v1_fwd(const void* x0, const void* w, const void* b,
 // (the forward's row scalars); writes dx0 [batch, d], dw and db [layers, d]
 // and uses partial [nblocks, 2, layers, d] as scratch, all contiguous on the
 // current device; runs on `stream` (two launches). Returns the first
-// launch error, or cudaErrorInvalidValue for d outside [1, 2048], nblocks
+// launch error, or cudaErrorInvalidValue for d outside [1, 8192], nblocks
 // < 1 or more than 227 KB of shared memory.
 extern "C" int tfrec_cross_v1_bwd(const void* x0, const void* w, const void* b,
                                   const void* s, const void* g, void* dx0,
@@ -318,8 +320,8 @@ extern "C" int tfrec_cross_v1_bwd(const void* x0, const void* w, const void* b,
   float* pdb = static_cast<float*>(db);
   float* pp = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t per_thread = (d + kBwdThreads - 1) / kBwdThreads;
-  if (d < 1 || per_thread > 8 || nblocks < 1 ||
+  const int64_t per_thread = (d + kRowThreads - 1) / kRowThreads;
+  if (d < 1 || per_thread > 32 || nblocks < 1 ||
       2 * layers * d * (long long)sizeof(float) > 227 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -329,5 +331,7 @@ extern "C" int tfrec_cross_v1_bwd(const void* x0, const void* w, const void* b,
   if (per_thread <= 1) return launch_bwd<1>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
   if (per_thread <= 2) return launch_bwd<2>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
   if (per_thread <= 4) return launch_bwd<4>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
-  return launch_bwd<8>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
+  if (per_thread <= 8) return launch_bwd<8>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
+  if (per_thread <= 16) return launch_bwd<16>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
+  return launch_bwd<32>(px0, pw, pb, ps, pg, pdx0, pdw, pdb, pp, batch, di, li, nb, st);
 }

@@ -23,33 +23,47 @@
 // these kernels take the unpadded shapes.
 //
 // Bound: operations. Each layer is two products of 2*B*d*r operations in
-// the forward and four in the backward (B=8192, d=845, r=64, L=3: 5.38
-// GFLOP forward, 80 us at 67 TFLOP/s in f32 on the CUDA cores, against
-// 56.7 MB of x0, x_L and weights, 17 us at 3.35 TB/s; 10.6 GFLOP backward).
-// The forward runs f32 on the CUDA cores. The backward runs its products on
-// the tensor cores (mma.sync m16n8k8 TF32) as 3xTF32: each f32 operand is
-// split into a TF32 high part and a TF32 remainder, and a*b is summed as
-// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in f32, which keeps about f32 accuracy
-// (the plain version these are held to runs f32 with TF32 off). Its bound
-// is 3 x 10.6 G TF32 operations at 495 TFLOP/s, 64.4 us, plus its
-// elementwise steps, 2.2 us at 67 TFLOP/s: 66.6 us (159 us in f32).
+// the forward and four in the backward (B=8192, d=845, r=64, L=3: 5.32
+// GFLOP forward, 10.6 GFLOP backward). Every product runs on the tensor
+// cores (mma.sync m16n8k8 TF32) as 3xTF32: each f32 operand is split into
+// a TF32 high part and a TF32 remainder, and a*b is summed as a_lo*b_hi +
+// a_hi*b_lo + a_hi*b_hi in f32, which keeps about f32 accuracy (the plain
+// version these are held to runs f32 with TF32 off). The forward's bound is
+// 3 x 5.32 G TF32 operations at 495 TFLOP/s, 32.2 us, plus its elementwise
+// steps, 0.9 us at 67 TFLOP/s: 33.2 us (80.3 us in f32 on the CUDA cores;
+// its bytes, x0 read and x_L written, 56.7 MB, take 16.9 us, and 146.1 MB,
+// 43.6 us, when it also writes f and xv for training). The backward's is 3
+// x 10.6 G TF32 operations, 64.4 us, plus 2.2 us of elementwise steps:
+// 66.6 us (159 us in f32).
 //
-// Forward design (cross_v2_fwd_kernel). A block of 256 threads holds a tile
-// of 16 rows of x0 and of the running x in shared memory across all L
-// layers, as the TPU kernel keeps x resident in VMEM, so device memory is
-// read once for x0 and written once for x_L. Rows are stored with a stride
-// of d rounded up to 4 (zero padded) so that the products read them as
-// 16-byte vectors; d = 845 is odd, so the loads from device memory are
-// scalar and coalesced. Per layer: xv = x V_l into a [16, r] buffer, then
-// f = xv U_l^T + b_l and x = x0 * f + x in place (tile_times_w and
-// tile_times_wt below: an 8 x 4 block of outputs a thread, weights read
-// from L2 one step ahead of their use). The wrapper hands V zero padded and U
-// transposed and zero padded, so that neighbouring threads read
-// neighbouring addresses and no load is masked. Two blocks fit an SM
-// (110 KB of shared memory and at most 128 registers a thread each). Every
-// sum runs in a fixed order, with no atomics, so runs repeat bit for bit;
-// the elementwise steps use _rn intrinsics, which the compiler does not
-// fuse into FMAs, and round as the plain version does.
+// Forward design (cross_v2_fwd_kernel). A block holds kM m16 tiles of rows
+// (32 rows and 512 threads at kM = 2; 16 rows and 256 threads where 32 rows
+// of a wide d do not fit) with two arrays in shared memory across all L
+// layers: x [16 kM][frag_stride(d)], the running x, and xv [16 kM][
+// frag_stride(r)], the A operands of the layer's two products (118 784 B at
+// d=845, r=64). x0 is only ever an elementwise operand: it is held beside
+// them where 32 rows of all three fit (d <= 872 at r=64, the flagship's
+// 845 included: 228 352 B), else the epilogue reads it from device memory,
+// where L2 keeps it across the layers (x0 held: 250.9 us against 272.7-275.3
+// at the flagship's shape, tools/ab_cross_v2.py). Device memory is read
+// once for x0 and written once for x_L (and for f and xv when training),
+// as the TPU kernel keeps x resident in VMEM. Per layer:
+// - xv = x V_l, [16 kM, d8] x [d8, r8]: a warp owns an n8 tile of r for all
+//   kM m16 tiles of rows; where there are at least twice as many warps as
+//   tiles, two warps share a tile, one summing the first half of d and one
+//   the second, the halves then added in that order;
+// - f = xv U_l^T + b_l and x = x0 * f + x, [16 kM, r8] x [r8, d8]: a warp
+//   owns the n8 tiles w, w + 8 kM, ... of d, and runs the elementwise steps
+//   on the elements its accumulators hold (rows gid and gid+8 of each m16
+//   tile, columns 2 tid4 and 2 tid4 + 1), so each element of x belongs to
+//   one thread in every layer; its loads of x0 and b_l are issued a tile
+//   ahead, and f is written out when training.
+// Then x_L is written out in a coalesced pass. The weights come from L2 as
+// B fragments (the wrapper lays V and U^T out in fragment order: one 8-byte
+// load a lane a k-step, read 4 k-steps ahead), and each feeds all kM m16
+// tiles. Every sum runs in a fixed order, with no atomics, so runs repeat
+// bit for bit; the elementwise steps use _rn intrinsics, which the compiler
+// does not fuse into FMAs, and round as the plain version does.
 //
 // Backward design. The forward saved f [L, B, d] and xv [L, B, r] (83 MB
 // and 6.3 MB at B=8192, d=845, r=64, L=3, written once), so the backward
@@ -59,7 +73,15 @@
 // - cross_v2_bwd_rows_kernel: the per-row chain (df, t, dx0, g), a tile of
 //   32 rows a block of 512 threads (two m16 tiles of the mma; 16 rows and
 //   256 threads, two blocks an SM, where 32 rows of a wide d do not fit)
-//   with g, df and t in shared memory (222 KB at d=845). The weights come
+//   with g, df and t in shared memory (222 KB at d=845). Where not even 16
+//   rows of all three fit, g moves to a [B, d8] scratch in device memory:
+//   only df and t are the products' A operands, and each element of g is
+//   read and written by the one thread that owns it in the epilogue, so
+//   this needs no other barrier. Where g fits, the scratch would cost time:
+//   at the flagship's shape the row pass took 500 us with g in device
+//   memory against 402 us with g in shared memory (tools/ab_cross_v2.py,
+//   one call). tfrec_cross_v2_bwd_scratch_rows tells the wrapper which
+//   applies. The weights come
 //   from L2 as B fragments (the wrapper lays U and V^T out in fragment
 //   order: one 8-byte load a lane a k-step, read 8 k-steps ahead), and
 //   each feeds both m16 tiles, so a row reads half the weight bytes that a
@@ -93,16 +115,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 16;  // rows a block of the forward holds
-constexpr int kRows = 8;  // rows of a thread's block of outputs in the products
-// tile_times_w: kSplit lanes share each block of outputs, summing every
-// kSplit-th group of 4 j; 16 groups of 4 k cover 64 k.
-constexpr int kSplit = kThreads / 16 / (kTile / kRows);
-static_assert(kSplit >= 1 && kSplit <= 32 && (kSplit & (kSplit - 1)) == 0, "kSplit lanes of a warp");
+constexpr int kThreads = 256;  // the chunk sum's block
 constexpr int kWThreads = 256;  // weight pass: threads a block
-constexpr int kAhead = 4;  // row pass: k-steps a weight fragment is read ahead
-constexpr int kLoad = 8;  // row pass: elements a thread loads at once
+constexpr int kAhead = 4;  // products: k-steps a weight fragment is read ahead
+constexpr int kLoad = 8;  // row passes: elements a thread loads at once
 constexpr int kWTile = 64;  // weight pass: a 64 (j of d) x 64 (k of r) tile
 // Weight pass: row stride of a staged [rows][64] tile. 72 = 8 mod 32, so the
 // fragment reads (row tid4, column gid) hit 32 distinct banks.
@@ -110,205 +126,44 @@ constexpr int kWStride = kWTile + 8;
 constexpr int kWMaxRows = 32;  // weight pass: rows a stage, at most
 constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's most on Hopper
 
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
-
-size_t tile_smem_bytes(int d, int r) {
-  return ((size_t)2 * kTile * round4(d) + (size_t)kTile * round4(r)) * sizeof(float);
-}
-
-// The two products of a layer, on a tile of kTile = 16 rows held in shared
-// memory. Both give a thread a kRows x 4 block of outputs, so that each
-// 16-byte load of a weight feeds 4 * kRows FMAs (the loads into the SM,
-// not the FMAs, limit these loops), and both read the weights, which come
-// from L2, one step ahead of their use. The weights are zero padded (the
-// wrapper's layouts), so no load is masked: V and U as [L, d, r4], and U^T
-// and V^T as [L, r4, d4], with d4 = round4(d) and r4 = round4(r).
-
-// out[t][k] = sum_{j<d} s[t][j] * w[j][k] for the tile's rows and k < r4;
-// s is [kTile][d4] in shared memory (zero past d), w one layer's [d, r4],
-// out [kTile][r4] in shared memory. A thread owns kRows rows and k..k+3,
-// and sums every kSplit-th group of 4 j (split = lane % kSplit, j
-// ascending); the kSplit lanes then add their sums in a butterfly, in
-// which both partners add the same two values, so every sum has one fixed
-// order and all the lanes hold it.
-__device__ void tile_times_w(const float* __restrict__ s, int d4,
-                             const float* __restrict__ w, int d, int r4,
-                             float* __restrict__ out) {
-  const int split = threadIdx.x % kSplit;
-  const int t0 = threadIdx.x / (kSplit * 16) * kRows;
-  const unsigned group =  // the kSplit lanes of this block of outputs
-      (kSplit == 32 ? 0xFFFFFFFFu : (1u << kSplit) - 1) << (threadIdx.x & 31 & ~(kSplit - 1));
-  for (int k = threadIdx.x / kSplit % 16 * 4; k < r4; k += 64) {
-    float acc[kRows][4];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
-    }
-    float4 wv[4], wn[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = 4 * split + q;
-      wv[q] = j < d ? __ldg(reinterpret_cast<const float4*>(w + (int64_t)j * r4 + k))
-                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-    for (int j0 = 4 * split; j0 < d4; j0 += 4 * kSplit) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = j0 + 4 * kSplit + q;
-        wn[q] = j < d ? __ldg(reinterpret_cast<const float4*>(w + (int64_t)j * r4 + k))
-                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(s + (t0 + i) * d4 + j0);
-        const float xq[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc[i][0] = fmaf(xq[q], wv[q].x, acc[i][0]);
-          acc[i][1] = fmaf(xq[q], wv[q].y, acc[i][1]);
-          acc[i][2] = fmaf(xq[q], wv[q].z, acc[i][2]);
-          acc[i][3] = fmaf(xq[q], wv[q].w, acc[i][3]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) wv[q] = wn[q];
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int off = 1; off < kSplit; off <<= 1) {
-          acc[i][c] += __shfl_xor_sync(group, acc[i][c], off);
-        }
-      }
-    }
-    if (split == 0) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        *reinterpret_cast<float4*>(out + (t0 + i) * r4 + k) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      }
-    }
-  }
-}
-
-// For the tile's rows t and columns j < d: epi(t, j, sum_{k<r4} a[t][k] *
-// wt[k][j]); a is [kTile][r4] in shared memory (zero past r), wt one
-// layer's [r4, d4] (a weight transposed, so that neighbouring threads read
-// neighbouring j). A thread owns kRows rows and j..j+3, k ascending.
-template <typename Epilogue>
-__device__ void tile_times_wt(const float* __restrict__ a, int r4,
-                              const float* __restrict__ wt, int d4, int d, Epilogue epi) {
-  const int nj = d4 / 4;
-  for (int item = threadIdx.x; item < kTile / kRows * nj; item += blockDim.x) {
-    const int t0 = item / nj * kRows;
-    const int j = item % nj * 4;
-    float acc[kRows][4];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
-    }
-    float4 wv[4], wn[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) wv[q] = __ldg(reinterpret_cast<const float4*>(wt + (int64_t)q * d4 + j));
-    for (int k = 0; k < r4; k += 4) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        wn[q] = k + 4 < r4 ? __ldg(reinterpret_cast<const float4*>(wt + (int64_t)(k + 4 + q) * d4 + j))
-                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(a + (t0 + i) * r4 + k);
-        const float xq[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc[i][0] = fmaf(xq[q], wv[q].x, acc[i][0]);
-          acc[i][1] = fmaf(xq[q], wv[q].y, acc[i][1]);
-          acc[i][2] = fmaf(xq[q], wv[q].z, acc[i][2]);
-          acc[i][3] = fmaf(xq[q], wv[q].w, acc[i][3]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) wv[q] = wn[q];
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (j + c < d) epi(t0 + i, j + c, acc[i][c]);
-      }
-    }
-  }
-}
-
-// Dynamic shared memory: x0 and x [kTile][d4], xv [kTile][r4].
-__global__ void __launch_bounds__(kThreads, 2)
-cross_v2_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ v4,
-                    const float* __restrict__ ut4, const float* __restrict__ b,
-                    float* __restrict__ out, float* __restrict__ f_out,
-                    float* __restrict__ xv_out, int64_t batch, int d, int r,
-                    int layers) {
-  extern __shared__ float4 smem4[];
-  float* sx0 = reinterpret_cast<float*>(smem4);
-  const int d4 = round4(d);
-  const int r4 = round4(r);
-  float* sx = sx0 + kTile * d4;
-  float* sxv = sx + kTile * d4;
-  const int64_t row0 = (int64_t)blockIdx.x * kTile;
-  for (int e = threadIdx.x; e < kTile * d4; e += blockDim.x) {
-    const int t = e / d4;
-    const int j = e % d4;
-    const float val = j < d && row0 + t < batch ? x0[(row0 + t) * d + j] : 0.0f;
-    sx0[e] = val;
-    sx[e] = val;
-  }
-  __syncthreads();
-  for (int l = 0; l < layers; ++l) {
-    tile_times_w(sx, d4, v4 + (int64_t)l * d * r4, d, r4, sxv);  // xv = x V_l
-    __syncthreads();
-    if (xv_out != nullptr) {
-      for (int e = threadIdx.x; e < kTile * r; e += blockDim.x) {
-        const int t = e / r;
-        if (row0 + t < batch) {
-          xv_out[((int64_t)l * batch + row0 + t) * r + e % r] = sxv[t * r4 + e % r];
-        }
-      }
-    }
-    const float* bl = b + (int64_t)l * d;
-    // f = xv U_l^T + b_l, then x = x0 * f + x.
-    tile_times_wt(sxv, r4, ut4 + (int64_t)l * r4 * d4, d4, d, [&](int t, int j, float acc) {
-      const float f = __fadd_rn(acc, __ldg(bl + j));
-      if (f_out != nullptr && row0 + t < batch) f_out[((int64_t)l * batch + row0 + t) * d + j] = f;
-      sx[t * d4 + j] = __fadd_rn(__fmul_rn(sx0[t * d4 + j], f), sx[t * d4 + j]);
-    });
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < kTile * d; e += blockDim.x) {
-    const int t = e / d;
-    if (row0 + t < batch) out[(row0 + t) * d + e % d] = sx[t * d4 + e % d];
-  }
-}
-
-// ---- The backward: 3xTF32 products on the tensor cores ----
+// ---- 3xTF32 products on the tensor cores ----
 
 __host__ __device__ inline int round8(int n) { return (n + 7) & ~7; }
 
-// Row stride of the row pass's df and t tiles: n rounded up to 8, and 8
-// more where that is a multiple of 16, so that the stride is 8 or 24 mod 32
-// and the A fragments' 8-byte reads (rows gid, columns 2 tid4) hit 32
-// distinct banks in each half warp.
+// Row stride of the A operands' tiles in shared memory (the forward's x
+// and xv, the row pass's df and t): n rounded up to 8, and 8 more where
+// that is a multiple of 16, so that the stride is 8 or 24 mod 32 and the A
+// fragments' 8-byte reads (rows gid, columns 2 tid4) hit 32 distinct banks
+// in each half warp.
 __host__ __device__ inline int frag_stride(int n) {
   const int n8 = round8(n);
   return n8 % 16 ? n8 : n8 + 8;
 }
 
-// Shared memory of a row-pass block of m m16 tiles.
-size_t rows_smem_bytes(int d, int r, int m) {
-  return (size_t)16 * m * (round8(d) + frag_stride(d) + frag_stride(r)) * sizeof(float);
+// Shared memory of a forward block of m m16 tiles: x and xv, and x0 where
+// it is held there (x0_shared) rather than read from device memory.
+size_t fwd_smem_bytes(int d, int r, int m, bool x0_shared) {
+  return (size_t)16 * m * ((x0_shared ? 2 : 1) * frag_stride(d) + frag_stride(r)) * sizeof(float);
+}
+
+// Shared memory of a row-pass block of m m16 tiles: df and t, and g where
+// it is held there (g_shared) rather than in device memory.
+size_t rows_smem_bytes(int d, int r, int m, bool g_shared) {
+  return (size_t)16 * m * ((g_shared ? round8(d) : 0) + frag_stride(d) + frag_stride(r)) *
+         sizeof(float);
+}
+
+// The row pass's layout: 32 rows a block (m = 2) where g, df and t fit in
+// shared memory, else 16; where not even 16 rows of all three fit, g moves
+// to device memory (g_shared false).
+struct RowsLayout {
+  int m;
+  bool g_shared;
+};
+
+RowsLayout rows_layout(int d, int r) {
+  const int m = rows_smem_bytes(d, r, 2, true) <= kMaxSmem ? 2 : 1;
+  return {m, rows_smem_bytes(d, r, m, true) <= kMaxSmem};
 }
 
 // Shared memory of the weight pass: two stages of df, x0, xv, t and
@@ -430,18 +285,80 @@ __device__ __forceinline__ void tile_times_frags(const float* s, int stride, con
   }
 }
 
-// A block of kM * 256 threads holds kM m16 tiles of rows (kM * 16 rows).
-// Dynamic shared memory: g [16 kM][round8(d)], df [16 kM][frag_stride(d)]
-// and t [16 kM][frag_stride(r)]. ufrag and vtfrag: U_l [d, r] and V_l^T
-// [r, d] as B operands in fragment order, [L][k-steps][n8 tiles][32 lanes]
-// of (b0, b1), zero padded to multiples of 8.
-template <int kM>
+// out = A B for a block's kM m16 tiles of rows where B is narrow (its N is
+// r): A [16 kM][a_stride] in shared memory over ksk k-steps; w the lane's
+// own B fragments, [ksk][ksn n8 tiles][32 lanes]; out [16 kM][o_stride] in
+// shared memory, and emit(nt, acc) takes each n8 tile's final sums too. A
+// warp takes an n8 tile of N for all kM m16 tiles, so that each weight
+// fragment it loads feeds kM products. Where there are at least twice as
+// many warps as tiles, two warps share a tile, one summing the first half
+// of the k-steps and one the second; the halves are then added in that
+// order. Ends with out complete for the block (a barrier).
+template <int kM, typename Emit>
+__device__ __forceinline__ void narrow_product(const float* a, int a_stride, const float2* w,
+                                               int ksk, int ksn, float* out, int o_stride,
+                                               int gid, int tid4, Emit emit) {
+  constexpr int kWarps = 8 * kM;
+  const int warp = threadIdx.x / 32;
+  auto product = [&](int nt, int ks0, int ks1, float (&acc)[kM][4]) {
+    tile_times_frags<kM>(a, a_stride, w + nt * 32, (int64_t)ksn * 32, ks0, ks1, gid, tid4, acc);
+  };
+  // Element q of m16 tile mi of n8 tile nt: row mi * 16 + gid + 8 (q / 2),
+  // column nt * 8 + 2 tid4 + q % 2.
+  auto store = [&](int nt, const float (&acc)[kM][4]) {
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = mi * 16 + gid + 8 * h;
+        *reinterpret_cast<float2*>(out + t * o_stride + nt * 8 + 2 * tid4) =
+            make_float2(acc[mi][2 * h], acc[mi][2 * h + 1]);
+      }
+    }
+  };
+  if (2 * ksn <= kWarps) {
+    float acc[kM][4] = {};
+    const int nt = warp % ksn;
+    const int part = warp / ksn;  // 0, 1, or idle
+    if (part < 2) product(nt, part ? ksk / 2 : 0, part ? ksk : ksk / 2, acc);
+    if (part == 1) store(nt, acc);
+    __syncthreads();
+    if (part == 0) {
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = mi * 16 + gid + 8 * (q / 2);
+          acc[mi][q] = __fadd_rn(acc[mi][q], out[t * o_stride + nt * 8 + 2 * tid4 + q % 2]);
+        }
+      }
+      store(nt, acc);
+      emit(nt, acc);
+    }
+  } else {
+    for (int nt = warp; nt < ksn; nt += kWarps) {
+      float acc[kM][4] = {};
+      product(nt, 0, ksk, acc);
+      store(nt, acc);
+      emit(nt, acc);
+    }
+  }
+  __syncthreads();
+}
+
+// The forward: a block of kM * 256 threads holds kM m16 tiles of rows (kM *
+// 16 rows). Dynamic shared memory: x [16 kM][frag_stride(d)], xv [16
+// kM][frag_stride(r)] and, where kX0Shared, x0 [16 kM][frag_stride(d)]
+// (else the epilogue reads x0 from device memory). vfrag and utfrag: V_l [d, r] and U_l^T [r, d] as B
+// operands in fragment order, [L][k-steps][n8 tiles][32 lanes] of (b0, b1),
+// zero padded to multiples of 8. f_out [L, B, d] and xv_out [L, B, r], both
+// or neither null.
+template <int kM, bool kX0Shared>
 __global__ void __launch_bounds__(256 * kM, 2 / kM)
-cross_v2_bwd_rows_kernel(const float* __restrict__ x0, const float2* __restrict__ ufrag,
-                         const float2* __restrict__ vtfrag, const float* __restrict__ f,
-                         const float* __restrict__ g_in, float* __restrict__ dx0,
-                         float* __restrict__ df_out, float* __restrict__ t_out,
-                         int64_t batch, int d, int r, int layers) {
+cross_v2_fwd_kernel(const float* __restrict__ x0, const float2* __restrict__ vfrag,
+                    const float2* __restrict__ utfrag, const float* __restrict__ b,
+                    float* __restrict__ out, float* __restrict__ f_out,
+                    float* __restrict__ xv_out, int64_t batch, int d, int r, int layers) {
   constexpr int kRTile = 16 * kM;
   constexpr int kRWarps = 8 * kM;
   extern __shared__ float4 smem4[];
@@ -449,14 +366,156 @@ cross_v2_bwd_rows_kernel(const float* __restrict__ x0, const float2* __restrict_
   const int r8 = round8(r);
   const int sd = frag_stride(d);
   const int sr = frag_stride(r);
-  float* sg = reinterpret_cast<float*>(smem4);
-  float* sdf = sg + kRTile * d8;
-  float* st = sdf + kRTile * sd;
+  float* sx = reinterpret_cast<float*>(smem4);
+  float* sxv = sx + kRTile * sd;
+  float* sx0 = sxv + kRTile * sr;  // where kX0Shared
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int gid = lane / 4;
   const int tid4 = lane % 4;
   const int64_t row0 = (int64_t)blockIdx.x * kRTile;
+  // x = x0 (zero past d and past the batch), and x0 itself where it is held.
+  // A thread issues the loads of kLoad elements before it uses any.
+  for (int e0 = threadIdx.x; e0 < kRTile * d8; e0 += kLoad * blockDim.x) {
+    float xv0[kLoad];
+#pragma unroll
+    for (int i = 0; i < kLoad; ++i) {
+      const int e = e0 + i * blockDim.x;
+      const int t = e / d8;
+      const int j = e % d8;
+      const bool in = e < kRTile * d8 && j < d && row0 + t < batch;
+      xv0[i] = in ? __ldg(x0 + (row0 + t) * d + j) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kLoad; ++i) {
+      const int e = e0 + i * blockDim.x;
+      if (e >= kRTile * d8) break;
+      sx[e / d8 * sd + e % d8] = xv0[i];
+      if (kX0Shared) sx0[e / d8 * sd + e % d8] = xv0[i];
+    }
+  }
+  __syncthreads();
+  const int ksd = d8 / 8;  // k-steps over d, and n8 tiles of d
+  const int ksr = r8 / 8;  // k-steps over r, and n8 tiles of r
+  for (int l = 0; l < layers; ++l) {
+    // xv = x V_l, [16 kM, d8] x [d8, r8], into sxv (and xv_out).
+    float* xvl = xv_out == nullptr ? nullptr : xv_out + ((int64_t)l * batch + row0) * r;
+    narrow_product<kM>(sx, sd, vfrag + (int64_t)l * ksd * ksr * 32 + lane, ksd, ksr, sxv, sr,
+                       gid, tid4, [&](int nt, const float (&acc)[kM][4]) {
+      if (xvl == nullptr) return;
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = mi * 16 + gid + 8 * (q / 2);
+          const int k = nt * 8 + 2 * tid4 + q % 2;
+          if (k < r && row0 + t < batch) xvl[(int64_t)t * r + k] = acc[mi][q];
+        }
+      }
+    });
+    // f = xv U_l^T + b_l, [16 kM, r8] x [r8, d8]: a warp takes the n8 tiles
+    // w, w + 8 kM, ... of d, each for all kM m16 tiles of rows; then, for
+    // each pair of neighbouring elements of the accumulators, x = x0 * f + x
+    // (and f written out when training).
+    const float2* ul = utfrag + (int64_t)l * ksr * ksd * 32 + lane;
+    const float* bl = b + (int64_t)l * d;
+    float* fl = f_out == nullptr ? nullptr : f_out + (int64_t)l * batch * d;
+    // The epilogue's loads of x0 and b_l do not wait on the product: a warp
+    // issues those of its next tile before the product of this one.
+    auto load_epilogue = [&](int nt, float (&xv0)[kM][4], float (&bv)[2]) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = nt * 8 + 2 * tid4 + c;
+        bv[c] = j < d ? __ldg(bl + j) : 0.0f;
+      }
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = mi * 16 + gid + 8 * (q / 2);
+          const int j = nt * 8 + 2 * tid4 + q % 2;
+          const bool in = j < d && row0 + t < batch;
+          xv0[mi][q] = !in ? 0.0f : kX0Shared ? sx0[t * sd + j] : __ldg(x0 + (row0 + t) * d + j);
+        }
+      }
+    };
+    float xv0[kM][4], bv[2];
+    load_epilogue(warp, xv0, bv);
+    for (int nt = warp; nt < ksd; nt += kRWarps) {
+      float next_x0[kM][4], next_b[2];
+      load_epilogue(nt + kRWarps, next_x0, next_b);
+      float acc[kM][4] = {};
+      tile_times_frags<kM>(sxv, sr, ul + nt * 32, (int64_t)ksd * 32, 0, ksr, gid, tid4, acc);
+      const int j = nt * 8 + 2 * tid4;
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = mi * 16 + gid + 8 * h;
+          const int64_t row = row0 + t;
+          if (row >= batch || j >= d) continue;  // x stays 0 there
+          // Columns j and j + 1 as one 8-byte access: conflict-free, as the
+          // A fragments' reads are.
+          float2* xs = reinterpret_cast<float2*>(sx + t * sd + j);
+          float2 x = *xs;
+          const float f0 = __fadd_rn(acc[mi][2 * h], bv[0]);
+          const float f1 = __fadd_rn(acc[mi][2 * h + 1], bv[1]);
+          x.x = __fadd_rn(__fmul_rn(xv0[mi][2 * h], f0), x.x);
+          if (fl != nullptr) fl[row * d + j] = f0;
+          if (j + 1 < d) {
+            x.y = __fadd_rn(__fmul_rn(xv0[mi][2 * h + 1], f1), x.y);
+            if (fl != nullptr) fl[row * d + j + 1] = f1;
+          }
+          *xs = x;
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xv0[mi][q] = next_x0[mi][q];
+      }
+      bv[0] = next_b[0];
+      bv[1] = next_b[1];
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < kRTile * d; e += blockDim.x) {
+    const int t = e / d;
+    if (row0 + t < batch) out[(row0 + t) * d + e % d] = sx[t * sd + e % d];
+  }
+}
+
+// The backward's row pass: a block of kM * 256 threads holds kM m16 tiles
+// of rows (kM * 16 rows). Dynamic shared memory: g [16 kM][round8(d)] where
+// kGShared (else g lives in g_scratch, [blocks * 16 kM][round8(d)] in
+// device memory), df [16 kM][frag_stride(d)] and t [16 kM][frag_stride(r)].
+// ufrag and vtfrag: U_l [d, r] and V_l^T [r, d] as B operands in fragment
+// order, [L][k-steps][n8 tiles][32 lanes] of (b0, b1), zero padded to
+// multiples of 8.
+template <int kM, bool kGShared>
+__global__ void __launch_bounds__(256 * kM, 2 / kM)
+cross_v2_bwd_rows_kernel(const float* __restrict__ x0, const float2* __restrict__ ufrag,
+                         const float2* __restrict__ vtfrag, const float* __restrict__ f,
+                         const float* __restrict__ g_in, float* __restrict__ dx0,
+                         float* __restrict__ df_out, float* __restrict__ t_out,
+                         float* __restrict__ g_scratch, int64_t batch, int d, int r,
+                         int layers) {
+  constexpr int kRTile = 16 * kM;
+  constexpr int kRWarps = 8 * kM;
+  extern __shared__ float4 smem4[];
+  const int d8 = round8(d);
+  const int r8 = round8(r);
+  const int sd = frag_stride(d);
+  const int sr = frag_stride(r);
+  const int64_t row0 = (int64_t)blockIdx.x * kRTile;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* sg = kGShared ? smem : g_scratch + row0 * d8;
+  float* sdf = kGShared ? smem + kRTile * d8 : smem;
+  float* st = sdf + kRTile * sd;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int gid = lane / 4;
+  const int tid4 = lane % 4;
   const int64_t bd = batch * d;
   const int64_t bd8 = batch * d8;
   // g = dL/dx_L, and the top layer's df = g * x0 (zero past d and past the
@@ -488,86 +547,55 @@ cross_v2_bwd_rows_kernel(const float* __restrict__ x0, const float2* __restrict_
   __syncthreads();
   const int ksd = d8 / 8;  // k-steps over d, and n8 tiles of d
   const int ksr = r8 / 8;  // k-steps over r, and n8 tiles of r
-  // t = df U_l: a warp takes an n8 tile of r for all kM m16 tiles of rows,
-  // so that each weight fragment it loads feeds kM products. Where there are
-  // at least twice as many warps as tiles, two warps share a tile, one
-  // summing the first half of d and one the second; the halves are then
-  // added in that order.
-  const bool halves = 2 * ksr <= kRWarps;
   for (int l = layers - 1; l >= 0; --l) {
-    const float2* ul = ufrag + (int64_t)l * ksd * ksr * 32 + lane;
-    auto product = [&](int nt, int ks0, int ks1, float (&acc)[kM][4]) {
-      tile_times_frags<kM>(sdf, sd, ul + nt * 32, (int64_t)ksr * 32, ks0, ks1, gid, tid4, acc);
-    };
-    // Element q of m16 tile mi of n8 tile nt: row mi * 16 + gid + 8 (q / 2),
-    // column nt * 8 + 2 tid4 + q % 2.
-    auto store_t = [&](int nt, const float (&acc)[kM][4], bool out) {
-      float* tl = t_out + ((int64_t)l * batch + row0) * r8 + nt * 8 + 2 * tid4;
+    // t = df U_l, [16 kM, d8] x [d8, r8], into st and t_out.
+    float* tl = t_out + ((int64_t)l * batch + row0) * r8;
+    narrow_product<kM>(sdf, sd, ufrag + (int64_t)l * ksd * ksr * 32 + lane, ksd, ksr, st, sr,
+                       gid, tid4, [&](int nt, const float (&acc)[kM][4]) {
 #pragma unroll
       for (int mi = 0; mi < kM; ++mi) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int t = mi * 16 + gid + 8 * h;
-          const float2 v = make_float2(acc[mi][2 * h], acc[mi][2 * h + 1]);
-          *reinterpret_cast<float2*>(st + t * sr + nt * 8 + 2 * tid4) = v;
-          if (out && row0 + t < batch) *reinterpret_cast<float2*>(tl + t * r8) = v;
-        }
-      }
-    };
-    if (halves) {
-      float acc[kM][4] = {};
-      const int nt = warp % ksr;
-      const int part = warp / ksr;  // 0, 1, or idle
-      if (part < 2) product(nt, part ? ksd / 2 : 0, part ? ksd : ksd / 2, acc);
-      if (part == 1) store_t(nt, acc, false);
-      __syncthreads();
-      if (part == 0) {
-#pragma unroll
-        for (int mi = 0; mi < kM; ++mi) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int t = mi * 16 + gid + 8 * (q / 2);
-            acc[mi][q] = __fadd_rn(acc[mi][q], st[t * sr + nt * 8 + 2 * tid4 + q % 2]);
+          if (row0 + t < batch) {
+            *reinterpret_cast<float2*>(tl + t * r8 + nt * 8 + 2 * tid4) =
+                make_float2(acc[mi][2 * h], acc[mi][2 * h + 1]);
           }
         }
-        store_t(nt, acc, true);
       }
-    } else {
-      for (int nt = warp; nt < ksr; nt += kRWarps) {
-        float acc[kM][4] = {};
-        product(nt, 0, ksd, acc);
-        store_t(nt, acc, true);
-      }
-    }
-    __syncthreads();
+    });
     // g += t V_l^T, [16 kM, r8] x [r8, d8]: a warp takes the n8 tiles w,
     // w + 8 kM, ... of d, each for all kM m16 tiles of rows; then, for each element of
     // the accumulators, the layer's elementwise steps: dx0 += g * f_l (and
     // dx0 += g after layer 0), and the next layer's df = g * x0.
     const float2* vl = vtfrag + (int64_t)l * ksr * ksd * 32 + lane;
     const float* fl = f + l * bd;
-    // The epilogue's loads of f, x0 and dx0 do not wait on the product: a
-    // warp issues those of its next tile before the product of this one.
-    auto load_epilogue = [&](int nt, float (&fv)[kM][4], float (&xv0)[kM][4], float (&dxv)[kM][4]) {
+    // The epilogue's loads of f, x0 and dx0 (and of g, where it lives in
+    // device memory) do not wait on the product: a warp issues those of its
+    // next tile before the product of this one.
+    auto load_epilogue = [&](int nt, float (&fv)[kM][4], float (&xv0)[kM][4], float (&dxv)[kM][4],
+                             float (&gv)[kM][4]) {
 #pragma unroll
       for (int mi = 0; mi < kM; ++mi) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const int64_t row = row0 + mi * 16 + gid + 8 * (q / 2);
+          const int t = mi * 16 + gid + 8 * (q / 2);
+          const int64_t row = row0 + t;
           const int j = nt * 8 + 2 * tid4 + q % 2;
           const bool in = j < d && row < batch;
           const int64_t at = row * d + j;
           fv[mi][q] = in ? __ldg(fl + at) : 0.0f;
           xv0[mi][q] = in && l > 0 ? __ldg(x0 + at) : 0.0f;
           dxv[mi][q] = in && l < layers - 1 ? dx0[at] : 0.0f;
+          gv[mi][q] = !kGShared && in ? sg[t * d8 + j] : 0.0f;
         }
       }
     };
-    float fv[kM][4], xv0[kM][4], dxv[kM][4];
-    load_epilogue(warp, fv, xv0, dxv);
+    float fv[kM][4], xv0[kM][4], dxv[kM][4], gv[kM][4];
+    load_epilogue(warp, fv, xv0, dxv, gv);
     for (int nt = warp; nt < ksd; nt += kRWarps) {
-      float next_f[kM][4], next_x0[kM][4], next_dx[kM][4];
-      load_epilogue(nt + kRWarps, next_f, next_x0, next_dx);
+      float next_f[kM][4], next_x0[kM][4], next_dx[kM][4], next_g[kM][4];
+      load_epilogue(nt + kRWarps, next_f, next_x0, next_dx, next_g);
       float acc[kM][4] = {};
       tile_times_frags<kM>(st, sr, vl + nt * 32, (int64_t)ksd * 32, 0, ksr, gid, tid4, acc);
 #pragma unroll
@@ -584,7 +612,7 @@ cross_v2_bwd_rows_kernel(const float* __restrict__ x0, const float2* __restrict_
             continue;
           }
           const int64_t at = row * d + j;
-          const float g_old = sg[t * d8 + j];
+          const float g_old = kGShared ? sg[t * d8 + j] : gv[mi][q];
           const float g_new = __fadd_rn(g_old, acc[mi][q]);
           sg[t * d8 + j] = g_new;
           const float gf = __fmul_rn(g_old, fv[mi][q]);
@@ -606,6 +634,7 @@ cross_v2_bwd_rows_kernel(const float* __restrict__ x0, const float2* __restrict_
           fv[mi][q] = next_f[mi][q];
           xv0[mi][q] = next_x0[mi][q];
           dxv[mi][q] = next_dx[mi][q];
+          gv[mi][q] = next_g[mi][q];
         }
       }
     }
@@ -814,28 +843,35 @@ int set_smem(const void* kernel, size_t smem) {
 
 }  // namespace
 
-// x0 [batch, d], V zero padded to v4 [layers, d, r4], U transposed and
-// zero padded to ut4 [layers, r4, d4] (r4, d4: r and d rounded up to 4),
-// b [layers, d], out [batch, d]; f_out [layers, batch, d] and xv_out
-// [layers, batch, r], both or neither null; all f32, contiguous, 16-byte
-// aligned, on the current device; runs on `stream`. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for d, r, layers or batch
-// < 1, or shared memory beyond 227 KB.
-extern "C" int tfrec_cross_v2_fwd(const void* x0, const void* v4, const void* ut4,
+// x0 [batch, d]; V and U^T as B fragments (vfrag [layers, d8/8, r8/8, 32,
+// 2] and utfrag [layers, r8/8, d8/8, 32, 2], d8 and r8: d and r rounded up
+// to 8; see cross_v2_fwd_kernel); b [layers, d]; out [batch, d]; f_out
+// [layers, batch, d] and xv_out [layers, batch, r], both or neither null;
+// all f32, contiguous, 16-byte aligned, on the current device; runs on
+// `stream`. Returns cudaGetLastError(), or cudaErrorInvalidValue for d, r,
+// layers or batch < 1, or shared memory beyond 227 KB (16 rows of x and xv).
+extern "C" int tfrec_cross_v2_fwd(const void* x0, const void* vfrag, const void* utfrag,
                                   const void* b, void* out, void* f_out, void* xv_out,
                                   long long batch, long long d, long long r,
                                   long long layers, void* stream) {
-  const size_t smem = tile_smem_bytes((int)d, (int)r);
-  if (d < 1 || r < 1 || layers < 1 || batch < 1 || smem > kMaxSmem ||
-      (f_out == nullptr) != (xv_out == nullptr)) {
+  if (d < 1 || r < 1 || layers < 1 || batch < 1 || (f_out == nullptr) != (xv_out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int err = set_smem((const void*)cross_v2_fwd_kernel, smem);
+  // 32 rows a block where x and xv fit in shared memory, else 16; x0 held
+  // beside them where 32 rows of it fit too.
+  const bool x0_shared = fwd_smem_bytes((int)d, (int)r, 2, true) <= kMaxSmem;
+  const int m = x0_shared || fwd_smem_bytes((int)d, (int)r, 2, false) <= kMaxSmem ? 2 : 1;
+  const size_t smem = fwd_smem_bytes((int)d, (int)r, m, x0_shared);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = x0_shared ? cross_v2_fwd_kernel<2, true>
+                : m == 2  ? cross_v2_fwd_kernel<2, false>
+                          : cross_v2_fwd_kernel<1, false>;
+  const int err = set_smem((const void*)kernel, smem);
   if (err != 0) return err;
-  const int64_t blocks = (batch + kTile - 1) / kTile;
-  cross_v2_fwd_kernel<<<(unsigned)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x0), static_cast<const float*>(v4),
-      static_cast<const float*>(ut4), static_cast<const float*>(b),
+  const int64_t blocks = (batch + 16 * m - 1) / (16 * m);
+  kernel<<<(unsigned)blocks, 256 * m, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x0), static_cast<const float2*>(vfrag),
+      static_cast<const float2*>(utfrag), static_cast<const float*>(b),
       static_cast<float*>(out), static_cast<float*>(f_out), static_cast<float*>(xv_out),
       batch, (int)d, (int)r, (int)layers);
   return static_cast<int>(cudaGetLastError());
@@ -846,28 +882,35 @@ extern "C" int tfrec_cross_v2_fwd(const void* x0, const void* v4, const void* ut
 // rounded up to 8; see cross_v2_bwd_rows_kernel), f [layers, batch, d] and
 // xv [layers, batch, r] (from the forward); writes dx0 [batch, d] and grads
 // [dU (layers*d*r), dV (layers*d*r), db (layers*d)]; uses df [layers,
-// batch, d8], t [layers, batch, r8] and partial [chunks, grads] as scratch;
-// all f32, contiguous, 16-byte aligned, on the current device; runs on
-// `stream` (three launches). Returns the first launch error, or
-// cudaErrorInvalidValue for d, r, layers, batch or chunks < 1, or shared
-// memory beyond 227 KB.
+// batch, d8], t [layers, batch, r8], partial [chunks, grads] and g_scratch
+// [tfrec_cross_v2_bwd_scratch_rows(batch, d, r), d8] (null where that is
+// 0) as scratch; all f32, contiguous, 16-byte
+// aligned, on the current device; runs on `stream` (three launches).
+// Returns the first launch error, or cudaErrorInvalidValue for d, r,
+// layers, batch or chunks < 1, a null g_scratch where it is needed, or
+// shared memory beyond 227 KB (16 rows of df and t).
 extern "C" int tfrec_cross_v2_bwd(const void* x0, const void* ufrag, const void* vtfrag,
                                   const void* f, const void* xv, const void* g,
                                   void* dx0, void* grads, void* df, void* t,
-                                  void* partial, long long batch, long long d,
-                                  long long r, long long layers, long long chunks,
-                                  void* stream) {
+                                  void* g_scratch, void* partial, long long batch,
+                                  long long d, long long r, long long layers,
+                                  long long chunks, void* stream) {
   if (d < 1 || r < 1 || layers < 1 || batch < 1 || chunks < 1 || chunks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // The row pass holds 32 rows a block where they fit in shared memory, else 16.
-  const int m = rows_smem_bytes((int)d, (int)r, 2) <= kMaxSmem ? 2 : 1;
-  const size_t smem = rows_smem_bytes((int)d, (int)r, m);
+  const RowsLayout layout = rows_layout((int)d, (int)r);
+  const int m = layout.m;
+  const bool g_shared = layout.g_shared;
+  const size_t smem = rows_smem_bytes((int)d, (int)r, m, g_shared);
   const int rows = weights_rows((int)layers);
-  if (smem > kMaxSmem || rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > kMaxSmem || rows == 0 || (!g_shared && g_scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t wsmem = weights_smem_bytes((int)layers, rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto rows_kernel = m == 2 ? cross_v2_bwd_rows_kernel<2> : cross_v2_bwd_rows_kernel<1>;
+  auto rows_kernel = !g_shared ? cross_v2_bwd_rows_kernel<1, false>
+                     : m == 2  ? cross_v2_bwd_rows_kernel<2, true>
+                               : cross_v2_bwd_rows_kernel<1, true>;
   int err = set_smem((const void*)rows_kernel, smem);
   if (err != 0) return err;
   auto weights_kernel = rows == 32   ? cross_v2_bwd_weights_kernel<32>
@@ -880,7 +923,8 @@ extern "C" int tfrec_cross_v2_bwd(const void* x0, const void* ufrag, const void*
       static_cast<const float*>(x0), static_cast<const float2*>(ufrag),
       static_cast<const float2*>(vtfrag), static_cast<const float*>(f),
       static_cast<const float*>(g), static_cast<float*>(dx0), static_cast<float*>(df),
-      static_cast<float*>(t), batch, (int)d, (int)r, (int)layers);
+      static_cast<float*>(t), static_cast<float*>(g_scratch), batch, (int)d, (int)r,
+      (int)layers);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int64_t rows_per_chunk = (batch + chunks - 1) / chunks;
@@ -897,4 +941,12 @@ extern "C" int tfrec_cross_v2_bwd(const void* x0, const void* ufrag, const void*
   sum_chunks_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(grads), (int)chunks, total);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of the g scratch that tfrec_cross_v2_bwd takes for these shapes: 0
+// where its row pass holds g in shared memory, else the batch rounded up to
+// the pass's rows a block.
+extern "C" int tfrec_cross_v2_bwd_scratch_rows(long long batch, long long d, long long r) {
+  const RowsLayout layout = rows_layout((int)d, (int)r);
+  return layout.g_shared ? 0 : (int)((batch + 16 * layout.m - 1) / (16 * layout.m) * 16 * layout.m);
 }

@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
 """A/B variants of the low-rank DCN-v2 cross kernels on one CUDA card.
 
-    python3 tools/ab_cross_v2.py [f32=]DIR[:CHUNKS] ...
+    python3 tools/ab_cross_v2.py [pr5=]DIR[:CHUNKS] ...
 
 Each DIR holds a variant ``cross_v2.cu`` with the C interface of
 ``tfrec_tpu_torch/kernels/csrc/cross_v2.cu`` (``tfrec_tpu_torch/kernels/csrc``
-itself is the current one). ``f32=DIR`` marks a variant with the backward
-interface of the f32 CUDA-core kernels (commit e620197: U zero padded to
-[L, d, r4], V transposed and zero padded to [L, r4, d4], df and t
-unpadded), which this tool then calls with those layouts. For each
-argument, in order, it builds the variant into ``build/ab/<n>_<DIR name>/``,
-holds the forward and backward against their plain versions at the
-flagship's shape (B=8192, d=845, r=64, L=3; rtol 1e-5, atol 1e-5 x
-max|ref|), and prints their device times (a CUDA graph of 3 calls on
-inputs that rotate past L2, median of 7 replays) and the backward's time
-by kernel. CHUNKS caps the weight pass's batch chunks (default: the wrapper's).
-List a variant twice, first and last, to see the drift of the card. It
-also counts the tensor-core (HMMA) instructions of each backward kernel in
-the built library's SASS (``cuobjdump --dump-sass``).
+itself is the current one). ``pr5=DIR`` marks the interface of commit
+88036c9's kernels, which this tool then calls with its layouts: the f32
+CUDA-core forward (V zero padded to [L, d, r4], U transposed and zero
+padded to [L, r4, d4]) beside the tensor-core backward without the g
+scratch. For each argument, in order, it builds the variant into
+``build/ab/<n>_<DIR name>/``, holds the forward and backward against their
+plain versions at the flagship's shape (B=8192, d=845, r=64, L=3; rtol
+1e-5, atol 1e-5 x max|ref|), and prints their device times (a CUDA graph of
+3 calls on inputs that rotate past L2, median of 7 replays) and the
+backward's time by kernel. CHUNKS caps the weight pass's batch chunks
+(default: the wrapper's). Where DIR also holds a ``cross.cu``, it times the
+DCN-v1 kernels of that source too, at B=8192, d=845, L=3. List a variant
+twice, first and last, to see the drift of the card. It also counts the
+tensor-core (HMMA) instructions of each kernel in the built library's SASS
+(``cuobjdump --dump-sass``).
 """
 
+import ctypes
 import re
 import statistics
 import subprocess
@@ -27,10 +30,12 @@ import sys
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from tfrec_tpu_torch.kernels import _build  # noqa: E402
+from tfrec_tpu_torch.kernels import cross_cuda as m1  # noqa: E402
 from tfrec_tpu_torch.kernels import cross_v2_cuda as m  # noqa: E402
 
 B, D, R, L = 8192, 845, 64, 3
@@ -62,26 +67,63 @@ def within(got, want) -> bool:
     return bool(((got - want).abs() <= 1e-5 * want.abs().max() + 1e-5 * want.abs()).all())
 
 
-def f32_bwd(x0, u, v, f, xv, g):
-    """``cross_v2_bwd`` as the f32 CUDA-core kernels' wrapper called them."""
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _layout(w, transpose: bool):
+    """A weight stack [L, d, r] as commit 88036c9's f32 CUDA-core forward
+    read it: zero padded to [L, d, r4], or transposed and zero padded to
+    [L, r4, d4]."""
+    layers, dim, rank = w.shape
+    if transpose:
+        return F.pad(w.transpose(1, 2), (0, _round4(dim) - dim, 0, _round4(rank) - rank)).contiguous()
+    return F.pad(w, (0, _round4(rank) - rank)).contiguous()
+
+
+def pr5_fwd(x0, u, v, b, want_saved=False):
+    """``cross_v2_fwd`` as commit 88036c9's wrapper called its f32
+    CUDA-core forward."""
+    layers, dim, rank = u.shape
+    batch = x0.shape[0]
+    out = torch.empty_like(x0)
+    f = torch.empty((layers, batch, dim), device=x0.device) if want_saved else None
+    xv = torch.empty((layers, batch, rank), device=x0.device) if want_saved else None
+    fn = _build.function("cross_v2", "tfrec_cross_v2_fwd", m._FWD_ARGTYPES)
+    v4, ut4 = _layout(v, transpose=False), _layout(u, transpose=True)
+    rc = fn(x0.data_ptr(), v4.data_ptr(), ut4.data_ptr(), b.data_ptr(), out.data_ptr(),
+            f.data_ptr() if want_saved else None, xv.data_ptr() if want_saved else None,
+            batch, dim, rank, layers, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, "pr5 cross_v2_fwd")
+    return (out, f, xv) if want_saved else out
+
+
+def pr5_bwd(x0, u, v, f, xv, g):
+    """``cross_v2_bwd`` as commit 88036c9's wrapper called its kernels (no g
+    scratch)."""
     layers, dim, rank = u.shape
     batch, width = x0.shape[0], layers * dim * rank
     grads = torch.zeros(2 * width + layers * dim, device=x0.device)
-    dx0, df, t = torch.empty_like(x0), torch.empty_like(f), torch.empty_like(xv)
+    dx0 = torch.empty_like(x0)
+    df = torch.empty((layers, batch, m._round8(dim)), device=x0.device)
+    t = torch.empty((layers, batch, m._round8(rank)), device=x0.device)
+    wu, wv = m._fragments(u), m._fragments(v.transpose(1, 2))
     chunks = min(m._MAX_CHUNKS, -(-batch // m._MIN_CHUNK_ROWS))
     partial = torch.empty((chunks, grads.numel()), device=x0.device)
-    u4, vt4 = m._layout(u, transpose=False), m._layout(v, transpose=True)
-    fn = _build.function("cross_v2", "tfrec_cross_v2_bwd", m._BWD_ARGTYPES)
-    rc = fn(x0.data_ptr(), u4.data_ptr(), vt4.data_ptr(), f.data_ptr(), xv.data_ptr(), g.data_ptr(),
+    fn = _build.function("cross_v2", "tfrec_cross_v2_bwd",
+                         [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
+    rc = fn(x0.data_ptr(), wu.data_ptr(), wv.data_ptr(), f.data_ptr(), xv.data_ptr(), g.data_ptr(),
             dx0.data_ptr(), grads.data_ptr(), df.data_ptr(), t.data_ptr(), partial.data_ptr(),
             batch, dim, rank, layers, chunks, torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(rc, "f32 cross_v2_bwd")
+    _build.check_launch(rc, "pr5 cross_v2_bwd")
     return (dx0, grads[:width].view(layers, dim, rank), grads[width:2 * width].view(layers, dim, rank),
             grads[2 * width:].view(layers, dim))
 
 
 def hmma_counts(lib: Path) -> dict:
-    """HMMA instructions in the SASS of each backward kernel of ``lib``."""
+    """HMMA instructions in the SASS of each kernel of ``lib``, by kernel
+    and template arguments (``<rows / 16>`` or ``<rows / 16, g in shared
+    memory>``)."""
     sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "--dump-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
@@ -90,8 +132,9 @@ def hmma_counts(lib: Path) -> dict:
         if found:
             name = next((k for k in ("bwd_rows", "bwd_weights", "fwd_kernel", "sum_chunks")
                          if k in found.group(1)), found.group(1))
-            template = re.search(r"ILi(\d+)E", found.group(1))
-            name += f"<{template.group(1)}>" if template else ""
+            template = re.search(r"ILi(\d+)E(?:Lb([01])E)?", found.group(1))
+            if template:
+                name += "<" + ", ".join(a for a in template.groups() if a is not None) + ">"
             counts[name] = 0
         elif name and "HMMA" in line:
             counts[name] += 1
@@ -109,35 +152,52 @@ def main() -> None:
     u = torch.randn(L, D, R, device="cuda", generator=gen) / D**0.5
     v = torch.randn(L, D, R, device="cuda", generator=gen) / D**0.5
     b = 0.1 * torch.randn(L, D, device="cuda", generator=gen)
+    w1 = torch.randn(L, D, device="cuda", generator=gen) / D**0.5
+    b1 = 0.1 * torch.randn(L, D, device="cuda", generator=gen)
     default_chunks = m._MAX_CHUNKS
     for n, arg in enumerate(sys.argv[1:]):
-        f32 = arg.startswith("f32=")
-        variant, _, chunks = arg.removeprefix("f32=").partition(":")
+        pr5 = arg.startswith("pr5=")
+        variant, _, chunks = arg.removeprefix("pr5=").partition(":")
         m._MAX_CHUNKS = int(chunks) if chunks else default_chunks
         src = Path(variant).resolve()
         _build.CSRC_DIR, _build.BUILD_DIR = src, ROOT / "build" / "ab" / f"{n}_{src.name}"
         _build._loaded.clear()
         _build._functions.clear()
-        _build.build(["cross_v2"])
-        bwd_fn = f32_bwd if f32 else m.cross_v2_bwd
-        saved = [m.cross_v2_fwd(x, u, v, b, want_saved=True) for x in x0s]
+        with_v1 = (src / "cross.cu").exists()
+        _build.build(["cross_v2", "cross"] if with_v1 else ["cross_v2"])
+        fwd_fn = pr5_fwd if pr5 else m.cross_v2_fwd
+        bwd_fn = pr5_bwd if pr5 else m.cross_v2_bwd
+        saved = [fwd_fn(x, u, v, b, want_saved=True) for x in x0s]
         out, f, xv = saved[0]
-        ok = within(out, m.cross_v2_fwd_ref(x0s[0], u, v, b))
+        want, f_ref, xv_ref = m.cross_v2_fwd_ref(x0s[0], u, v, b, want_saved=True)
+        ok = within(out, want) and within(f, f_ref) and within(xv, xv_ref)
+        fwd_errs = ", ".join(f"{name} {(a - e).abs().max().item():.3e} (max |ref| {e.abs().max().item():.3e})"
+                             for name, a, e in (("x_L", out, want), ("f", f, f_ref), ("xv", xv, xv_ref)))
         grads = bwd_fn(x0s[0], u, v, f, xv, gs[0])
         ref = m.cross_v2_bwd_ref(x0s[0], u, v, f, xv, gs[0])
         ok &= all(within(a, e) for a, e in zip(grads, ref))
         again = bwd_fn(x0s[0], u, v, f, xv, gs[0])
         errs = ", ".join(f"{name} {(a - e).abs().max().item():.3e} (max |ref| {e.abs().max().item():.3e})"
                          for name, a, e in zip(("dx0", "dU", "dV", "db"), grads, ref))
-        bitwise = all(torch.equal(a, e) for a, e in zip(grads, again))
-        fwd = device_ms(lambda: [m.cross_v2_fwd(x, u, v, b) for x in x0s], 3)
-        fwd_saved = device_ms(lambda: [m.cross_v2_fwd(x, u, v, b, want_saved=True) for x in x0s], 3)
+        bitwise = torch.equal(out, fwd_fn(x0s[0], u, v, b))
+        bitwise &= all(torch.equal(a, e) for a, e in zip(grads, again))
+        fwd = device_ms(lambda: [fwd_fn(x, u, v, b) for x in x0s], 3)
+        fwd_saved = device_ms(lambda: [fwd_fn(x, u, v, b, want_saved=True) for x in x0s], 3)
         bwd = device_ms(lambda: [bwd_fn(x, u, v, f, xv, g)
                                  for (_, f, xv), x, g in zip(saved, x0s, gs)], 3)
-        print(f"{'f32=' if f32 else ''}{src.name} chunks<={m._MAX_CHUNKS}: within tolerance {ok}, "
-              f"backward repeats bit for bit {bitwise}; forward {fwd * 1e3:.1f} us, saving f and xv "
-              f"{fwd_saved * 1e3:.1f} us, backward {bwd * 1e3:.1f} us; backward errors {errs}; "
+        print(f"{arg} chunks<={m._MAX_CHUNKS}: within tolerance {ok}, forward and backward repeat "
+              f"bit for bit {bitwise}; forward {fwd * 1e3:.1f} us, saving f and xv {fwd_saved * 1e3:.1f} "
+              f"us, backward {bwd * 1e3:.1f} us; forward errors {fwd_errs}; backward errors {errs}; "
               f"HMMA in SASS {hmma_counts(_build.library_path('cross_v2'))}", flush=True)
+        if with_v1:
+            ss = [m1.cross_v1_fwd(x, w1, b1, want_s=True)[1] for x in x0s]
+            v1_ok = within(m1.cross_v1_fwd(x0s[0], w1, b1), m1.cross_v1_fwd_ref(x0s[0], w1, b1))
+            v1_ok &= all(within(a, e) for a, e in zip(m1.cross_v1_bwd(x0s[0], w1, b1, ss[0], gs[0]),
+                                                      m1.cross_v1_bwd_ref(x0s[0], w1, b1, gs[0], ss[0])))
+            v1f = device_ms(lambda: [m1.cross_v1_fwd(x, w1, b1) for x in x0s], 3)
+            v1b = device_ms(lambda: [m1.cross_v1_bwd(x, w1, b1, s, g) for x, s, g in zip(x0s, ss, gs)], 3)
+            print(f"    {src.name}/cross.cu: within tolerance {v1_ok}; cross_v1_fwd {v1f * 1e3:.1f} us, "
+                  f"cross_v1_bwd {v1b * 1e3:.1f} us", flush=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             bwd_fn(x0s[0], u, v, f, xv, gs[0])
             torch.cuda.synchronize()
