@@ -9,8 +9,11 @@ non-zero if any phase fails:
 2. build: nvcc compiles every kernel source into build/tfrec_tpu_torch/,
    one process per source, all started together;
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes and at edge cases, and each repeating bit for bit; the
-   duplicate-id combine repeating bit for bit and matching the CPU; then
+   paths' shapes and at edge cases, and each repeating bit for bit (the
+   gather and Adagrad kernels over all 26 tables in one launch, bit for
+   bit their plain versions and their one-table launches, and past one
+   launch's 64 tables); the duplicate-id combine repeating bit for bit and
+   matching the CPU; then
    the cross kernels at widths past the flagship's (v1 at d=2093, v2 at
    d=1885 and 3341, r=64; B=8192, L=3), each through its kernels (launch
    counters), against its plain version, bit for bit on repeat, with its
@@ -20,19 +23,28 @@ non-zero if any phase fails:
    generator, batches of 8192 through ``Recommender.predict_ctr``; the
    logits must be finite, match the same model run through the plain
    versions on the card and, on a small input, on the CPU; launch counters
-   prove the gather and the v1 cross kernels ran, and no other;
+   prove the gather (one launch a batch for the 26 fields) and the v1
+   cross kernels ran, and no other; the route of a launch a field gives
+   the same logits bit for bit;
 5. serving times with CUDA events: each kernel beside its bound, its plain
    version and the one PyTorch call that computes the same function where
-   there is one; predict_ctr's latency; a profile of one request batch;
+   there is one (the gather's one launch beside 26 launches of one table
+   each and 26 ``index_select``, and the host's cost of each); predict_ctr's
+   latency and a profile of one request batch, through one launch and
+   through a launch a field;
 6. training: the same model trained by ``TrainStepBuilder`` on the default
    device (dense Adam, rowwise Adagrad, logloss), ``multi_step`` over
    K = train.steps_per_dispatch batches of 8192 from ``synthetic_ctr``;
-   launch counters prove every kernel of the step ran; the loss is finite
-   and falls on a held batch; one step repeats bit for bit and matches
-   the same step on the CPU (plain versions) from the same state;
+   launch counters prove every kernel of the step ran (one gather and one
+   Adagrad launch a step for the 26 tables); the loss is finite and falls
+   on a held batch; one step repeats bit for bit, matches the same step on
+   the CPU (plain versions) from the same state, and is bit for bit the
+   step of a launch a table (the per-table seams);
 7. training times: the backward cross kernel and the Adagrad kernel beside
-   their bounds and plain versions, the step's median, a profile of one
-   step;
+   their bounds and plain versions (the Adagrad kernel's one launch beside
+   26 launches of one table, at the step's Zipf ids and at uniform ids,
+   and the host's cost of each), the step's median and a profile of one
+   step, through one launch and through a launch a table;
 8. phases 4 and 6 again for the same model as low-rank DCN-v2
    (``model.name="dcnv2"``, ``cross_rank=64``: U and V [3, 845, 64]), whose
    cross stack runs the v2 kernels; then their times beside their bounds
@@ -58,7 +70,12 @@ import torch
 from tfrec_tpu_torch import zoo_configs
 from tfrec_tpu_torch.data.synthetic import _zipf_ids, synthetic_ctr
 from tfrec_tpu_torch.kernels import _build
-from tfrec_tpu_torch.kernels.adagrad_cuda import fused_rowwise_adagrad, fused_rowwise_adagrad_ref
+from tfrec_tpu_torch.kernels.adagrad_cuda import (
+    fused_rowwise_adagrad,
+    fused_rowwise_adagrad_multi,
+    fused_rowwise_adagrad_multi_ref,
+    fused_rowwise_adagrad_ref,
+)
 from tfrec_tpu_torch.kernels.cross import cross_stack_ref
 from tfrec_tpu_torch.kernels.cross_cuda import (
     cross_v1_bwd,
@@ -72,7 +89,12 @@ from tfrec_tpu_torch.kernels.cross_v2_cuda import (
     cross_v2_fwd,
     cross_v2_fwd_ref,
 )
-from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_ref
+from tfrec_tpu_torch.kernels.gather_cuda import (
+    gather_rows,
+    gather_rows_multi,
+    gather_rows_multi_ref,
+    gather_rows_ref,
+)
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
 from tfrec_tpu_torch.serve import Recommender
@@ -111,8 +133,11 @@ TABLE_TOL = 1e-6
 ACC_RTOL = 1e-4
 LOSS_RTOL = 1e-5
 
+# The kernels of the main paths. The gather and Adagrad kernels run there
+# as one launch over every table (the ``_multi`` wrappers); their one-table
+# wrappers launch the same kernels and are counted, and timed, beside them.
 KERNELS = {
-    "gather_rows": {
+    "gather_rows_multi": {
         "source": "tfrec_tpu_torch/kernels/csrc/gather.cu",
         "replaces": "tfrec_tpu/kernels/gather_pallas.py:89",
     },
@@ -124,7 +149,7 @@ KERNELS = {
         "source": "tfrec_tpu_torch/kernels/csrc/cross.cu",
         "replaces": "tfrec_tpu/kernels/cross_pallas.py:157",
     },
-    "fused_rowwise_adagrad": {
+    "fused_rowwise_adagrad_multi": {
         "source": "tfrec_tpu_torch/kernels/csrc/adagrad.cu",
         "replaces": "tfrec_tpu/kernels/scatter_pallas.py:182",
     },
@@ -137,8 +162,10 @@ KERNELS = {
         "replaces": "tfrec_tpu/kernels/cross_pallas.py:342",
     },
 }
-WRAPPERS = {"gather_rows": gather_rows, "cross_v1_fwd": cross_v1_fwd,
-            "cross_v1_bwd": cross_v1_bwd, "fused_rowwise_adagrad": fused_rowwise_adagrad,
+WRAPPERS = {"gather_rows_multi": gather_rows_multi, "gather_rows": gather_rows,
+            "cross_v1_fwd": cross_v1_fwd, "cross_v1_bwd": cross_v1_bwd,
+            "fused_rowwise_adagrad_multi": fused_rowwise_adagrad_multi,
+            "fused_rowwise_adagrad": fused_rowwise_adagrad,
             "cross_v2_fwd": cross_v2_fwd, "cross_v2_bwd": cross_v2_bwd}
 
 
@@ -279,6 +306,29 @@ def plain_predict_ctr(model, params, dense, cat) -> torch.Tensor:
     return model.head(params["dense"], x0, cross_stack_ref(x0, params["dense"]["cross"]))
 
 
+def per_table_predict(rec, dense, cat) -> np.ndarray:
+    """``Recommender.predict_ctr`` as it was before one launch gathered
+    every field: a ``gather_rows`` launch a field."""
+    with torch.inference_mode():
+        batch = {"dense": torch.from_numpy(dense).to(DEVICE), "cat": torch.from_numpy(cat).to(DEVICE)}
+        tables = rec.params["tables"]
+        gathered = {k: gather_rows(tables[k], ids) for k, ids in rec.model.lookup_ids(batch).items()}
+        return rec.model(rec.params["dense"], gathered, batch).cpu().numpy()
+
+
+class PerTableSteps(TrainStepBuilder):
+    """The step as it was before one launch covered every table: a
+    ``gather_rows`` launch a table in ``lookup``, and the per-table seams
+    (overriding ``sparse_update_deduped`` keeps them), a
+    ``fused_rowwise_adagrad`` launch a table."""
+
+    def lookup(self, tables, ids):
+        return {name: gather_rows(tables[name], i) for name, i in ids.items()}, {}
+
+    def sparse_update_deduped(self, name, table, opt_state, uids, g, lr):
+        return super().sparse_update_deduped(name, table, opt_state, uids, g, lr)
+
+
 def phase_environment() -> None:
     check(torch.cuda.is_available(), "CUDA is available")
     card = subprocess.run(
@@ -328,7 +378,114 @@ def phase_kernels(rng) -> dict:
     errs["cross_v1_bwd"] = check_cross_v1_bwd(rng, dim, layers)
     errs["fused_rowwise_adagrad"] = check_adagrad(rng)
     errs["cross_v2_fwd"], errs["cross_v2_bwd"] = check_cross_v2(rng, dim, layers)
+    errs["gather_rows_multi"] = check_gather_multi()
+    errs["fused_rowwise_adagrad_multi"] = check_adagrad_multi()
     return errs
+
+
+def launches_of(wrapper, fn):
+    """(fn()'s result, the launches of ``wrapper``'s kernel it made)."""
+    before = wrapper.launches
+    out = fn()
+    return out, wrapper.launches - before
+
+
+def check_gather_multi() -> float:
+    """The gather over many tables in one launch (counted): bit for bit its
+    plain version, one launch of one table a field, and itself on repeat;
+    at the serving path's shape (26 tables [100000, 32], 8192 edge-case ids
+    each), at mixed widths (D = 8, 13, 128 with a bag of 3 ids an example,
+    a short field) and past one launch's 64 tables (70: two launches)."""
+    rng = np.random.default_rng(SEED + 2)  # its own: the main paths' inputs do not depend on it
+    cases = {"26 tables [100000, 32]": [(100_000, 32, BATCH)] * 26,
+             "mixed widths": [(100_000, 8, BATCH), (100_000, 13, BATCH), (1000, 128, 3 * BATCH),
+                              (64, 32, 17)],
+             "70 tables [1000, 8]": [(1000, 8, 1000)] * 70}
+    worst = 0.0
+    for name, fields in cases.items():
+        tables = [torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(DEVICE)
+                  for v, d, _ in fields]
+        ids = [torch.from_numpy(edge_case_ids(rng, v, n)).to(DEVICE) for v, _, n in fields]
+        got, launches = launches_of(gather_rows_multi, lambda: gather_rows_multi(tables, ids))
+        want = gather_rows_multi_ref(tables, ids)
+        one = [gather_rows(t, i) for t, i in zip(tables, ids)]
+        again = gather_rows_multi(tables, ids)
+        torch.cuda.synchronize()
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"gather_rows_multi {name}: {launches} launch(es), max_abs_err {err} bitwise {bitwise}")
+        check(launches == -(-len(fields) // 64), f"gather_rows_multi {name}: one launch a 64 tables")
+        check(bitwise, f"gather_rows_multi {name} is bitwise the plain version")
+        check(all(torch.equal(g, o) for g, o in zip(got, one)),
+              f"gather_rows_multi {name} is bitwise its one-table launches")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)), f"gather_rows_multi {name} repeats")
+        worst = max(worst, err)
+    return worst
+
+
+def check_adagrad_multi() -> float:
+    """The Adagrad update of many tables in one launch (counted): bit for
+    bit one launch of one table a table, and itself on repeat; bit for bit
+    its plain version at the training path's shape (26 tables [100000, 32],
+    8192 Zipf ids each, combined), within tolerance of it at mixed widths
+    (D = 8, 13, 100, slots shuffled so sentinels lie among the real ids)
+    and past one launch's 64 tables (70: two launches). Rows no real id
+    names (0 and V-1, where clamped negatives and sentinels would land,
+    among them) stay as they were."""
+    rng = np.random.default_rng(SEED + 3)
+    cases = {"26 tables [100000, 32]": [(100_000, 32, BATCH)] * 26,
+             "mixed widths, shuffled": [(100_000, 8, BATCH), (100_000, 13, BATCH), (5000, 100, 2000)],
+             "70 tables [1000, 8]": [(1000, 8, 1000)] * 70}
+    lr = 0.02
+    worst = 0.0
+    for name, shapes in cases.items():
+        tables, accs, uids, grads = [], [], [], []
+        for vocab, dim, n in shapes:
+            tables.append(torch.from_numpy(rng.normal(size=(vocab, dim)).astype(np.float32) / dim**0.5).to(DEVICE))
+            accs.append(torch.from_numpy(rng.uniform(0.0, 0.1, vocab).astype(np.float32)).to(DEVICE))
+            ids = torch.from_numpy(adagrad_ids(rng, vocab, n)).to(DEVICE)
+            g = torch.from_numpy((1e-3 * rng.normal(size=(n, dim))).astype(np.float32)).to(DEVICE)
+            u, c = combine_duplicate_ids(ids, g, sentinel=vocab)
+            if "shuffled" in name:
+                perm = torch.from_numpy(rng.permutation(n)).to(DEVICE)
+                u, c = u[perm].contiguous(), c[perm].contiguous()
+            uids.append(u)
+            grads.append(c)
+
+        def copies():
+            return [t.clone() for t in tables], [a.clone() for a in accs]
+
+        (got_t, got_a), launches = launches_of(
+            fused_rowwise_adagrad_multi, lambda: fused_rowwise_adagrad_multi(*copies(), uids, grads, lr))
+        again_t, again_a = fused_rowwise_adagrad_multi(*copies(), uids, grads, lr)
+        one_t, one_a = copies()
+        for t, a, u, g in zip(one_t, one_a, uids, grads):
+            fused_rowwise_adagrad(t, a, u, g, lr)
+        ref_t, ref_a = fused_rowwise_adagrad_multi_ref(*copies(), uids, grads, lr)
+        torch.cuda.synchronize()
+        err = max(max(max_err(a, e) for a, e in zip(got_t, ref_t)), max(max_err(a, e) for a, e in zip(got_a, ref_a)))
+        bitwise = all(torch.equal(a, e) for a, e in zip(got_t + got_a, ref_t + ref_a))
+        distinct = sum(int((u < t.shape[0]).sum().item()) for u, t in zip(uids, tables))
+        print(f"fused_rowwise_adagrad_multi {name}: {launches} launch(es), {distinct} real ids of "
+              f"{sum(u.shape[0] for u in uids)} slots, max_abs_err {err:.3e} (rtol {RTOL}, atol {ATOL_REL} "
+              f"x max|ref|), bitwise the plain version {bitwise}")
+        check(launches == -(-len(shapes) // 64), f"fused_rowwise_adagrad_multi {name}: one launch a 64 tables")
+        check(all(within(a, e, RTOL, ATOL_REL) for a, e in zip(got_t + got_a, ref_t + ref_a)),
+              f"fused_rowwise_adagrad_multi {name} within tolerance")
+        if name.startswith("26 tables"):
+            check(bitwise, f"fused_rowwise_adagrad_multi {name} is bitwise the plain version")
+        check(all(torch.equal(a, o) for a, o in zip(got_t + got_a, one_t + one_a)),
+              f"fused_rowwise_adagrad_multi {name} is bitwise its one-table launches")
+        check(all(torch.equal(a, r) for a, r in zip(got_t + got_a, again_t + again_a)),
+              f"fused_rowwise_adagrad_multi {name} repeats bit for bit")
+        for t, a, u, t0, a0 in zip(got_t, got_a, uids, tables, accs):
+            touched = torch.zeros(t.shape[0], dtype=torch.bool, device=DEVICE)
+            touched[u[u < t.shape[0]].long()] = True
+            check(not bool(touched[0]) and not bool(touched[-1]), "rows 0 and V-1 are not real ids here")
+            check(torch.equal(t[~touched], t0[~touched]) and torch.equal(a[~touched], a0[~touched]),
+                  f"fused_rowwise_adagrad_multi {name}: untouched rows unchanged")
+        worst = max(worst, err)
+    return worst
 
 
 def check_cross_v2(rng, dim: int, layers: int) -> tuple[float, float]:
@@ -397,9 +554,8 @@ def check_cross_v1_bwd(rng, dim: int, layers: int) -> float:
 
 def counted(wrapper, fn):
     """fn()'s result, checking that it launched ``wrapper``'s kernel once."""
-    before = wrapper.launches
-    out = fn()
-    check(wrapper.launches == before + 1, f"{wrapper.__name__} launched its kernel")
+    out, launches = launches_of(wrapper, fn)
+    check(launches == 1, f"{wrapper.__name__} launched its kernel")
     return out
 
 
@@ -566,10 +722,20 @@ def phase_main_path(rng, cfg):
     launches = read_launches()
     fwd = cross_kernels(cfg)[0]
     print(f"main path ({cfg.model.name} serving): {NUM_BATCHES} batches of {BATCH}, launches {launches}")
-    check(launches["gather_rows"] == len(vocabs) * NUM_BATCHES, "gather_rows ran once per field per batch")
+    check(launches["gather_rows_multi"] == NUM_BATCHES, "gather_rows_multi ran once per batch, for all fields")
     check(launches[fwd] == NUM_BATCHES, f"{fwd} ran once per batch")
-    check(all(c == 0 for name, c in launches.items() if name not in ("gather_rows", fwd)),
+    check(all(c == 0 for name, c in launches.items() if name not in ("gather_rows_multi", fwd)),
           "serving launched no other kernel")
+
+    reset_launches()
+    old = per_table_predict(rec, *requests[0])
+    torch.cuda.synchronize()
+    old_launches = read_launches()
+    print(f"serving through a gather launch a field (the route before one launch): one batch, "
+          f"launches {old_launches}; logits bit for bit those of one launch: {np.array_equal(old, logits[0])}")
+    check(old_launches["gather_rows"] == len(vocabs) and old_launches["gather_rows_multi"] == 0,
+          "the per-field route launched gather_rows once per field")
+    check(np.array_equal(old, logits[0]), "a gather launch a field gives the logits of one launch, bit for bit")
 
     logit_err = 0.0
     for (dense, cat), got in zip(requests, logits):
@@ -597,19 +763,21 @@ def phase_times(model, rec, requests, errs) -> list:
     batch = {"dense": torch.from_numpy(dense).to(DEVICE), "cat": torch.from_numpy(cat).to(DEVICE)}
     ids = model.lookup_ids(batch)
     tables = rec.params["tables"]
-    pairs = [(tables[k], ids[k]) for k in ids]
+    field_tables, field_ids = [tables[k] for k in ids], list(ids.values())
+    pairs = list(zip(field_tables, field_ids))
     clamped = [(t, i.clamp(0, t.shape[0] - 1)) for t, i in pairs]
     f = len(pairs)
     # One rep gathers every field once: 26 tables, 333 MB, so L2 is cold.
-    g_ms = device_ms(lambda: [gather_rows(t, i) for t, i in pairs], f)
-    g_plain = device_ms(lambda: [gather_rows_ref(t, i) for t, i in pairs], f)
-    g_lib = device_ms(lambda: [torch.index_select(t, 0, i) for t, i in clamped], f)
-    g_host = dispatch_ms(lambda: [gather_rows(t, i) for t, i in pairs], f)
-    g_host_lib = dispatch_ms(lambda: [torch.index_select(t, 0, i) for t, i in clamped], f)
-    n, d = pairs[0][1].shape[0], pairs[0][0].shape[1]
-    g_bound, g_by = bound_ms(n * d * 4 * 2 + n * 4, 0)
+    g_ms = device_ms(lambda: gather_rows_multi(field_tables, field_ids), 1)
+    g_one = device_ms(lambda: [gather_rows(t, i) for t, i in pairs], 1)
+    g_plain = device_ms(lambda: gather_rows_multi_ref(field_tables, field_ids), 1)
+    g_lib = device_ms(lambda: [torch.index_select(t, 0, i) for t, i in clamped], 1)
+    g_host = dispatch_ms(lambda: gather_rows_multi(field_tables, field_ids), 1)
+    g_host_one = dispatch_ms(lambda: [gather_rows(t, i) for t, i in pairs], 1)
+    g_host_lib = dispatch_ms(lambda: [torch.index_select(t, 0, i) for t, i in clamped], 1)
+    g_bound, g_by = bound_ms(sum(i.shape[0] * (t.shape[1] * 4 * 2 + 4) for t, i in pairs), 0)
 
-    gathered = {k: gather_rows(tables[k], v) for k, v in ids.items()}
+    gathered = dict(zip(ids, gather_rows_multi(field_tables, field_ids)))
     x0s = [model.flat_input(gathered, batch)]
     x0s += [torch.randn_like(x0s[0]) for _ in range(2)]  # 3 x 27.7 MB rotate past L2
     cross = rec.params["dense"]["cross"]
@@ -620,27 +788,49 @@ def phase_times(model, rec, requests, errs) -> list:
     layers = w.shape[0]
     c_bound, c_by = v1_fwd_bound(bsz, dim, layers)
 
-    lat = []
-    for _ in range(11):
-        t0 = time.perf_counter()
-        rec.predict_ctr(dense, cat)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    print(f"gather_rows [{tables['field_0'].shape[0]}, {d}] x {n} ids: kernel {g_ms:.4f} ms, "
-          f"plain {g_plain:.4f} ms, index_select {g_lib:.4f} ms, bound {g_bound:.4f} ms ({g_by}) "
-          f"[device time, CUDA graph]; issued eagerly {g_host:.4f} ms a call, "
-          f"index_select {g_host_lib:.4f} ms")
+    n, d = pairs[0][1].shape[0], pairs[0][0].shape[1]
+    print(f"gather_rows_multi {f} x [{tables['field_0'].shape[0]}, {d}] x {n} ids [device time, CUDA "
+          f"graph]: one launch {g_ms:.4f} ms; {f} launches of gather_rows {g_one:.4f} ms "
+          f"({g_one / f:.4f} ms each); plain {g_plain:.4f} ms; {f} index_select {g_lib:.4f} ms; bound "
+          f"{g_bound:.4f} ms ({g_by}). Issued eagerly (the host's cost where it exceeds the device's): "
+          f"one launch {g_host:.4f} ms, {f} launches {g_host_one:.4f} ms, {f} index_select {g_host_lib:.4f} ms")
     print(f"cross_v1_fwd [{bsz}, {dim}] L={layers}: kernel {c_ms:.4f} ms, plain {c_plain:.4f} ms, "
           f"bound {c_bound:.4f} ms ({c_by}) [device time, CUDA graph]")
-    latency = statistics.median(lat[1:])
-    print(f"predict_ctr batch {BATCH} (host clock, request copy and logits included): "
-          f"median {latency:.3f} ms over {len(lat) - 1} calls")
-    profile(lambda: rec.predict_ctr(dense, cat), "predict_ctr", latency)
+    serving_routes(rec, dense, cat)
     return [
-        {"name": "gather_rows", "route": "cuda", "max_abs_err": errs["gather_rows"], "ms": g_ms,
-         "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib},
+        {"name": "gather_rows_multi", "route": "cuda", "max_abs_err": errs["gather_rows_multi"], "ms": g_ms,
+         "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib, "tables": f,
+         "per_table_launches_ms": g_one, "dispatch_ms": g_host, "per_table_dispatch_ms": g_host_one},
         {"name": "cross_v1_fwd", "route": "cuda", "max_abs_err": errs["cross_v1_fwd"], "ms": c_ms,
          "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by, "library_ms": None},
     ]
+
+
+def medians_in_turns(runs: dict, reps: int = 11) -> dict:
+    """Host-clock median of each run (each ended by a synchronize), the runs
+    taken in turns; the first round is warm-up."""
+    times = {name: [] for name in runs}
+    for _ in range(reps):
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t[1:]) for name, t in times.items()}
+
+
+def serving_routes(rec, dense, cat) -> None:
+    """predict_ctr's latency and a profile of one call, through one gather
+    launch (the path) and through a launch a field (the route before it),
+    in turns."""
+    runs = {"one gather launch": lambda: rec.predict_ctr(dense, cat),
+            "a gather launch a field": lambda: per_table_predict(rec, dense, cat)}
+    latency = medians_in_turns(runs)
+    print(f"predict_ctr ({rec.model.__class__.__name__}) batch {BATCH} (host clock, request copy and logits "
+          f"included), median over 10 calls in turns: "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in latency.items()))
+    for name, run in runs.items():
+        profile(run, f"predict_ctr ({name})", latency[name])
 
 
 def profile(fn, what: str, latency_ms: float) -> None:
@@ -685,6 +875,7 @@ def phase_train(cfg):
     model = build_model(cfg.model, DataSpec.ctr(vocabs, cfg.data.num_dense_features))
     builder = TrainStepBuilder(model, cfg.train.loss, cfg.optim)  # the default device, the card
     check(builder.device.type == "cuda", "TrainStepBuilder defaults to the card")
+    per_table = PerTableSteps(model, cfg.train.loss, cfg.optim)
     state = builder.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
     k = cfg.train.steps_per_dispatch
     t0 = time.perf_counter()
@@ -708,7 +899,7 @@ def phase_train(cfg):
     launches = read_launches()
     expected = dict.fromkeys(WRAPPERS, 0)
     expected.update(dict.fromkeys(cross_kernels(cfg), 1))
-    expected["gather_rows"] = expected["fused_rowwise_adagrad"] = len(vocabs)
+    expected["gather_rows_multi"] = expected["fused_rowwise_adagrad_multi"] = 1  # all 26 tables
     print(f"train main path ({cfg.model.name}): {k} steps, launches {launches}, per step "
           f"{ {name: c / k for name, c in launches.items()} }")
     for name, per_step in expected.items():
@@ -722,7 +913,35 @@ def phase_train(cfg):
     check(after < before, "the loss on the held batch falls")
     check(state["step"] == k, "the state counts K steps")
     check_step(builder, start, {name: v[0] for name, v in batches.items()}, cfg.train.loss)
-    return builder, state, batches, launches
+    step_routes(builder, per_table, start, {name: v[0] for name, v in batches.items()}, len(vocabs))
+    return builder, per_table, state, batches, launches
+
+
+def step_routes(builder, per_table, start, batch, num_tables: int) -> None:
+    """One step from ``start`` through one gather and one Adagrad launch for
+    every table (the path) and through a launch a table (the per-table
+    seams, the route before it): the launches of each, and the same state
+    after it, bit for bit."""
+    reset_launches()
+    new, m_new = builder.step(copy_state(start), batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    reset_launches()
+    old, m_old = per_table.step(copy_state(start), batch)
+    torch.cuda.synchronize()
+    old_launches = read_launches()
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(tree_leaves(new), tree_leaves(old)))
+    same &= torch.equal(m_new["loss"], m_old["loss"])
+    print(f"one step's launches: one launch for every table {launches}; a launch a table (the route "
+          f"before) {old_launches}; the two states bit for bit equal: {same}")
+    check(launches["gather_rows_multi"] == launches["fused_rowwise_adagrad_multi"] == 1
+          and launches["gather_rows"] == launches["fused_rowwise_adagrad"] == 0,
+          "the step gathers and updates every table in one launch each")
+    check(old_launches["gather_rows"] == old_launches["fused_rowwise_adagrad"] == num_tables
+          and old_launches["gather_rows_multi"] == old_launches["fused_rowwise_adagrad_multi"] == 0,
+          "the per-table route launches a gather and an update a table")
+    check(same, "the step of one launch a kernel is bit for bit the step of a launch a table")
 
 
 def relu_inputs(builder, state, batch) -> list:
@@ -811,7 +1030,7 @@ def check_step(builder, start, batch, loss: str) -> None:
     check(acc_ok, "card accumulators match the CPU's (rows of flipped examples aside)")
 
 
-def phase_train_times(builder, state, batches, errs) -> list:
+def phase_train_times(builder, per_table, state, batches, errs) -> list:
     model = builder.model
     batch = {name: v[0] for name, v in batches.items()}
     ids = model.lookup_ids(batch)
@@ -831,68 +1050,96 @@ def phase_train_times(builder, state, batches, errs) -> list:
     bsz, dim = x0.shape
     layers = w.shape[0]
     cb_bound, cb_by = v1_bwd_bound(bsz, dim, layers)
+    print(f"cross_v1_bwd [{bsz}, {dim}] L={layers}: kernel {cb_ms:.4f} ms, plain {cb_plain:.4f} ms, "
+          f"bound {cb_bound:.4f} ms ({cb_by}) [device time, CUDA graph]")
 
-    # fused_rowwise_adagrad on the step's combined gradients, one launch a
-    # field (26 tables of 12.8 MB: L2 is cold). The plain version syncs on
-    # its boolean mask, so it cannot be captured: it is timed eagerly.
+    # The Adagrad update of all 26 tables (12.8 MB each: L2 is cold) on the
+    # step's combined gradients (Zipf ids), then on uniform ids, where
+    # nearly every id of a batch is distinct.
     lr = builder.sparse_schedule(state["step"])
     work = []
     for name, field_ids in ids.items():
         table = state["tables"][name]
         uids, g = combine_duplicate_ids(field_ids, row_grads[name], sentinel=table.shape[0])
         work.append((table, state["sparse_opt"][name]["acc"], uids, g))
-    f = len(work)
-    distinct = [int((u < t.shape[0]).sum().item()) for t, _, u, _ in work]
-    n_slots, d = work[0][2].shape[0], work[0][0].shape[1]
-    a_ms = device_ms(lambda: [fused_rowwise_adagrad(t, a, u, g, lr) for t, a, u, g in work], f)
-    a_eager = dispatch_ms(lambda: [fused_rowwise_adagrad(t, a, u, g, lr) for t, a, u, g in work], f)
-    a_plain = dispatch_ms(lambda: [fused_rowwise_adagrad_ref(t, a, u, g, lr) for t, a, u, g in work], f)
-    mean_distinct = sum(distinct) / f
-    a_bound, a_by = bound_ms(mean_distinct * (3 * d * 4 + 2 * 4) + n_slots * 4, 4 * mean_distinct * d)
-
-    print(f"cross_v1_bwd [{bsz}, {dim}] L={layers}: kernel {cb_ms:.4f} ms, plain {cb_plain:.4f} ms, "
-          f"bound {cb_bound:.4f} ms ({cb_by}) [device time, CUDA graph]")
-    print(f"fused_rowwise_adagrad [{work[0][0].shape[0]}, {d}], {n_slots} slots, distinct real ids a "
-          f"field: mean {mean_distinct:.1f}, min {min(distinct)}, max {max(distinct)}: kernel "
-          f"{a_ms:.4f} ms [device time, CUDA graph], {a_eager:.4f} ms issued eagerly; plain "
-          f"{a_plain:.4f} ms issued eagerly (its mask syncs); bound {a_bound:.4f} ms ({a_by})")
-    step_times(builder, state, batches)
+    zipf = adagrad_times(work, lr, "the step's Zipf ids")
+    rng = np.random.default_rng(SEED + 4)
+    uniform_work = []
+    for table, acc, uids, g in work:
+        vocab, d = table.shape
+        ids_u = torch.from_numpy(rng.integers(0, vocab, uids.shape[0]).astype(np.int32)).to(DEVICE)
+        g_u = torch.from_numpy((1e-3 * rng.normal(size=(uids.shape[0], d))).astype(np.float32)).to(DEVICE)
+        uniform_work.append((table, acc, *combine_duplicate_ids(ids_u, g_u, sentinel=vocab)))
+    uniform = adagrad_times(uniform_work, lr, "uniform ids")
+    step_times(builder, per_table, state, batches)
     return [
         {"name": "cross_v1_bwd", "route": "cuda", "max_abs_err": errs["cross_v1_bwd"], "ms": cb_ms,
          "plain_ms": cb_plain, "bound_ms": cb_bound, "bound_by": cb_by, "library_ms": None},
-        {"name": "fused_rowwise_adagrad", "route": "cuda", "max_abs_err": errs["fused_rowwise_adagrad"],
-         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
+        {"name": "fused_rowwise_adagrad_multi", "route": "cuda",
+         "max_abs_err": errs["fused_rowwise_adagrad_multi"], **zipf, "library_ms": None,
+         "uniform_ids": uniform},
     ]
 
 
-def step_times(builder, state, batches) -> None:
-    """The step's median on the host clock (ended by a synchronize), a
-    multi_step's time a step, and a profile of one step."""
+def adagrad_times(work, lr: float, what: str) -> dict:
+    """The Adagrad update of every (table, acc, uids, g) of ``work``: one
+    launch, a launch a table, and the plain version (eagerly: its mask
+    syncs, so it cannot be captured), beside the bound for the real ids of
+    these uids; and the host's cost of one launch and of a launch a table."""
+    tables, accs, uids, grads = (list(x) for x in zip(*work))
+    f = len(work)
+    ms = device_ms(lambda: fused_rowwise_adagrad_multi(tables, accs, uids, grads, lr), 1)
+    one = device_ms(lambda: [fused_rowwise_adagrad(*w, lr) for w in work], 1)
+    host = dispatch_ms(lambda: fused_rowwise_adagrad_multi(tables, accs, uids, grads, lr), 1)
+    host_one = dispatch_ms(lambda: [fused_rowwise_adagrad(*w, lr) for w in work], 1)
+    plain = dispatch_ms(lambda: fused_rowwise_adagrad_multi_ref(tables, accs, uids, grads, lr), 1)
+    distinct = [int((u < t.shape[0]).sum().item()) for t, u in zip(tables, uids)]
+    nbytes = sum(k * (3 * t.shape[1] * 4 + 2 * 4) + u.shape[0] * 4 for k, t, u in zip(distinct, tables, uids))
+    bound, by = bound_ms(nbytes, sum(4 * k * t.shape[1] for k, t in zip(distinct, tables)))
+    print(f"fused_rowwise_adagrad_multi, {what}: {f} x [{tables[0].shape[0]}, {tables[0].shape[1]}], "
+          f"{uids[0].shape[0]} slots a table, distinct real ids a table: mean {sum(distinct) / f:.1f}, "
+          f"min {min(distinct)}, max {max(distinct)} ({nbytes / 1e6:.2f} MB) [device time, CUDA graph]: "
+          f"one launch {ms:.4f} ms; {f} launches of fused_rowwise_adagrad {one:.4f} ms ({one / f:.4f} ms each); "
+          f"bound {bound:.4f} ms ({by}); plain {plain:.4f} ms issued eagerly (its mask syncs). Issued "
+          f"eagerly: one launch {host:.4f} ms, {f} launches {host_one:.4f} ms")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "tables": f,
+            "per_table_launches_ms": one, "dispatch_ms": host, "per_table_dispatch_ms": host_one}
+
+
+def step_times(builder, per_table, state, batches) -> None:
+    """The step's median on the host clock (ended by a synchronize) and a
+    profile of one step, through one launch for every table and through a
+    launch a table, in turns; a multi_step's time a step."""
     batch = {name: v[0] for name, v in batches.items()}
-    step_ms = []
-    for _ in range(11):
-        t0 = time.perf_counter()
-        state, _ = builder.step(state, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    holder = {"state": state}
+
+    def run(b):
+        holder["state"], _ = b.step(holder["state"], batch)
+
+    runs = {"one launch for every table": lambda: run(builder),
+            "a launch a table": lambda: run(per_table)}
+    medians = medians_in_turns(runs)
     t0 = time.perf_counter()
-    state, _ = builder.multi_step(state, batches)
+    state, _ = builder.multi_step(holder["state"], batches)
     torch.cuda.synchronize()
     k = next(iter(batches.values())).shape[0]
     multi_ms = (time.perf_counter() - t0) * 1e3 / k
-    median = statistics.median(step_ms[1:])
     print(f"train step ({builder.model.__class__.__name__}, cross {sorted(state['dense']['cross'])}) "
-          f"batch {BATCH} (host clock, batch already on the card): median {median:.3f} ms "
-          f"over {len(step_ms) - 1} steps; multi_step K={k}: {multi_ms:.3f} ms a step")
-    profile(lambda: builder.step(state, batch), "train step", median)
+          f"batch {BATCH} (host clock, batch already on the card), median over 10 steps in turns: "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in medians.items())
+          + f"; multi_step K={k}: {multi_ms:.3f} ms a step")
+    holder["state"] = state
+    for name, run_one in runs.items():
+        profile(run_one, f"train step ({name})", medians[name])
 
 
-def phase_v2_times(rec, requests, builder, state, batches, errs) -> list:
+def phase_v2_times(rec, requests, builder, per_table, state, batches, errs) -> list:
     """Both v2 kernels at the v2 path's shapes beside their bounds (bytes at
     3.35 TB/s, or operations: their 3xTF32 products at 495 TFLOP/s plus
     their elementwise steps at 67) and plain versions; the backward's time
     by kernel (row pass, weight pass, chunk sum); predict_ctr's latency and
-    the step's times for the v2 model."""
+    the step's times for the v2 model, through one launch for every table
+    and through a launch a table."""
     model = builder.model
     batch = {name: v[0] for name, v in batches.items()}
     gathered, _ = builder.lookup(state["tables"], model.lookup_ids(batch))
@@ -929,17 +1176,8 @@ def phase_v2_times(rec, requests, builder, state, batches, errs) -> list:
                       for k in parts if name in k))
     del sets, x0s
 
-    dense, cat = requests[0]
-    lat = []
-    for _ in range(11):
-        t0 = time.perf_counter()
-        rec.predict_ctr(dense, cat)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    latency = statistics.median(lat[1:])
-    print(f"predict_ctr ({model.__class__.__name__}, cross {sorted(cross)}) batch {BATCH} (host clock, "
-          f"request copy and logits included): median {latency:.3f} ms over {len(lat) - 1} calls")
-    profile(lambda: rec.predict_ctr(dense, cat), "predict_ctr", latency)
-    step_times(builder, state, batches)
+    serving_routes(rec, *requests[0])
+    step_times(builder, per_table, state, batches)
     return [
         {"name": "cross_v2_fwd", "route": "cuda", "max_abs_err": errs["cross_v2_fwd"], "ms": f_ms,
          "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by, "library_ms": None},
@@ -962,12 +1200,12 @@ def main() -> int:
     paths = {}
     model, rec, requests, paths["serve_v1"] = phase_main_path(rng, cfgs["v1"])
     records = phase_times(model, rec, requests, errs)
-    builder, state, batches, paths["train_v1"] = phase_train(cfgs["v1"])
-    records += phase_train_times(builder, state, batches, errs)
-    del model, rec, requests, builder, state, batches
+    builder, per_table, state, batches, paths["train_v1"] = phase_train(cfgs["v1"])
+    records += phase_train_times(builder, per_table, state, batches, errs)
+    del model, rec, requests, builder, per_table, state, batches
     _, rec, requests, paths["serve_v2"] = phase_main_path(rng, cfgs["v2"])
-    builder, state, batches, paths["train_v2"] = phase_train(cfgs["v2"])
-    records += phase_v2_times(rec, requests, builder, state, batches, errs)
+    builder, per_table, state, batches, paths["train_v2"] = phase_train(cfgs["v2"])
+    records += phase_v2_times(rec, requests, builder, per_table, state, batches, errs)
     for r in records:
         by_path = {path: launches[r["name"]] for path, launches in paths.items()}
         r.update({"launches": sum(by_path.values()), "launches_by_path": by_path})

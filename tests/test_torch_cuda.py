@@ -13,7 +13,12 @@ import torch
 
 from tfrec_tpu_torch.configs import ModelConfig, OptimConfig
 from tfrec_tpu_torch.data.synthetic import synthetic_ctr
-from tfrec_tpu_torch.kernels.adagrad_cuda import fused_rowwise_adagrad, fused_rowwise_adagrad_ref
+from tfrec_tpu_torch.kernels.adagrad_cuda import (
+    fused_rowwise_adagrad,
+    fused_rowwise_adagrad_multi,
+    fused_rowwise_adagrad_multi_ref,
+    fused_rowwise_adagrad_ref,
+)
 from tfrec_tpu_torch.kernels.cross import cross_stack
 from tfrec_tpu_torch.kernels.cross_cuda import (
     cross_v1_bwd,
@@ -27,7 +32,12 @@ from tfrec_tpu_torch.kernels.cross_v2_cuda import (
     cross_v2_fwd,
     cross_v2_fwd_ref,
 )
-from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_ref
+from tfrec_tpu_torch.kernels.gather_cuda import (
+    gather_rows,
+    gather_rows_multi,
+    gather_rows_multi_ref,
+    gather_rows_ref,
+)
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
 from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, tree_leaves
@@ -61,6 +71,92 @@ def test_gather_rows_is_bitwise_the_plain_version(device, dim):
         shifted = torch.empty(vocab * dim + 1, device=device)[1:].view(vocab, dim)
         shifted.copy_(table)
         assert torch.equal(gather_rows(shifted, ids), gather_rows_ref(table, ids))
+
+
+# (vocab, dim, ids) per field: dcn_criteo's 26 fields at a batch of 8192;
+# mixed dims, with dims that are no multiple of 4 (13, 1) and a multi-hot
+# bag (3 ids an example); more fields than one launch's descriptor holds
+# (64: two launches); tables that start off a 16-byte boundary (the scalar
+# path at D % 4 == 0).
+MULTI_FIELDS = {
+    "dcn_criteo": [(100_000, 32, 8192)] * 26,
+    "mixed_dims": [(1000, 4, 4099), (777, 8, 4099), (5000, 12, 3 * 4099), (64, 13, 17), (300, 1, 4099),
+                   (2000, 100, 1000)],
+    "past_one_launch": [(500, 8, 1000)] * 70,
+    "misaligned": [(1000, 4, 4099), (1000, 32, 4099)],
+}
+
+
+def _multi_tables(device, case):
+    """Seeded tables and edge-case ids (negatives, sentinels, duplicates)."""
+    rng = np.random.default_rng(len(case))
+    tables, ids = [], []
+    for vocab, dim, n in MULTI_FIELDS[case]:
+        table = torch.from_numpy(rng.normal(size=(vocab, dim)).astype(np.float32)).to(device)
+        if case == "misaligned":
+            shifted = torch.empty(vocab * dim + 1, device=device)[1:].view(vocab, dim)
+            table = shifted.copy_(table)
+        field_ids = rng.integers(-5, vocab + 5, n).astype(np.int32)
+        field_ids[:6] = [vocab, -1, 0, vocab - 1, 7, 7]
+        tables.append(table)
+        ids.append(torch.from_numpy(field_ids).to(device))
+    return tables, ids
+
+
+@pytest.mark.parametrize("case", sorted(MULTI_FIELDS))
+def test_gather_rows_multi_is_bitwise_the_plain_version_and_per_table_launches(device, case):
+    tables, ids = _multi_tables(device, case)
+    before, before_one = gather_rows_multi.launches, gather_rows.launches
+    got = gather_rows_multi(tables, ids)
+    torch.cuda.synchronize()
+    assert gather_rows_multi.launches == before + -(-len(tables) // 64)
+    one = [gather_rows(t, i) for t, i in zip(tables, ids)]
+    assert gather_rows.launches == before_one + len(tables)
+    for g, w, o in zip(got, gather_rows_multi_ref(tables, ids), one):
+        assert torch.equal(g, w) and torch.equal(g, o)
+
+
+@pytest.mark.parametrize("case", sorted(MULTI_FIELDS))
+def test_fused_rowwise_adagrad_multi_is_bitwise_the_per_table_launches(device, case):
+    """Bit for bit the per-table launches and itself on repeat, within the
+    tolerance of the plain version; slots are shuffled in odd tables, so
+    sentinels lie among the real ids; rows no real id names stay."""
+    tables, ids = _multi_tables(device, case)
+    rng = np.random.default_rng(7)
+    accs, uids, grads = [], [], []
+    for f, (table, field_ids) in enumerate(zip(tables, ids)):
+        vocab, dim = table.shape
+        g = torch.from_numpy(rng.normal(size=(field_ids.shape[0], dim)).astype(np.float32)).to(device)
+        u, c = combine_duplicate_ids(field_ids, g, sentinel=vocab)
+        if f % 2:
+            perm = torch.from_numpy(rng.permutation(u.shape[0])).to(device)
+            u, c = u[perm].contiguous(), c[perm].contiguous()
+        accs.append(torch.from_numpy(rng.uniform(0, 0.1, vocab).astype(np.float32)).to(device))
+        uids.append(u)
+        grads.append(c)
+
+    def copies():
+        return [t.clone() for t in tables], [a.clone() for a in accs]
+
+    before, before_one = fused_rowwise_adagrad_multi.launches, fused_rowwise_adagrad.launches
+    got_t, got_a = fused_rowwise_adagrad_multi(*copies(), uids, grads, 0.05)
+    torch.cuda.synchronize()
+    assert fused_rowwise_adagrad_multi.launches == before + -(-len(tables) // 64)
+    again_t, again_a = fused_rowwise_adagrad_multi(*copies(), uids, grads, 0.05)
+    one_t, one_a = copies()
+    for t, a, u, g in zip(one_t, one_a, uids, grads):
+        fused_rowwise_adagrad(t, a, u, g, 0.05)
+    assert fused_rowwise_adagrad.launches == before_one + len(tables)
+    ref_t, ref_a = fused_rowwise_adagrad_multi_ref(*copies(), uids, grads, 0.05)
+    for f, table in enumerate(tables):
+        assert torch.equal(got_t[f], one_t[f]) and torch.equal(got_a[f], one_a[f])
+        assert torch.equal(got_t[f], again_t[f]) and torch.equal(got_a[f], again_a[f])
+        _close(got_t[f], ref_t[f])
+        _close(got_a[f], ref_a[f])
+        touched = torch.zeros(table.shape[0], dtype=torch.bool, device=device)
+        touched[uids[f][uids[f] < table.shape[0]].long()] = True
+        assert torch.equal(got_t[f][~touched], table[~touched])
+        assert torch.equal(got_a[f][~touched], accs[f][~touched])
 
 
 # d = 2093 (dcn_criteo at embed_dim 80) and 4109 (past 4096: 32 elements a

@@ -9,6 +9,7 @@ versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,8 +22,8 @@ from tfrec_tpu.ops.embedding import gather as jax_gather
 from tfrec_tpu_torch.kernels import _build
 from tfrec_tpu_torch.kernels.cross import cross_stack, cross_stack_ref
 from tfrec_tpu_torch.kernels.cross_cuda import MAX_DIM, cross_v1_bwd, cross_v1_fwd
-from tfrec_tpu_torch.kernels.gather_cuda import gather_rows
-from tfrec_tpu_torch.ops.embedding import gather
+from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_multi, gather_rows_multi_ref
+from tfrec_tpu_torch.ops.embedding import gather, gather_many
 
 torch.set_num_threads(1)
 
@@ -66,6 +67,73 @@ def test_gather_rows_contract():
         gather_rows(table.t(), ids)
     with pytest.raises(NotImplementedError, match="cuda or cpu"):
         gather_rows(table.to("meta"), ids.to("meta"))
+
+
+# (vocab, dim, ids) per field: mixed dims; a multi-hot bag of width 3 (its
+# field has 3 ids an example) beside a dim that is no multiple of 4; and more
+# tables than one launch's descriptor holds (64), all of one shape so the
+# jitted Pallas kernel compiles once.
+MULTI_FIELDS = {
+    "mixed_dims": [(40, 4, 37), (52, 8, 37), (37, 12, 37)],
+    "multi_hot": [(40, 8, 37), (30, 13, 3 * 37)],
+    "past_one_launch": [(13, 4, 12)] * 70,
+}
+
+
+@pytest.mark.parametrize("case", sorted(MULTI_FIELDS))
+def test_gather_rows_multi_matches_jax_take_and_pallas_per_field(case):
+    fields = MULTI_FIELDS[case]
+    tables = [_normal(100 + f, (v, d)) for f, (v, d, _) in enumerate(fields)]
+    ids = [_ids_with_edge_cases(200 + f, v, n) for f, (v, _, n) in enumerate(fields)]
+    tt, ti = [torch.from_numpy(t) for t in tables], [torch.from_numpy(i) for i in ids]
+    got = gather_rows_multi_ref(tt, ti)
+    before = gather_rows_multi.launches
+    wrapped = gather_many(tt, ti)  # the wrapper on CPU tensors: the plain version
+    assert gather_rows_multi.launches == before
+    pallas = jax.jit(gather_pallas)
+    for t, i, g, w in zip(tables, ids, got, wrapped):
+        assert g.shape == (i.shape[0], t.shape[1])
+        want = np.asarray(jnp.take(jnp.asarray(t), jnp.asarray(i), axis=0, mode="clip"))
+        np.testing.assert_array_equal(g.numpy(), want)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(pallas(jnp.asarray(t), jnp.asarray(i))))
+        assert torch.equal(w, g)
+    # The card's layout: one allocation, each field a contiguous view of it
+    # starting on a 128-byte boundary.
+    for rows in (got, wrapped):
+        base = rows[0].untyped_storage().data_ptr()
+        for r in rows:
+            assert r.is_contiguous() and r.untyped_storage().data_ptr() == base
+            assert (r.data_ptr() - base) % 128 == 0
+
+
+def test_gather_rows_multi_contract():
+    """Fields of one call share a device; int32 ids, 2-D f32 tables,
+    contiguous inputs. A table may appear twice (a gather only reads it);
+    empty fields give [0, D]. A CPU call launches nothing."""
+    t1, t2 = torch.from_numpy(_normal(2, (10, 4))), torch.from_numpy(_normal(3, (6, 3)))
+    i1, i2 = torch.tensor([0, 9, 10, -1], dtype=torch.int32), torch.tensor([5, 6], dtype=torch.int32)
+    before = gather_rows_multi.launches
+    out = gather_rows_multi([t1, t2, t1, t2], [i1, i2, i1[:0], i2[:1]])
+    assert gather_rows_multi.launches == before
+    assert [tuple(o.shape) for o in out] == [(4, 4), (2, 3), (0, 4), (1, 3)]
+    np.testing.assert_array_equal(out[0].numpy(), t1.numpy()[[0, 9, 9, 0]])
+    np.testing.assert_array_equal(out[1].numpy(), t2.numpy()[[5, 5]])
+    np.testing.assert_array_equal(out[3].numpy(), t2.numpy()[[5]])
+    assert gather_rows_multi([], []) == []
+    with pytest.raises(ValueError, match="2 tables but 1"):
+        gather_rows_multi([t1, t2], [i1])
+    with pytest.raises(TypeError, match="int32"):
+        gather_rows_multi([t1, t2], [i1, i2.long()])
+    with pytest.raises(TypeError, match="float32"):
+        gather_rows_multi([t1, t2.double()], [i1, i2])
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows_multi([t1, t2.t()], [i1, i2])
+    with pytest.raises(ValueError, match="one device"):
+        gather_rows_multi([t1, t2.to("meta")], [i1, i2.to("meta")])
+    with pytest.raises(ValueError, match="empty table"):
+        gather_rows_multi([t1[:0]], [i1])
+    with pytest.raises(NotImplementedError, match="cuda or cpu"):
+        gather_rows_multi([t1.to("meta"), t2.to("meta")], [i1.to("meta"), i2.to("meta")])
 
 
 @pytest.mark.parametrize("batch,dim,layers", [(64, 32, 3), (50, 45, 2)])

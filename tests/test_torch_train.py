@@ -28,7 +28,12 @@ from tfrec_tpu.train import step as jax_step
 from tfrec_tpu_torch.configs import ModelConfig, OptimConfig
 from tfrec_tpu_torch.convert import train_state_from_jax
 from tfrec_tpu_torch.data.synthetic import synthetic_ctr
-from tfrec_tpu_torch.kernels.adagrad_cuda import fused_rowwise_adagrad, fused_rowwise_adagrad_ref
+from tfrec_tpu_torch.kernels.adagrad_cuda import (
+    fused_rowwise_adagrad,
+    fused_rowwise_adagrad_multi,
+    fused_rowwise_adagrad_multi_ref,
+    fused_rowwise_adagrad_ref,
+)
 from tfrec_tpu_torch.kernels.cross import cross_stack
 from tfrec_tpu_torch.kernels.cross_cuda import (
     cross_v1_bwd,
@@ -38,7 +43,7 @@ from tfrec_tpu_torch.kernels.cross_cuda import (
 )
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.models.layers import apply_mlp
-from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
+from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids, gather
 from tfrec_tpu_torch.ops.sparse_optim import make_sparse_optimizer
 from tfrec_tpu_torch.train import losses
 from tfrec_tpu_torch.train.step import (
@@ -150,6 +155,92 @@ def test_fused_rowwise_adagrad_contract():
         fused_rowwise_adagrad(table.to("meta"), acc.to("meta"), uids.to("meta"), g.to("meta"), 0.1)
 
 
+# (vocab, dim, slots) per table: mixed dims; and more tables than one
+# launch's descriptor holds (64), of one shape so the jitted JAX kernel
+# compiles once.
+ADAGRAD_TABLES = {
+    "mixed_dims": [(40, 4, 24), (52, 8, 30), (37, 12, 24)],
+    "past_one_launch": [(13, 4, 16)] * 70,
+}
+
+
+def _adagrad_inputs(case):
+    """Per table: table, acc, and the ids and grads of a batch (numpy)."""
+    out = []
+    for f, (vocab, dim, n) in enumerate(ADAGRAD_TABLES[case]):
+        rng = np.random.default_rng(300 + f)
+        out.append((rng.normal(size=(vocab, dim)).astype(np.float32),
+                    rng.uniform(0.0, 0.1, vocab).astype(np.float32), _ids(400 + f, vocab, n),
+                    rng.normal(size=(n, dim)).astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(ADAGRAD_TABLES))
+def test_fused_rowwise_adagrad_multi_ref_matches_jax_kernel_per_table(case):
+    inputs = _adagrad_inputs(case)
+    jfused = jax.jit(lambda t, a, u, g: jax_fused_adagrad(t, a, u, g, 0.1))
+    tables, accs, uids, grads = [], [], [], []
+    for table, acc, ids, g in inputs:
+        u, c = combine_duplicate_ids(torch.from_numpy(ids), torch.from_numpy(g), table.shape[0])
+        tables.append(torch.from_numpy(table.copy()))
+        accs.append(torch.from_numpy(acc.copy()))
+        uids.append(u)
+        grads.append(c)
+    wrapped = ([t.clone() for t in tables], [a.clone() for a in accs])
+    got_t, got_a = fused_rowwise_adagrad_multi_ref(tables, accs, uids, grads, 0.1)
+    assert all(a is b for a, b in zip(got_t + got_a, tables + accs))  # in place
+    before = fused_rowwise_adagrad_multi.launches
+    fused_rowwise_adagrad_multi(*wrapped, uids, grads, 0.1)  # the plain version on CPU tensors
+    assert fused_rowwise_adagrad_multi.launches == before
+    for (table, acc, ids, g), t, a, wt, wa in zip(inputs, got_t, got_a, *wrapped):
+        juids, jg = jax_combine(jnp.asarray(ids), jnp.asarray(g), sentinel=table.shape[0])
+        want_t, want_a = jfused(jnp.asarray(table), jnp.asarray(acc), juids, jg)
+        np.testing.assert_allclose(t.numpy(), np.asarray(want_t), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(a.numpy(), np.asarray(want_a), rtol=1e-5)
+        assert torch.equal(wt, t) and torch.equal(wa, a)
+
+
+def test_fused_rowwise_adagrad_multi_contract():
+    """Tables of one call share a device, one lr and one eps; no two tables
+    or accumulators may share memory (their updates would race on the
+    card); empty tables are no-ops. A CPU call launches nothing."""
+    t1, a1 = torch.zeros((6, 4)), torch.zeros(6)
+    t2, a2 = torch.zeros((5, 3)), torch.zeros(5)
+    u1, g1 = torch.tensor([0, 6], dtype=torch.int32), torch.ones((2, 4))
+    u2, g2 = torch.tensor([4], dtype=torch.int32), torch.ones((1, 3))
+    empty_u, empty_g = torch.zeros(0, dtype=torch.int32), torch.zeros((0, 3))
+    before = fused_rowwise_adagrad_multi.launches
+    out = fused_rowwise_adagrad_multi([t1, t2], [a1, a2], [u1, empty_u], [g1, empty_g], 0.1)
+    assert fused_rowwise_adagrad_multi.launches == before
+    assert out[0][0] is t1 and out[1][1] is a2
+    assert bool((t1[0] != 0).all()) and a1[0] > 0 and not t1[1:].any()  # slot 1 is a sentinel
+    assert not t2.any() and not a2.any()
+    assert fused_rowwise_adagrad_multi([], [], [], [], 0.1) == ([], [])
+    with pytest.raises(ValueError, match="2 tables, 1 accs"):
+        fused_rowwise_adagrad_multi([t1, t2], [a1], [u1, u2], [g1, g2], 0.1)
+    with pytest.raises(TypeError, match="int32"):
+        fused_rowwise_adagrad_multi([t1, t2], [a1, a2], [u1, u2.long()], [g1, g2], 0.1)
+    with pytest.raises(TypeError, match=r"acc must be \[5\]"):
+        fused_rowwise_adagrad_multi([t1, t2], [a1, a1], [u1, u2], [g1, g2], 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        fused_rowwise_adagrad_multi([t1, t2], [a1, a2], [u1, u2], [g1, g2.double()], 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_rowwise_adagrad_multi([t1, t2], [a1, a2], [u1, torch.tensor([1, 2], dtype=torch.int32)],
+                                    [g1, torch.ones((3, 2)).t()], 0.1)
+    with pytest.raises(ValueError, match="one device"):
+        fused_rowwise_adagrad_multi([t1, t2], [a1, a2.to("meta")], [u1, u2], [g1, g2], 0.1)
+    with pytest.raises(TypeError, match="numbers"):
+        fused_rowwise_adagrad_multi([t1, t2], [a1, a2], [u1, u2], [g1, g2], 0.1, torch.tensor(1e-8))
+    with pytest.raises(ValueError, match="share memory"):
+        fused_rowwise_adagrad_multi([t1, t1], [a1, a1.clone()], [u1, u1], [g1, g1], 0.1)
+    with pytest.raises(ValueError, match="share memory"):  # views that overlap on row 2
+        fused_rowwise_adagrad_multi([t1[:3], t1[2:]], [torch.zeros(3), torch.zeros(4)], [u2[:0], u2[:0]],
+                                    [g1[:0], g1[:0]], 0.1)
+    with pytest.raises(NotImplementedError, match="cuda or cpu"):
+        fused_rowwise_adagrad_multi([t.to("meta") for t in (t1, t2)], [a.to("meta") for a in (a1, a2)],
+                                    [u.to("meta") for u in (u1, u2)], [g.to("meta") for g in (g1, g2)], 0.1)
+
+
 # ---- ops/sparse_optim ----
 
 @pytest.mark.parametrize("name", ["sgd", "rowwise_adagrad", "rowwise_adam"])
@@ -176,6 +267,28 @@ def test_sparse_optimizer_matches_jax(name, deduped):
     np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-6)
     for k in jstate:
         np.testing.assert_allclose(state[k].numpy(), np.asarray(jstate[k]), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("name", ["sgd", "rowwise_adagrad", "rowwise_adam"])
+def test_apply_deduped_many_is_apply_deduped_table_by_table(name):
+    """One call over every table (for rowwise Adagrad one launch on a card)
+    gives the bits of ``apply_deduped`` on each table in turn."""
+    opt = make_sparse_optimizer(name, adagrad_init=0.1)
+    inputs = _adagrad_inputs("mixed_dims")
+    deduped = [combine_duplicate_ids(torch.from_numpy(ids), torch.from_numpy(g), table.shape[0])
+               for table, _, ids, g in inputs]
+    many_t = [torch.from_numpy(table.copy()) for table, *_ in inputs]
+    one_t = [t.clone() for t in many_t]
+    many_s = [opt.init(t) for t in many_t]
+    one_s = [opt.init(t) for t in one_t]
+    for lr in (0.1, 0.05):  # twice: the state carries over
+        many_t, many_s = opt.apply_deduped_many(many_t, many_s, [u for u, _ in deduped],
+                                                [g for _, g in deduped], lr)
+        for i, (u, g) in enumerate(deduped):
+            one_t[i], one_s[i] = opt.apply_deduped(one_t[i], one_s[i], u, g, lr)
+    for a, b, sa, sb in zip(many_t, one_t, many_s, one_s):
+        assert torch.equal(a, b) and sorted(sa) == sorted(sb)
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
 
 
 @pytest.mark.parametrize("name", ["rowwise_adagrad", "rowwise_adam", "sgd"])
@@ -413,6 +526,68 @@ def test_multi_step_is_k_steps_and_train_state_round_trips():
     assert torch.equal(out["loss_mean"], torch.stack(losses_one).mean())
     for a, e in zip(tree_leaves(multi), tree_leaves(one)):
         assert torch.equal(a, e) if isinstance(a, torch.Tensor) else a == e
+
+
+def test_lookup_rows_share_one_buffer_and_each_gets_its_own_gradient():
+    """The gathered rows of every table are views of one allocation and
+    autograd leaves: the gradients equal those through separately gathered
+    rows, one per table."""
+
+    class PerTableLookup(TrainStepBuilder):
+        def lookup(self, tables, ids):
+            return {name: gather(tables[name], i) for name, i in ids.items()}, {}
+
+    builder = _port_builder(1e-3, OPTIM)
+    model = builder.model
+    state = builder.init_state(torch.Generator().manual_seed(0))
+    dense, cat, label = _batches(5, 1)[0]
+    batch = {"dense": torch.from_numpy(dense), "cat": torch.from_numpy(cat),
+             "label": torch.from_numpy(label)}
+    ids = model.lookup_ids(batch)
+    rows, _ = builder.lookup(state["tables"], ids)
+    assert len({r.untyped_storage().data_ptr() for r in rows.values()}) == 1
+    loss, dense_grad, row_grads, _ = builder.loss_and_grads(state, batch)
+    per_table = PerTableLookup(model, "logloss", OptimConfig(**OPTIM), l2_reg=1e-3, device="cpu")
+    want_loss, want_dense, want_rows, _ = per_table.loss_and_grads(state, batch)
+    assert list(row_grads) == list(ids) and torch.equal(loss, want_loss)
+    for name in ids:
+        assert row_grads[name].shape == rows[name].shape
+        assert torch.equal(row_grads[name], want_rows[name])
+    for a, b in zip(tree_leaves(dense_grad), tree_leaves(want_dense)):
+        assert torch.equal(a, b)
+
+
+def test_sparse_update_is_one_call_for_all_tables_unless_per_table_seams_are_overridden():
+    """The default step combines per table, then makes one
+    ``sparse_update_deduped_all`` call; a subclass that overrides
+    ``sparse_update_deduped`` (or ``sparse_update``) is called table by
+    table instead, with the same result, bit for bit."""
+    calls = []
+
+    class AllAtOnce(TrainStepBuilder):
+        def sparse_update_deduped_all(self, tables, opt_states, uids, grads, lr):
+            calls.append(list(uids))
+            return super().sparse_update_deduped_all(tables, opt_states, uids, grads, lr)
+
+    class TableByTable(TrainStepBuilder):
+        def sparse_update_deduped(self, name, table, opt_state, uids, g, lr):
+            calls.append(name)
+            return super().sparse_update_deduped(name, table, opt_state, uids, g, lr)
+
+    model = _port_builder(0.0, OPTIM).model
+    builders = [cls(model, "logloss", OptimConfig(**OPTIM), device="cpu") for cls in (AllAtOnce, TableByTable)]
+    state = builders[0].init_state(torch.Generator().manual_seed(0))
+    dense, cat, label = _batches(6, 1)[0]
+    batch = {"dense": torch.from_numpy(dense), "cat": torch.from_numpy(cat),
+             "label": torch.from_numpy(label)}
+    names = list(model.lookup_ids(batch))
+    one, _ = builders[0].step(copy_state(state), batch)
+    assert calls == [names]
+    calls.clear()
+    two, _ = builders[1].step(copy_state(state), batch)
+    assert calls == names
+    for a, b in zip(tree_leaves(one), tree_leaves(two)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
 def test_synthetic_ctr_matches_the_reference():

@@ -1,32 +1,38 @@
-"""Fused rowwise Adagrad over deduplicated ids, in place.
+"""Fused rowwise Adagrad over deduplicated ids, in place, for one table or
+for many in one launch.
 
 The counterpart of ``tfrec_tpu/kernels/scatter_pallas.py``
 ``fused_rowwise_adagrad`` (built on ``scaled_scatter_sub``); the kernel is
-``csrc/adagrad.cu``. For each slot whose id is a real row (``0 <= uid <
-V``; the sentinel tail of ``combine_duplicate_ids`` is skipped)::
+``csrc/adagrad.cu``, which takes every table of a call in one launch
+(``fused_rowwise_adagrad_multi``; ``fused_rowwise_adagrad`` is its
+one-table case). For each slot whose id is a real row (``0 <= uid < V``;
+the sentinel tail of ``combine_duplicate_ids`` is skipped)::
 
     acc[u]   += mean(g_u ** 2)
     table[u] -= lr * g_u / (sqrt(acc[u]) + eps)
 
-Both tensors are updated IN PLACE and returned, as the TPU kernel aliases
-its table input to its output; a caller that needs the old values clones
-them first. On the card one pass does both parts (the TPU left the
-accumulator to XLA). The kernel sums each row's squares in another order
-than the plain version, so the two agree to about 1e-7 relative; the kernel
-repeats bit for bit. Real ids must be distinct, as for the TPU kernel.
+Tables and accumulators are updated IN PLACE and returned, as the TPU
+kernel aliases its table input to its output; a caller that needs the old
+values clones them first. On the card one pass does both parts (the TPU
+left the accumulator to XLA). The kernel sums each row's squares in another
+order than the plain version, so the two agree to about 1e-7 relative; the
+kernel repeats bit for bit, and a table's result is the same whichever
+tables share its launch. Real ids must be distinct within a table, as for
+the TPU kernel, and no two tables or accumulators may share memory.
 """
 
 from __future__ import annotations
 
 import ctypes
 import numbers
+from typing import List, Sequence, Tuple
 
 import torch
 
 from tfrec_tpu_torch.kernels import _build
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
-             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+             ctypes.c_void_p, ctypes.c_void_p]
 
 
 def fused_rowwise_adagrad_ref(table: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
@@ -44,14 +50,17 @@ def fused_rowwise_adagrad_ref(table: torch.Tensor, acc: torch.Tensor, uids: torc
     return table, acc
 
 
-def fused_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
-                          grads: torch.Tensor, lr: float, eps: float = 1e-8):
-    """table [V, D] f32, acc [V] f32, uids [N] int32 (distinct real ids, a
-    sentinel >= V for unused slots), grads [N, D] f32 (combined), lr and eps
-    numbers -> (table, acc), the same tensors, updated in place.
+def fused_rowwise_adagrad_multi_ref(tables: Sequence[torch.Tensor], accs: Sequence[torch.Tensor],
+                                    uids: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+                                    lr: float, eps: float = 1e-8):
+    """Plain PyTorch version of the multi-table kernel: the one-table plain
+    version per table, in place as well -> (tables, accs) as lists."""
+    for t, a, u, g in zip(tables, accs, uids, grads):
+        fused_rowwise_adagrad_ref(t, a, u, g, lr, eps)
+    return list(tables), list(accs)
 
-    A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
-    """
+
+def _check(table, acc, uids, grads, device: torch.device, what: str) -> None:
     if table.dim() != 2 or table.dtype != torch.float32:
         raise TypeError(f"table must be [V, D] float32, got {table.dtype} {tuple(table.shape)}")
     vocab, dim = table.shape
@@ -62,27 +71,97 @@ def fused_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, uids: torch.Te
     if grads.shape != (uids.shape[0], dim) or grads.dtype != torch.float32:
         raise TypeError(f"grads must be [{uids.shape[0]}, {dim}] float32, "
                         f"got {grads.dtype} {tuple(grads.shape)}")
-    for name, t in (("acc", acc), ("uids", uids), ("grads", grads)):
-        if t.device != table.device:
-            raise ValueError(f"table on {table.device} but {name} on {t.device}")
+    for name, t in (("table", table), ("acc", acc), ("uids", uids), ("grads", grads)):
+        if t.device != device:
+            raise ValueError(f"{what} takes tensors on one device: {device}, but a {name} on {t.device}")
     if not all(t.is_contiguous() for t in (table, acc, uids, grads)):
-        raise ValueError("fused_rowwise_adagrad needs contiguous table, acc, uids and grads")
+        raise ValueError(f"{what} needs contiguous tables, accs, uids and grads")
+    if device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"{what} runs on cuda or cpu tensors, not {device}")
+
+
+def _check_disjoint(tensors, what: str) -> None:
+    """No two of the tensors updated in place share memory: two launches'
+    worth of writes to one row would race on the card."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in tensors if t.numel())
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError(f"{what}: two tables or accumulators share memory "
+                             "(a table appears twice, or overlaps another)")
+
+
+def _check_numbers(lr, eps) -> None:
     if not isinstance(lr, numbers.Real) or not isinstance(eps, numbers.Real):
         raise TypeError("lr and eps must be numbers (the kernel takes them by value)")
+
+
+def _launch(tables, accs, uids, grads, lr, eps, what: str) -> int:
+    """One kernel launch (one a 64 tables) over the tables with slots to
+    update; returns the number of launches made."""
+    desc = []
+    for t, a, u, g in zip(tables, accs, uids, grads):
+        if u.shape[0] and t.shape[1]:
+            desc += (t.data_ptr(), a.data_ptr(), u.data_ptr(), g.data_ptr(),
+                     u.shape[0], t.shape[0], t.shape[1])
+    if not desc:
+        return 0
+    fn = _build.function("adagrad", "tfrec_rowwise_adagrad_multi", _ARGTYPES)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(tables[0].device):
+        rc = fn((ctypes.c_longlong * len(desc))(*desc), len(desc) // 7, float(lr), float(eps),
+                torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+    _build.check_launch(rc, what)
+    return launched.value
+
+
+def fused_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
+                          grads: torch.Tensor, lr: float, eps: float = 1e-8):
+    """table [V, D] f32, acc [V] f32, uids [N] int32 (distinct real ids, a
+    sentinel >= V for unused slots), grads [N, D] f32 (combined), lr and eps
+    numbers -> (table, acc), the same tensors, updated in place.
+
+    A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
+    """
+    _check(table, acc, uids, grads, table.device, "fused_rowwise_adagrad")
+    _check_numbers(lr, eps)
+    _check_disjoint((table, acc), "fused_rowwise_adagrad")
     if table.device.type == "cpu":
         return fused_rowwise_adagrad_ref(table, acc, uids, grads, lr, eps)
-    if table.device.type != "cuda":
-        raise NotImplementedError(f"fused_rowwise_adagrad runs on cuda or cpu tensors, not {table.device}")
-    n = uids.shape[0]
-    if n == 0 or dim == 0:
-        return table, acc
-    fn = _build.function("adagrad", "tfrec_rowwise_adagrad", _ARGTYPES)
-    with torch.cuda.device(table.device):
-        rc = fn(table.data_ptr(), acc.data_ptr(), uids.data_ptr(), grads.data_ptr(),
-                n, vocab, dim, float(lr), float(eps), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(rc, "fused_rowwise_adagrad")
-    fused_rowwise_adagrad.launches += 1
+    fused_rowwise_adagrad.launches += _launch(
+        [table], [acc], [uids], [grads], lr, eps, "fused_rowwise_adagrad")
     return table, acc
 
 
+def fused_rowwise_adagrad_multi(tables: Sequence[torch.Tensor], accs: Sequence[torch.Tensor],
+                                uids: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+                                lr: float, eps: float = 1e-8) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """``fused_rowwise_adagrad`` for many tables at once, with one lr and
+    eps: table by table, table [V_f, D_f] f32, acc [V_f] f32, uids [N_f]
+    int32, grads [N_f, D_f] f32, all on one device -> (tables, accs) as
+    lists of the same tensors, updated in place. No two tables or
+    accumulators may share memory.
+
+    CUDA tensors launch the kernel once for every 64 tables; CPU tensors
+    take the plain version.
+    """
+    tables, accs, uids, grads = list(tables), list(accs), list(uids), list(grads)
+    if not len(tables) == len(accs) == len(uids) == len(grads):
+        raise ValueError(f"fused_rowwise_adagrad_multi: {len(tables)} tables, {len(accs)} accs, "
+                         f"{len(uids)} uids and {len(grads)} grads")
+    if not tables:
+        return [], []
+    device = tables[0].device
+    for t, a, u, g in zip(tables, accs, uids, grads):
+        _check(t, a, u, g, device, "fused_rowwise_adagrad_multi")
+    _check_numbers(lr, eps)
+    _check_disjoint(tables + accs, "fused_rowwise_adagrad_multi")
+    if device.type == "cpu":
+        return fused_rowwise_adagrad_multi_ref(tables, accs, uids, grads, lr, eps)
+    fused_rowwise_adagrad_multi.launches += _launch(
+        tables, accs, uids, grads, lr, eps, "fused_rowwise_adagrad_multi")
+    return tables, accs
+
+
 fused_rowwise_adagrad.launches = 0  # kernel launches since the last reset
+fused_rowwise_adagrad_multi.launches = 0

@@ -1,5 +1,5 @@
-"""Embedding-table primitives: specs, seeded init, the row gather and the
-duplicate-id combine.
+"""Embedding-table primitives: specs, seeded init, the row gather (of one
+table, or of many in one launch) and the duplicate-id combine.
 
 The counterpart of ``tfrec_tpu/ops/embedding.py``. The sentinel row id
 ``vocab`` (one past the end) marks bag padding; ``gather`` clamps it, and
@@ -13,11 +13,11 @@ orders are not ported (ROADMAP Queue 1 items 2 and 5).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from tfrec_tpu_torch.kernels.gather_cuda import gather_rows
+from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_multi
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +62,13 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Row gather ``table[clip(ids, 0, V-1)]``: table [V, D] f32, ids [N]
     int32 -> [N, D]. Launches the CUDA kernel for CUDA tensors."""
     return gather_rows(table, ids)
+
+
+def gather_many(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``gather`` of every (table, ids) pair at once -> one [N_f, D_f] result
+    per pair, each a contiguous view of one allocation. On a card it is one
+    launch of the CUDA kernel for all of them (per 64 tables)."""
+    return gather_rows_multi(tables, ids)
 
 
 def combine_duplicate_ids(

@@ -8,8 +8,10 @@ state and row are updated; sentinel slots (ids >= V) are dropped.
 
 - ``sgd``: no state.
 - ``rowwise_adagrad``: one accumulator per row. Its ``apply_deduped`` is
-  ``kernels.adagrad_cuda.fused_rowwise_adagrad``: the CUDA kernel on a CUDA
-  tensor, its plain version on a CPU tensor.
+  ``kernels.adagrad_cuda.fused_rowwise_adagrad`` and its
+  ``apply_deduped_many`` ``fused_rowwise_adagrad_multi`` (every table in
+  one launch): the CUDA kernel on a CUDA tensor, its plain version on a CPU
+  tensor.
 - ``rowwise_adam``: per-element first moment, per-row second moment and
   per-row step count (lazy bias correction).
 
@@ -27,11 +29,11 @@ between TPU scatter lowerings and have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from tfrec_tpu_torch.kernels.adagrad_cuda import fused_rowwise_adagrad
+from tfrec_tpu_torch.kernels.adagrad_cuda import fused_rowwise_adagrad, fused_rowwise_adagrad_multi
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
 
 State = Dict[str, torch.Tensor]
@@ -41,12 +43,25 @@ State = Dict[str, torch.Tensor]
 class SparseOptimizer:
     """init(table) -> state; apply(table, state, ids, grads, lr) -> (table,
     state); ``apply_deduped`` is ``apply`` after the duplicate combine
-    (uids and summed grads from ``combine_duplicate_ids``)."""
+    (uids and summed grads from ``combine_duplicate_ids``);
+    ``apply_deduped_many(tables, states, uids, grads, lr) -> (tables,
+    states)`` is ``apply_deduped`` over lists of tables, one lr for all."""
 
     name: str
     init: Callable[..., State]
     apply: Callable[..., Tuple[torch.Tensor, State]]
     apply_deduped: Callable[..., Tuple[torch.Tensor, State]]
+    apply_deduped_many: Callable[..., Tuple[List[torch.Tensor], List[State]]]
+
+
+def _one_by_one(apply_deduped):
+    """``apply_deduped_many`` as ``apply_deduped`` on each table in turn."""
+
+    def apply_deduped_many(tables, states, uids, grads, lr):
+        out = [apply_deduped(t, s, u, g, lr) for t, s, u, g in zip(tables, states, uids, grads)]
+        return [t for t, _ in out], [s for _, s in out]
+
+    return apply_deduped_many
 
 
 def _real(table: torch.Tensor, uids: torch.Tensor, g: torch.Tensor):
@@ -114,11 +129,18 @@ def _adagrad_apply_fn(eps: float):
         table, acc = fused_rowwise_adagrad(table, state["acc"], uids, g, lr, eps)
         return table, {"acc": acc}
 
+    def apply_deduped_many(tables, states, uids, grads, lr):
+        for state in states:
+            _lane_grouped(state, "acc")
+        tables, accs = fused_rowwise_adagrad_multi(
+            tables, [s["acc"] for s in states], uids, grads, lr, eps)
+        return tables, [{"acc": a} for a in accs]
+
     def apply(table, state, ids, grads, lr):
         uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0])
         return apply_deduped(table, state, uids, g, lr)
 
-    return apply, apply_deduped
+    return apply, apply_deduped, apply_deduped_many
 
 
 def _adam_init(table: torch.Tensor, lane_groups: int = 1) -> State:
@@ -163,12 +185,13 @@ def make_sparse_optimizer(
     eps: float = 1e-8,
 ) -> SparseOptimizer:
     if name == "sgd":
-        return SparseOptimizer("sgd", _sgd_init, _sgd_apply, _sgd_apply_deduped)
+        return SparseOptimizer("sgd", _sgd_init, _sgd_apply, _sgd_apply_deduped,
+                               _one_by_one(_sgd_apply_deduped))
     if name == "rowwise_adagrad":
-        apply, apply_deduped = _adagrad_apply_fn(eps)
         return SparseOptimizer("rowwise_adagrad", _adagrad_init_fn(adagrad_init),
-                               apply, apply_deduped)
+                               *_adagrad_apply_fn(eps))
     if name == "rowwise_adam":
         apply, apply_deduped = _adam_apply_fn(adam_b1, adam_b2, eps)
-        return SparseOptimizer("rowwise_adam", _adam_init, apply, apply_deduped)
+        return SparseOptimizer("rowwise_adam", _adam_init, apply, apply_deduped,
+                               _one_by_one(apply_deduped))
     raise ValueError(f"unknown sparse optimizer {name!r}")

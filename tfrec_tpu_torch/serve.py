@@ -3,7 +3,8 @@
 ``Recommender(model, params, device="cuda")`` holds a model and its params
 on one device and serves ``predict_ctr(dense, cat)`` -> logits [N]: it
 copies the request to the device, gathers one row per field id through
-``ops.embedding.gather`` (the CUDA gather kernel on a card), runs the
+``ops.embedding.gather_many`` (one launch of the CUDA gather kernel for
+every field on a card), runs the
 model's forward (the CUDA cross-stack kernel for DCN-v1 and low-rank
 DCN-v2) and returns numpy.
 ``predict``, ``score_catalog``, ``recommend``, ``from_checkpoint`` and
@@ -17,7 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from tfrec_tpu_torch.ops.embedding import gather
+from tfrec_tpu_torch.ops.embedding import gather_many
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -52,7 +53,6 @@ class Recommender:
             "cat": torch.from_numpy(np.ascontiguousarray(cat, np.int32)).to(self.device),
         }
         tables = self.params["tables"]
-        gathered = {
-            k: gather(tables[k], ids) for k, ids in self.model.lookup_ids(batch).items()
-        }
+        ids = self.model.lookup_ids(batch)
+        gathered = dict(zip(ids, gather_many([tables[k] for k in ids], list(ids.values()))))
         return self.model(self.params["dense"], gathered, batch).cpu().numpy()

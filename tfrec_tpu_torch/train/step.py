@@ -2,9 +2,11 @@
 
 One step, on the builder's device::
 
-    lookup ids -> gather rows -> gradients with respect to (dense params,
-    gathered rows) -> dense update (optax's rules) -> per table the
-    duplicate-id combine and the rowwise sparse update of the touched rows.
+    lookup ids -> gather rows (every table in one launch) -> gradients with
+    respect to (dense params, gathered rows) -> dense update (optax's
+    rules) -> per table the duplicate-id combine -> the rowwise sparse
+    update of the touched rows of every table (one launch for rowwise
+    Adagrad).
 
 As in the reference, autograd stops at the gathered rows: the tables are
 never differentiated, so no [V, D] gradient is ever written, and the sparse
@@ -35,7 +37,7 @@ import torch
 
 from tfrec_tpu_torch.configs import OptimConfig
 from tfrec_tpu_torch.models.base import RecModel
-from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids, gather
+from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids, gather_many
 from tfrec_tpu_torch.ops.sparse_optim import SparseOptimizer, make_sparse_optimizer
 from tfrec_tpu_torch.train.losses import make_loss
 
@@ -182,11 +184,12 @@ def apply_updates(params, updates):
 class TrainStepBuilder:
     """The step for a (model, loss, optimizers) triple on one device.
 
-    ``lookup``, ``sparse_update``, ``sparse_update_deduped`` and
-    ``sparse_update_all`` are the seams where a sharded embedding subsystem
-    plugs in, as in the reference. The default device is the card: without
-    CUDA this raises rather than train on the CPU; pass ``device="cpu"``
-    for that (the kernels' plain versions).
+    ``lookup``, ``sparse_update``, ``sparse_update_deduped``,
+    ``sparse_update_deduped_all`` and ``sparse_update_all`` are the seams
+    where a sharded embedding subsystem plugs in, as in the reference. The
+    default device is the card: without CUDA this raises rather than train
+    on the CPU; pass ``device="cpu"`` for that (the kernels' plain
+    versions).
     """
 
     def __init__(
@@ -252,8 +255,11 @@ class TrainStepBuilder:
     # ---- seams a sharded subsystem overrides ----
 
     def lookup(self, tables: Dict[str, torch.Tensor], ids: Dict[str, torch.Tensor]):
-        """(gathered rows per table, aux metrics): the local gather."""
-        return {name: gather(tables[name], t_ids) for name, t_ids in ids.items()}, {}
+        """(gathered rows per table, aux metrics): the local gather, every
+        table in one launch (the counterpart of the reference's
+        ``pallas_lookup``); the rows of all tables share one allocation."""
+        rows = gather_many([tables[name] for name in ids], list(ids.values()))
+        return dict(zip(ids, rows)), {}
 
     def sparse_update(self, name: str, table, opt_state, ids, grads, lr):
         """One table's duplicate combine and sparse update -> (table, state)."""
@@ -264,15 +270,45 @@ class TrainStepBuilder:
         """The update after the combine; for rowwise Adagrad the fused kernel."""
         return self.sparse_opt.apply_deduped(table, opt_state, uids, g, lr)
 
+    def sparse_update_deduped_all(self, tables, opt_states, uids, grads, lr):
+        """The update after the combine for every table at once (dicts by
+        table name) -> (tables, states); for rowwise Adagrad one launch of
+        the fused kernel. The reference's grouped path calls
+        ``sparse_update_deduped`` per member of a group here."""
+        names = list(uids)
+        new_tables, new_states = self.sparse_opt.apply_deduped_many(
+            [tables[n] for n in names], [opt_states[n] for n in names],
+            [uids[n] for n in names], [grads[n] for n in names], lr)
+        return dict(zip(names, new_tables)), dict(zip(names, new_states))
+
+    def _per_table_seams(self) -> bool:
+        """True where ``sparse_update`` or ``sparse_update_deduped`` is
+        overridden (by a subclass or on the instance): the update then goes
+        through them table by table."""
+        return any(getattr(getattr(self, seam), "__func__", None) is not getattr(TrainStepBuilder, seam)
+                   for seam in ("sparse_update", "sparse_update_deduped"))
+
     def sparse_update_all(self, state: State, ids, gathered_grad, lr):
-        """The sparse update of every table, one after another."""
+        """The sparse update of every table: the duplicate combine table by
+        table, then ``sparse_update_deduped_all`` over all of them; or, where
+        the per-table seams are overridden, ``sparse_update`` table by table."""
         new_tables = dict(state["tables"])
         new_sparse = dict(state["sparse_opt"])
+        if self._per_table_seams():
+            for name in gathered_grad:
+                new_tables[name], new_sparse[name] = self.sparse_update(
+                    name, state["tables"][name], state["sparse_opt"][name],
+                    ids[name], gathered_grad[name], lr,
+                )
+            return new_tables, new_sparse
+        uids, grads = {}, {}
         for name in gathered_grad:
-            new_tables[name], new_sparse[name] = self.sparse_update(
-                name, state["tables"][name], state["sparse_opt"][name],
-                ids[name], gathered_grad[name], lr,
-            )
+            uids[name], grads[name] = combine_duplicate_ids(
+                ids[name], gathered_grad[name], sentinel=state["tables"][name].shape[0])
+        tables, states = self.sparse_update_deduped_all(
+            state["tables"], state["sparse_opt"], uids, grads, lr)
+        new_tables.update(tables)
+        new_sparse.update(states)
         return new_tables, new_sparse
 
     def _generator(self, step: int) -> torch.Generator | None:
