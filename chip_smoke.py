@@ -14,10 +14,12 @@ non-zero if any phase fails:
    bit their plain versions and their one-table launches, and past one
    launch's 64 tables); the duplicate-id combine repeating bit for bit and
    matching the CPU; then
-   the cross kernels at widths past the flagship's (v1 at d=2093, v2 at
-   d=1885 and 3341, r=64; B=8192, L=3), each through its kernels (launch
-   counters), against its plain version, bit for bit on repeat, with its
-   device time beside its bound;
+   the cross kernels at widths past the flagship's (v1 at d=2093, L=3,
+   and at d=8333, L=4, past what a block's registers hold, on the
+   kernels' streaming routes; v2 at d=1885 and 3341, r=64, L=3; B=8192),
+   each through its kernels (launch counters), against its plain version,
+   bit for bit on repeat, with its device time beside its bound (and the
+   v1 backward's time by kernel);
 4. serving: ``dcn_criteo`` at Criteo's shape (26 fields of 100 000 rows,
    d=32, 13 dense features, 3 cross layers, MLP 512/256/128) from a seeded
    generator, batches of 8192 through ``Recommender.predict_ctr``; the
@@ -40,11 +42,12 @@ non-zero if any phase fails:
    on a held batch; one step repeats bit for bit, matches the same step on
    the CPU (plain versions) from the same state, and is bit for bit the
    step of a launch a table (the per-table seams);
-7. training times: the backward cross kernel and the Adagrad kernel beside
-   their bounds and plain versions (the Adagrad kernel's one launch beside
-   26 launches of one table, at the step's Zipf ids and at uniform ids,
-   and the host's cost of each), the step's median and a profile of one
-   step, through one launch and through a launch a table;
+7. training times: the backward cross kernel (and its time by kernel) and
+   the Adagrad kernel beside their bounds and plain versions (the Adagrad
+   kernel's one launch beside 26 launches of one table, at the step's Zipf
+   ids and at uniform ids, and the host's cost of each), the step's median
+   and a profile of one step, through one launch and through a launch a
+   table;
 8. phases 4 and 6 again for the same model as low-rank DCN-v2
    (``model.name="dcnv2"``, ``cross_rank=64``: U and V [3, 845, 64]), whose
    cross stack runs the v2 kernels; then their times beside their bounds
@@ -59,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -552,6 +556,18 @@ def check_cross_v1_bwd(rng, dim: int, layers: int) -> float:
     return worst
 
 
+def v1_bwd_kernels(parts: dict) -> dict:
+    """The v1 backward's kernels, from ``kernel_times_us``, by short name:
+    its row kernel (or, on the general route, the row-scalar and column
+    kernels) and the sum of the per-block partials."""
+    found = ((re.search(r"cross_v1_bwd\w*(<[^>]*>)?|sum_partials_kernel", k), us) for k, us in parts.items())
+    return {m.group(0): us for m, us in found if m}
+
+
+def v1_bwd_split(parts: dict) -> str:
+    return ", ".join(f"{name} {us:.1f} us" for name, us in v1_bwd_kernels(parts).items())
+
+
 def counted(wrapper, fn):
     """fn()'s result, checking that it launched ``wrapper``'s kernel once."""
     out, launches = launches_of(wrapper, fn)
@@ -561,12 +577,13 @@ def counted(wrapper, fn):
 
 def phase_wide() -> None:
     """The cross kernels past the flagship's width, where the reference's
-    ``cross_stack`` still computes: ``dcn_criteo`` with embed_dim 80 as
-    DCN-v1 (d = 26 * 80 + 13 = 2093), and as low-rank DCN-v2 (r=64) with
-    embed_dim 72 and 128 (d = 1885 and 3341). Each kernel runs on the card
-    (its launch counter moves), is held to its plain version at the same
-    tolerances as at the flagship's width and repeats bit for bit; its
-    device time is printed beside its bound and its plain version's."""
+    ``cross_stack`` still computes: ``dcn_criteo`` with embed_dim 80 and
+    320 as DCN-v1 (d = 26 * 80 + 13 = 2093, L = 3; d = 8333, L = 4), and as
+    low-rank DCN-v2 (r=64) with embed_dim 72 and 128 (d = 1885 and 3341).
+    Each kernel runs on the card (its launch counter moves), is held to its
+    plain version at the same tolerances as at the flagship's width and
+    repeats bit for bit; its device time is printed beside its bound and
+    its plain version's."""
     layers = 3
     rng = np.random.default_rng(SEED + 1)  # its own, so the main paths' inputs do not depend on it
 
@@ -580,23 +597,31 @@ def phase_wide() -> None:
             check(within(a, e, RTOL, ATOL_REL), f"wide {part} within tolerance")
             check(torch.equal(a, r), f"wide {part} repeats bit for bit")
 
-    dim = 26 * 80 + 13
-    x0, g = normal((BATCH, dim), 1.0), normal((BATCH, dim), 1.0)
-    w, b = normal((layers, dim), dim**-0.5), normal((layers, dim), 0.1)
-    print(f"wide: cross_v1 B={BATCH} d={dim} L={layers}")
-    out, s = counted(cross_v1_fwd, lambda: cross_v1_fwd(x0, w, b, want_s=True))
-    want, s_ref = cross_v1_fwd_ref(x0, w, b, want_s=True)
-    hold("x_L,s", (out, s), (want, s_ref), cross_v1_fwd(x0, w, b, want_s=True))
-    grads = counted(cross_v1_bwd, lambda: cross_v1_bwd(x0, w, b, s, g))
-    hold("dx0,dw,db", grads, cross_v1_bwd_ref(x0, w, b, g, s), cross_v1_bwd(x0, w, b, s, g))
-    f_ms = device_ms(lambda: cross_v1_fwd(x0, w, b), 1)
-    f_plain = device_ms(lambda: cross_v1_fwd_ref(x0, w, b), 1)
-    b_ms = device_ms(lambda: cross_v1_bwd(x0, w, b, s, g), 1)
-    b_plain = device_ms(lambda: cross_v1_bwd_ref(x0, w, b, g, s), 1)
-    (fb, fby), (bb, bby) = v1_fwd_bound(BATCH, dim, layers), v1_bwd_bound(BATCH, dim, layers)
-    print(f"  cross_v1_fwd {f_ms:.4f} ms (bound {fb:.4f} ms, {fby}; plain {f_plain:.4f} ms), "
-          f"cross_v1_bwd {b_ms:.4f} ms (bound {bb:.4f} ms, {bby}; plain {b_plain:.4f} ms) "
-          f"[device time, CUDA graph]")
+    # embed_dim 80 (d = 2093, L = 3) on the fast routes; embed_dim 320 (d =
+    # 8333, L = 4), past the 8192 a block's registers hold in the forward
+    # and the 4096 of the backward's fast route: both streaming routes.
+    for dim, v1_layers in ((26 * 80 + 13, layers), (26 * 320 + 13, 4)):
+        x0, g = normal((BATCH, dim), 1.0), normal((BATCH, dim), 1.0)
+        w, b = normal((v1_layers, dim), dim**-0.5), normal((v1_layers, dim), 0.1)
+        print(f"wide: cross_v1 B={BATCH} d={dim} L={v1_layers}")
+        out, s = counted(cross_v1_fwd, lambda: cross_v1_fwd(x0, w, b, want_s=True))
+        want, s_ref = cross_v1_fwd_ref(x0, w, b, want_s=True)
+        hold("x_L,s", (out, s), (want, s_ref), cross_v1_fwd(x0, w, b, want_s=True))
+        check(torch.equal(cross_v1_fwd(x0, w, b), out), "wide: serving x_L equals training's")
+        del want, s_ref
+        grads = counted(cross_v1_bwd, lambda: cross_v1_bwd(x0, w, b, s, g))
+        hold("dx0,dw,db", grads, cross_v1_bwd_ref(x0, w, b, g, s), cross_v1_bwd(x0, w, b, s, g))
+        del out, grads
+        f_ms = device_ms(lambda: cross_v1_fwd(x0, w, b), 1)
+        f_plain = device_ms(lambda: cross_v1_fwd_ref(x0, w, b), 1)
+        b_ms = device_ms(lambda: cross_v1_bwd(x0, w, b, s, g), 1)
+        b_plain = device_ms(lambda: cross_v1_bwd_ref(x0, w, b, g, s), 1)
+        parts = kernel_times_us(lambda: cross_v1_bwd(x0, w, b, s, g))
+        fb, fby = v1_fwd_bound(BATCH, dim, v1_layers)
+        bb, bby = v1_bwd_bound(BATCH, dim, v1_layers)
+        print(f"  cross_v1_fwd {f_ms:.4f} ms (bound {fb:.4f} ms, {fby}; plain {f_plain:.4f} ms), "
+              f"cross_v1_bwd {b_ms:.4f} ms (bound {bb:.4f} ms, {bby}; plain {b_plain:.4f} ms) "
+              f"[device time, CUDA graph]; the backward by kernel (profiler): {v1_bwd_split(parts)}")
     for dim in (26 * 72 + 13, 26 * 128 + 13):
         x0, g = normal((BATCH, dim), 1.0), normal((BATCH, dim), 1.0)
         u, v = normal((layers, dim, V2_RANK), dim**-0.5), normal((layers, dim, V2_RANK), dim**-0.5)
@@ -1050,8 +1075,11 @@ def phase_train_times(builder, per_table, state, batches, errs) -> list:
     bsz, dim = x0.shape
     layers = w.shape[0]
     cb_bound, cb_by = v1_bwd_bound(bsz, dim, layers)
+    x, s, g = sets[0]
+    parts = kernel_times_us(lambda: cross_v1_bwd(x, w, b, s, g))
     print(f"cross_v1_bwd [{bsz}, {dim}] L={layers}: kernel {cb_ms:.4f} ms, plain {cb_plain:.4f} ms, "
-          f"bound {cb_bound:.4f} ms ({cb_by}) [device time, CUDA graph]")
+          f"bound {cb_bound:.4f} ms ({cb_by}) [device time, CUDA graph]; one call by kernel "
+          f"(profiler): {v1_bwd_split(parts)}")
 
     # The Adagrad update of all 26 tables (12.8 MB each: L2 is cold) on the
     # step's combined gradients (Zipf ids), then on uniform ids, where
@@ -1074,7 +1102,8 @@ def phase_train_times(builder, per_table, state, batches, errs) -> list:
     step_times(builder, per_table, state, batches)
     return [
         {"name": "cross_v1_bwd", "route": "cuda", "max_abs_err": errs["cross_v1_bwd"], "ms": cb_ms,
-         "plain_ms": cb_plain, "bound_ms": cb_bound, "bound_by": cb_by, "library_ms": None},
+         "plain_ms": cb_plain, "bound_ms": cb_bound, "bound_by": cb_by, "library_ms": None,
+         "by_kernel_us": v1_bwd_kernels(parts)},
         {"name": "fused_rowwise_adagrad_multi", "route": "cuda",
          "max_abs_err": errs["fused_rowwise_adagrad_multi"], **zipf, "library_ms": None,
          "uniform_ids": uniform},

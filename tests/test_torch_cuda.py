@@ -160,9 +160,10 @@ def test_fused_rowwise_adagrad_multi_is_bitwise_the_per_table_launches(device, c
 
 
 # d = 2093 (dcn_criteo at embed_dim 80) and 4109 (past 4096: 32 elements a
-# thread of 256) are wider than the flagship's 845.
+# thread of 256) are wider than the flagship's 845; 8333 (embed_dim 320) is
+# past the 8192 a block's registers hold, and streams its rows.
 @pytest.mark.parametrize("batch,dim,layers", [(1000, 845, 3), (33, 31, 2), (257, 2048, 1), (300, 2093, 3),
-                                              (70, 4109, 2)])
+                                              (70, 4109, 2), (65, 8333, 4)])
 def test_cross_v1_fwd_matches_the_plain_version(device, batch, dim, layers):
     rng = np.random.default_rng(batch)
     x0 = torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32)).to(device)
@@ -183,10 +184,12 @@ def _close(got, want, tol=1e-5):
 
 
 @pytest.mark.parametrize("batch,dim,layers", [(1000, 845, 3), (33, 31, 2), (257, 2048, 1), (70, 2048, 6),
-                                              (300, 2093, 3), (70, 4109, 2)])
+                                              (300, 2093, 3), (70, 4109, 2), (4096, 8192, 4), (300, 845, 40)])
 def test_cross_v1_bwd_matches_the_plain_version(device, batch, dim, layers):
-    """(70, 2048, 6) needs 96 KB of shared memory: the opt-in above 48 KB;
-    d = 2093 and 4109 keep 16 and 32 elements a thread."""
+    """d <= 4096 with L <= 4 takes the fast route (d = 2093 keeps 16
+    elements a thread and opts in to more than 48 KB of shared memory);
+    (70, 2048, 6), (70, 4109, 2), (4096, 8192, 4) and (300, 845, 40), past
+    the old 227 KB of [2, L, d] sums, take the general route."""
     rng = np.random.default_rng(batch + dim)
     x0, g = (torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32)).to(device)
              for _ in range(2))
@@ -277,13 +280,55 @@ def test_cross_v2_refuses_more_shared_memory_than_a_block_gets(device):
         cross_v2_bwd(x0, u, v, f, xv, x0)
 
 
-def test_cross_v1_refuses_rows_wider_than_its_registers(device):
-    x0 = torch.zeros((4, 8193), device=device)
-    w = torch.zeros((1, 8193), device=device)
-    with pytest.raises(ValueError, match="d <= 8192"):
-        cross_v1_fwd(x0, w, w)
-    with pytest.raises(ValueError, match="d <= 8192"):
-        cross_v1_bwd(x0, w, w, torch.zeros((4, 1), device=device), x0)
+def test_cross_v1_takes_rows_wider_than_its_registers(device):
+    """d = 8193, one past what a block's registers hold: both kernels run
+    their streaming routes and match their plain versions."""
+    rng = np.random.default_rng(8193)
+    x0, g = (torch.from_numpy(rng.normal(size=(40, 8193)).astype(np.float32)).to(device) for _ in range(2))
+    w = torch.from_numpy((rng.normal(size=(2, 8193)) / 8193**0.5).astype(np.float32)).to(device)
+    b = torch.from_numpy(rng.normal(size=(2, 8193)).astype(np.float32) * 0.1).to(device)
+    before = cross_v1_fwd.launches, cross_v1_bwd.launches
+    out, s = cross_v1_fwd(x0, w, b, want_s=True)
+    want, s_ref = cross_v1_fwd_ref(x0, w, b, want_s=True)
+    _close(out, want)
+    _close(s, s_ref)
+    for a, e in zip(cross_v1_bwd(x0, w, b, s, g), cross_v1_bwd_ref(x0, w, b, g, s)):
+        _close(a, e)
+    assert (cross_v1_fwd.launches, cross_v1_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_cross_v1_takes_rows_at_the_32_bit_limit(device):
+    """d = 2**31 - 1, the widest row the kernels index, through both
+    streaming routes, whose column walks must not overflow (B = 1, L = 1:
+    72 GiB with the backward's outputs and scratch, so an 80 GB card). x0 is
+    zero but at a few columns, the last ones among them, with positive
+    terms in the row dots, so those are short sums with no cancellation;
+    each output is held, a chunk of columns at a time, to the plain
+    version's formulas at L = 1 with the dots taken in float64."""
+    dim = 2**31 - 1
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(0)
+    cols = torch.tensor([0, 1, 255, 256, dim // 2, dim - 4097, dim - 2048, dim - 1025, dim - 256, dim - 2,
+                         dim - 1], device=device)
+    x0 = torch.zeros((1, dim), device=device)
+    x0[0, cols] = torch.rand(len(cols), device=device, generator=gen) + 0.5
+    w = torch.randn((1, dim), device=device, generator=gen)
+    w[0, cols] = w[0, cols].abs()
+    b = torch.randn((1, dim), device=device, generator=gen)
+    chunks = [slice(i, min(i + 2**28, dim)) for i in range(0, dim, 2**28)]
+    out, s = cross_v1_fwd(x0, w, b, want_s=True)
+    _close(s[0, 0], (x0[0, cols].double() * w[0, cols].double()).sum().float())
+    for c in chunks:
+        _close(out[0, c], x0[0, c] * s[0, 0] + b[0, c] + x0[0, c])
+    del out
+    g = torch.randn((1, dim), device=device, generator=gen)
+    g[0, cols] = g[0, cols].abs()
+    dx0, dw, db = cross_v1_bwd(x0, w, b, s, g)
+    ds = (x0[0, cols].double() * g[0, cols].double()).sum().float()
+    for c in chunks:
+        _close(dx0[0, c], g[0, c] * s[0, 0] + (g[0, c] + ds * w[0, c]))
+        _close(dw[0, c], x0[0, c] * ds)
+        assert torch.equal(db[0, c], g[0, c])
 
 
 @pytest.mark.parametrize("dim", [1, 8, 32, 100])

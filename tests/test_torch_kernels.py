@@ -21,7 +21,7 @@ from tfrec_tpu.kernels.gather_pallas import gather_pallas
 from tfrec_tpu.ops.embedding import gather as jax_gather
 from tfrec_tpu_torch.kernels import _build
 from tfrec_tpu_torch.kernels.cross import cross_stack, cross_stack_ref
-from tfrec_tpu_torch.kernels.cross_cuda import MAX_DIM, cross_v1_bwd, cross_v1_fwd
+from tfrec_tpu_torch.kernels.cross_cuda import cross_v1_bwd, cross_v1_fwd
 from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_multi, gather_rows_multi_ref
 from tfrec_tpu_torch.ops.embedding import gather, gather_many
 
@@ -180,25 +180,32 @@ def test_cross_dispatch_refuses_devices_other_than_cuda_and_cpu():
         cross_stack(x0, v1)
 
 
-# dcn_criteo's widths as DCN-v1 at embed_dim 32, 80 and 158 (d = 26 e + 13),
-# the widest the kernels take, and the first width past it.
-@pytest.mark.parametrize("dim", [845, 2093, 4121, 8192, 8193])
-def test_cross_v1_takes_wide_inputs_up_to_its_register_limit(dim):
-    """Both wrappers take d up to MAX_DIM = 8192 (32 elements of a row a
-    thread of 256) and refuse d = 8193 by naming the limit; a meta tensor,
-    within the limit, reaches the device check instead."""
+# dcn_criteo's widths as DCN-v1 at embed_dim 32, 80, 158 and 320 (d = 26 e
+# + 13), the widest row a block's registers hold (8192), and the first
+# width past it.
+@pytest.mark.parametrize("dim", [845, 2093, 4121, 8192, 8193, 8333])
+def test_cross_v1_takes_wide_inputs_to_the_device_check(dim):
+    """Both wrappers take any width (past 8192 the kernels stream rows
+    instead of holding them in registers) and any depth: a meta tensor
+    reaches the device check, never a refusal of its shape."""
     x0 = torch.empty((4, dim), device="meta")
-    w = torch.empty((1, dim), device="meta")
-    s = torch.empty((4, 1), device="meta")
-    calls = (lambda: cross_v1_fwd(x0, w, w), lambda: cross_v1_bwd(x0, w, w, s, x0))
-    for call in calls:
-        if dim > MAX_DIM:
-            with pytest.raises(ValueError, match="d <= 8192"):
-                call()
-        else:
+    for layers in (1, 40):
+        w = torch.empty((layers, dim), device="meta")
+        s = torch.empty((4, layers), device="meta")
+        for call in (lambda: cross_v1_fwd(x0, w, w), lambda: cross_v1_bwd(x0, w, w, s, x0)):
             with pytest.raises(NotImplementedError, match="cuda or cpu"):
                 call()
-    assert MAX_DIM == 8192
+
+
+def test_cross_v1_refuses_rows_past_a_32_bit_index():
+    """The kernels index a row with a 32-bit int: d = 2**31 is refused by
+    name (meta tensors allocate nothing)."""
+    dim = 2**31
+    x0, w, s = (torch.empty(shape, device="meta") for shape in ((1, dim), (1, dim), (1, 1)))
+    with pytest.raises(ValueError, match="32-bit"):
+        cross_v1_fwd(x0, w, w)
+    with pytest.raises(ValueError, match="32-bit"):
+        cross_v1_bwd(x0, w, w, s, x0)
 
 
 def test_cross_v1_fwd_contract():

@@ -342,6 +342,63 @@ def test_cross_v1_bwd_ref_matches_jax_vjp_and_autograd(batch, dim, layers):
         torch.testing.assert_close(a, e, rtol=1e-6, atol=1e-6)
 
 
+def _cross_v1_bwd_regrouped(x0, w, b, s, g):
+    """The backward kernel's arithmetic (csrc/cross.cu), in float32: with
+    c_l = 1 + sum_{m<l} s_m and B_l = sum_{m<l} b_m (x_l = x0 c_l + B_l), a
+    row needs q = x0 . g and p_m = x0 . w_m; ds_{L-1} = q, ds_l = q +
+    sum_{m>l} ds_m p_m; dx0 = g c_L + sum_m (c_m ds_m) w_m; dw_l = sum_batch
+    x0 c_l ds_l + B_l sum_batch ds_l; db_l = sum_batch g + sum_{m>l}
+    (sum_batch ds_m) w_m. Blocks of 16 contiguous rows each finish a dw and
+    db partial, summed in order; the dots and dx0 are matmuls. So this
+    checks the regrouped algebra in float32, not the kernel's own rounding
+    (its strided rows a block and fixed fmaf chains): the card tests check
+    that against the plain version."""
+    layers = w.shape[0]
+    dots = torch.cat([(x0 * g).sum(1, keepdim=True), x0 @ w[1:].T], dim=1)  # q, p_1..p_{L-1}
+    ds = [None] * layers
+    ds[-1] = dots[:, 0]
+    run = torch.zeros_like(dots[:, 0])
+    for l in range(layers - 2, -1, -1):
+        run = ds[l + 1] * dots[:, l + 1] + run
+        ds[l] = dots[:, 0] + run
+    ds = torch.stack(ds, dim=1)
+    c = torch.cumsum(torch.cat([torch.ones_like(s[:, :1]), s], dim=1), dim=1)  # c_0 .. c_L
+    e = c[:, :layers] * ds
+    dx0 = g * c[:, layers:] + e @ w
+    bsum = torch.cumsum(torch.cat([torch.zeros_like(b[:1]), b[:-1]]), dim=0)  # B_l
+    dw = torch.zeros_like(w)
+    db = torch.zeros_like(b)
+    for rows in torch.arange(x0.shape[0]).split(16):  # blocks of 16 rows
+        dsum = ds[rows].sum(0)
+        dw += e[rows].T @ x0[rows] + bsum * dsum[:, None]
+        part = g[rows].sum(0)
+        for l in range(layers - 1, -1, -1):
+            db[l] += part
+            part = part + dsum[l] * w[l]
+    return dx0, dw, db
+
+
+# The flagship's width; L = 1, where the recurrence is empty; and L = 40 at
+# an odd width, past the 227 KB of [2, L, d] sums the old kernel kept.
+@pytest.mark.parametrize("batch,dim,layers", [(64, 845, 3), (50, 45, 1), (33, 61, 40)])
+def test_cross_v1_bwd_regrouped_matches_jax_vjp_and_the_plain_version(batch, dim, layers):
+    """The regrouped formulas of the backward kernel, replayed in float32,
+    against the reference's VJP (Pallas, interpret mode) and the plain
+    version, at the kernel's tolerance on the card: sums regrouped in f32,
+    so the absolute tolerance is relative to the largest value."""
+    x0, g = _normal(36, (batch, dim)), _normal(37, (batch, dim))
+    w, b = _normal(38, (layers, dim), dim**-0.5), _normal(39, (layers, dim), 0.1)
+    _, vjp = jax.vjp(cross_stack_pallas, jnp.asarray(x0), {"w": jnp.asarray(w), "b": jnp.asarray(b)})
+    jdx0, jparams = vjp(jnp.asarray(g))
+    want_jax = (np.asarray(jdx0), np.asarray(jparams["w"]), np.asarray(jparams["b"]))
+    tx0, tw, tb, tg = (torch.from_numpy(a) for a in (x0, w, b, g))
+    _, s = cross_v1_fwd_ref(tx0, tw, tb, want_s=True)
+    got = _cross_v1_bwd_regrouped(tx0, tw, tb, s, tg)
+    for a, e, p in zip(got, cross_v1_bwd_ref(tx0, tw, tb, tg, s), want_jax):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5 * e.abs().max().item())
+        np.testing.assert_allclose(a.numpy(), p, rtol=1e-5, atol=1e-5 * np.abs(p).max())
+
+
 def test_cross_v1_bwd_contract():
     x0, w = torch.from_numpy(_normal(34, (5, 6))), torch.from_numpy(_normal(35, (2, 6)))
     s = torch.zeros((5, 2))

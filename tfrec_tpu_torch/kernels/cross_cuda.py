@@ -4,34 +4,34 @@ The counterpart of ``tfrec_tpu/kernels/cross_pallas.py``
 ``cross_stack_pallas``: the forward (``_fwd_kernel``) is ``cross_v1_fwd``,
 the backward (``_bwd_kernel``) is ``cross_v1_bwd``; both kernels are in
 ``csrc/cross.cu``. The forward keeps a row of x0 and of the running x in
-the registers of a block of 256 threads across all layers and reduces each
-row dot in f32 in a fixed order, so it agrees with the plain version up to
-the order of that sum (about 1e-6 relative at d=845) and repeats bit for
-bit. For training it
-also returns the per-row scalars ``s[:, l] = x_l . w_l`` [B, L], from which
-the backward rebuilds every x_l elementwise; the backward sums dw and db
-over the batch from per-block partials in a fixed order (no atomics), so it
-too repeats bit for bit. ``CrossV1`` is the ``torch.autograd.Function``
-that joins the two.
+the registers of a block of 256 threads across all layers (rows past 8192
+elements stream through the output row instead) and reduces each row dot
+in f32 in a fixed order, so it agrees with the plain version up to the
+order of that sum (about 1e-6 relative at d=845) and repeats bit for bit.
+For training it also returns the per-row scalars ``s[:, l] = x_l . w_l``
+[B, L]. The backward regroups the reference's walk down the layers so
+that a row needs only its L row dots with x0, and sums dw and db over the
+batch from per-block partials in a fixed order (no atomics), so it too
+repeats bit for bit. Both take any depth L and any width d up to
+2**31 - 1 (the kernels index a row with a 32-bit int); the C entry points
+choose their route by shape. ``CrossV1`` is the
+``torch.autograd.Function`` that joins the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from tfrec_tpu_torch.kernels import _build
 
-# Rows live in registers: a block of 256 threads a row takes 32 elements a
-# thread in the forward and in the backward.
-MAX_DIM = 8192
+# The kernels index a row with a 32-bit int.
+_MAX_ROW = 2**31 - 1
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-# Backward grid: at most 4 blocks of 256 threads an SM (132 SMs), each at
-# least 16 rows; every block writes a [2, L, d] partial of dw and db.
-_BWD_MAX_BLOCKS = 132 * 4
-_BWD_MIN_ROWS = 16
+_BWD_SCRATCH_ARGTYPES = [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
 
 
 def _check(names_tensors, what: str) -> None:
@@ -53,8 +53,8 @@ def _check_weights(x0, w, b) -> None:
 
 
 def _check_device(x0: torch.Tensor, what: str) -> None:
-    if not 1 <= x0.shape[1] <= MAX_DIM:
-        raise ValueError(f"{what} keeps rows in registers and takes 1 <= d <= {MAX_DIM}, "
+    if not 1 <= x0.shape[1] <= _MAX_ROW:
+        raise ValueError(f"{what} indexes a row with a 32-bit int and takes 1 <= d <= {_MAX_ROW}, "
                          f"got {x0.shape[1]}")
     if x0.device.type != "cuda":
         raise NotImplementedError(f"{what} runs on cuda or cpu tensors, not {x0.device}")
@@ -131,13 +131,29 @@ def cross_v1_bwd_ref(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return dx0 + g, dw, db
 
 
+@functools.lru_cache(maxsize=64)
+def _bwd_scratch_floats(batch: int, dim: int, layers: int, device_index: int) -> int:
+    """The scratch, in floats, that the backward kernels take at this shape
+    on the current device (per-block partials, and on the general route the
+    row scalars; it depends on the card's SM count): asked of the C side
+    once a shape, so a step makes one call into it."""
+    del device_index  # the cache's key: the current device
+    floats = ctypes.c_longlong()
+    rc = _build.function("cross", "tfrec_cross_v1_bwd_scratch", _BWD_SCRATCH_ARGTYPES)(
+        batch, dim, layers, ctypes.addressof(floats))
+    _build.check_launch(rc, "cross_v1_bwd scratch")
+    return floats.value
+
+
 def cross_v1_bwd(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  s: torch.Tensor, g: torch.Tensor):
     """x0 and g [B, d], w and b [L, d], s [B, L] (from ``cross_v1_fwd(...,
     want_s=True)``), all f32 -> (dx0 [B, d], dw [L, d], db [L, d]).
 
     A CUDA tensor launches the kernel (and its fixed-order sum of the
-    per-block partials); a CPU tensor takes the plain version.
+    per-block partials; rows past 4096 elements or stacks past 4 layers
+    take the kernel's general route, which computes the row scalars
+    first); a CPU tensor takes the plain version.
     """
     _check([("x0", x0), ("w", w), ("b", b), ("s", s), ("g", g)], "cross_v1_bwd")
     _check_weights(x0, w, b)
@@ -149,21 +165,18 @@ def cross_v1_bwd(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x0.device.type == "cpu":
         return cross_v1_bwd_ref(x0, w, b, g, s)
     _check_device(x0, "cross_v1_bwd")
-    if 2 * layers * dim * 4 > 227 * 1024:
-        raise ValueError(f"cross_v1_bwd keeps [2, L, d] sums in shared memory: "
-                         f"L={layers}, d={dim} needs more than 227 KB")
     dx0 = torch.empty_like(x0)
-    dw = torch.zeros_like(w)
-    db = torch.zeros_like(b)
     if batch == 0 or layers == 0:
-        return (g.clone() if layers == 0 else dx0), dw, db
-    blocks = min(_BWD_MAX_BLOCKS, -(-batch // _BWD_MIN_ROWS))
-    partial = torch.empty((blocks, 2, layers, dim), dtype=x0.dtype, device=x0.device)
-    fn = _build.function("cross", "tfrec_cross_v1_bwd", _BWD_ARGTYPES)
+        return (g.clone() if layers == 0 else dx0), torch.zeros_like(w), torch.zeros_like(b)
+    dw = torch.empty_like(w)  # the kernels write every element
+    db = torch.empty_like(b)
     with torch.cuda.device(x0.device):
+        floats = _bwd_scratch_floats(batch, dim, layers, x0.device.index)
+        scratch = torch.empty(floats, dtype=x0.dtype, device=x0.device)
+        fn = _build.function("cross", "tfrec_cross_v1_bwd", _BWD_ARGTYPES)
         rc = fn(x0.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), g.data_ptr(),
-                dx0.data_ptr(), dw.data_ptr(), db.data_ptr(), partial.data_ptr(),
-                batch, dim, layers, blocks, torch.cuda.current_stream().cuda_stream)
+                dx0.data_ptr(), dw.data_ptr(), db.data_ptr(), scratch.data_ptr(), floats,
+                batch, dim, layers, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "cross_v1_bwd")
     cross_v1_bwd.launches += 1
     return dx0, dw, db

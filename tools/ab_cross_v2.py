@@ -15,9 +15,9 @@ plain versions at the flagship's shape (B=8192, d=845, r=64, L=3; rtol
 1e-5, atol 1e-5 x max|ref|), and prints their device times (a CUDA graph of
 3 calls on inputs that rotate past L2, median of 7 replays) and the
 backward's time by kernel. CHUNKS caps the weight pass's batch chunks
-(default: the wrapper's). Where DIR also holds a ``cross.cu``, it times the
-DCN-v1 kernels of that source too, at B=8192, d=845, L=3. List a variant
-twice, first and last, to see the drift of the card. It also counts the
+(default: the wrapper's). List a variant twice, first and last, to see the
+drift of the card. The DCN-v1 kernels have their own tool,
+``tools/ab_cross_v1.py``. It also counts the
 tensor-core (HMMA) instructions of each kernel in the built library's SASS
 (``cuobjdump --dump-sass``).
 """
@@ -35,7 +35,6 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from tfrec_tpu_torch.kernels import _build  # noqa: E402
-from tfrec_tpu_torch.kernels import cross_cuda as m1  # noqa: E402
 from tfrec_tpu_torch.kernels import cross_v2_cuda as m  # noqa: E402
 
 B, D, R, L = 8192, 845, 64, 3
@@ -152,8 +151,6 @@ def main() -> None:
     u = torch.randn(L, D, R, device="cuda", generator=gen) / D**0.5
     v = torch.randn(L, D, R, device="cuda", generator=gen) / D**0.5
     b = 0.1 * torch.randn(L, D, device="cuda", generator=gen)
-    w1 = torch.randn(L, D, device="cuda", generator=gen) / D**0.5
-    b1 = 0.1 * torch.randn(L, D, device="cuda", generator=gen)
     default_chunks = m._MAX_CHUNKS
     for n, arg in enumerate(sys.argv[1:]):
         pr5 = arg.startswith("pr5=")
@@ -163,8 +160,7 @@ def main() -> None:
         _build.CSRC_DIR, _build.BUILD_DIR = src, ROOT / "build" / "ab" / f"{n}_{src.name}"
         _build._loaded.clear()
         _build._functions.clear()
-        with_v1 = (src / "cross.cu").exists()
-        _build.build(["cross_v2", "cross"] if with_v1 else ["cross_v2"])
+        _build.build(["cross_v2"])
         fwd_fn = pr5_fwd if pr5 else m.cross_v2_fwd
         bwd_fn = pr5_bwd if pr5 else m.cross_v2_bwd
         saved = [fwd_fn(x, u, v, b, want_saved=True) for x in x0s]
@@ -189,15 +185,6 @@ def main() -> None:
               f"bit for bit {bitwise}; forward {fwd * 1e3:.1f} us, saving f and xv {fwd_saved * 1e3:.1f} "
               f"us, backward {bwd * 1e3:.1f} us; forward errors {fwd_errs}; backward errors {errs}; "
               f"HMMA in SASS {hmma_counts(_build.library_path('cross_v2'))}", flush=True)
-        if with_v1:
-            ss = [m1.cross_v1_fwd(x, w1, b1, want_s=True)[1] for x in x0s]
-            v1_ok = within(m1.cross_v1_fwd(x0s[0], w1, b1), m1.cross_v1_fwd_ref(x0s[0], w1, b1))
-            v1_ok &= all(within(a, e) for a, e in zip(m1.cross_v1_bwd(x0s[0], w1, b1, ss[0], gs[0]),
-                                                      m1.cross_v1_bwd_ref(x0s[0], w1, b1, gs[0], ss[0])))
-            v1f = device_ms(lambda: [m1.cross_v1_fwd(x, w1, b1) for x in x0s], 3)
-            v1b = device_ms(lambda: [m1.cross_v1_bwd(x, w1, b1, s, g) for x, s, g in zip(x0s, ss, gs)], 3)
-            print(f"    {src.name}/cross.cu: within tolerance {v1_ok}; cross_v1_fwd {v1f * 1e3:.1f} us, "
-                  f"cross_v1_bwd {v1b * 1e3:.1f} us", flush=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             bwd_fn(x0s[0], u, v, f, xv, gs[0])
             torch.cuda.synchronize()
