@@ -16,10 +16,13 @@ non-zero if any phase fails:
    matching the CPU; then
    the cross kernels at widths past the flagship's (v1 at d=2093, L=3,
    and at d=8333, L=4, past what a block's registers hold, on the
-   kernels' streaming routes; v2 at d=1885 and 3341, r=64, L=3; B=8192),
-   each through its kernels (launch counters), against its plain version,
-   bit for bit on repeat, with its device time beside its bound (and the
-   v1 backward's time by kernel);
+   kernels' streaming routes; v2 at d=1885 and 3341, r=64, L=3; and v2 on
+   its general route past its tiles: d=4173 and 3565 at L=3, and L=48 at
+   d=845, whose backward is past the weight pass's stages; B=8192),
+   each through its kernels (launch counters, the general route's own),
+   against its plain version, bit for bit on repeat, with its device time
+   beside its bound (and the v1 backward's and the general route's time
+   by kernel);
 4. serving: ``dcn_criteo`` at Criteo's shape (26 fields of 100 000 rows,
    d=32, 13 dense features, 3 cross layers, MLP 512/256/128) from a seeded
    generator, batches of 8192 through ``Recommender.predict_ctr``; the
@@ -53,9 +56,24 @@ non-zero if any phase fails:
    cross stack runs the v2 kernels; then their times beside their bounds
    and plain versions (both bounds count their 3xTF32 products on the
    tensor cores) and the backward's time by kernel, predict_ctr's
-   latency, the step's median and a profile of one step.
+   latency, the step's median and a profile of one step;
+9. the trainer: ``trainer.run`` on the card at Criteo's shape (dcn_criteo
+   from synthetic_ctr at 26 fields of 100 000 rows, 300 000 examples, one
+   epoch of 32 steps in dispatches of 8, then the eval pass over the
+   15 000 held-out rows); launch counters show the gather, both v1 cross
+   kernels and the Adagrad kernel in training, the gather and the cross
+   forward in the eval pass; the history is finite with auc and logloss;
+   examples_per_s and the eval pass's time;
+10. the proxy band of tests/test_golden.py on the card: ``dcn_criteo()``,
+    300 000 examples, one epoch, AUC in [0.680, 0.715];
+11. the trainer on the card against the CPU (plain versions): the proxy
+    configuration, 8 steps from one state, each step's loss and the
+    eval's auc and logloss.
 
-The last lines are the kernels' JSON record and ``{"ok": true, ...}``.
+No earlier path is cut in depth for time (PERF.md gives a whole run's
+time on an H100). The last lines are the kernels' JSON record (the v2 records carry
+the general route's shapes as ``general_route``, and ``launches_by_path``
+the trainer's paths) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -88,6 +106,7 @@ from tfrec_tpu_torch.kernels.cross_cuda import (
     cross_v1_fwd_ref,
 )
 from tfrec_tpu_torch.kernels.cross_v2_cuda import (
+    _fwd_route,
     cross_v2_bwd,
     cross_v2_bwd_ref,
     cross_v2_fwd,
@@ -102,7 +121,9 @@ from tfrec_tpu_torch.kernels.gather_cuda import (
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
 from tfrec_tpu_torch.serve import Recommender
+from tfrec_tpu_torch.train import trainer as trainer_mod
 from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, tree_leaves
+from tfrec_tpu_torch.train.trainer import Trainer, run
 
 SEED = 0
 DEVICE = "cuda"
@@ -136,6 +157,16 @@ MAX_FLIPPED = 0.01  # of the batch's examples
 TABLE_TOL = 1e-6
 ACC_RTOL = 1e-4
 LOSS_RTOL = 1e-5
+# The trainer on the card against the CPU over 8 steps from the same state:
+# the same sums in other orders, through Adam's normalised first update
+# (whose sign a gradient within rounding of 0 can flip) and the ReLU flips
+# above, carried through 8 steps. AUC over 15 000 held-out rows. An H100
+# read 4.4e-6 on the losses, 6e-7 on AUC and 9e-7 on logloss (PERF.md): the
+# limits sit about 20x above that.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_AUC_ATOL = 1e-4
+TRAIN_LOGLOSS_RTOL = 1e-4
+PROXY_AUC_BAND = (0.680, 0.715)  # tests/test_golden.py:94-108
 
 # The kernels of the main paths. The gather and Adagrad kernels run there
 # as one launch over every table (the ``_multi`` wrappers); their one-table
@@ -333,7 +364,7 @@ class PerTableSteps(TrainStepBuilder):
         return super().sparse_update_deduped(name, table, opt_state, uids, g, lr)
 
 
-def phase_environment() -> None:
+def phase_environment() -> str:
     check(torch.cuda.is_available(), "CUDA is available")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -344,6 +375,7 @@ def phase_environment() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    return card
 
 
 def phase_build() -> None:
@@ -568,6 +600,17 @@ def v1_bwd_split(parts: dict) -> str:
     return ", ".join(f"{name} {us:.1f} us" for name, us in v1_bwd_kernels(parts).items())
 
 
+def v2_kernels(parts: dict) -> dict:
+    """The v2 kernels' device time from ``kernel_times_us``, by kernel and
+    template arguments (the general route's row products by prologue, B
+    transposed, epilogue: <0, false, 0> x V, <0, true, 1> the forward's x
+    update, <1, false, 0> df U, <0, true, 2> the backward's g update; its
+    weight products <true> dU with db, <false> dV)."""
+    found = ((re.search(r"(cross_v2_\w+|general_\w+|sum_chunks_kernel)(<[^>]*>)?", k), us)
+             for k, us in parts.items())
+    return {m.group(0): us for m, us in found if m}
+
+
 def counted(wrapper, fn):
     """fn()'s result, checking that it launched ``wrapper``'s kernel once."""
     out, launches = launches_of(wrapper, fn)
@@ -575,7 +618,7 @@ def counted(wrapper, fn):
     return out
 
 
-def phase_wide() -> None:
+def phase_wide() -> list:
     """The cross kernels past the flagship's width, where the reference's
     ``cross_stack`` still computes: ``dcn_criteo`` with embed_dim 80 and
     320 as DCN-v1 (d = 26 * 80 + 13 = 2093, L = 3; d = 8333, L = 4), and as
@@ -583,7 +626,8 @@ def phase_wide() -> None:
     Each kernel runs on the card (its launch counter moves), is held to its
     plain version at the same tolerances as at the flagship's width and
     repeats bit for bit; its device time is printed beside its bound and
-    its plain version's."""
+    its plain version's. Then low-rank v2 past the tiles' width and depth,
+    on the general route (``wide_v2_general``)."""
     layers = 3
     rng = np.random.default_rng(SEED + 1)  # its own, so the main paths' inputs do not depend on it
 
@@ -646,6 +690,67 @@ def phase_wide() -> None:
               f"saving f and xv {ft_ms:.4f} ms (bound {ftb:.4f} ms, {ftby}; plain {ft_plain:.4f} ms), "
               f"cross_v2_bwd {b_ms:.4f} ms (bound {bb:.4f} ms, {bby}; plain {b_plain:.4f} ms) "
               f"[device time, CUDA graph]")
+    return wide_v2_general(normal, hold)
+
+
+def wide_v2_general(normal, hold) -> list:
+    """Low-rank v2 (r=64) where the tiles do not fit, on the kernels'
+    general route: d = 4173 (dcn_criteo at embed_dim 160) and 3565 (just
+    past the tiles' 3560) at L = 3, both kernels; and L = 48 (past the
+    weight pass's 47 layers of f) at the flagship's d = 845, the backward
+    (the forward's tiles take any depth). Each held to its plain version,
+    bit for bit on repeat, its general-route launches counted, and timed
+    beside its bound and plain version; returns one record a shape."""
+    records = []
+    for bsz, dim, layers in ((BATCH, 26 * 160 + 13, 3), (BATCH, 3565, 3), (BATCH, 26 * 32 + 13, 48)):
+        x0, g = normal((bsz, dim), 1.0), normal((bsz, dim), 1.0)
+        u, v = normal((layers, dim, V2_RANK), dim**-0.5), normal((layers, dim, V2_RANK), dim**-0.5)
+        b = normal((layers, dim), 0.1)
+        print(f"wide: cross_v2 general route B={bsz} d={dim} r={V2_RANK} L={layers}")
+        before = cross_v2_fwd.general_launches, cross_v2_bwd.general_launches
+        saved = counted(cross_v2_fwd, lambda: cross_v2_fwd(x0, u, v, b, want_saved=True))
+        want = cross_v2_fwd_ref(x0, u, v, b, want_saved=True)
+        errs = [max_err(a, e) for a, e in zip(saved, want)]
+        hold("x_L,f,xv", saved, want, cross_v2_fwd(x0, u, v, b, want_saved=True))
+        del want
+        serving = cross_v2_fwd(x0, u, v, b)
+        check(torch.equal(serving, saved[0]), "wide: serving x_L equals training's")
+        _, f, xv = saved
+        grads = counted(cross_v2_bwd, lambda: cross_v2_bwd(x0, u, v, f, xv, g))
+        want = cross_v2_bwd_ref(x0, u, v, f, xv, g)
+        errs += [max_err(a, e) for a, e in zip(grads, want)]
+        hold("dx0,du,dv,db", grads, want, cross_v2_bwd(x0, u, v, f, xv, g))
+        del want, grads, serving
+        general = (cross_v2_fwd.general_launches - before[0], cross_v2_bwd.general_launches - before[1])
+        print(f"  general-route launches: forward {general[0]}, backward {general[1]}")
+        # The forward's tiles take any depth: at d = 845, L = 48 only the
+        # backward (its weight pass) is past them.
+        fwd_general = _fwd_route(dim, V2_RANK) == "general"
+        check(general == (3 * fwd_general, 2), "wide: the v2 kernels past their tiles ran the general route")
+        f_ms = device_ms(lambda: cross_v2_fwd(x0, u, v, b), 1)
+        ft_ms = device_ms(lambda: cross_v2_fwd(x0, u, v, b, want_saved=True), 1)
+        b_ms = device_ms(lambda: cross_v2_bwd(x0, u, v, f, xv, g), 1)
+        f_plain = device_ms(lambda: cross_v2_fwd_ref(x0, u, v, b), 1)
+        b_plain = device_ms(lambda: cross_v2_bwd_ref(x0, u, v, f, xv, g), 1)
+        fb, fby = v2_fwd_bound(bsz, dim, V2_RANK, layers, saved=False)
+        bb, bby = v2_bwd_bound(bsz, dim, V2_RANK, layers)
+        parts = {"fwd": v2_kernels(kernel_times_us(lambda: cross_v2_fwd(x0, u, v, b))),
+                 "bwd": v2_kernels(kernel_times_us(lambda: cross_v2_bwd(x0, u, v, f, xv, g)))}
+        # The profiled call's kernels added up, to set beside the graph's time.
+        sums = {k: sum(us.values()) / 1e3 for k, us in parts.items()}
+        print(f"  cross_v2_fwd {f_ms:.4f} ms (saving f and xv {ft_ms:.4f} ms; bound {fb:.4f} ms, {fby}; "
+              f"plain {f_plain:.4f} ms), cross_v2_bwd {b_ms:.4f} ms (bound {bb:.4f} ms, {bby}; plain "
+              f"{b_plain:.4f} ms) [device time, CUDA graph; B={bsz}]; one call by kernel (profiler, "
+              f"us, all layers): {parts}, adding to {sums['fwd']:.4f} ms forward and "
+              f"{sums['bwd']:.4f} ms backward")
+        records.append({"batch": bsz, "d": dim, "r": V2_RANK, "layers": layers,
+                        "fwd_max_abs_err": max(errs[:3]), "bwd_max_abs_err": max(errs[3:]),
+                        "fwd_ms": f_ms, "fwd_saved_ms": ft_ms, "fwd_plain_ms": f_plain,
+                        "fwd_bound_ms": fb, "fwd_bound_by": fby, "bwd_ms": b_ms,
+                        "bwd_plain_ms": b_plain, "bwd_bound_ms": bb, "bwd_bound_by": bby,
+                        "by_kernel_us": parts, "by_kernel_sum_ms": sums})
+        del x0, g, u, v, b, saved, f, xv
+    return records
 
 
 def adagrad_ids(rng, vocab: int, n: int) -> np.ndarray:
@@ -1215,16 +1320,135 @@ def phase_v2_times(rec, requests, builder, per_table, state, batches, errs) -> l
     ]
 
 
+def trainer_configs() -> dict:
+    """The trainer phases' configurations, both ``zoo_configs.dcn_criteo()``
+    (synthetic_ctr) for 1 epoch of 300 000 examples: "full" at Criteo's
+    shape (26 fields of 100 000 rows; the Criteo files are not in the
+    repository, so the synthetic stand-in takes their shape), and "proxy",
+    the band of tests/test_golden.py:94-108 (the stand-in's own 8 fields of
+    10 000 rows)."""
+    base = zoo_configs.dcn_criteo()
+    train = dataclasses.replace(base.train, epochs=1)
+    proxy = dataclasses.replace(base, data=dataclasses.replace(base.data, num_examples=300_000),
+                                train=train)
+    full = dataclasses.replace(proxy, data=dataclasses.replace(
+        proxy.data, categorical_vocab_sizes=(100_000,) * 26))
+    return {"full": full, "proxy": proxy}
+
+
+def phase_trainer(card: str, paths: dict) -> None:
+    """``trainer.run`` on the card at Criteo's shape: launch counters show
+    the gather, both v1 cross kernels and the Adagrad kernel in training,
+    and the gather and the cross forward in the held-out eval; the history
+    is finite and carries AUC and logloss."""
+    cfg = trainer_configs()["full"]
+    evaluate = trainer_mod.Trainer.evaluate
+    evals = []
+
+    def counted_evaluate(self):
+        torch.cuda.synchronize()
+        before, t0 = read_launches(), time.perf_counter()
+        out = evaluate(self)  # ends in fetching the values of AUC and logloss
+        evals.append(((time.perf_counter() - t0) * 1e3,
+                      {k: c - before[k] for k, c in read_launches().items()}))
+        return out
+
+    trainer_mod.Trainer.evaluate = counted_evaluate
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer, history = run(cfg, quiet=True)
+        torch.cuda.synchronize()
+        total = read_launches()
+        run_s = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer.evaluate = evaluate
+    check(trainer.device.type == "cuda", "run() trains on the card by default")
+    check(len(evals) == 1, "one eval pass after the epoch")
+    eval_ms, eval_counts = evals[0]
+    train_counts = {k: c - eval_counts[k] for k, c in total.items()}
+    paths["trainer_train"], paths["trainer_eval"] = train_counts, eval_counts
+    steps = trainer.global_step
+    n_eval = len(trainer.ctr_arrays["test"][2])
+    eval_batches = -(-n_eval // trainer_mod.EVAL_BATCH)
+    rec = history[-1]
+    vocabs = cfg.data.categorical_vocab_sizes
+    print(f"trainer (run, dcn_criteo at Criteo's shape from synthetic_ctr: {len(vocabs)} "
+          f"fields x {vocabs[0]} rows, {cfg.data.num_examples} examples, "
+          f"batch {cfg.train.batch_size}, K={cfg.train.steps_per_dispatch}): {steps} steps, history {history}; "
+          f"launches in training {train_counts}, in the eval pass of {n_eval} rows ({eval_batches} batches) "
+          f"{eval_counts}; run() took {run_s:.1f} s (data made included)")
+    print(f"trainer: examples_per_s {rec['examples_per_s']:.1f} (host clock over the epoch, fenced by "
+          f"the last loss's value; {card}); eval pass {eval_ms:.3f} ms (host clock) for {n_eval} rows")
+    check(len(history) == 1 and "auc" in rec and "logloss" in rec, "the history carries auc and logloss")
+    check(all(np.isfinite(v) for v in rec.values()), "the history is finite")
+    trained = {"gather_rows_multi": steps, "cross_v1_fwd": steps, "cross_v1_bwd": steps,
+               "fused_rowwise_adagrad_multi": steps}
+    check(all(train_counts[k] == trained.get(k, 0) for k in train_counts),
+          "training ran one gather, v1 forward, v1 backward and Adagrad launch a step, and no other")
+    evaluated = {"gather_rows_multi": eval_batches, "cross_v1_fwd": eval_batches}
+    check(all(eval_counts[k] == evaluated.get(k, 0) for k in eval_counts),
+          "the eval pass ran one gather and one v1 forward launch a batch, and no other")
+
+
+def phase_proxy_band(card: str) -> None:
+    """The proxy band of tests/test_golden.py on the card: AUC of
+    ``dcn_criteo()`` after 1 epoch of 300 000 examples."""
+    _, history = run(trainer_configs()["proxy"], quiet=True)
+    rec = history[-1]
+    print(f"proxy band (dcn_criteo(), 300000 examples, 1 epoch, on the card): auc {rec['auc']:.6f} "
+          f"logloss {rec['logloss']:.6f} examples_per_s {rec['examples_per_s']:.1f} ({card}); band "
+          f"{PROXY_AUC_BAND}")
+    check(PROXY_AUC_BAND[0] <= rec["auc"] <= PROXY_AUC_BAND[1], "the proxy AUC lies in its band")
+
+
+def phase_trainer_card_vs_cpu() -> None:
+    """The proxy configuration for 8 steps on the card and on the CPU (the
+    plain versions) from the same initial state: each step's loss, and the
+    eval's AUC and logloss."""
+    cfg = trainer_configs()["proxy"]
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps_per_epoch=8))
+    card = Trainer(cfg, quiet=True)
+    cpu = Trainer(cfg, quiet=True, device="cpu")
+    cpu.state = copy_state(card.state, "cpu")
+    losses, finals = {}, {}
+    t0 = time.perf_counter()
+    for name, trainer in (("card", card), ("cpu", cpu)):
+        seen = losses[name] = []
+        step = trainer.builder.step
+
+        def logged(state, batch, step=step, seen=seen):
+            new, metrics = step(state, batch)
+            seen.append(metrics["loss"].item())
+            return new, metrics
+
+        trainer.builder.step = logged  # multi_step takes its steps through it
+        finals[name] = trainer.train()[-1]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+    auc_err = abs(finals["card"]["auc"] - finals["cpu"]["auc"])
+    ll_rel = abs(finals["card"]["logloss"] - finals["cpu"]["logloss"]) / finals["cpu"]["logloss"]
+    print(f"trainer, card against the CPU ({time.perf_counter() - t0:.1f} s), 8 steps of the proxy "
+          f"configuration from one state: losses card {losses['card']}, cpu {losses['cpu']} (max relative "
+          f"error {rel:.3e}, rtol {TRAIN_LOSS_RTOL}); auc {finals['card']['auc']:.6f} against "
+          f"{finals['cpu']['auc']:.6f} (error {auc_err:.3e}, atol {TRAIN_AUC_ATOL}); logloss "
+          f"{finals['card']['logloss']:.6f} against {finals['cpu']['logloss']:.6f} (relative error "
+          f"{ll_rel:.3e}, rtol {TRAIN_LOGLOSS_RTOL})")
+    check(len(losses["card"]) == len(losses["cpu"]) == 8, "8 steps on each device")
+    check(rel <= TRAIN_LOSS_RTOL, "the card's losses match the CPU's")
+    check(auc_err <= TRAIN_AUC_ATOL and ll_rel <= TRAIN_LOGLOSS_RTOL,
+          "the card's eval auc and logloss match the CPU's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
         return 1
     rng = np.random.default_rng(SEED)
-    phase_environment()
+    card = phase_environment()
     phase_build()
     errs = phase_kernels(rng)
-    phase_wide()
+    general = phase_wide()
     cfgs = configs()
     paths = {}
     model, rec, requests, paths["serve_v1"] = phase_main_path(rng, cfgs["v1"])
@@ -1235,10 +1459,16 @@ def main() -> int:
     _, rec, requests, paths["serve_v2"] = phase_main_path(rng, cfgs["v2"])
     builder, per_table, state, batches, paths["train_v2"] = phase_train(cfgs["v2"])
     records += phase_v2_times(rec, requests, builder, per_table, state, batches, errs)
+    del rec, requests, builder, per_table, state, batches
+    phase_trainer(card, paths)
+    phase_proxy_band(card)
+    phase_trainer_card_vs_cpu()
     for r in records:
         by_path = {path: launches[r["name"]] for path, launches in paths.items()}
         r.update({"launches": sum(by_path.values()), "launches_by_path": by_path})
         r.update({k: KERNELS[r["name"]][k] for k in ("source", "replaces")})
+        if r["name"].startswith("cross_v2"):
+            r["general_route"] = general  # the wide phase's shapes past the tiles
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,11 @@ from tfrec_tpu.kernels.cross_pallas import cross_stack_pallas_v2
 from tfrec_tpu_torch.kernels.cross import cross_stack, cross_stack_ref
 from tfrec_tpu_torch.kernels.cross_v2_cuda import (
     CrossV2,
+    _bwd_route,
+    _fwd_route,
     _smem_bytes,
+    _splits,
+    _weights_rows,
     cross_v2_bwd,
     cross_v2_bwd_ref,
     cross_v2_fwd,
@@ -146,29 +150,58 @@ def test_cross_v2_contract():
     assert _smem_bytes(845, 64) == 16 * (856 + 72) * 4 <= 227 * 1024
 
 
+def _reach_the_device_check(batch, dim, rank, layers):
+    """Both wrappers on meta tensors get past every shape check to the
+    device check: no width or depth is refused."""
+    x0 = torch.empty((batch, dim), device="meta")
+    u = torch.empty((layers, dim, rank), device="meta")
+    b = torch.empty((layers, dim), device="meta")
+    f = torch.empty((layers, batch, dim), device="meta")
+    xv = torch.empty((layers, batch, rank), device="meta")
+    for call in (lambda: cross_v2_fwd(x0, u, u, b), lambda: cross_v2_bwd(x0, u, u, f, xv, x0)):
+        with pytest.raises(NotImplementedError, match="cuda or cpu"):
+            call()
+
+
 # dcn_criteo's widths as low-rank v2 (r=64) at embed_dim 32, 72 and 128
-# (d = 26 e + 13), and the first width past the limit.
-@pytest.mark.parametrize("dim", [845, 1776, 1885, 3341, 3560, 3561])
-def test_cross_v2_takes_wide_inputs_up_to_its_shared_memory_limit(dim):
-    """Both wrappers take d up to 3560 at r=64, where 16 rows of the
-    products' [B, d] and [B, r] operands fill 227 KB, and refuse d = 3561
-    by naming the limit; a meta tensor, past the limit, reaches the device
-    check instead."""
-    x0 = torch.empty((4, dim), device="meta")
-    u = torch.empty((1, dim, 64), device="meta")
-    b = torch.empty((1, dim), device="meta")
-    f, xv = torch.empty((1, 4, dim), device="meta"), torch.empty((1, 4, 64), device="meta")
-    calls = (lambda: cross_v2_fwd(x0, u, u, b), lambda: cross_v2_bwd(x0, u, u, f, xv, x0))
-    if dim > 3560:
-        assert _smem_bytes(dim, 64) > 227 * 1024
-        for call in calls:
-            with pytest.raises(ValueError, match="more than 227 KB"):
-                call()
-    else:
-        assert _smem_bytes(dim, 64) <= 227 * 1024
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="cuda or cpu"):
-                call()
+# (d = 26 e + 13), the widest the tiles take, the first widths past it, and
+# embed_dim 160 (d = 4173); at r=128 the widest the tiles take and the next.
+@pytest.mark.parametrize("dim,rank", [(845, 64), (1776, 64), (1885, 64), (3341, 64), (3560, 64),
+                                      (3561, 64), (3565, 64), (4173, 64), (3496, 128), (3497, 128)])
+def test_cross_v2_takes_wide_inputs_up_to_its_shared_memory_limit(dim, rank):
+    """The kernels' tiles take d while 16 rows of the products' [B, d] and
+    [B, r] operands fit 227 KB (d <= 3560 at r=64, 3496 at r=128); past
+    that both kernels take the general route. No width is refused."""
+    limit = {64: 3560, 128: 3496}[rank]
+    assert (_smem_bytes(dim, rank) <= 227 * 1024) == (dim <= limit)
+    route = "tiles" if dim <= limit else "general"
+    assert _fwd_route(dim, rank) == _bwd_route(dim, rank, 3) == route
+    _reach_the_device_check(4, dim, rank, 3)
+
+
+@pytest.mark.parametrize("layers", [1, 3, 47, 48, 200])
+def test_cross_v2_backward_takes_any_depth(layers):
+    """The weight pass stages L - 1 layers of f in shared memory up to L =
+    47 at 8 rows a stage; past that the backward takes the general route,
+    the forward's route does not depend on L. No depth is refused."""
+    assert bool(_weights_rows(layers)) == (layers <= 47)
+    assert _fwd_route(845, 64) == "tiles"
+    assert _bwd_route(845, 64, layers) == ("tiles" if layers <= 47 else "general")
+    _reach_the_device_check(4, 845, 64, layers)
+
+
+# (batch, d, r, slices): the wide phase's general-route shapes (8 and 64
+# tiles of the [B, r] product over k = d, 5 and 4 slices of at least 1024);
+# a d within one slice; a batch of one at the widest d (528 blocks); a rank
+# whose tiles alone pass 528 blocks.
+@pytest.mark.parametrize("batch,dim,rank,slices", [(8192, 4173, 64, 5), (8192, 3565, 64, 4),
+                                                   (8192, 845, 64, 1), (1, 2**31 - 1, 1, 528),
+                                                   (8192, 4173, 1024, 1)])
+def test_cross_v2_general_route_splits_long_walks_over_d(batch, dim, rank, slices):
+    """The general route's x_l V_l and df U_l walk all of d for a [B, r]
+    output of few 64 x 64 tiles: d splits into slices of at least 1024 until
+    the launch has about 528 blocks."""
+    assert _splits(batch, dim, rank) == slices
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

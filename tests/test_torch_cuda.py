@@ -27,6 +27,8 @@ from tfrec_tpu_torch.kernels.cross_cuda import (
     cross_v1_fwd_ref,
 )
 from tfrec_tpu_torch.kernels.cross_v2_cuda import (
+    _bwd_route,
+    _fwd_route,
     cross_v2_bwd,
     cross_v2_bwd_ref,
     cross_v2_fwd,
@@ -226,18 +228,25 @@ def _v2_inputs(device, batch, dim, rank, layers):
 # a ragged last k-step of the weight pass (4099 rows in chunks of 257) with
 # an r past one 64-wide tile, not a multiple of 16; dcn_criteo's widths at
 # embed_dim 72 and 128 (d = 1885, 3341), where the forward holds 16 rows a
-# block and the row pass keeps g in device memory.
+# block and the row pass keeps g in device memory; r larger than d. Then
+# the general route: d = 3561 and 3565 (past the tiles' 3560 at r=64) and
+# 4173 (dcn_criteo at embed_dim 160), 3497 at r=128 (past 3496), L = 48 at
+# the flagship's width (past the weight pass's 47 layers of f), and r
+# larger than d there.
 V2_SHAPES = [(1000, 845, 64, 3), (33, 13, 7, 1), (257, 140, 16, 2), (300, 1500, 130, 2), (1, 8, 3, 2),
-             (4099, 200, 72, 3), (300, 1885, 64, 2), (64, 3341, 64, 3)]
+             (4099, 200, 72, 3), (300, 1885, 64, 2), (64, 3341, 64, 3), (40, 13, 70, 3),
+             (70, 3561, 64, 2), (65, 3565, 64, 3), (300, 4173, 64, 3), (33, 3497, 128, 2),
+             (100, 845, 64, 48), (17, 100, 120, 48)]
 
 
 @pytest.mark.parametrize("batch,dim,rank,layers", V2_SHAPES)
 def test_cross_v2_fwd_matches_the_plain_version(device, batch, dim, rank, layers):
     x0, u, v, b = _v2_inputs(device, batch, dim, rank, layers)
-    before = cross_v2_fwd.launches
+    before = cross_v2_fwd.launches, cross_v2_fwd.general_launches
     got = cross_v2_fwd(x0, u, v, b)
     torch.cuda.synchronize()
-    assert cross_v2_fwd.launches == before + 1
+    general = _fwd_route(dim, rank) == "general"
+    assert (cross_v2_fwd.launches, cross_v2_fwd.general_launches) == (before[0] + 1, before[1] + general)
     _close(got, cross_v2_fwd_ref(x0, u, v, b))
     assert torch.equal(got, cross_v2_fwd(x0, u, v, b))  # fixed order: bit for bit
     out, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
@@ -254,10 +263,11 @@ def test_cross_v2_bwd_matches_the_plain_version(device, batch, dim, rank, layers
     g = torch.randn(x0.shape, generator=torch.Generator(device=device).manual_seed(batch),
                     device=device)
     _, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
-    before = cross_v2_bwd.launches
+    before = cross_v2_bwd.launches, cross_v2_bwd.general_launches
     got = cross_v2_bwd(x0, u, v, f, xv, g)
     torch.cuda.synchronize()
-    assert cross_v2_bwd.launches == before + 1
+    general = _bwd_route(dim, rank, layers) == "general"
+    assert (cross_v2_bwd.launches, cross_v2_bwd.general_launches) == (before[0] + 1, before[1] + general)
     for a, e in zip(got, cross_v2_bwd_ref(x0, u, v, f, xv, g)):
         _close(a, e)
     for a, e in zip(got, cross_v2_bwd(x0, u, v, f, xv, g)):
@@ -269,15 +279,17 @@ def test_cross_v2_bwd_matches_the_plain_version(device, batch, dim, rank, layers
         assert torch.equal(a, e)
 
 
-def test_cross_v2_refuses_more_shared_memory_than_a_block_gets(device):
+def test_cross_v2_takes_rows_past_its_tiles(device):
     """d = 3561 at r=64 is the first width whose 16 rows of x and xv (or df
-    and t) pass 227 KB."""
+    and t) pass 227 KB: both kernels take the general route there, and
+    match their plain versions."""
     x0, u, v, b = _v2_inputs(device, 4, 3561, 64, 1)
-    with pytest.raises(ValueError, match="227 KB"):
-        cross_v2_fwd(x0, u, v, b)
-    f, xv = x0[None].clone(), x0[None, :, :64].clone()
-    with pytest.raises(ValueError, match="227 KB"):
-        cross_v2_bwd(x0, u, v, f, xv, x0)
+    before = cross_v2_fwd.general_launches, cross_v2_bwd.general_launches
+    out, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
+    _close(out, cross_v2_fwd_ref(x0, u, v, b))
+    for a, e in zip(cross_v2_bwd(x0, u, v, f, xv, x0), cross_v2_bwd_ref(x0, u, v, f, xv, x0)):
+        _close(a, e)
+    assert (cross_v2_fwd.general_launches, cross_v2_bwd.general_launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_cross_v1_takes_rows_wider_than_its_registers(device):
@@ -329,6 +341,59 @@ def test_cross_v1_takes_rows_at_the_32_bit_limit(device):
         _close(dx0[0, c], g[0, c] * s[0, 0] + (g[0, c] + ds * w[0, c]))
         _close(dw[0, c], x0[0, c] * ds)
         assert torch.equal(db[0, c], g[0, c])
+
+
+def test_cross_v2_takes_rows_at_the_32_bit_limit(device):
+    """d = 2**31 - 1 through the forward's general route, whose k-walks,
+    columns and tile counts must not wrap (B = 1, r = 1, L = 1: 48 GiB with
+    f and xv, so an 80 GB card; the backward at this width takes 104 GiB,
+    more than the card holds). x0 is zero but at a few columns, the last
+    ones among them, where v is positive, so xv is a short sum with no
+    cancellation, held to float64; f and out are held, a chunk of columns
+    at a time, to the plain version's formulas at L = 1."""
+    dim = 2**31 - 1
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(0)
+    cols = torch.tensor([0, 1, 15, 16, 1023, 1024, dim // 2, dim - 1025, dim - 17, dim - 16, dim - 2,
+                         dim - 1], device=device)
+    x0 = torch.zeros((1, dim), device=device)
+    x0[0, cols] = torch.rand(len(cols), device=device, generator=gen) + 0.5
+    v = torch.randn((1, dim, 1), device=device, generator=gen)
+    v[0, cols] = v[0, cols].abs()
+    u = torch.randn((1, dim, 1), device=device, generator=gen)
+    b = torch.randn((1, dim), device=device, generator=gen)
+    before = cross_v2_fwd.general_launches
+    out, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
+    torch.cuda.synchronize()
+    assert cross_v2_fwd.general_launches == before + 1
+    _close(xv[0, 0, 0], (x0[0, cols].double() * v[0, cols, 0].double()).sum().float())
+    for c in (slice(i, min(i + 2**28, dim)) for i in range(0, dim, 2**28)):
+        f_c = xv[0, 0, 0] * u[0, c, 0] + b[0, c]
+        _close(f[0, 0, c], f_c)
+        _close(out[0, c], x0[0, c] * f_c + x0[0, c])
+
+
+def test_cross_v2_takes_ranks_past_one_grid_dimension(device):
+    """r = 65535 * 64 + 65: the backward's weight products have more
+    64-wide tiles of r than a grid's y dimension holds (65535), so their
+    tiles of d and r share its x dimension. U and V are zero but at a few
+    ranks, the last ones among them, so each sum over r is short."""
+    batch, dim, rank = 4, 2, 65535 * 64 + 65
+    gen = torch.Generator(device=device).manual_seed(1)
+    ranks = torch.tensor([0, 63, 64, rank // 2, rank - 65, rank - 17, rank - 1], device=device)
+    x0, g = (torch.randn((batch, dim), device=device, generator=gen) for _ in range(2))
+    u, v = (torch.zeros((1, dim, rank), device=device) for _ in range(2))
+    for w in (u, v):
+        w[:, :, ranks] = torch.randn((1, dim, len(ranks)), device=device, generator=gen)
+    b = torch.randn((1, dim), device=device, generator=gen)
+    before = cross_v2_fwd.general_launches, cross_v2_bwd.general_launches
+    out, f, xv = cross_v2_fwd(x0, u, v, b, want_saved=True)
+    got = cross_v2_bwd(x0, u, v, f, xv, g)
+    torch.cuda.synchronize()
+    assert (cross_v2_fwd.general_launches, cross_v2_bwd.general_launches) == (before[0] + 1, before[1] + 1)
+    _close(out, cross_v2_fwd_ref(x0, u, v, b))
+    for a, e in zip(got, cross_v2_bwd_ref(x0, u, v, f, xv, g)):
+        _close(a, e)
 
 
 @pytest.mark.parametrize("dim", [1, 8, 32, 100])

@@ -26,6 +26,8 @@ def test_port_imports_with_jax_blocked():
         m.name for m in pkgutil.walk_packages([str(PORT)], prefix="tfrec_tpu_torch.")
     )
     assert "tfrec_tpu_torch.serve" in modules and "tfrec_tpu_torch.kernels.cross_cuda" in modules
+    assert {"tfrec_tpu_torch.train.trainer", "tfrec_tpu_torch.eval.metrics", "tfrec_tpu_torch.data.samplers",
+            "tfrec_tpu_torch.utils.logging", "tfrec_tpu_torch.utils.prefetch"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

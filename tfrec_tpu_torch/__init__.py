@@ -7,8 +7,8 @@ for ``sm_90a`` under ``kernels/csrc/``, built with ``nvcc`` on first use
 and bound with ``ctypes`` (``kernels/_build.py``). Each kernel wrapper runs
 its plain PyTorch version only for tensors that lie on the CPU.
 
-Ported so far (serving and training ``zoo_configs.dcn_criteo``, as DCN-v1
-and as low-rank DCN-v2):
+Ported so far (serving, training and evaluating ``zoo_configs.dcn_criteo``,
+as DCN-v1 and as low-rank DCN-v2):
 
 - ``configs``, ``zoo_configs.dcn_criteo``;
 - ``ops.embedding`` (table specs, seeded init, clip-semantics gather, the
@@ -17,7 +17,10 @@ and as low-rank DCN-v2):
   (forward and backward) and the fused rowwise-Adagrad update;
 - ``models``: ``DCN`` (v1, v2 full-rank, v2 low-rank) over per-field tables;
 - ``convert``: JAX params of any table layout, and JAX train states;
-- ``serve.Recommender.predict_ctr``, ``train.step.TrainStepBuilder``.
+- ``serve.Recommender.predict_ctr``, ``train.step.TrainStepBuilder``;
+- ``train.trainer.Trainer`` and ``run`` for CTR data on one device, with
+  ``eval.metrics`` (``auc``, ``logloss``), ``data.samplers.CTRBatcher``,
+  ``utils.logging.MetricLogger`` and ``utils.prefetch``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 This package never imports ``jax`` or any module of ``tfrec_tpu``.

@@ -19,6 +19,15 @@ the weights in the order of the mma's B fragments (``_fragments``: one
 8-byte load a lane a k-step), V and U^T for the forward, U and V^T for the
 backward: one small copy a call (650 KB at the flagship's shape).
 ``CrossV2`` is the ``torch.autograd.Function`` that joins the two.
+
+These designs hold 16 rows of the products' [B, d] and [B, r] operands in
+a block's shared memory, and the backward's weight pass stages L - 1
+layers of f there. Where either does not fit (d > 3560 at r=64, d > 3496
+at r=128, L >= 48: ``_fwd_route``, ``_bwd_route``, the one owner of the
+choice), the wrappers send the C entry points down a general route of
+tiled f32 products on the CUDA cores instead, with the same contract: any
+d, r >= 1 and L. It reads U and V as they are; its calls are also counted
+in ``general_launches``.
 """
 
 from __future__ import annotations
@@ -30,15 +39,18 @@ import torch.nn.functional as F
 
 from tfrec_tpu_torch.kernels import _build
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 5
+                 + [ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong] * 6
+                 + [ctypes.c_int, ctypes.c_void_p])
 _SCRATCH_ARGTYPES = [ctypes.c_longlong] * 3
 # A block of the forward holds 32 rows (16 where 32 do not fit) of x and xv,
 # the A operands of its products, in shared memory, rows padded as
 # _frag_stride says (csrc/cross_v2.cu fwd_smem_bytes); a block of the
 # backward's row pass holds the same of df and t, and of g where that fits
 # (rows_smem_bytes; else g lives in a device-memory scratch whose rows
-# tfrec_cross_v2_bwd_scratch_rows gives). Hopper gives a block at most 227 KB.
+# tfrec_cross_v2_bwd_scratch_rows gives). Hopper gives a block at most 227 KB;
+# past that the general route runs.
 _MIN_ROWS = 16
 _MAX_SMEM = 227 * 1024
 # The weight pass walks the batch in at most 16 chunks of at least 256 rows,
@@ -48,6 +60,13 @@ _MAX_SMEM = 227 * 1024
 # weights_smem_bytes).
 _MAX_CHUNKS = 16
 _MIN_CHUNK_ROWS = 256
+# The general route's products over k = d that store [B, r] (x_l V_l, df
+# U_l) have one 64 x 64 tile a block, few at a small B and r, each walking
+# all of d: they split d into slices of at least 1024, up to about 528
+# blocks (4 of 256 threads on each of the H100's 132 SMs), and a second
+# kernel adds the slices in order.
+_MIN_SPLIT_K = 1024
+_SPLIT_BLOCKS = 528
 
 
 def _round8(n: int) -> int:
@@ -61,9 +80,9 @@ def _frag_stride(n: int) -> int:
 
 
 def _smem_bytes(dim: int, rank: int) -> int:
-    """The least shared memory a block of either kernel takes: 16 rows of
-    its products' A operands, [B, d] and [B, r] (the forward's x and xv, the
-    row pass's df and t). It sets the widest d the kernels take."""
+    """The least shared memory a block of either tiled kernel takes: 16 rows
+    of its products' A operands, [B, d] and [B, r] (the forward's x and xv,
+    the row pass's df and t). It sets the widest d the tiles take."""
     return _MIN_ROWS * (_frag_stride(dim) + _frag_stride(rank)) * 4
 
 
@@ -74,6 +93,23 @@ def _weights_rows(layers: int) -> int:
         if 2 * (3 + layers) * rows * 72 * 4 <= _MAX_SMEM:
             return rows
     return 0
+
+
+def _fwd_route(dim: int, rank: int) -> str:
+    """The forward's route at these widths (csrc/cross_v2.cu tiles_take)."""
+    return "tiles" if _smem_bytes(dim, rank) <= _MAX_SMEM else "general"
+
+
+def _bwd_route(dim: int, rank: int, layers: int) -> str:
+    """The backward's route: the tiles where the forward's fit and the
+    weight pass stages its L - 1 layers of f, else the general route."""
+    return "tiles" if _fwd_route(dim, rank) == "tiles" and _weights_rows(layers) else "general"
+
+
+def _splits(batch: int, dim: int, rank: int) -> int:
+    """Slices of d for the general route's x_l V_l and df U_l."""
+    tiles = -(-batch // 64) * -(-rank // 64)
+    return max(1, min(-(-dim // _MIN_SPLIT_K), -(-_SPLIT_BLOCKS // tiles)))
 
 
 def _fragments(w: torch.Tensor) -> torch.Tensor:
@@ -100,6 +136,10 @@ def _check(named, what: str) -> None:
             raise ValueError(f"{what} needs a contiguous {name}")
 
 
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def _check_shapes(x0, u, v, what: str) -> None:
     if x0.dim() != 2 or u.dim() != 3:
         raise ValueError(f"{what}: x0 must be [B, d] and u [L, d, r], got "
@@ -112,10 +152,6 @@ def _check_shapes(x0, u, v, what: str) -> None:
 def _check_device(x0: torch.Tensor, rank: int, what: str) -> None:
     if rank < 1:
         raise ValueError(f"{what} is the low-rank cross and takes r >= 1, got r={rank}")
-    smem = _smem_bytes(x0.shape[1], rank)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{what} keeps 16 rows of its products' [B, d] and [B, r] operands in shared "
-                         f"memory: d={x0.shape[1]}, r={rank} needs {smem} bytes, more than 227 KB")
     if x0.device.type != "cuda":
         raise NotImplementedError(f"{what} runs on cuda or cpu tensors, not {x0.device}")
 
@@ -164,17 +200,27 @@ def cross_v2_fwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, b: torch.Te
     if batch == 0 or layers == 0:  # nothing to launch
         return (out, f, xv) if want_saved else out
     fn = _build.function("cross_v2", "tfrec_cross_v2_fwd", _FWD_ARGTYPES)
-    vfrag, utfrag = _fragments(v), _fragments(u.transpose(1, 2))
+    general = _fwd_route(dim, rank) == "general"
+    vfrag = utfrag = xv_scratch = split_scratch = None
+    splits = _splits(batch, dim, rank) if general else 1
+    if not general:
+        vfrag, utfrag = _fragments(v), _fragments(u.transpose(1, 2))
+    elif not want_saved:
+        xv_scratch = torch.empty((batch, rank), dtype=x0.dtype, device=x0.device)
+    if splits > 1:
+        split_scratch = torch.empty((splits, batch, rank), dtype=x0.dtype, device=x0.device)
     with torch.cuda.device(x0.device):
-        rc = fn(x0.data_ptr(), vfrag.data_ptr(), utfrag.data_ptr(), b.data_ptr(), out.data_ptr(),
-                f.data_ptr() if want_saved else None, xv.data_ptr() if want_saved else None,
-                batch, dim, rank, layers, torch.cuda.current_stream().cuda_stream)
+        rc = fn(x0.data_ptr(), _ptr(vfrag), _ptr(utfrag), u.data_ptr(), v.data_ptr(), b.data_ptr(),
+                out.data_ptr(), _ptr(f), _ptr(xv), _ptr(xv_scratch), _ptr(split_scratch), batch, dim,
+                rank, layers, splits, general, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "cross_v2_fwd")
     cross_v2_fwd.launches += 1
+    cross_v2_fwd.general_launches += general
     return (out, f, xv) if want_saved else out
 
 
 cross_v2_fwd.launches = 0  # kernel launches since the last reset
+cross_v2_fwd.general_launches = 0  # of them, those on the general route
 
 
 def cross_v2_bwd_ref(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, f: torch.Tensor,
@@ -209,7 +255,8 @@ def cross_v2_bwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, f: torch.Te
     dv [L, d, r], db [L, d]).
 
     A CUDA tensor launches the kernels (the row pass, the weight pass and the
-    fixed-order sum of its chunks); a CPU tensor takes the plain version.
+    fixed-order sum of its chunks; or the general route's, see the module's
+    docstring); a CPU tensor takes the plain version.
     """
     _check([("x0", x0), ("u", u), ("v", v), ("f", f), ("xv", xv), ("g", g)], "cross_v2_bwd")
     _check_shapes(x0, u, v, "cross_v2_bwd")
@@ -223,9 +270,6 @@ def cross_v2_bwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, f: torch.Te
     if x0.device.type == "cpu":
         return cross_v2_bwd_ref(x0, u, v, f, xv, g)
     _check_device(x0, rank, "cross_v2_bwd")
-    if not _weights_rows(layers):
-        raise ValueError(f"cross_v2_bwd stages df, x0, xv, t and L - 1 layers of f in shared memory: "
-                         f"L={layers} needs more than 227 KB")
     # The kernels write dU, dV and db into one buffer; the results are views.
     width = layers * dim * rank
     grads = torch.zeros(2 * width + layers * dim, dtype=x0.dtype, device=x0.device)
@@ -235,31 +279,44 @@ def cross_v2_bwd(x0: torch.Tensor, u: torch.Tensor, v: torch.Tensor, f: torch.Te
         return (g.clone(), *split)
     dx0 = torch.empty_like(x0)
     chunks = min(_MAX_CHUNKS, -(-batch // _MIN_CHUNK_ROWS))
-    # The row pass writes df and t with rows padded to multiples of 8 for the
-    # weight pass's 16-byte copies, which also read xv 16 bytes at a time.
-    df = torch.empty((layers, batch, _round8(dim)), dtype=x0.dtype, device=x0.device)
-    t = torch.empty((layers, batch, _round8(rank)), dtype=x0.dtype, device=x0.device)
-    if xv.data_ptr() % 16:
-        xv = xv.clone()
     partial = torch.empty((chunks, grads.numel()), dtype=x0.dtype, device=x0.device)
-    scratch_rows = _build.function("cross_v2", "tfrec_cross_v2_bwd_scratch_rows",
-                                   _SCRATCH_ARGTYPES)(batch, dim, rank)
-    g_scratch = (torch.empty((scratch_rows, _round8(dim)), dtype=x0.dtype, device=x0.device)
-                 if scratch_rows else None)
+    general = _bwd_route(dim, rank, layers) == "general"
+    splits = _splits(batch, dim, rank) if general else 1
+    ufrag = vtfrag = df = x_scratch = split_scratch = None
+    if not general:
+        # The row pass writes df and t with rows padded to multiples of 8 for
+        # the weight pass's 16-byte copies, which also read xv 16 bytes at a time.
+        df = torch.empty((layers, batch, _round8(dim)), dtype=x0.dtype, device=x0.device)
+        t = torch.empty((layers, batch, _round8(rank)), dtype=x0.dtype, device=x0.device)
+        if xv.data_ptr() % 16:
+            xv = xv.clone()
+        scratch_rows = _build.function("cross_v2", "tfrec_cross_v2_bwd_scratch_rows",
+                                       _SCRATCH_ARGTYPES)(batch, dim, rank)
+        g_scratch = (torch.empty((scratch_rows, _round8(dim)), dtype=x0.dtype, device=x0.device)
+                     if scratch_rows else None)
+        ufrag, vtfrag = _fragments(u), _fragments(v.transpose(1, 2))
+    else:
+        # t_l for every layer, g, and x_l for the next layer's rebuild.
+        t = torch.empty((layers, batch, rank), dtype=x0.dtype, device=x0.device)
+        g_scratch = torch.empty_like(x0)
+        if layers >= 3:
+            x_scratch = torch.empty((2, batch, dim), dtype=x0.dtype, device=x0.device)
+        if splits > 1:
+            split_scratch = torch.empty((splits, batch, rank), dtype=x0.dtype, device=x0.device)
     fn = _build.function("cross_v2", "tfrec_cross_v2_bwd", _BWD_ARGTYPES)
-    ufrag, vtfrag = _fragments(u), _fragments(v.transpose(1, 2))
     with torch.cuda.device(x0.device):
-        rc = fn(x0.data_ptr(), ufrag.data_ptr(), vtfrag.data_ptr(), f.data_ptr(), xv.data_ptr(),
-                g.data_ptr(), dx0.data_ptr(), grads.data_ptr(), df.data_ptr(), t.data_ptr(),
-                None if g_scratch is None else g_scratch.data_ptr(), partial.data_ptr(),
-                batch, dim, rank, layers, chunks,
-                torch.cuda.current_stream().cuda_stream)
+        rc = fn(x0.data_ptr(), _ptr(ufrag), _ptr(vtfrag), u.data_ptr(), v.data_ptr(), f.data_ptr(),
+                xv.data_ptr(), g.data_ptr(), dx0.data_ptr(), grads.data_ptr(), _ptr(df), t.data_ptr(),
+                _ptr(g_scratch), _ptr(x_scratch), partial.data_ptr(), _ptr(split_scratch), batch, dim,
+                rank, layers, chunks, splits, general, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "cross_v2_bwd")
     cross_v2_bwd.launches += 1
+    cross_v2_bwd.general_launches += general
     return (dx0, *split)
 
 
 cross_v2_bwd.launches = 0  # kernel launches since the last reset
+cross_v2_bwd.general_launches = 0  # of them, those on the general route
 
 
 class CrossV2(torch.autograd.Function):

@@ -109,6 +109,16 @@
 // - sum_chunks_kernel: adds the chunks' partials in chunk order.
 // Each output takes its k-steps in one fixed order, with no atomics, so the
 // gradients repeat bit for bit.
+//
+// Any width and depth. The designs above need 16 rows of the products'
+// [B, d] and [B, r] A operands in a block's 227 KB (d <= 3560 at r=64,
+// 3496 at r=128), and the weight pass two stages of L - 1 layers of f (L
+// <= 47). Past either, the C entry points take a general route instead
+// (general_rows_kernel, general_weights_kernel below): each product a
+// launch of tiled f32 products on the CUDA cores over device memory, with
+// its elementwise steps fused, in fixed orders, no atomics. The wrapper
+// (cross_v2_cuda.py) chooses the route by shape and passes it in; shapes
+// the tiles take run exactly as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -835,6 +845,358 @@ sum_chunks_kernel(const float* __restrict__ partial, float* __restrict__ out,
   out[e] = sum;
 }
 
+// ---- The general route: tiled f32 products on the CUDA cores ----
+//
+// Where the tiles above do not fit (16 rows of the products' [B, d] and
+// [B, r] operands past 227 KB, or the weight pass's stages of L - 1 layers
+// of f), each layer's products run as separate launches of two kernels
+// over device memory, with their elementwise steps fused in:
+// - general_rows_kernel<A, BTrans, Epi>: C [batch, n] = A [batch, k] B, a
+//   64 x 64 tile of C a block, 16 k-steps of A and B staged in shared
+//   memory at a time, 4 x 4 outputs a thread, each a sequential fmaf over k
+//   in order. A is read as it is, or as df = g * x0 (prologue); B is W [k,
+//   n] or W^T with W [n, k], read from U_l or V_l [d, r] as they are. The
+//   epilogue stores C, or computes the forward's f = C + b_l and x_{l+1} =
+//   x0 * f + x_l, or the backward's g += C with dx0 += g * f_l. The
+//   products over k = d that store C [batch, r] (x_l V_l, df U_l) have few
+//   tiles and a long walk: they split k into `splits` slices of
+//   k_per_split (blockIdx.y), each storing its C into a [splits, batch, r]
+//   scratch that sum_chunks_kernel then adds in slice order.
+// - general_weights_kernel<Df>: C [d, r] = sum over a chunk of the batch
+//   of A^T B, a 64 (j of d) x 64 (k of r) tile a block, 16 rows staged at a
+//   time, each output a sequential fmaf over the chunk's rows in order,
+//   into partial[chunk]. A is df = g * x0 (and the k-tile-0 blocks also sum
+//   db_l's columns, in row order), or x_l rebuilt as x0 * f_{l-1} + x_{l-1}
+//   from the x_{l-1} the previous layer's launch kept, rounded as the
+//   forward rounded it, and kept in turn for the next layer.
+// Forward, per layer: xv_l = x_l V_l, then f and x_{l+1} = x0 * (xv_l
+// U_l^T + b_l) + x_l in place in out. Backward, from the top layer: t_l =
+// df U_l (kept, [L, B, r]), then dU_l and db_l from df and xv_l, then g +=
+// t_l V_l^T with dx0; then from the bottom layer dV_l = x_l^T t_l, x_l
+// rebuilt once a layer in a [2, B, d] scratch; then sum_chunks_kernel adds
+// the chunks' partials in chunk order. No atomics: bit for bit on repeat.
+// Columns, k-steps and tile counts are 64-bit, so d and r up to 2^31 - 1
+// walk without wrapping.
+// Bound: operations, as the tiles' (each product 2 B d r f32 operations),
+// but on the CUDA cores in f32: 4 B d r L / 67 TFLOP/s forward, twice that
+// backward. These kernels are simple, not fast.
+
+constexpr int kGTile = 64;  // a block's 64 x 64 tile of C
+constexpr int kGStep = 16;  // k-steps (rows, in the weight kernel) staged at once
+constexpr int kGThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kGPad = kGTile + 4;  // row stride of the staged tiles
+
+enum GenA { kAPlain, kADf };
+enum GenEpi { kEStore, kEFwdX, kEBwdG };
+
+struct RowsArgs {
+  const float* a;     // A [batch, k]; kADf: g, with A = g * x0
+  const float* x0;    // [batch, d]
+  const float* w;     // B = W [k, n] row-major, or W^T with W [n, k] (BTrans)
+  int64_t batch, k, n;
+  int64_t k_per_split;  // kEStore: k-steps of a slice (blockIdx.y), a multiple of kGStep
+  float* out;         // kEStore: C, [gridDim.y, batch, n]; kEFwdX: x_{l+1}; kEBwdG: g after
+  const float* in;    // kEFwdX: x_l; kEBwdG: g before (either may be out)
+  const float* bias;  // kEFwdX: b_l
+  float* f_out;       // kEFwdX: f_l, or null
+  const float* f;     // kEBwdG: f_l
+  float* dx0;         // kEBwdG
+  bool top, bottom;   // kEBwdG: l == L - 1, l == 0
+};
+
+template <int kA, bool kBTrans, int kEpi>
+__global__ void __launch_bounds__(kGThreads) general_rows_kernel(const RowsArgs p) {
+  __shared__ float sa[kGStep][kGPad];  // [k][row]
+  __shared__ float sb[kGStep][kGPad];  // [k][column]
+  const int64_t ncols = (p.n + kGTile - 1) / kGTile;
+  const int64_t row0 = (int64_t)blockIdx.x / ncols * kGTile;
+  const int64_t col0 = (int64_t)blockIdx.x % ncols * kGTile;
+  const int64_t k_first = kEpi == kEStore ? (int64_t)blockIdx.y * p.k_per_split : 0;
+  const int64_t k_last = kEpi == kEStore && k_first + p.k_per_split < p.k ? k_first + p.k_per_split : p.k;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+  for (int64_t k0 = k_first; k0 < k_last; k0 += kGStep) {
+    for (int e = threadIdx.x; e < kGTile * kGStep; e += kGThreads) {
+      const int rr = e / kGStep;
+      const int kk = e % kGStep;
+      const int64_t row = row0 + rr;
+      float a = 0.0f;
+      if (row < p.batch && k0 + kk < k_last) {
+        const int64_t at = row * p.k + k0 + kk;
+        a = kA == kADf ? __fmul_rn(p.a[at], p.x0[at]) : p.a[at];
+      }
+      sa[kk][rr] = a;
+      const int kb = kBTrans ? e % kGStep : e / kGTile;
+      const int cb = kBTrans ? e / kGStep : e % kGTile;
+      float b = 0.0f;
+      if (k0 + kb < k_last && col0 + cb < p.n) {
+        b = kBTrans ? p.w[(col0 + cb) * p.k + k0 + kb] : p.w[(k0 + kb) * p.n + col0 + cb];
+      }
+      sb[kb][cb] = b;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGStep; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = sa[kk][ty + 16 * i];
+        bv[i] = sb[kk][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t row = row0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t c = col0 + tx + 16 * j;
+      if (row >= p.batch || c >= p.n) continue;
+      const int64_t at = row * p.n + c;
+      if (kEpi == kEStore) {
+        p.out[(int64_t)blockIdx.y * p.batch * p.n + at] = acc[i][j];
+      } else if (kEpi == kEFwdX) {
+        const float fv = __fadd_rn(acc[i][j], p.bias[c]);
+        p.out[at] = __fadd_rn(__fmul_rn(p.x0[at], fv), p.in[at]);
+        if (p.f_out != nullptr) p.f_out[at] = fv;
+      } else {
+        const float g_old = p.in[at];
+        const float g_new = __fadd_rn(g_old, acc[i][j]);
+        p.out[at] = g_new;
+        const float gf = __fmul_rn(g_old, p.f[at]);
+        const float dx = p.top ? gf : __fadd_rn(p.dx0[at], gf);
+        p.dx0[at] = p.bottom ? __fadd_rn(dx, g_new) : dx;
+      }
+    }
+  }
+}
+
+struct WeightsArgs {
+  const float* g;       // Df: the gradient with respect to x_{l+1}
+  const float* x0;      // [batch, d]
+  const float* f_prev;  // !Df, l >= 1: f_{l-1}
+  const float* x_prev;  // !Df: x_{l-1} (x0 at l = 1); null at l = 0 (x_l = x0)
+  float* x_keep;        // !Df: where x_l is kept for the next layer, or null
+  const float* bm;      // B rows [batch, r]: xv_l (Df) or t_l
+  float* partial;       // [chunks][total]
+  int64_t batch, rows_per_chunk, total;
+  int64_t d, r;
+  int64_t out_at;       // dU_l's or dV_l's offset in a chunk's partial
+  int64_t db_at;        // Df: db_l's offset
+};
+
+template <bool kDf>
+__global__ void __launch_bounds__(kGThreads) general_weights_kernel(const WeightsArgs p) {
+  __shared__ float sa[kGStep][kGPad];  // [row][j]
+  __shared__ float sb[kGStep][kGPad];  // [row][k]
+  const int64_t jtiles = (p.d + kGTile - 1) / kGTile;
+  const int64_t j0 = (int64_t)blockIdx.x % jtiles * kGTile;
+  const int64_t k0 = (int64_t)blockIdx.x / jtiles * kGTile;
+  const int64_t first = (int64_t)blockIdx.y * p.rows_per_chunk;
+  const int64_t last = first + p.rows_per_chunk < p.batch ? first + p.rows_per_chunk : p.batch;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const bool sums_db = kDf && k0 == 0 && threadIdx.x < kGTile;
+  float acc[4][4] = {};
+  float db = 0.0f;
+  for (int64_t i0 = first; i0 < last; i0 += kGStep) {
+    for (int e = threadIdx.x; e < kGTile * kGStep; e += kGThreads) {
+      const int rr = e / kGTile;
+      const int cc = e % kGTile;
+      const int64_t row = i0 + rr;
+      float a = 0.0f;
+      float b = 0.0f;
+      if (row < last && j0 + cc < p.d) {
+        const int64_t at = row * p.d + j0 + cc;
+        if (kDf) {
+          a = __fmul_rn(p.g[at], p.x0[at]);
+        } else if (p.x_prev == nullptr) {
+          a = p.x0[at];
+        } else {
+          a = __fadd_rn(__fmul_rn(p.x0[at], p.f_prev[at]), p.x_prev[at]);
+          if (p.x_keep != nullptr && k0 == 0) p.x_keep[at] = a;
+        }
+      }
+      if (row < last && k0 + cc < p.r) b = p.bm[row * p.r + k0 + cc];
+      sa[rr][cc] = a;
+      sb[rr][cc] = b;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kGStep; ++rr) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = sa[rr][ty + 16 * i];
+        bv[i] = sb[rr][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    if (sums_db) {
+      for (int rr = 0; rr < kGStep; ++rr) db = __fadd_rn(db, sa[rr][threadIdx.x]);
+    }
+    __syncthreads();
+  }
+  float* out = p.partial + (int64_t)blockIdx.y * p.total;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t j = j0 + ty + 16 * i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int64_t k = k0 + tx + 16 * c;
+      if (j < p.d && k < p.r) out[p.out_at + j * p.r + k] = acc[i][c];
+    }
+  }
+  if (sums_db && j0 + threadIdx.x < p.d) out[p.db_at + j0 + threadIdx.x] = db;
+}
+
+template <int kA, bool kBTrans, int kEpi>
+int launch_rows(const RowsArgs& p, int splits, cudaStream_t s) {
+  const int64_t tiles = (p.batch + kGTile - 1) / kGTile * ((p.n + kGTile - 1) / kGTile);
+  if (tiles > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  general_rows_kernel<kA, kBTrans, kEpi><<<dim3((unsigned)tiles, splits), kGThreads, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C [batch, r] = A [batch, d] W (x_l V_l, or df U_l with kADf) into c, in
+// `splits` slices of k through split_scratch [splits, batch, r] where
+// splits > 1.
+template <int kA>
+int launch_rows_split(RowsArgs p, float* c, float* split_scratch, int splits, cudaStream_t s) {
+  const int64_t steps = (p.k + kGStep - 1) / kGStep;
+  p.k_per_split = (steps + splits - 1) / splits * kGStep;
+  p.out = splits > 1 ? split_scratch : c;
+  int err = launch_rows<kA, false, kEStore>(p, splits, s);
+  if (err != 0 || splits == 1) return err;
+  const int64_t total = p.batch * p.n;
+  sum_chunks_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      split_scratch, c, splits, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDf>
+int launch_weights(const WeightsArgs& p, int chunks, cudaStream_t s) {
+  const int64_t tiles = (p.d + kGTile - 1) / kGTile * ((p.r + kGTile - 1) / kGTile);
+  if (tiles > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  general_weights_kernel<kDf><<<dim3((unsigned)tiles, chunks), kGThreads, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The general route of the forward (see above): x0 [batch, d], u and v
+// [layers, d, r], b [layers, d]; out [batch, d]; xv_l into xv_out (training)
+// or into xv_scratch [batch, r]; split_scratch [splits, batch, r] where
+// splits > 1.
+int general_fwd(const float* x0, const float* u, const float* v, const float* b, float* out,
+                float* f_out, float* xv_out, float* xv_scratch, float* split_scratch,
+                int64_t batch, int64_t d, int64_t r, int layers, int splits, cudaStream_t s) {
+  for (int l = 0; l < layers; ++l) {
+    const float* xl = l == 0 ? x0 : out;
+    float* xvl = xv_out != nullptr ? xv_out + (int64_t)l * batch * r : xv_scratch;
+    RowsArgs p{};
+    p.a = xl;
+    p.x0 = x0;
+    p.w = v + (int64_t)l * d * r;
+    p.batch = batch;
+    p.k = d;
+    p.n = r;
+    int err = launch_rows_split<kAPlain>(p, xvl, split_scratch, splits, s);
+    if (err != 0) return err;
+    p.a = xvl;
+    p.w = u + (int64_t)l * d * r;
+    p.k = r;
+    p.n = d;
+    p.out = out;
+    p.in = xl;
+    p.bias = b + (int64_t)l * d;
+    p.f_out = f_out != nullptr ? f_out + (int64_t)l * batch * d : nullptr;
+    err = launch_rows<kAPlain, true, kEFwdX>(p, 1, s);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// The general route of the backward (see above). t [layers, batch, r],
+// g_scratch [batch, d], x_scratch [2, batch, d] (null where layers < 3),
+// partial [chunks, 2 layers d r + layers d] and split_scratch [splits,
+// batch, r] (where splits > 1) are scratch.
+int general_bwd(const float* x0, const float* u, const float* v, const float* f, const float* xv,
+                const float* g, float* dx0, float* grads, float* t, float* g_scratch,
+                float* x_scratch, float* partial, float* split_scratch, int64_t batch, int64_t d,
+                int64_t r, int layers, int chunks, int splits, cudaStream_t s) {
+  const int64_t width = (int64_t)layers * d * r;
+  const int64_t total = 2 * width + (int64_t)layers * d;
+  const int64_t bd = batch * d;
+  WeightsArgs w{};
+  w.x0 = x0;
+  w.partial = partial;
+  w.batch = batch;
+  w.rows_per_chunk = (batch + chunks - 1) / chunks;
+  w.total = total;
+  w.d = d;
+  w.r = r;
+  for (int l = layers - 1; l >= 0; --l) {
+    const float* gl = l == layers - 1 ? g : g_scratch;
+    float* tl = t + (int64_t)l * batch * r;
+    RowsArgs p{};
+    p.a = gl;  // t_l = (g * x0) U_l
+    p.x0 = x0;
+    p.w = u + (int64_t)l * d * r;
+    p.batch = batch;
+    p.k = d;
+    p.n = r;
+    int err = launch_rows_split<kADf>(p, tl, split_scratch, splits, s);
+    if (err != 0) return err;
+    w.g = gl;  // dU_l = df^T xv_l, db_l = sum df
+    w.bm = xv + (int64_t)l * batch * r;
+    w.out_at = (int64_t)l * d * r;
+    w.db_at = 2 * width + (int64_t)l * d;
+    err = launch_weights<true>(w, chunks, s);
+    if (err != 0) return err;
+    p.a = tl;  // g += t_l V_l^T, dx0 += g * f_l
+    p.w = v + (int64_t)l * d * r;
+    p.k = r;
+    p.n = d;
+    p.out = g_scratch;
+    p.in = gl;
+    p.f = f + (int64_t)l * bd;
+    p.dx0 = dx0;
+    p.top = l == layers - 1;
+    p.bottom = l == 0;
+    err = launch_rows<kAPlain, true, kEBwdG>(p, 1, s);
+    if (err != 0) return err;
+  }
+  for (int l = 0; l < layers; ++l) {  // dV_l = x_l^T t_l
+    w.f_prev = l > 0 ? f + (int64_t)(l - 1) * bd : nullptr;
+    w.x_prev = l == 0 ? nullptr : l == 1 ? x0 : x_scratch + (int64_t)((l - 1) & 1) * bd;
+    w.x_keep = l >= 1 && l < layers - 1 ? x_scratch + (int64_t)(l & 1) * bd : nullptr;
+    w.bm = t + (int64_t)l * batch * r;
+    w.out_at = width + (int64_t)l * d * r;
+    const int err = launch_weights<false>(w, chunks, s);
+    if (err != 0) return err;
+  }
+  sum_chunks_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      partial, grads, chunks, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the tiles above take d and r: 16 rows of the products' [B, d] and
+// [B, r] A operands (the forward's x and xv, the row pass's df and t) fit a
+// block's 227 KB. The wrapper sends other shapes to the general route.
+bool tiles_take(long long d, long long r) {
+  return d <= (1 << 20) && r <= (1 << 20) && fwd_smem_bytes((int)d, (int)r, 1, false) <= kMaxSmem;
+}
+
 int set_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
@@ -843,18 +1205,43 @@ int set_smem(const void* kernel, size_t smem) {
 
 }  // namespace
 
-// x0 [batch, d]; V and U^T as B fragments (vfrag [layers, d8/8, r8/8, 32,
-// 2] and utfrag [layers, r8/8, d8/8, 32, 2], d8 and r8: d and r rounded up
-// to 8; see cross_v2_fwd_kernel); b [layers, d]; out [batch, d]; f_out
-// [layers, batch, d] and xv_out [layers, batch, r], both or neither null;
-// all f32, contiguous, 16-byte aligned, on the current device; runs on
-// `stream`. Returns cudaGetLastError(), or cudaErrorInvalidValue for d, r,
-// layers or batch < 1, or shared memory beyond 227 KB (16 rows of x and xv).
+// x0 [batch, d]; b [layers, d]; out [batch, d]; f_out [layers, batch, d]
+// and xv_out [layers, batch, r], both or neither null. `general` picks the
+// route (the wrapper's choice by shape, cross_v2_cuda.py _fwd_route): 0,
+// the tiles, which read V and U^T as B fragments (vfrag [layers, d8/8,
+// r8/8, 32, 2] and utfrag [layers, r8/8, d8/8, 32, 2], d8 and r8: d and r
+// rounded up to 8; see cross_v2_fwd_kernel); 1, the general route, which
+// reads u and v [layers, d, r] as they are, writes xv_l into xv_scratch
+// [batch, r] where xv_out is null, and splits its x_l V_l into `splits`
+// slices of k through split_scratch [splits, batch, r] where splits > 1.
+// A pointer the route does not read may be null. All f32, contiguous,
+// 16-byte aligned, on the current device; runs on `stream`. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for d, r, layers, batch or
+// splits < 1, d or r past 2^31 - 1, splits past 65535, tiles that do not
+// take d and r, or a null pointer the route reads.
 extern "C" int tfrec_cross_v2_fwd(const void* x0, const void* vfrag, const void* utfrag,
-                                  const void* b, void* out, void* f_out, void* xv_out,
-                                  long long batch, long long d, long long r,
-                                  long long layers, void* stream) {
-  if (d < 1 || r < 1 || layers < 1 || batch < 1 || (f_out == nullptr) != (xv_out == nullptr)) {
+                                  const void* u, const void* v, const void* b, void* out,
+                                  void* f_out, void* xv_out, void* xv_scratch,
+                                  void* split_scratch, long long batch, long long d, long long r,
+                                  long long layers, long long splits, int general, void* stream) {
+  if (d < 1 || r < 1 || layers < 1 || batch < 1 || splits < 1 || splits > 65535 ||
+      d > 0x7FFFFFFF || r > 0x7FFFFFFF || layers > 0x7FFFFFFF ||
+      (f_out == nullptr) != (xv_out == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (general) {
+    if (u == nullptr || v == nullptr || (xv_out == nullptr && xv_scratch == nullptr) ||
+        (splits > 1 && split_scratch == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return general_fwd(static_cast<const float*>(x0), static_cast<const float*>(u),
+                       static_cast<const float*>(v), static_cast<const float*>(b),
+                       static_cast<float*>(out), static_cast<float*>(f_out),
+                       static_cast<float*>(xv_out), static_cast<float*>(xv_scratch),
+                       static_cast<float*>(split_scratch), batch, d, r, (int)layers, (int)splits,
+                       static_cast<cudaStream_t>(stream));
+  }
+  if (!tiles_take(d, r) || vfrag == nullptr || utfrag == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // 32 rows a block where x and xv fit in shared memory, else 16; x0 held
@@ -877,25 +1264,54 @@ extern "C" int tfrec_cross_v2_fwd(const void* x0, const void* vfrag, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// x0 and g [batch, d], U and V^T as B fragments (ufrag [layers, d8/8,
-// r8/8, 32, 2] and vtfrag [layers, r8/8, d8/8, 32, 2], d8 and r8: d and r
-// rounded up to 8; see cross_v2_bwd_rows_kernel), f [layers, batch, d] and
-// xv [layers, batch, r] (from the forward); writes dx0 [batch, d] and grads
-// [dU (layers*d*r), dV (layers*d*r), db (layers*d)]; uses df [layers,
-// batch, d8], t [layers, batch, r8], partial [chunks, grads] and g_scratch
+// x0 and g [batch, d], f [layers, batch, d] and xv [layers, batch, r] (from
+// the forward); writes dx0 [batch, d] and grads [dU (layers*d*r), dV
+// (layers*d*r), db (layers*d)]. `general` picks the route (the wrapper's
+// choice by shape, cross_v2_cuda.py _bwd_route): 0, the tiles, which read
+// U and V^T as B fragments (ufrag [layers, d8/8, r8/8, 32, 2] and vtfrag
+// [layers, r8/8, d8/8, 32, 2], d8 and r8: d and r rounded up to 8; see
+// cross_v2_bwd_rows_kernel) and use df [layers, batch, d8], t [layers,
+// batch, r8], partial [chunks, grads] and g_scratch
 // [tfrec_cross_v2_bwd_scratch_rows(batch, d, r), d8] (null where that is
-// 0) as scratch; all f32, contiguous, 16-byte
-// aligned, on the current device; runs on `stream` (three launches).
-// Returns the first launch error, or cudaErrorInvalidValue for d, r,
-// layers, batch or chunks < 1, a null g_scratch where it is needed, or
-// shared memory beyond 227 KB (16 rows of df and t).
+// 0) as scratch; 1, the general route, which reads u and v [layers, d, r]
+// as they are and uses t [layers, batch, r], g_scratch [batch, d],
+// x_scratch [2, batch, d] (null where layers < 3), partial and, where
+// splits > 1, split_scratch [splits, batch, r] (its df U_l in `splits`
+// slices of k) as scratch. A pointer the route does not read may be null.
+// All f32, contiguous, 16-byte aligned, on the current device; runs on
+// `stream`. Returns the first launch error, or cudaErrorInvalidValue for
+// d, r, layers, batch, chunks or splits < 1, d, r or layers past 2^31 - 1,
+// chunks or splits past 65535, tiles that do not take the shape, or a null
+// pointer the route reads.
 extern "C" int tfrec_cross_v2_bwd(const void* x0, const void* ufrag, const void* vtfrag,
-                                  const void* f, const void* xv, const void* g,
-                                  void* dx0, void* grads, void* df, void* t,
-                                  void* g_scratch, void* partial, long long batch,
-                                  long long d, long long r, long long layers,
-                                  long long chunks, void* stream) {
-  if (d < 1 || r < 1 || layers < 1 || batch < 1 || chunks < 1 || chunks > 65535) {
+                                  const void* u, const void* v, const void* f, const void* xv,
+                                  const void* g, void* dx0, void* grads, void* df, void* t,
+                                  void* g_scratch, void* x_scratch, void* partial,
+                                  void* split_scratch, long long batch, long long d, long long r,
+                                  long long layers, long long chunks, long long splits,
+                                  int general, void* stream) {
+  if (d < 1 || r < 1 || layers < 1 || batch < 1 || chunks < 1 || chunks > 65535 ||
+      splits < 1 || splits > 65535 || d > 0x7FFFFFFF || r > 0x7FFFFFFF ||
+      layers > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (general) {
+    if (u == nullptr || v == nullptr || t == nullptr || g_scratch == nullptr ||
+        partial == nullptr || (layers >= 3 && x_scratch == nullptr) ||
+        (splits > 1 && split_scratch == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return general_bwd(static_cast<const float*>(x0), static_cast<const float*>(u),
+                       static_cast<const float*>(v), static_cast<const float*>(f),
+                       static_cast<const float*>(xv), static_cast<const float*>(g),
+                       static_cast<float*>(dx0), static_cast<float*>(grads),
+                       static_cast<float*>(t), static_cast<float*>(g_scratch),
+                       static_cast<float*>(x_scratch), static_cast<float*>(partial),
+                       static_cast<float*>(split_scratch), batch, d, r, (int)layers,
+                       (int)chunks, (int)splits, static_cast<cudaStream_t>(stream));
+  }
+  if (!tiles_take(d, r) || layers > 1024 || ufrag == nullptr || vtfrag == nullptr ||
+      df == nullptr || t == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const RowsLayout layout = rows_layout((int)d, (int)r);

@@ -5,7 +5,9 @@ The counterpart of ``tfrec_tpu/ops/embedding.py``. The sentinel row id
 ``vocab`` (one past the end) marks bag padding; ``gather`` clamps it, and
 negative ids, to a real row as ``jnp.take(mode="clip")`` does, and callers
 mask those rows. ``combine_duplicate_ids`` sums the gradient rows that
-share an id before a sparse update; the batched variants of the reference
+share an id before a sparse update. ``run_first_index`` and
+``run_last_index_plus1`` bound each element's run of equal values (the
+tie spans of ``eval.metrics.auc``). The batched variants of the reference
 (``combine_duplicate_ids_grouped`` and ``_multi``) and host-computed sort
 orders are not ported (ROADMAP Queue 1 items 2 and 5).
 """
@@ -18,6 +20,30 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_multi
+
+
+def run_first_index(x: torch.Tensor) -> torch.Tensor:
+    """``searchsorted(x, x, side="left")`` for a 1-D tensor whose equal
+    values are contiguous (a sorted one, say): the first index of each
+    element's run, int32, as an O(n) ``cummax``. A run of a value elsewhere
+    indexes its own run, as in the reference."""
+    n = x.shape[0]
+    is_start = torch.ones(n, dtype=torch.bool, device=x.device)
+    is_start[1:] = x[1:] != x[:-1]
+    idx = torch.arange(n, device=x.device)
+    return torch.cummax(torch.where(is_start, idx, 0), 0).values.to(torch.int32)
+
+
+def run_last_index_plus1(x: torch.Tensor) -> torch.Tensor:
+    """``searchsorted(x, x, side="right")`` under the contiguity contract of
+    ``run_first_index``: one past the last index of each element's run,
+    int32 (a reversed ``cummin`` of the run ends)."""
+    n = x.shape[0]
+    is_end = torch.ones(n, dtype=torch.bool, device=x.device)
+    is_end[:-1] = x[1:] != x[:-1]
+    idx = torch.arange(n, device=x.device)
+    ends = torch.cummin(torch.where(is_end, idx, n - 1).flip(0), 0).values.flip(0)
+    return (ends + 1).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
