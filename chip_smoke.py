@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving and training slices on one NVIDIA GPU.
+"""Drive tfrec_tpu_torch's serving, training and retrieval slices on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
@@ -68,12 +68,37 @@ non-zero if any phase fails:
     300 000 examples, one epoch, AUC in [0.680, 0.715];
 11. the trainer on the card against the CPU (plain versions): the proxy
     configuration, 8 steps from one state, each step's loss and the
-    eval's auc and logloss.
+    eval's auc and logloss;
+12. config 1 (``trainer.run(mf_bpr_ml100k())``: MF + BPR on the
+    synthetic_implicit stand-in at 943 x 1682, d=64, batch 2048, 60
+    epochs, the full-catalog eval every 10 epochs at ks (10, 20, 50)):
+    recall@20 and ndcg@20 in the band of tests/test_golden.py:69-76;
+    launch counters show one gather and one Adagrad launch a step for the
+    three tables, and one gather a batch of users in each eval pass;
+    examples_per_s and the eval passes' times;
+13. config 1 on the card against the CPU: 2 epochs from one state, each
+    step's loss, recall@20 and ndcg@20;
+14. MF at bench.py's shape (1 000 000 users and items, d=64, bpr, rowwise
+    Adagrad at lr 0.05, 8 batches of 8192 uniform (user, pos, neg) from
+    ``np.random.default_rng(0)``): launch counters; the loss finite and
+    falling on a held batch; one step bit for bit on repeat and through the
+    plain versions on the card; at 10 000 rows one step against the CPU;
+    both kernels' times at this shape (3 tables: 8192, 16 384 and 16 384
+    ids; D = 64, 64, 1) beside their bounds, plain versions and, for the
+    gather, 3 ``index_select``; the step's median and device-busy share;
+15. ``Recommender.recommend(users, k=100)`` for 1024 users over phase 14's
+    1 000 000 items: ids and values those of a plain ``torch.matmul`` +
+    ``torch.topk`` on the card (ties aside); latency (median, p99) and
+    users/s; the product's and the top-k's device times beside their
+    bounds; a profile of one call.
 
 No earlier path is cut in depth for time (PERF.md gives a whole run's
-time on an H100). The last lines are the kernels' JSON record (the v2 records carry
-the general route's shapes as ``general_route``, and ``launches_by_path``
-the trainer's paths) and ``{"ok": true, ...}``.
+time on an H100). The last lines are the kernels' JSON record (the v2
+records carry the general route's shapes as ``general_route``, the gather
+and Adagrad records their times at MF's shape as ``mf_bench``, and
+``launches_by_path`` the trainers' and MF's paths: ``trainer_mf`` phase
+12, ``train_mf`` phase 13's card run, ``bench_mf`` phase 14's 8 steps,
+``serve_mf`` phase 15's first call) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -118,7 +143,9 @@ from tfrec_tpu_torch.kernels.gather_cuda import (
     gather_rows_multi_ref,
     gather_rows_ref,
 )
+from tfrec_tpu_torch.configs import OptimConfig
 from tfrec_tpu_torch.models import DataSpec, build_model
+from tfrec_tpu_torch.models.mf import MF
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
 from tfrec_tpu_torch.serve import Recommender
 from tfrec_tpu_torch.train import trainer as trainer_mod
@@ -167,6 +194,26 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_AUC_ATOL = 1e-4
 TRAIN_LOGLOSS_RTOL = 1e-4
 PROXY_AUC_BAND = (0.680, 0.715)  # tests/test_golden.py:94-108
+# Config 1 (MF + BPR on the synthetic_implicit stand-in at ML-100K's shape):
+# its band (tests/test_golden.py:69-76), and the card against the CPU over 2
+# epochs from one state. Losses: the same sums in other orders through the
+# rowwise Adagrad's normalised updates, over 46 steps. recall@20 and
+# ndcg@20 over ~943 users: one exchanged rank moves recall@20 by ~1e-4.
+CONFIG1_BAND = {"recall@20": (0.118, 0.134), "ndcg@20": (0.102, 0.133)}
+CONFIG1_LOSS_RTOL = 1e-4
+CONFIG1_METRIC_ATOL = 1e-3
+# bench.py's MF shape (build_mf_bench, bench.py:254-279): 1 000 000 users and
+# items, d=64, bpr, rowwise Adagrad at lr 0.05, 8 batches of 8192 uniform
+# (user, pos, neg); the top-k of build_topk_bench (bench.py:169, :637):
+# 1024 users, k=100 over the 1 000 000 items. The card against the CPU at
+# 10 000 rows: one step's loss and tables (products of d=64 summed in
+# another order, through the normalised update).
+MF_ROWS = 1_000_000
+MF_DIM = 64
+MF_CPU_ROWS = 10_000
+MF_CPU_RTOL = 1e-5
+TOPK_USERS = 1024
+TOPK_K = 100
 
 # The kernels of the main paths. The gather and Adagrad kernels run there
 # as one launch over every table (the ``_multi`` wrappers); their one-table
@@ -211,6 +258,12 @@ def check(ok: bool, what: str) -> None:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a - b).abs().max().item() if a.numel() else 0.0
+
+
+def states_equal(a, b) -> bool:
+    """Two train states (or any trees of tensors and numbers) bit for bit."""
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 def within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_rel: float) -> bool:
@@ -963,9 +1016,10 @@ def serving_routes(rec, dense, cat) -> None:
         profile(run, f"predict_ctr ({name})", latency[name])
 
 
-def profile(fn, what: str, latency_ms: float) -> None:
+def profile(fn, what: str, latency_ms: float) -> float | None:
     """Device time by kernel and copy over one call of ``fn``, and the
-    device's busy share of the unprofiled median latency."""
+    device's busy share of the unprofiled median latency, which it returns
+    (None where the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -977,13 +1031,15 @@ def profile(fn, what: str, latency_ms: float) -> None:
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not events:
         print("profile: the profiler recorded no device time")
-        return
+        return None
     busy_us = sum(e.self_device_time_total for e in events)
+    share = busy_us / (latency_ms * 1e3)
     print(f"profile of one {what}: device busy {busy_us:.1f} us = "
-          f"{100 * busy_us / (latency_ms * 1e3):.1f}% of the median latency, "
+          f"{100 * share:.1f}% of the median latency, "
           f"{sum(e.count for e in events)} kernels and copies")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total:9.1f} us  x{e.count:<3d} {e.key[:100]}")
+    return share
 
 
 def to_device(a: np.ndarray) -> torch.Tensor:
@@ -1060,9 +1116,7 @@ def step_routes(builder, per_table, start, batch, num_tables: int) -> None:
     old, m_old = per_table.step(copy_state(start), batch)
     torch.cuda.synchronize()
     old_launches = read_launches()
-    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-               for a, b in zip(tree_leaves(new), tree_leaves(old)))
-    same &= torch.equal(m_new["loss"], m_old["loss"])
+    same = states_equal(new, old) and torch.equal(m_new["loss"], m_old["loss"])
     print(f"one step's launches: one launch for every table {launches}; a launch a table (the route "
           f"before) {old_launches}; the two states bit for bit equal: {same}")
     check(launches["gather_rows_multi"] == launches["fused_rowwise_adagrad_multi"] == 1
@@ -1097,9 +1151,8 @@ def check_step(builder, start, batch, loss: str) -> None:
     one, m_one = builder.step(copy_state(start), batch)
     two, m_two = builder.step(copy_state(start), batch)
     torch.cuda.synchronize()
-    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-               for a, b in zip(tree_leaves(one), tree_leaves(two)))
-    check(same and torch.equal(m_one["loss"], m_two["loss"]), "one train step repeats bit for bit")
+    check(states_equal(one, two) and torch.equal(m_one["loss"], m_two["loss"]),
+          "one train step repeats bit for bit")
 
     cpu = TrainStepBuilder(builder.model, loss, builder.optim_cfg, device="cpu")
     cpu_start = copy_state(start, "cpu")
@@ -1336,19 +1389,17 @@ def trainer_configs() -> dict:
     return {"full": full, "proxy": proxy}
 
 
-def phase_trainer(card: str, paths: dict) -> None:
-    """``trainer.run`` on the card at Criteo's shape: launch counters show
-    the gather, both v1 cross kernels and the Adagrad kernel in training,
-    and the gather and the cross forward in the held-out eval; the history
-    is finite and carries AUC and logloss."""
-    cfg = trainer_configs()["full"]
+def run_counted(cfg):
+    """``trainer.run(cfg)`` on the card, its launches split between
+    training and the eval passes: (trainer, history, launches in training,
+    [(eval pass ms on the host clock, its launches), ...], run's seconds)."""
     evaluate = trainer_mod.Trainer.evaluate
     evals = []
 
     def counted_evaluate(self):
         torch.cuda.synchronize()
         before, t0 = read_launches(), time.perf_counter()
-        out = evaluate(self)  # ends in fetching the values of AUC and logloss
+        out = evaluate(self)  # ends in fetching the metrics' values
         evals.append(((time.perf_counter() - t0) * 1e3,
                       {k: c - before[k] for k, c in read_launches().items()}))
         return out
@@ -1364,9 +1415,19 @@ def phase_trainer(card: str, paths: dict) -> None:
     finally:
         trainer_mod.Trainer.evaluate = evaluate
     check(trainer.device.type == "cuda", "run() trains on the card by default")
+    train_counts = {k: c - sum(e[1][k] for e in evals) for k, c in total.items()}
+    return trainer, history, train_counts, evals, run_s
+
+
+def phase_trainer(card: str, paths: dict) -> None:
+    """``trainer.run`` on the card at Criteo's shape: launch counters show
+    the gather, both v1 cross kernels and the Adagrad kernel in training,
+    and the gather and the cross forward in the held-out eval; the history
+    is finite and carries AUC and logloss."""
+    cfg = trainer_configs()["full"]
+    trainer, history, train_counts, evals, run_s = run_counted(cfg)
     check(len(evals) == 1, "one eval pass after the epoch")
     eval_ms, eval_counts = evals[0]
-    train_counts = {k: c - eval_counts[k] for k, c in total.items()}
     paths["trainer_train"], paths["trainer_eval"] = train_counts, eval_counts
     steps = trainer.global_step
     n_eval = len(trainer.ctr_arrays["test"][2])
@@ -1439,6 +1500,292 @@ def phase_trainer_card_vs_cpu() -> None:
           "the card's eval auc and logloss match the CPU's")
 
 
+
+# ---- retrieval: config 1 (MF + BPR), and MF at bench.py's shape ----
+
+def phase_config1_band(card: str, paths: dict) -> None:
+    """``trainer.run(mf_bpr_ml100k())`` on the card: the stand-in at 943 x
+    1682, d=64, batch 2048, 60 epochs, the eval every 10 epochs at ks (10,
+    20, 50); recall@20 and ndcg@20 in their band; one gather and one
+    Adagrad launch a step for the three tables, and one gather a batch of
+    users in each eval pass (``score_all``'s user rows), and no other."""
+    cfg = zoo_configs.mf_bpr_ml100k()
+    trainer, history, train_counts, evals, run_s = run_counted(cfg)
+    steps = trainer.global_step
+    evaluator = trainer._retrieval_eval
+    eval_batches = -(-len(evaluator.users_with_test) // evaluator.user_batch)
+    paths["trainer_mf"] = {k: c + sum(e[1][k] for e in evals) for k, c in train_counts.items()}
+    rec = history[-1]
+    rates = [r["examples_per_s"] for r in history]
+    print(f"config 1 (run, mf_bpr_ml100k: synthetic_implicit {trainer.dataset.num_users} x "
+          f"{trainer.dataset.num_items}, {len(trainer.dataset.train)} train interactions, d={cfg.model.embed_dim}, "
+          f"batch {cfg.train.batch_size}, {cfg.train.epochs} epochs): {steps} steps; final record {rec}; "
+          f"launches in training {train_counts}, in each eval pass ({eval_batches} batches of "
+          f"{evaluator.user_batch} users) {evals[0][1]}; run() took {run_s:.1f} s (data made included)")
+    print(f"config 1: examples_per_s median over the epochs {statistics.median(rates):.1f} (min {min(rates):.1f}, "
+          f"max {max(rates):.1f}; host clock over each epoch, fenced by the last loss's value; {card}); eval "
+          f"passes (host clock, {len(evaluator.users_with_test)} users over {trainer.dataset.num_items} items): "
+          + ", ".join(f"{ms:.3f} ms" for ms, _ in evals))
+    check(len(evals) == cfg.train.epochs // cfg.train.eval_every_epochs, "an eval pass every 10 epochs")
+    check(all(np.isfinite(v) for r in history for v in r.values()), "the history is finite")
+    trained = {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps}
+    check(all(train_counts[k] == trained.get(k, 0) for k in train_counts),
+          "config 1 ran one gather and one Adagrad launch a step, and no other")
+    check(all(counts[k] == (eval_batches if k == "gather_rows_multi" else 0)
+              for _, counts in evals for k in counts),
+          "each eval pass ran one gather a batch of users, and no other")
+    for name, (lo, hi) in CONFIG1_BAND.items():
+        print(f"config 1 band: {name} {rec[name]:.6f} in [{lo}, {hi}]")
+        check(lo <= rec[name] <= hi, f"config 1's {name} lies in its band")
+
+
+def phase_config1_card_vs_cpu(paths: dict) -> None:
+    """Config 1 for 2 epochs on the card and on the CPU (the plain versions)
+    from one state, the eval at the end: each step's loss, recall@20 and
+    ndcg@20."""
+    base = zoo_configs.mf_bpr_ml100k()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, epochs=2, eval_every_epochs=2))
+    card = Trainer(cfg, quiet=True)
+    cpu = Trainer(cfg, quiet=True, device="cpu")
+    cpu.state = copy_state(card.state, "cpu")
+    losses, finals = {}, {}
+    t0 = time.perf_counter()
+    for name, trainer in (("card", card), ("cpu", cpu)):
+        seen = losses[name] = []
+        step = trainer.builder.step
+
+        def logged(state, batch, step=step, seen=seen):
+            new, metrics = step(state, batch)
+            seen.append(metrics["loss"].item())
+            return new, metrics
+
+        trainer.builder.step = logged
+        reset_launches()
+        finals[name] = trainer.train()[-1]
+        if name == "card":
+            torch.cuda.synchronize()
+            paths["train_mf"] = read_launches()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+    errs = {k: abs(finals["card"][k] - finals["cpu"][k]) for k in ("recall@20", "ndcg@20")}
+    print(f"config 1, card against the CPU ({time.perf_counter() - t0:.1f} s), 2 epochs from one state "
+          f"({len(losses['card'])} steps): max relative loss error {rel:.3e} (rtol {CONFIG1_LOSS_RTOL}); "
+          + ", ".join(f"{k} {finals['card'][k]:.6f} against {finals['cpu'][k]:.6f} (error {e:.3e})"
+                      for k, e in errs.items())
+          + f" (atol {CONFIG1_METRIC_ATOL}); launches on the card {paths['train_mf']}")
+    check(len(losses["card"]) == len(losses["cpu"]) == 2 * card.sampler.num_batches(), "the same steps on each")
+    check(rel <= CONFIG1_LOSS_RTOL, "config 1's losses on the card match the CPU's")
+    check(all(e <= CONFIG1_METRIC_ATOL for e in errs.values()), "config 1's recall@20 and ndcg@20 match the CPU's")
+
+
+class PlainSteps(TrainStepBuilder):
+    """The step through the kernels' plain versions on the card: the
+    gather's and the Adagrad update's, every table at once."""
+
+    def lookup(self, tables, ids):
+        return dict(zip(ids, gather_rows_multi_ref([tables[n] for n in ids], list(ids.values())))), {}
+
+    def sparse_update_deduped_all(self, tables, opt_states, uids, grads, lr):
+        names = list(uids)
+        new_t, new_a = fused_rowwise_adagrad_multi_ref(
+            [tables[n] for n in names], [opt_states[n]["acc"] for n in names],
+            [uids[n] for n in names], [grads[n] for n in names], lr, self.optim_cfg.eps)
+        return dict(zip(names, new_t)), {n: {"acc": a} for n, a in zip(names, new_a)}
+
+
+def mf_batches(rows: int, count: int) -> list:
+    """bench.py's MF batches: (user, pos, neg) uniform in [0, rows), drawn
+    in that order from ``np.random.default_rng(0)``, on the card."""
+    rng = np.random.default_rng(0)
+    return [{k: to_device(rng.integers(0, rows, BATCH).astype(np.int32)) for k in ("user", "pos", "neg")}
+            for _ in range(count)]
+
+
+def phase_mf_bench(card: str, paths: dict) -> tuple:
+    """MF at bench.py's shape on the card: 8 steps counted (one gather and
+    one Adagrad launch a step); the loss finite and falling on a held
+    batch (the first, whose rows the steps train); one step bit for bit on
+    repeat and through the plain versions on the card; at 10 000 rows one
+    step against the CPU; the kernels' times at this shape and the step's
+    median. Returns (model, trained state, the kernels' records)."""
+    model = MF(DataSpec.interaction(MF_ROWS, MF_ROWS), MF_DIM)
+    optim = OptimConfig(learning_rate=0.05, sparse_optimizer="rowwise_adagrad")
+    builder = TrainStepBuilder(model, "bpr", optim)
+    state = builder.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+    batches = mf_batches(MF_ROWS, 8)
+    start = copy_state(state)
+    held = batches[0]
+    before = held_loss(builder, state, held)
+    reset_launches()
+    losses = []
+    for batch in batches:
+        state, metrics = builder.step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    paths["bench_mf"] = launches = read_launches()
+    after = held_loss(builder, state, held)
+    losses = [x.item() for x in losses]
+    mb = sum(t.numel() * 4 for t in state["tables"].values()) / 1e6
+    print(f"MF at bench.py's shape: {MF_ROWS} users and items, d={MF_DIM} (tables {mb:.1f} MB), bpr, "
+          f"rowwise Adagrad lr {optim.learning_rate}: 8 steps of {BATCH}, launches {launches}; losses {losses}; "
+          f"held batch {before:.6f} -> {after:.6f}")
+    for name in WRAPPERS:
+        want = 8 if name in ("gather_rows_multi", "fused_rowwise_adagrad_multi") else 0
+        check(launches[name] == want, f"MF at bench.py's shape: {name} ran {want // 8} times a step")
+    check(bool(np.isfinite(losses + [after]).all()), "MF's loss is finite")
+    check(after < before, "MF's loss on the held batch falls")
+
+    one, m_one = builder.step(copy_state(start), held)
+    two, m_two = builder.step(copy_state(start), held)
+    plain, m_plain = PlainSteps(model, "bpr", optim).step(copy_state(start), held)
+    torch.cuda.synchronize()
+    repeat = states_equal(one, two) and torch.equal(m_one["loss"], m_two["loss"])
+    same_plain = states_equal(one, plain) and torch.equal(m_one["loss"], m_plain["loss"])
+    print(f"MF step: repeats bit for bit {repeat}; bit for bit the step through the plain versions on "
+          f"the card {same_plain}")
+    check(repeat, "an MF step repeats bit for bit")
+    check(same_plain, "an MF step is bit for bit the step through the plain versions")
+    del one, two, plain, start
+    mf_card_vs_cpu()
+    records = mf_kernel_times(builder, state, held)
+    return model, state, records
+
+
+def mf_card_vs_cpu() -> None:
+    """One bpr step of MF at 10 000 users and items, d=64, on the card and
+    on the CPU from one state, on a batch of 8192: loss, tables and
+    accumulators within MF_CPU_RTOL."""
+    model = MF(DataSpec.interaction(MF_CPU_ROWS, MF_CPU_ROWS), MF_DIM)
+    optim = OptimConfig(learning_rate=0.05, sparse_optimizer="rowwise_adagrad")
+    card = TrainStepBuilder(model, "bpr", optim)
+    cpu = TrainStepBuilder(model, "bpr", optim, device="cpu")
+    state = card.init_state(torch.Generator(device=DEVICE).manual_seed(SEED + 6))
+    cpu_state = copy_state(state, "cpu")
+    batch = mf_batches(MF_CPU_ROWS, 1)[0]
+    new, m = card.step(state, batch)
+    want, m_cpu = cpu.step(cpu_state, {k: v.cpu() for k, v in batch.items()})
+    loss_rel = abs(m["loss"].item() - m_cpu["loss"].item()) / abs(m_cpu["loss"].item())
+    errs = {name: max_err(new["tables"][name].cpu(), want["tables"][name]) for name in want["tables"]}
+    ok = all(within(new["tables"][n].cpu(), want["tables"][n], MF_CPU_RTOL, MF_CPU_RTOL)
+             and within(new["sparse_opt"][n]["acc"].cpu(), want["sparse_opt"][n]["acc"], MF_CPU_RTOL,
+                        MF_CPU_RTOL) for n in want["tables"])
+    print(f"MF at {MF_CPU_ROWS} rows, one step on the card against the CPU: loss relative error "
+          f"{loss_rel:.3e}, tables max_abs_err {errs} (rtol {MF_CPU_RTOL}, atol {MF_CPU_RTOL} x max|ref|)")
+    check(loss_rel <= MF_CPU_RTOL, "MF's loss on the card matches the CPU's")
+    check(ok, "MF's tables and accumulators on the card match the CPU's")
+
+
+def mf_kernel_times(builder, state, batch) -> dict:
+    """Both kernels at MF's shape (3 tables: B, 2B and 2B ids; D = 64, 64,
+    1): the gather beside its bound, its plain version and 3
+    ``index_select``; the Adagrad update on the step's combined gradients
+    (on copies of the tables); the step's median and device-busy share."""
+    model = builder.model
+    ids = model.lookup_ids(batch)
+    tables = [state["tables"][n] for n in ids]
+    field_ids = list(ids.values())
+    g_ms = device_ms(lambda: gather_rows_multi(tables, field_ids), 1)
+    g_plain = device_ms(lambda: gather_rows_multi_ref(tables, field_ids), 1)
+    g_lib = device_ms(lambda: [torch.index_select(t, 0, i) for t, i in zip(tables, field_ids)], 1)
+    g_bound, g_by = bound_ms(sum(i.shape[0] * (t.shape[1] * 4 * 2 + 4) for t, i in zip(tables, field_ids)), 0)
+    shapes = [(tuple(t.shape), i.shape[0]) for t, i in zip(tables, field_ids)]
+    print(f"gather_rows_multi at MF's shape {shapes} [device time, CUDA graph]: one launch {g_ms:.4f} ms; "
+          f"plain {g_plain:.4f} ms; 3 index_select {g_lib:.4f} ms; bound {g_bound:.4f} ms ({g_by})")
+
+    _, _, row_grads, _ = builder.loss_and_grads(state, batch)
+    lr = builder.sparse_schedule(state["step"])
+    work = []
+    for name, field in ids.items():
+        table = state["tables"][name].clone()
+        uids, g = combine_duplicate_ids(field, row_grads[name], sentinel=table.shape[0])
+        work.append((table, state["sparse_opt"][name]["acc"].clone(), uids, g))
+    adagrad = adagrad_times(work, lr, f"MF's 3 tables {[tuple(w[0].shape) for w in work]}")
+    del work
+
+    holder = {"state": state}
+
+    def run_step():
+        holder["state"], _ = builder.step(holder["state"], batch)
+
+    median = medians_in_turns({"MF step": run_step})["MF step"]
+    print(f"MF step at bench.py's shape, batch {BATCH} (host clock, batch on the card), median over 10 "
+          f"steps {median:.3f} ms ({BATCH / median * 1e3:.1f} examples/s)")
+    busy = profile(run_step, "MF step at bench.py's shape", median)
+    return {"gather_rows_multi": {"ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib, "bound_ms": g_bound,
+                                  "bound_by": g_by, "shapes": shapes},
+            "fused_rowwise_adagrad_multi": {**adagrad, "shapes": shapes},
+            "step_ms": median, "step_device_busy": busy}
+
+
+def same_topk(ids, vals, want_ids, want_vals, scores, next_vals) -> bool:
+    """Values equal; ids equal wherever a value is not tied with its
+    neighbours (nor, at the k-th place, with the (k+1)-th value); every id
+    carries its value in ``scores``, once a row."""
+    if not torch.equal(vals, want_vals):
+        return False
+    tied = torch.zeros_like(vals, dtype=torch.bool)
+    tied[:, 1:] |= vals[:, 1:] == vals[:, :-1]
+    tied[:, :-1] |= vals[:, 1:] == vals[:, :-1]
+    tied[:, -1] |= vals[:, -1] == next_vals
+    ids_l = ids.long()
+    sorted_ids = ids_l.sort(dim=1).values
+    return (torch.equal(ids[~tied], want_ids[~tied])
+            and torch.equal(torch.gather(scores, 1, ids_l), vals)
+            and bool((sorted_ids[:, 1:] != sorted_ids[:, :-1]).all()))
+
+
+def phase_mf_topk(card: str, paths: dict, model, state) -> None:
+    """``Recommender.recommend(users, k=100)`` for 1024 users over the
+    1 000 000 items of phase 14's trained model: one gather launch a call;
+    ids and values those of a plain ``torch.matmul`` + ``torch.topk`` on the
+    card; latency and users/s; the product's and the top-k's device times
+    beside their bounds; a profile of one call."""
+    rec = Recommender(model, {"tables": state["tables"], "dense": {}})
+    users_np = np.random.default_rng(SEED + 5).integers(0, MF_ROWS, TOPK_USERS).astype(np.int32)
+    reset_launches()
+    ids, vals = rec.recommend(users_np, TOPK_K)
+    paths["serve_mf"] = launches = read_launches()
+    check(launches["gather_rows_multi"] == 1 and sum(launches.values()) == 1,
+          "recommend ran one gather launch, and no other")
+    tables = rec.params["tables"]
+    users = to_device(users_np)
+    u = torch.index_select(tables["user_emb"], 0, users.long())
+    scores = torch.matmul(u, tables["item_emb"].T) + tables["item_bias"][:, 0][None, :]
+    top = torch.topk(scores, TOPK_K + 1)
+    want_vals, want_ids = top.values[:, :TOPK_K], top.indices[:, :TOPK_K]
+    got_ids, got_vals = to_device(ids).long(), to_device(vals)
+    same = same_topk(got_ids, got_vals, want_ids, want_vals, scores, top.values[:, TOPK_K])
+    ties = int((want_vals[:, 1:] == want_vals[:, :-1]).sum())
+    print(f"recommend: {TOPK_USERS} users, k={TOPK_K} over {MF_ROWS} items (d={MF_DIM}): ids {ids.dtype} "
+          f"{ids.shape}, launches {launches}; equal to a plain matmul + topk on the card (values bit for bit, "
+          f"ids where untied; {ties} tied neighbours): {same}")
+    check(ids.shape == vals.shape == (TOPK_USERS, TOPK_K) and bool(np.isfinite(vals).all()),
+          "recommend gives finite [users, k] ids and scores")
+    check(same, "recommend's ids and values are those of the plain top-k")
+
+    times = []
+    for _ in range(51):
+        t0 = time.perf_counter()
+        rec.recommend(users_np, TOPK_K)  # ends in copying ids and scores to the host
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = sorted(times[1:])
+    median, p99 = statistics.median(times), times[int(0.99 * (len(times) - 1))]
+    prod_ms = device_ms(lambda: torch.matmul(u, tables["item_emb"].T), 1)
+    topk_ms = device_ms(lambda: torch.topk(scores, TOPK_K), 1)
+    score_bytes = TOPK_USERS * MF_ROWS * 4
+    prod_bound, prod_by = bound_ms(u.numel() * 4 + tables["item_emb"].numel() * 4 + score_bytes,
+                                   2 * TOPK_USERS * MF_ROWS * MF_DIM)
+    topk_bound, topk_by = bound_ms(score_bytes + TOPK_USERS * TOPK_K * 8, TOPK_USERS * MF_ROWS)
+    call_bound, call_by = bound_ms(sum(t.numel() * 4 for t in tables.values()) + 2 * score_bytes,
+                                   2 * TOPK_USERS * MF_ROWS * MF_DIM + 2 * TOPK_USERS * MF_ROWS)
+    print(f"recommend latency (host clock, request copy and results included) over 50 calls: median "
+          f"{median:.3f} ms, p99 {p99:.3f} ms, {TOPK_USERS / median * 1e3:.1f} users/s ({card})")
+    print(f"recommend's parts [device time, CUDA graph]: the product [{TOPK_USERS}, {MF_DIM}] x [{MF_DIM}, "
+          f"{MF_ROWS}] {prod_ms:.4f} ms (bound {prod_bound:.4f} ms, {prod_by}); torch.topk k={TOPK_K} over "
+          f"[{TOPK_USERS}, {MF_ROWS}] {topk_ms:.4f} ms (bound {topk_bound:.4f} ms, {topk_by}); the whole "
+          f"call's bound {call_bound:.4f} ms ({call_by}: the 4.1 GB score matrix written and read)")
+    profile(lambda: rec.recommend(users_np, TOPK_K), "recommend call", median)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -1463,12 +1810,19 @@ def main() -> int:
     phase_trainer(card, paths)
     phase_proxy_band(card)
     phase_trainer_card_vs_cpu()
+    phase_config1_band(card, paths)
+    phase_config1_card_vs_cpu(paths)
+    model, state, mf_records = phase_mf_bench(card, paths)
+    phase_mf_topk(card, paths, model, state)
+    del model, state
     for r in records:
         by_path = {path: launches[r["name"]] for path, launches in paths.items()}
         r.update({"launches": sum(by_path.values()), "launches_by_path": by_path})
         r.update({k: KERNELS[r["name"]][k] for k in ("source", "replaces")})
         if r["name"].startswith("cross_v2"):
             r["general_route"] = general  # the wide phase's shapes past the tiles
+        if r["name"] in mf_records:
+            r["mf_bench"] = mf_records[r["name"]]  # MF's 3 tables at bench.py's shape
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -459,3 +459,126 @@ def test_train_step_on_the_card_matches_the_cpu(device, name, rank):
         _close(new["tables"][name].cpu(), want["tables"][name], 1e-4)
         _close(new["sparse_opt"][name]["acc"].cpu(), want["sparse_opt"][name]["acc"], 1e-4)
     assert new["step"] == 1 and all(t.device.type == "cuda" for t in tree_leaves(new["tables"]))
+
+
+# ---- retrieval (config 1, MF): the kernels at MF's shapes, the top-k ----
+
+def test_gather_and_adagrad_multi_over_mf_tables_are_bitwise_the_plain_versions(device):
+    """MF's three tables in one launch each: user_emb [U, 64] with B ids,
+    item_emb [V, 64] and item_bias [V, 1] with the same 2B ids ([pos; neg],
+    one id vector for both); the bias takes the gather's per-float route.
+    Both kernels bit for bit their plain versions, and the update of the
+    rows no real id names leaves them as they were."""
+    rng = np.random.default_rng(21)
+    bsz, users, items = 8192, 50_000, 200_000
+    tables = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+              for shape in ((users, 64), (items, 64), (items, 1))]
+    user_ids = torch.from_numpy(rng.integers(0, users, bsz).astype(np.int32)).to(device)
+    item_ids = torch.from_numpy(rng.integers(0, items, 2 * bsz).astype(np.int32)).to(device)
+    ids = [user_ids, item_ids, item_ids]
+    before = gather_rows_multi.launches
+    rows = gather_rows_multi(tables, ids)
+    torch.cuda.synchronize()
+    assert gather_rows_multi.launches == before + 1
+    for got, want in zip(rows, gather_rows_multi_ref(tables, ids)):
+        assert torch.equal(got, want)
+    assert [tuple(r.shape) for r in rows] == [(bsz, 64), (2 * bsz, 64), (2 * bsz, 1)]
+
+    accs, uids, grads = [], [], []
+    for table, field_ids in zip(tables, ids):
+        vocab, dim = table.shape
+        g = torch.from_numpy((1e-2 * rng.normal(size=(field_ids.shape[0], dim))).astype(np.float32)).to(device)
+        u, c = combine_duplicate_ids(field_ids, g, sentinel=vocab)
+        accs.append(torch.from_numpy(rng.uniform(0, 0.1, vocab).astype(np.float32)).to(device))
+        uids.append(u)
+        grads.append(c)
+    copies = lambda: ([t.clone() for t in tables], [a.clone() for a in accs])  # noqa: E731
+    before = fused_rowwise_adagrad_multi.launches
+    got_t, got_a = fused_rowwise_adagrad_multi(*copies(), uids, grads, 0.05)
+    torch.cuda.synchronize()
+    assert fused_rowwise_adagrad_multi.launches == before + 1
+    ref_t, ref_a = fused_rowwise_adagrad_multi_ref(*copies(), uids, grads, 0.05)
+    again_t, again_a = fused_rowwise_adagrad_multi(*copies(), uids, grads, 0.05)
+    for f, table in enumerate(tables):
+        assert torch.equal(got_t[f], ref_t[f]) and torch.equal(got_a[f], ref_a[f]), f
+        assert torch.equal(got_t[f], again_t[f]) and torch.equal(got_a[f], again_a[f]), f
+        touched = torch.zeros(table.shape[0], dtype=torch.bool, device=device)
+        touched[uids[f][uids[f] < table.shape[0]].long()] = True
+        assert torch.equal(got_t[f][~touched], table[~touched])
+        assert bool((got_t[f][touched] != table[touched]).any(dim=1).all())
+
+
+def test_mask_items_and_chunked_topk_take_sentinels_on_the_card(device):
+    """Exclusions with sentinels (a whole row of them), repeats and slots
+    past the count on CUDA tensors: no device-side assert, and the CPU's
+    results (the same scores, so values equal; ids where untied)."""
+    from tfrec_tpu_torch.eval.retrieval import NEG_INF, chunked_topk, mask_items, topk_scores
+
+    rng = np.random.default_rng(22)
+    b, v, chunk, k = 64, 5000, 1536, 100
+    scores = torch.from_numpy(rng.normal(size=(b, v)).astype(np.float32))
+    padded = np.full((b, 40), v, np.int32)
+    counts = rng.integers(0, 41, b).astype(np.int32)
+    for r in range(b):
+        padded[r, : counts[r]] = rng.choice(v, counts[r], replace=False)
+    padded[0, :], counts[0] = v, 40        # every slot the sentinel
+    padded[1, 1], counts[1] = padded[1, 0], max(counts[1], 2)
+    padded, counts = torch.from_numpy(padded), torch.from_numpy(counts)
+    want = mask_items(scores.clone(), padded, counts)
+    got = mask_items(scores.to(device), padded.to(device), counts.to(device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and torch.equal(want[0], scores[0])
+    assert int((want == NEG_INF).sum()) > 0
+    vals, ids = topk_scores(scores.to(device), k, padded.to(device), counts.to(device))
+    want_v, _ = topk_scores(scores.clone(), k, padded, counts)
+    assert torch.equal(vals.cpu(), want_v) and ids.dtype == torch.int32
+    assert torch.equal(torch.gather(want, 1, ids.cpu().long()), vals.cpu())
+
+    def chunk_fn(on):
+        padded_scores = torch.full((b, -(-v // chunk) * chunk), 0.0)
+        padded_scores[:, :v] = scores
+        padded_scores = padded_scores.to(on)
+        return lambda users, start: padded_scores[users.long(), start : start + chunk]
+
+    users = torch.arange(b, dtype=torch.int32)
+    got_v, got_i = chunked_topk(chunk_fn(device), users.to(device), v, k, chunk, padded.to(device),
+                                counts.to(device))
+    cpu_v, cpu_i = chunked_topk(chunk_fn("cpu"), users, v, k, chunk, padded, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v.cpu(), cpu_v) and torch.equal(got_v.cpu(), want_v)
+    assert torch.equal(torch.gather(want, 1, got_i.cpu().long()), cpu_v)
+    assert not bool((got_i == v).any())  # k fits every row's unmasked items
+
+
+def test_mf_train_step_and_recommend_on_the_card_match_the_cpu(device):
+    """One MF step under bpr at config 1's l2_reg (dense Adagrad on an empty
+    tree, rowwise Adagrad) on the card against the CPU, with the kernels'
+    launches counted; then the top-k of the trained tables, the card's
+    against the CPU's."""
+    from tfrec_tpu_torch.serve import Recommender
+
+    users, items, bsz = 943, 1682, 2048
+    model = build_model(ModelConfig(name="mf", embed_dim=64), DataSpec.interaction(users, items))
+    optim = OptimConfig(learning_rate=0.1, dense_optimizer="adagrad", sparse_optimizer="rowwise_adagrad")
+    card = TrainStepBuilder(model, "bpr", optim, l2_reg=0.03)
+    cpu = TrainStepBuilder(model, "bpr", optim, l2_reg=0.03, device="cpu")
+    state = card.init_state(torch.Generator(device="cuda").manual_seed(0))
+    cpu_state = copy_state(state, "cpu")
+    rng = np.random.default_rng(23)
+    batch = {"user": rng.integers(0, users, bsz), "pos": rng.integers(0, items, bsz),
+             "neg": rng.integers(0, items, bsz)}
+    batch = {k: torch.from_numpy(v.astype(np.int32)) for k, v in batch.items()}
+    before = gather_rows_multi.launches, fused_rowwise_adagrad_multi.launches
+    new, m = card.step(state, {k: v.to(device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert (gather_rows_multi.launches, fused_rowwise_adagrad_multi.launches) == (before[0] + 1, before[1] + 1)
+    want, m_cpu = cpu.step(cpu_state, batch)
+    torch.testing.assert_close(m["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
+    for name in want["tables"]:
+        _close(new["tables"][name].cpu(), want["tables"][name], 1e-5)
+    rec = Recommender(model, {"tables": new["tables"], "dense": {}})
+    cpu_rec = Recommender(model, {"tables": want["tables"], "dense": {}}, device="cpu")
+    ids, vals = rec.recommend(np.arange(64), 20)
+    cpu_ids, cpu_vals = cpu_rec.recommend(np.arange(64), 20)
+    np.testing.assert_allclose(vals, cpu_vals, rtol=1e-5, atol=1e-5)
+    assert (ids == cpu_ids).mean() > 0.95  # products summed in other orders may swap near-ties

@@ -27,7 +27,8 @@ def test_port_imports_with_jax_blocked():
     )
     assert "tfrec_tpu_torch.serve" in modules and "tfrec_tpu_torch.kernels.cross_cuda" in modules
     assert {"tfrec_tpu_torch.train.trainer", "tfrec_tpu_torch.eval.metrics", "tfrec_tpu_torch.data.samplers",
-            "tfrec_tpu_torch.utils.logging", "tfrec_tpu_torch.utils.prefetch"} <= set(modules)
+            "tfrec_tpu_torch.utils.logging", "tfrec_tpu_torch.utils.prefetch", "tfrec_tpu_torch.models.mf",
+            "tfrec_tpu_torch.data.dataset", "tfrec_tpu_torch.eval.retrieval"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -66,3 +67,8 @@ def test_config_copies_match_the_reference(name):
 def test_dcn_criteo_copy_matches_the_reference(path):
     assert dataclasses.asdict(zoo.dcn_criteo(path)) == dataclasses.asdict(jax_zoo.dcn_criteo(path))
     assert tfrec_tpu_torch.__version__
+
+
+@pytest.mark.parametrize("path", [None, "ml-100k/u.data"])
+def test_mf_bpr_ml100k_copy_matches_the_reference(path):
+    assert dataclasses.asdict(zoo.mf_bpr_ml100k(path)) == dataclasses.asdict(jax_zoo.mf_bpr_ml100k(path))

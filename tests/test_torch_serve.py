@@ -141,7 +141,9 @@ def test_build_model_guards():
     for kw in ({"lane_pack": True}, {"stack_tables": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(ModelConfig(name="dcn", **kw), spec)
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+        build_model(ModelConfig(name="fism"), spec)
+    with pytest.raises(ValueError, match="interaction DataSpec"):
         build_model(ModelConfig(name="mf"), spec)
     # AUTO lane packing builds per-field tables in the port.
     model = build_model(ModelConfig(name="dcn", embed_dim=8, lane_pack=None), spec)

@@ -418,8 +418,8 @@ def test_logloss_matches_jax_and_unported_losses_are_refused():
     want = jax_losses.logloss(jnp.asarray(logits), {"label": jnp.asarray(labels)})
     got = losses.make_loss("logloss")(torch.from_numpy(logits), {"label": torch.from_numpy(labels)})
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        losses.make_loss("bpr")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        losses.make_loss("sasrec")
     with pytest.raises(ValueError, match="unknown loss"):
         losses.make_loss("nope")
 
@@ -685,7 +685,7 @@ def test_train_step_builder_defaults_to_cuda_and_refuses_unported_options():
             TrainStepBuilder(model, "logloss", OptimConfig())
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         TrainStepBuilder(model, "logloss", OptimConfig(), device="cpu", group_dedup=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match=r"\(bpr/hinge\), not 'logloss'"):
         TrainStepBuilder(model, "logloss", OptimConfig(), device="cpu", device_negatives=True)
     builder = TrainStepBuilder(model, "logloss", OptimConfig(), device="cpu")
     state = builder.init_state(torch.Generator().manual_seed(0))

@@ -253,9 +253,15 @@ def test_trainer_logs_an_empty_epoch_and_a_dispatch_past_the_step_cap():
         Trainer(_config(configs, "dcn", batch_size=4096), quiet=True, device="cpu").train()
 
 
+# Interaction data with MF, where the sampled eval protocol applies.
+_INTERACTION = {"data": {"source": "synthetic_implicit", "num_users": 64, "num_items": 128,
+                         "interactions_per_user": 8},
+                "model": {"name": "mf"}}
+
+
 @pytest.mark.parametrize("section,override,match", [
     ("data", {"source": "criteo", "path": "criteo/train.txt"}, "item 10"),
-    ("data", {"source": "synthetic_implicit"}, "items 8-9"),
+    ("train", {"eval_protocol": "sampled", **_INTERACTION}, "item 9"),
     ("model", {"name": "deepfm"}, "item 12"),
     ("train", {"checkpoint_dir": "ckpt", "checkpoint_every_epochs": 1}, "item 10"),
     ("train", {"checkpoint_dir": "ckpt", "resume": True}, "item 10"),
@@ -267,6 +273,10 @@ def test_trainer_logs_an_empty_epoch_and_a_dispatch_past_the_step_cap():
 ])
 def test_trainer_refuses_what_is_not_ported_by_naming_its_item(section, override, match):
     cfg = _config(configs, "dcn")
+    override = dict(override)
+    for other in ("data", "model"):  # the sections of another data path, where given
+        if other in override:
+            cfg = cfg.replace(**{other: dataclasses.replace(getattr(cfg, other), **override.pop(other))})
     cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **override)})
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {match}"):
         Trainer(cfg, quiet=True, device="cpu")

@@ -2,7 +2,9 @@
 
 ``params_from_jax`` takes a JAX params tree whose leaves are numpy arrays
 (``{"tables": {...}, "dense": {...}}``, e.g. ``jax.tree.map(np.asarray,
-params)``) and returns the same tree of CPU float32 tensors with per-field
+params)``) and returns the same tree of CPU float32 tensors. A retrieval
+model's tables (MF: ``user_emb``, ``item_emb``, ``item_bias`` [V, 1]) are
+carried by name, and its dense tree is ``{}``. A CTR model gets per-field
 tables, whichever of the three table layouts the JAX model used:
 
 - per-field tables ``field_{f}`` [V_f, d_f];
@@ -83,9 +85,19 @@ def _field_tables(tables: Dict[str, Any], model: CTRBase) -> Dict[str, np.ndarra
     )
 
 
-def params_from_jax(np_params: Dict[str, Any], model: CTRBase) -> Dict[str, Any]:
+def _named_tables(tables: Dict[str, Any], model) -> Dict[str, np.ndarray]:
+    names = [spec.name for spec in model.table_specs()]
+    if set(tables) != set(names):
+        raise ValueError(f"unrecognised table layout {sorted(tables)}: the model has {names}")
+    return {name: np.asarray(tables[name]) for name in names}
+
+
+def params_from_jax(np_params: Dict[str, Any], model) -> Dict[str, Any]:
     """JAX params tree of numpy arrays -> the port's params (CPU tensors)."""
-    tables = _field_tables(np_params["tables"], model)
+    if isinstance(model, CTRBase):
+        tables = _field_tables(np_params["tables"], model)
+    else:
+        tables = _named_tables(np_params["tables"], model)
     for spec in model.table_specs():
         if tables[spec.name].shape != spec.shape:
             raise ValueError(
@@ -118,12 +130,12 @@ def _optax_state(tree: Any, field: str):
     return None
 
 
-def train_state_from_jax(np_state: Dict[str, Any], model: CTRBase) -> Dict[str, Any]:
+def train_state_from_jax(np_state: Dict[str, Any], model) -> Dict[str, Any]:
     """A JAX train state of numpy arrays -> the port's train state (CPU
     tensors; ``train.step.copy_state(state, "cuda")`` moves it).
 
-    Reads ``step``, ``tables`` (any layout, as ``params_from_jax``),
-    ``dense``, the per-field ``sparse_opt`` states (rowwise Adagrad's
+    Reads ``step``, ``tables`` (as ``params_from_jax``), ``dense``, the
+    per-table ``sparse_opt`` states (rowwise Adagrad's
     ``acc``, rowwise Adam's ``m``/``v``/``t``, SGD's none) and the optax
     ``dense_opt``: Adam's ``mu``/``nu``/``count``, Adagrad's
     ``sum_of_squares`` and the schedule's ``count``, or SGD's ``count``.

@@ -1,0 +1,183 @@
+"""Interaction datasets: id densifying, splitting, CSR matrices.
+
+A numpy and scipy copy of ``tfrec_tpu/data/dataset.py``: a flat (user,
+item, rating, time) log with dense ids, split per user by ratio or leave
+one out, with user x item CSR matrices of the train and test parts. The
+port imports nothing of the JAX package, so it keeps its own copy; a test
+holds the two equal array for array.
+
+``build_dataset`` generates ``synthetic_implicit`` data. Two sources of the
+reference are refused by naming their ROADMAP Queue 1 item: MovieLens'
+files (``source="movielens"``, ``splitter="given"``; the files are not in
+the repository, item 10) and the social graph of SBPR
+(``social_path``/``social_degree``, item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import scipy.sparse as sp
+
+from tfrec_tpu_torch.configs import DataConfig
+
+
+@dataclasses.dataclass
+class Interactions:
+    """A flat (user, item, rating, time) log with densified ids."""
+
+    users: np.ndarray  # int32 [N]
+    items: np.ndarray  # int32 [N]
+    ratings: np.ndarray  # float32 [N]
+    times: np.ndarray  # float64 [N] (0 when absent)
+    num_users: int
+    num_items: int
+
+    def __len__(self) -> int:
+        return len(self.users)
+
+
+@dataclasses.dataclass
+class Dataset:
+    """Train/test split over an interaction log. ``train_csr``/``test_csr``
+    are user x item CSR matrices of ratings (1.0 for implicit data): the
+    evaluator ranks each user's test positives against the full catalog
+    with the train items masked."""
+
+    train: Interactions
+    test: Interactions
+    num_users: int
+    num_items: int
+
+    @property
+    def train_csr(self) -> sp.csr_matrix:
+        if not hasattr(self, "_train_csr"):
+            self._train_csr = _to_csr(self.train, self.num_users, self.num_items)
+        return self._train_csr
+
+    @property
+    def test_csr(self) -> sp.csr_matrix:
+        if not hasattr(self, "_test_csr"):
+            self._test_csr = _to_csr(self.test, self.num_users, self.num_items)
+        return self._test_csr
+
+    def train_items_padded(self, pad_to: int | None = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-user train-item lists padded to a static width
+        (``eval.retrieval.padded_positives``)."""
+        from tfrec_tpu_torch.eval.retrieval import padded_positives
+
+        return padded_positives(self.train_csr, pad_to=pad_to)
+
+
+def _to_csr(inter: Interactions, num_users: int, num_items: int) -> sp.csr_matrix:
+    vals = np.where(inter.ratings == 0, 1.0, inter.ratings).astype(np.float32)
+    m = sp.csr_matrix((vals, (inter.users, inter.items)), shape=(num_users, num_items))
+    m.sum_duplicates()
+    return m
+
+
+def densify_ids(
+    raw_users: np.ndarray, raw_items: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """Map arbitrary raw ids to contiguous [0, n) int32 ids (sorted by raw id
+    for determinism)."""
+    uniq_u, users = np.unique(raw_users, return_inverse=True)
+    uniq_i, items = np.unique(raw_items, return_inverse=True)
+    return users.astype(np.int32), items.astype(np.int32), len(uniq_u), len(uniq_i)
+
+
+def filter_min_interactions(inter: Interactions, min_count: int) -> Interactions:
+    """Drop users with fewer than ``min_count`` interactions, then re-densify."""
+    if min_count <= 1:
+        return inter
+    counts = np.bincount(inter.users, minlength=inter.num_users)
+    keep = counts[inter.users] >= min_count
+    users, items, nu, ni = densify_ids(inter.users[keep], inter.items[keep])
+    return Interactions(users=users, items=items, ratings=inter.ratings[keep],
+                        times=inter.times[keep], num_users=nu, num_items=ni)
+
+
+def split_ratio(inter: Interactions, test_fraction: float, seed: int) -> Dataset:
+    """Random per-user holdout: each user keeps >= 1 train interaction."""
+    rng = np.random.default_rng(seed)
+    n = len(inter)
+    order = rng.permutation(n)
+    # Each user's interactions in a random order; the first test_fraction of
+    # them go to test, but never a user's last train interaction.
+    is_test = np.zeros(n, dtype=bool)
+    user_sorted = np.argsort(inter.users[order], kind="stable")
+    shuffled = order[user_sorted]
+    users_in_order = inter.users[shuffled]
+    boundaries = np.flatnonzero(np.diff(users_in_order)) + 1
+    for grp in np.split(shuffled, boundaries):
+        k = int(np.floor(len(grp) * test_fraction))
+        k = min(k, len(grp) - 1)
+        if k > 0:
+            is_test[grp[:k]] = True
+    return _make_split(inter, is_test)
+
+
+def split_leave_one_out(inter: Interactions, seed: int) -> Dataset:
+    """Hold out each user's most recent interaction (ties and missing
+    timestamps broken by a seeded shuffle); users with a single interaction
+    keep it in train."""
+    rng = np.random.default_rng(seed)
+    n = len(inter)
+    jitter = rng.random(n)
+    order = np.lexsort((jitter, inter.times, inter.users))
+    users_sorted = inter.users[order]
+    is_last = np.ones(n, dtype=bool)
+    is_last[:-1] = users_sorted[1:] != users_sorted[:-1]
+    counts = np.bincount(inter.users, minlength=inter.num_users)
+    is_test = np.zeros(n, dtype=bool)
+    last_idx = order[is_last]
+    keepable = counts[inter.users[last_idx]] > 1
+    is_test[last_idx[keepable]] = True
+    return _make_split(inter, is_test)
+
+
+def _make_split(inter: Interactions, is_test: np.ndarray) -> Dataset:
+    def take(mask: np.ndarray) -> Interactions:
+        return Interactions(users=inter.users[mask], items=inter.items[mask],
+                            ratings=inter.ratings[mask], times=inter.times[mask],
+                            num_users=inter.num_users, num_items=inter.num_items)
+
+    return Dataset(train=take(~is_test), test=take(is_test),
+                   num_users=inter.num_users, num_items=inter.num_items)
+
+
+def build_dataset(cfg: DataConfig) -> Dataset:
+    """Config-driven entry: generate the interactions, then split."""
+    if cfg.source == "movielens":
+        raise NotImplementedError(
+            "data.source='movielens' reads MovieLens' files, which are not in the repository; "
+            "the port trains on data.source='synthetic_implicit' until they are and its loader "
+            "is ported (ROADMAP Queue 1 item 10)")
+    if cfg.source != "synthetic_implicit":
+        raise ValueError(f"unknown interaction source {cfg.source!r}")
+    if cfg.social_path or cfg.social_degree > 0:
+        raise NotImplementedError(
+            "data.social_path / data.social_degree (the SBPR trust graph) is not ported yet: "
+            "ROADMAP Queue 1 item 12")
+    from tfrec_tpu_torch.data.synthetic import synthetic_implicit
+
+    inter = synthetic_implicit(
+        num_users=cfg.num_users,
+        num_items=cfg.num_items,
+        interactions_per_user=cfg.interactions_per_user,
+        latent_rank=cfg.latent_rank,
+        seed=cfg.seed,
+    )
+    if cfg.binarize_threshold > 0:
+        keep = inter.ratings >= cfg.binarize_threshold
+        users, items, nu, ni = densify_ids(inter.users[keep], inter.items[keep])
+        inter = Interactions(users=users, items=items, ratings=np.ones(keep.sum(), np.float32),
+                             times=inter.times[keep], num_users=nu, num_items=ni)
+    inter = filter_min_interactions(inter, cfg.min_interactions)
+    if cfg.splitter == "ratio":
+        return split_ratio(inter, cfg.test_fraction, cfg.seed)
+    if cfg.splitter == "leave_one_out":
+        return split_leave_one_out(inter, cfg.seed)
+    raise ValueError(f"unknown splitter {cfg.splitter!r}")

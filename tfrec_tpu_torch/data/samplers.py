@@ -1,9 +1,16 @@
-"""Mini-batch generators of the port: a copy of ``tfrec_tpu.data.samplers``'
-``CTRBatcher``.
+"""Mini-batch generators of the port: copies of ``tfrec_tpu.data.samplers``'
+``PairwiseSampler``, ``PointwiseSampler`` (with the negative sampling under
+them: ``_TrainPairIndex``, ``popularity_cdf``, ``_draw_items``,
+``_sample_negatives``) and ``CTRBatcher``.
 
-The port imports nothing of the JAX package, so it keeps its own copy; a
-test holds the two equal batch for batch. The interaction samplers
-(pairwise, pointwise, sequences) come with ROADMAP Queue 1 items 8-9.
+The port imports nothing of the JAX package, so it keeps its own copies.
+Every sampler draws from ``np.random.default_rng((seed, epoch))`` exactly
+as its original does, so a test holds the batches of the two equal, array
+for array. Batches have static shapes; the remainder is dropped. Negatives
+are drawn in vectorised numpy: membership in the train pairs is one
+``searchsorted`` a rejection round against a sorted key array. The
+history-carrying variants (``with_history``, FISM; ``build_history``,
+``build_sequences`` and their samplers) are ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -11,6 +18,180 @@ from __future__ import annotations
 from typing import Dict, Iterator
 
 import numpy as np
+
+from tfrec_tpu_torch.data.dataset import Dataset
+
+
+class _TrainPairIndex:
+    """Sorted u * num_items + i keys for O(log N) membership tests."""
+
+    def __init__(self, dataset: Dataset):
+        self.num_items = dataset.num_items
+        keys = (dataset.train.users.astype(np.int64) * dataset.num_items
+                + dataset.train.items.astype(np.int64))
+        self.keys = np.sort(keys)
+
+    def contains(self, users: np.ndarray, items: np.ndarray) -> np.ndarray:
+        q = users.astype(np.int64) * self.num_items + items.astype(np.int64)
+        idx = np.searchsorted(self.keys, q)
+        idx = np.minimum(idx, len(self.keys) - 1)
+        return self.keys[idx] == q
+
+
+def popularity_cdf(dataset: Dataset, beta: float = 0.75) -> np.ndarray:
+    """Inverse-CDF table for popularity-biased negatives: item i drawn with
+    probability proportional to train_count(i)^beta (beta=0 is uniform,
+    since 0^0 == 1 in numpy). Items absent from the train split are never
+    drawn for beta > 0."""
+    counts = np.bincount(dataset.train.items, minlength=dataset.num_items).astype(np.float64)
+    w = np.power(counts, beta)
+    total = w.sum()
+    if total <= 0:  # an empty train split: uniform
+        w = np.ones_like(w)
+        total = w.sum()
+    return np.cumsum(w / total)
+
+
+def _draw_items(rng: np.random.Generator, n: int, num_items: int,
+                cdf: np.ndarray | None) -> np.ndarray:
+    if cdf is None:
+        return rng.integers(0, num_items, size=n, dtype=np.int64)
+    return np.minimum(np.searchsorted(cdf, rng.random(n), side="right"),
+                      num_items - 1).astype(np.int64)
+
+
+def _sample_negatives(
+    rng: np.random.Generator,
+    index: _TrainPairIndex,
+    users: np.ndarray,
+    num_items: int,
+    max_rounds: int = 64,
+    cdf: np.ndarray | None = None,
+) -> np.ndarray:
+    """One negative a row, redrawing train positives for up to
+    ``max_rounds`` rounds; ``cdf`` makes the proposal popularity^beta. A
+    user who has every item keeps the last draw."""
+    negs = _draw_items(rng, len(users), num_items, cdf)
+    bad = index.contains(users, negs)
+    rounds = 0
+    while bad.any() and rounds < max_rounds:
+        negs[bad] = _draw_items(rng, int(bad.sum()), num_items, cdf)
+        bad = index.contains(users, negs)
+        rounds += 1
+    return negs.astype(np.int32)
+
+
+def _fixed_batches(batch_size: int,
+                   columns: Dict[str, np.ndarray]) -> Iterator[Dict[str, np.ndarray]]:
+    """Consecutive batches of ``batch_size`` rows of the columns; the
+    remainder is dropped."""
+    n = len(next(iter(columns.values())))
+    for start in range(0, n - batch_size + 1, batch_size):
+        yield {k: v[start : start + batch_size] for k, v in columns.items()}
+
+
+class PairwiseSampler:
+    """(user, pos, neg) batches for pairwise losses (BPR, hinge), with fresh
+    negatives and a fresh shuffle every epoch from (seed, epoch).
+
+    ``multi_neg=True`` gives {"user", "pos", "negs" [B, num_negatives]}
+    (sampled softmax); ``no_negatives=True`` gives {"user", "pos"} (in-batch
+    losses, and negatives drawn on the device); the default gives one
+    (pos, neg) row a negative. ``with_history`` (FISM) is ROADMAP Queue 1
+    item 12.
+    """
+
+    def __init__(
+        self,
+        dataset: Dataset,
+        batch_size: int,
+        num_negatives: int = 1,
+        seed: int = 0,
+        multi_neg: bool = False,
+        no_negatives: bool = False,
+        with_history: int = 0,
+        neg_cdf: "np.ndarray | None" = None,
+    ):
+        if with_history:
+            raise NotImplementedError(
+                "PairwiseSampler(with_history=...) (user histories for FISM) is not ported yet: "
+                "ROADMAP Queue 1 item 12")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_negatives = num_negatives
+        self.seed = seed
+        self.multi_neg = multi_neg
+        self.no_negatives = no_negatives
+        self.neg_cdf = neg_cdf
+        self.index = _TrainPairIndex(dataset)
+
+    def num_batches(self) -> int:
+        n = len(self.dataset.train)
+        if not (self.multi_neg or self.no_negatives):
+            n *= self.num_negatives
+        return n // self.batch_size
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng((self.seed, epoch))
+        train = self.dataset.train
+        if self.no_negatives:
+            perm = rng.permutation(len(train))
+            yield from _fixed_batches(self.batch_size,
+                                      {"user": train.users[perm], "pos": train.items[perm]})
+            return
+        if self.multi_neg:
+            users, pos = train.users, train.items
+            flat_users = np.repeat(users, self.num_negatives)
+            negs = _sample_negatives(rng, self.index, flat_users, self.dataset.num_items,
+                                     cdf=self.neg_cdf).reshape(-1, self.num_negatives)
+            perm = rng.permutation(len(users))
+            yield from _fixed_batches(self.batch_size,
+                                      {"user": users[perm], "pos": pos[perm], "negs": negs[perm]})
+            return
+        users = np.repeat(train.users, self.num_negatives)
+        pos = np.repeat(train.items, self.num_negatives)
+        negs = _sample_negatives(rng, self.index, users, self.dataset.num_items, cdf=self.neg_cdf)
+        perm = rng.permutation(len(users))
+        yield from _fixed_batches(self.batch_size,
+                                  {"user": users[perm], "pos": pos[perm], "neg": negs[perm]})
+
+
+class PointwiseSampler:
+    """(user, item, label) batches: every positive plus ``num_negatives``
+    sampled negatives a positive, labels 1 and 0 (pointwise logloss on
+    implicit data)."""
+
+    def __init__(
+        self,
+        dataset: Dataset,
+        batch_size: int,
+        num_negatives: int = 4,
+        seed: int = 0,
+        neg_cdf: "np.ndarray | None" = None,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_negatives = num_negatives
+        self.seed = seed
+        self.neg_cdf = neg_cdf
+        self.index = _TrainPairIndex(dataset)
+
+    def num_batches(self) -> int:
+        return len(self.dataset.train) * (1 + self.num_negatives) // self.batch_size
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng((self.seed, epoch))
+        train = self.dataset.train
+        neg_users = np.repeat(train.users, self.num_negatives)
+        neg_items = _sample_negatives(rng, self.index, neg_users, self.dataset.num_items,
+                                      cdf=self.neg_cdf)
+        users = np.concatenate([train.users, neg_users])
+        items = np.concatenate([train.items, neg_items])
+        labels = np.concatenate([np.ones(len(train), np.float32),
+                                 np.zeros(len(neg_users), np.float32)])
+        perm = rng.permutation(len(users))
+        yield from _fixed_batches(self.batch_size, {"user": users[perm], "item": items[perm],
+                                                    "label": labels[perm]})
 
 
 class CTRBatcher:

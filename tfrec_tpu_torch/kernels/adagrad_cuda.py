@@ -14,11 +14,12 @@ the sentinel tail of ``combine_duplicate_ids`` is skipped)::
 Tables and accumulators are updated IN PLACE and returned, as the TPU
 kernel aliases its table input to its output; a caller that needs the old
 values clones them first. On the card one pass does both parts (the TPU
-left the accumulator to XLA). The kernel sums each row's squares in another
-order than the plain version, so the two agree to about 1e-7 relative; the
-kernel repeats bit for bit, and a table's result is the same whichever
-tables share its launch. Real ids must be distinct within a table, as for
-the TPU kernel, and no two tables or accumulators may share memory.
+left the accumulator to XLA). The plain version sums each row's squares in
+the kernel's order (``_mean_square``) and rounds every step as the kernel
+does, so the two agree bit for bit at any width; the kernel repeats bit for
+bit, and a table's result is the same whichever tables share its launch.
+Real ids must be distinct within a table, as for the TPU kernel, and no
+two tables or accumulators may share memory.
 """
 
 from __future__ import annotations
@@ -35,6 +36,24 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
              ctypes.c_void_p, ctypes.c_void_p]
 
 
+def _mean_square(g: torch.Tensor) -> torch.Tensor:
+    """Each row's mean square, summed in the kernel's order: lane j of a
+    warp adds the squares of elements j, j + 32, ... in turn (a lane past
+    the row adds nothing, as adding 0 here), then a butterfly of pairwise
+    adds across the 32 lanes (lane l takes lane l ^ 16, ^ 8, ^ 4, ^ 2, ^ 1),
+    then the division by the width. Each add rounds alone, in f32."""
+    n, dim = g.shape
+    chunks = max(-(-dim // 32), 1)
+    sq = torch.nn.functional.pad(g * g, (0, chunks * 32 - dim)).view(n, chunks, 32)
+    s = sq[:, 0]
+    for c in range(1, chunks):
+        s = s + sq[:, c]
+    lane = torch.arange(32, device=g.device)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, lane ^ off]
+    return s[:, 0] / dim
+
+
 def fused_rowwise_adagrad_ref(table: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
                               grads: torch.Tensor, lr: float, eps: float = 1e-8):
     """Plain PyTorch version of the kernel, in place as well."""
@@ -42,7 +61,7 @@ def fused_rowwise_adagrad_ref(table: torch.Tensor, acc: torch.Tensor, uids: torc
     valid = (uids >= 0) & (uids < vocab)
     rows = uids[valid].long()
     g = grads[valid]
-    acc_rows = acc[rows] + (g * g).sum(dim=-1) / dim
+    acc_rows = acc[rows] + _mean_square(g)
     acc[rows] = acc_rows
     # A true division (``lr / tensor`` would multiply by a reciprocal).
     scale = torch.full_like(acc_rows, lr) / (acc_rows.sqrt() + eps)

@@ -1,12 +1,26 @@
-"""Model registry of the port: ``dcn`` and ``dcnv2`` so far."""
+"""Model registry of the port: ``mf``, ``dcn`` and ``dcnv2`` so far.
+
+The reference's other models are refused by naming the ROADMAP Queue 1
+item that ports them: fm, gmf, mlp and neumf (configs 2 and 3) item 9, the
+rest of the zoo item 12."""
 
 from __future__ import annotations
 
 from tfrec_tpu_torch.configs import ModelConfig
 from tfrec_tpu_torch.models.base import DataSpec, RecModel
 from tfrec_tpu_torch.models.dcn import DCN
+from tfrec_tpu_torch.models.mf import MF
 
-__all__ = ["DataSpec", "RecModel", "DCN", "build_model"]
+__all__ = ["DataSpec", "RecModel", "DCN", "MF", "build_model"]
+
+# The reference's models that the port does not build yet, by the ROADMAP
+# Queue 1 item that ports them.
+NOT_PORTED = {
+    **dict.fromkeys(("fm", "gmf", "mlp", "neumf"), 9),
+    **dict.fromkeys(("pop", "sbpr", "apr", "irgan", "wrmf", "ease", "lightgcn", "ngcf", "convncf",
+                     "deepfm", "nfm", "widedeep", "dlrm", "fism", "multvae", "multdae", "nais",
+                     "cdae", "fpmc", "sasrec", "gru4rec", "caser"), 12),
+}
 
 
 def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
@@ -17,14 +31,18 @@ def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
     on the GPU. An explicit ``lane_pack=True`` or ``stack_tables=True`` is
     refused until those layouts are ported (ROADMAP Queue 1).
     """
+    name = cfg.name.lower()
     if cfg.stack_tables or cfg.lane_pack:
         which = "stack_tables" if cfg.stack_tables else "lane_pack"
+        if name == "mf":
+            raise ValueError(f"model.{which} applies to CTR models, not {cfg.name!r}")
         raise NotImplementedError(
             f"model.{which}=True: the port builds per-field tables only "
             "(ROADMAP Queue 1, lane-packed and stacked layouts); "
             "convert.params_from_jax reads JAX params of either layout"
         )
-    name = cfg.name.lower()
+    if name == "mf":
+        return MF(data_spec, cfg.embed_dim)
     if name in ("dcn", "dcnv2"):
         if name == "dcn" and cfg.cross_rank > 0:
             raise ValueError(
@@ -42,7 +60,9 @@ def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
             dropout=cfg.dropout,
             field_dims=cfg.field_dims or None,
         )
-    raise ValueError(
-        f"unknown or not yet ported model {cfg.name!r}; tfrec_tpu_torch "
-        "builds: dcn, dcnv2"
-    )
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"model {cfg.name!r} is not ported yet: ROADMAP Queue 1 item {NOT_PORTED[name]}; "
+            "tfrec_tpu_torch builds: mf, dcn, dcnv2"
+        )
+    raise ValueError(f"unknown model {cfg.name!r}; tfrec_tpu_torch builds: mf, dcn, dcnv2")

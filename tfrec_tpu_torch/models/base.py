@@ -10,14 +10,18 @@ are interchangeable:
 - ``table_specs()``                 — which embedding tables exist.
 - ``init_dense(generator, device)`` — dense-tower params as a tree.
 - ``lookup_ids(batch)``             — {table: flat int32 ids} for a batch.
-- ``forward(dense, gathered, batch)`` — logits [B] from gathered rows.
+- ``forward(dense, gathered, batch)`` — logits from gathered rows: [B]
+  for pointwise, CTR and single-negative pairwise batches (s_pos - s_neg),
+  [B, 1+K] for K negatives a row, [B, B] for in-batch negatives.
+- retrieval models add ``score_all(params, user_ids)`` -> [B, num_items]
+  for full-catalog top-k, and ``dot_decomposition()``.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +45,10 @@ class DataSpec:
     field_widths: Tuple[int, ...] = ()
 
     @staticmethod
+    def interaction(num_users: int, num_items: int) -> "DataSpec":
+        return DataSpec(kind="interaction", num_users=num_users, num_items=num_items)
+
+    @staticmethod
     def ctr(
         field_vocabs: Sequence[int],
         num_dense: int,
@@ -54,6 +62,23 @@ class DataSpec:
             kind="ctr", field_vocabs=vocabs, num_dense=num_dense,
             field_widths=widths,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class DotRetrieval:
+    """Dot-product decomposition of a retrieval scorer: ``score_all(params,
+    u)`` equals ``user_vecs(dense, tables[user_table][u]) @
+    tables[item_table].T (+ tables[bias_table][:, 0])``. ``transform``
+    (optional) maps gathered user rows to query vectors with the dense
+    params; identity if None."""
+
+    user_table: str
+    item_table: str
+    bias_table: str | None = None
+    transform: Callable | None = None
+
+    def user_vecs(self, dense, user_rows: torch.Tensor) -> torch.Tensor:
+        return user_rows if self.transform is None else self.transform(dense, user_rows)
 
 
 class RecModel(nn.Module, abc.ABC):
@@ -85,3 +110,31 @@ class RecModel(nn.Module, abc.ABC):
             "tables": init_tables(generator, self.table_specs(), device),
             "dense": self.init_dense(generator, device),
         }
+
+    # ---- the retrieval surface (interaction models override) ----
+
+    def score_all(self, params, user_ids: torch.Tensor) -> torch.Tensor:
+        """[B, num_items] scores of the full catalog for a user batch."""
+        raise NotImplementedError(f"{type(self).__name__} is not a retrieval model")
+
+    def dot_decomposition(self) -> DotRetrieval | None:
+        """Non-None when ``score_all`` is a plain dot product against one item
+        table."""
+        return None
+
+    # ---- helpers of pairwise-capable models ----
+
+    @staticmethod
+    def is_pairwise(batch) -> bool:
+        return "pos" in batch
+
+    @staticmethod
+    def pair_item_ids(batch) -> torch.Tensor:
+        """The item ids of a pairwise batch, [pos; negs...], B * (1+K) long:
+        "neg" [B] for one negative a row, "negs" [B, K] (user-major) for K,
+        only "pos" for in-batch negatives."""
+        if "negs" in batch:
+            return torch.cat([batch["pos"], batch["negs"].reshape(-1)])
+        if "neg" in batch:
+            return torch.cat([batch["pos"], batch["neg"]])
+        return batch["pos"]

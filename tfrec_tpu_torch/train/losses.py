@@ -1,8 +1,12 @@
 """Training objectives: the counterpart of ``tfrec_tpu/train/losses.py``.
 
-Ported so far: ``logloss`` (pointwise CTR). ``make_loss`` refuses, by
-name, the reference's losses that are not ported yet (ROADMAP Queue 1
-items 8 and 12) rather than train with another objective.
+Pairwise losses take the model's pairwise output: s_pos - s_neg [B], or a
+[B, 1+K] score matrix whose column 0 is the positive; pointwise losses take
+logits [B] and the batch's labels. Each is a mean over the batch, in the
+reference's numerically stable form. Ported: ``bpr``, ``hinge``,
+``sampled_softmax``, ``in_batch_softmax``, ``logloss`` and ``mse``.
+``make_loss`` refuses, by name, the reference's model-specific objectives
+(ROADMAP Queue 1 item 12) rather than train with another one.
 """
 
 from __future__ import annotations
@@ -10,6 +14,49 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+
+# Losses whose batches carry (user, pos) rows and negatives; the trainer's
+# samplers key on these, as the reference's do.
+PAIRWISE_LOSSES = ("bpr", "hinge", "sampled_softmax", "in_batch_softmax", "apr", "irgan")
+MULTI_NEG_LOSSES = ("sampled_softmax", "irgan")
+IN_BATCH_LOSSES = ("in_batch_softmax",)
+
+
+def _as_pair_diff(x: torch.Tensor) -> torch.Tensor:
+    """1-D inputs are already s_pos - s_neg; a [B, 1+K] score matrix becomes
+    the per-negative differences [B, K]."""
+    if x.dim() == 2:
+        return x[:, :1] - x[:, 1:]
+    return x
+
+
+def bpr(pair_logits: torch.Tensor, batch: Dict) -> torch.Tensor:
+    """BPR: -mean log sigmoid(s_pos - s_neg) = mean log(1 + exp(-diff))."""
+    diff = _as_pair_diff(pair_logits)
+    return torch.mean(torch.logaddexp(torch.zeros_like(diff), -diff))
+
+
+def hinge(pair_logits: torch.Tensor, batch: Dict) -> torch.Tensor:
+    """Pairwise hinge with unit margin."""
+    return torch.mean(torch.clamp_min(1.0 - _as_pair_diff(pair_logits), 0.0))
+
+
+def sampled_softmax(scores: torch.Tensor, batch: Dict) -> torch.Tensor:
+    """Softmax over [B, 1+K] score matrices, column 0 the positive:
+    -mean log softmax(scores)[:, 0]."""
+    if scores.dim() != 2:
+        raise ValueError("sampled_softmax needs multi-negative batches ([B, 1+K] scores)")
+    return -torch.mean(torch.log_softmax(scores, dim=-1)[:, 0])
+
+
+def in_batch_softmax(scores: torch.Tensor, batch: Dict) -> torch.Tensor:
+    """Softmax over the [B, B] matrix of every user against every row's
+    positive; the diagonal is each user's own positive. A positive that
+    another row shares stays a valid target (the duplicate column shares
+    the probability)."""
+    if scores.dim() != 2 or scores.shape[0] != scores.shape[1]:
+        raise ValueError("in_batch_softmax needs the [B, B] user x batch-items score matrix")
+    return -torch.mean(torch.diagonal(torch.log_softmax(scores, dim=-1)))
 
 
 def logloss(logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -21,16 +68,28 @@ def logloss(logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tenso
     )
 
 
-_LOSSES: Dict[str, Callable] = {"logloss": logloss}
-# The reference's other losses, refused by name until they are ported.
-_NOT_PORTED = ("bpr", "hinge", "mse", "sampled_softmax", "in_batch_softmax", "multvae",
-               "cdae", "sasrec", "sbpr", "apr", "irgan")
+def mse(logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Squared error against (possibly real-valued) labels."""
+    return torch.mean((logits - batch["label"]) ** 2)
+
+
+_LOSSES: Dict[str, Callable] = {
+    "bpr": bpr,
+    "hinge": hinge,
+    "logloss": logloss,
+    "mse": mse,
+    "sampled_softmax": sampled_softmax,
+    "in_batch_softmax": in_batch_softmax,
+}
+# The reference's model-specific objectives, refused by name until their
+# models are ported.
+_NOT_PORTED = ("multvae", "cdae", "sasrec", "sbpr", "apr", "irgan")
 
 
 def make_loss(name: str) -> Callable[[torch.Tensor, Dict], torch.Tensor]:
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"loss {name!r} is not ported yet (ROADMAP Queue 1 items 8 and 12); "
+            f"loss {name!r} is not ported yet (ROADMAP Queue 1 item 12, with its model); "
             f"ported: {sorted(_LOSSES)}"
         )
     if name not in _LOSSES:

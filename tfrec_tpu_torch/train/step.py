@@ -21,9 +21,15 @@ IN PLACE (as the TPU kernel aliases them) and returns them in the new
 state; the dense params and their optimizer state are new tensors.
 ``copy_state`` makes an independent copy, on any device.
 
+With ``device_negatives`` (bpr and hinge only), a batch of (user, pos)
+rows gets its "neg" column drawn uniformly from [0, num_items) on the
+device each step, from a generator seeded by (seed, step), with no
+train-positive exclusion (the reference's large-catalog approximation).
+Its numbers differ from JAX's for the same seed, as every generator does.
+
 Not ported, and refused by name rather than ignored: ``group_dedup``
-(ROADMAP Queue 1 item 2), host-computed dedup sorts (``_sort_*`` batch keys,
-train.host_dedup, item 5) and negatives drawn on the device (item 8).
+(ROADMAP Queue 1 item 2) and host-computed dedup sorts (``_sort_*`` batch
+keys, train.host_dedup, item 5).
 """
 
 from __future__ import annotations
@@ -202,6 +208,7 @@ class TrainStepBuilder:
         seed: int = 0,
         device: torch.device | str = "cuda",
         device_negatives: bool = False,
+        num_items: int = 0,
         group_dedup: bool | str = False,
     ):
         self.device = torch.device(device)
@@ -210,10 +217,10 @@ class TrainStepBuilder:
                 "TrainStepBuilder trains on device='cuda' by default, but CUDA is "
                 "not available; pass device='cpu' to train on the CPU"
             )
-        if device_negatives:
-            raise NotImplementedError(
-                "device_negatives (negatives drawn on the device for bpr/hinge) "
-                "is not ported yet: ROADMAP Queue 1 item 8"
+        if device_negatives and loss_name not in ("bpr", "hinge"):
+            raise ValueError(
+                "device_negatives supports single-negative pairwise losses "
+                f"(bpr/hinge), not {loss_name!r}"
             )
         if group_dedup:
             raise NotImplementedError(
@@ -221,6 +228,8 @@ class TrainStepBuilder:
                 "tables) is not ported yet: ROADMAP Queue 1 item 2; the port "
                 "combines per table"
             )
+        self.device_negatives = device_negatives
+        self.num_items = num_items
         self.model = model
         self.loss_fn = make_loss(loss_name)
         self.optim_cfg = optim_cfg
@@ -312,17 +321,32 @@ class TrainStepBuilder:
         return new_tables, new_sparse
 
     def _generator(self, step: int) -> torch.Generator | None:
-        """The step's dropout generator (from the seed and the step, as the
-        reference folds the step into its rng); None without dropout."""
-        if getattr(self.model, "dropout", 0.0) <= 0.0:
+        """The step's generator (from the seed and the step, as the
+        reference folds the step into its rng), for the device negatives
+        and then dropout; None where the step draws neither."""
+        if getattr(self.model, "dropout", 0.0) <= 0.0 and not self.device_negatives:
             return None
         return torch.Generator(device=self.device).manual_seed(
             (self.seed * 1_000_003 + step) % (1 << 63))
 
-    def loss_and_grads(self, state: State, batch: Dict[str, torch.Tensor]):
+    def _draw_negatives(self, batch: Dict[str, torch.Tensor], generator) -> Dict[str, torch.Tensor]:
+        """With device_negatives, a batch of (user, pos) rows gains "neg",
+        uniform int32 in [0, num_items); other batches pass unchanged."""
+        if not self.device_negatives or "pos" not in batch or "neg" in batch or "negs" in batch:
+            return batch
+        pos = batch["pos"]
+        neg = torch.randint(0, self.num_items, pos.shape, generator=generator,
+                            dtype=torch.int32, device=pos.device)
+        return {**batch, "neg": neg}
+
+    def loss_and_grads(self, state: State, batch: Dict[str, torch.Tensor],
+                       generator: torch.Generator | None = None):
         """(loss, dense grads, gathered-row grads per table, ids per table)
         of one batch. Autograd runs from the dense leaves and the gathered
-        rows, never from the tables."""
+        rows, never from the tables. ``generator`` (dropout) defaults to
+        the step's own."""
+        if generator is None:
+            generator = self._generator(state["step"])
         model = self.model
         ids = model.lookup_ids(batch)
         gathered, _ = self.lookup(state["tables"], ids)
@@ -331,7 +355,7 @@ class TrainStepBuilder:
         dense_leaves = tree_leaves(dense)
         names = list(gathered)
         with torch.enable_grad():
-            logits = model(dense, gathered, batch, generator=self._generator(state["step"]))
+            logits = model(dense, gathered, batch, generator=generator)
             loss = self.loss_fn(logits, batch)
             if self.l2_reg > 0:
                 reg = sum((v * v).sum() for v in gathered.values())
@@ -342,15 +366,19 @@ class TrainStepBuilder:
         return loss.detach(), dense_grad, dict(zip(names, grads[len(dense_leaves):])), ids
 
     def step(self, state: State, batch: Dict[str, torch.Tensor]) -> Tuple[State, Dict]:
-        """One step on a batch of tensors on this device ({"dense", "cat",
-        "label"}) -> (new state, {"loss"}); the loss stays on the device."""
+        """One step on a batch of tensors on this device (CTR {"dense",
+        "cat", "label"}, pairwise {"user", "pos", "neg" or "negs"},
+        pointwise {"user", "item", "label"}) -> (new state, {"loss"}); the
+        loss stays on the device."""
         host_sort = sorted(k for k in batch if k.startswith("_sort_"))
         if host_sort:
             raise NotImplementedError(
                 f"host-computed dedup sorts (train.host_dedup; batch keys {host_sort}) "
                 "are not ported yet: ROADMAP Queue 1 item 5"
             )
-        loss, dense_grad, gathered_grad, ids = self.loss_and_grads(state, batch)
+        generator = self._generator(state["step"])
+        batch = self._draw_negatives(batch, generator)
+        loss, dense_grad, gathered_grad, ids = self.loss_and_grads(state, batch, generator)
         updates, new_dense_opt = self.dense_tx.update(dense_grad, state["dense_opt"], state["dense"])
         new_dense = apply_updates(state["dense"], updates)
         lr = self.sparse_schedule(state["step"])

@@ -1,24 +1,35 @@
 """Config-driven training driver: the counterpart of
-``tfrec_tpu/train/trainer.py`` for CTR data and models on one device.
+``tfrec_tpu/train/trainer.py`` on one device.
 
-One ``Trainer`` wires the data (``synthetic_ctr``, split into train and
-held-out rows), the model (``models.build_model``), the step
-(``step.TrainStepBuilder``: on a card the gather, cross-stack and
-rowwise-Adagrad kernels), shuffled fixed-shape batches (``CTRBatcher``)
-copied to the device ahead of the step (``prefetch``), the epoch loop with
-K steps a dispatch (``multi_step``), AUC and logloss on the held-out rows
-(the gather and cross-forward kernels), early stopping and the JSONL metric
-stream (``MetricLogger``), with the reference's records. ``run(config)``
-builds one and trains it.
+One ``Trainer`` wires the data, the model (``models.build_model``), the
+step (``step.TrainStepBuilder``: on a card the gather and rowwise-Adagrad
+kernels, and for DCN the cross-stack kernels), fixed-shape batches copied
+to the device ahead of the step (``prefetch``), the epoch loop with K steps
+a dispatch (``multi_step``), the eval cadence, early stopping and the JSONL
+metric stream (``MetricLogger``), with the reference's records.
+``run(config)`` builds one and trains it. Two data paths:
+
+- interaction data (``synthetic_implicit``) with MF: ``build_dataset``
+  splits it; ``PairwiseSampler`` feeds the pairwise losses (bpr, hinge,
+  sampled_softmax, in_batch_softmax; with ``train.device_negatives`` the
+  step draws bpr's and hinge's negatives on the device) and
+  ``PointwiseSampler`` logloss and mse; the eval ranks the full catalog
+  for every user with test items (``eval.retrieval.RetrievalEvaluator``:
+  precision, recall, MAP, NDCG and MRR at ``train.eval_topk``, train items
+  masked), plus an AUC over sampled negatives under logloss;
+- CTR data (``synthetic_ctr``) with DCN: shuffled batches
+  (``CTRBatcher``), AUC and logloss on the held-out rows.
 
 The device is the card unless the caller passes ``device="cpu"`` (the
 kernels' plain versions); without CUDA the default raises. What the port
-does not take yet it refuses by naming the ROADMAP item, never passing it
-over: data other than ``synthetic_ctr`` (Criteo's files are not in the
-repository; interaction data, items 8-9), models other than dcn and dcnv2
-(items 8, 9 and 12), checkpoints, resume and warm starts (item 10), step
-profiles (item 10), a mesh (item 11), ``train.matmul_precision`` other than
-"default" and host-computed dedup sorts (item 5).
+does not take yet it refuses by naming the ROADMAP Queue 1 item, never
+passing it over: Criteo's files (not in the repository, item 10; MovieLens'
+are refused by ``build_dataset``), the sampled eval protocol and CTR models over interaction data
+(item 9), models other than mf, dcn and dcnv2 (items 9 and 12), user
+histories, sequences and the social graph (item 12), checkpoints, resume
+and warm starts (item 10), step profiles (item 10), a mesh (item 11),
+``train.matmul_precision`` other than "default" and host-computed dedup
+sorts (item 5).
 """
 
 from __future__ import annotations
@@ -31,44 +42,55 @@ import numpy as np
 import torch
 
 from tfrec_tpu_torch.configs import Config
-from tfrec_tpu_torch.data.samplers import CTRBatcher
+from tfrec_tpu_torch.data.dataset import build_dataset
+from tfrec_tpu_torch.data.samplers import (
+    CTRBatcher,
+    PairwiseSampler,
+    PointwiseSampler,
+    popularity_cdf,
+)
 from tfrec_tpu_torch.data.synthetic import synthetic_ctr
 from tfrec_tpu_torch.eval.metrics import auc as auc_metric
 from tfrec_tpu_torch.eval.metrics import logloss as logloss_metric
-from tfrec_tpu_torch.models import DataSpec, build_model
+from tfrec_tpu_torch.eval.retrieval import RetrievalEvaluator
+from tfrec_tpu_torch.models import NOT_PORTED, DataSpec, build_model
+from tfrec_tpu_torch.train.losses import IN_BATCH_LOSSES, MULTI_NEG_LOSSES, PAIRWISE_LOSSES
 from tfrec_tpu_torch.train.step import TrainStepBuilder
 from tfrec_tpu_torch.utils.logging import MetricLogger
 from tfrec_tpu_torch.utils.prefetch import prefetch
 
-# The reference's pairwise losses (tfrec_tpu/train/losses.py), which CTR models
-# replace with logloss.
-PAIRWISE_LOSSES = ("bpr", "hinge", "sampled_softmax", "in_batch_softmax", "apr", "irgan")
 INTERACTION_SOURCES = ("movielens", "synthetic_implicit")
 CTR_SOURCES = ("criteo", "synthetic_ctr")
+# The reference's CTR models (its trainer's CTR_MODELS); over interaction
+# data they train on [user, item] field batches, ROADMAP Queue 1 item 9.
+CTR_MODELS = ("fm", "dcn", "dcnv2", "deepfm", "nfm", "widedeep", "dlrm")
 EVAL_BATCH = 8192  # rows of a held-out forward, at most
 
 
 def _refuse_unported(c: Config) -> None:
     """Raise on every setting the port does not take yet, naming the
     ROADMAP Queue 1 item that ports it."""
-    if c.data.source not in INTERACTION_SOURCES + CTR_SOURCES:
-        raise ValueError(f"unknown data source {c.data.source!r}")
-    if c.data.source == "criteo":
+    source, name = c.data.source, c.model.name.lower()
+    if source not in INTERACTION_SOURCES + CTR_SOURCES:
+        raise ValueError(f"unknown data source {source!r}")
+    if source == "criteo":
         raise NotImplementedError(
             "data.source='criteo' reads Criteo's files, which are not in the repository; "
             "the port trains on data.source='synthetic_ctr' until they are and its loader "
             "is ported (ROADMAP Queue 1 item 10)")
-    if c.data.source in INTERACTION_SOURCES:
+    if name in NOT_PORTED:
         raise NotImplementedError(
-            f"data.source={c.data.source!r} (interaction data, its samplers and retrieval "
-            "eval) is not ported yet: ROADMAP Queue 1 items 8-9")
-    name = c.model.name.lower()
-    if name not in ("dcn", "dcnv2"):
-        item = {"mf": "item 8", "fm": "item 9", "gmf": "item 9", "mlp": "item 9",
-                "neumf": "item 9"}.get(name, "item 12")
+            f"model {c.model.name!r} is not ported yet: ROADMAP Queue 1 item {NOT_PORTED[name]}; "
+            "the port trains mf, dcn and dcnv2")
+    interaction = source in INTERACTION_SOURCES
+    if interaction and name in CTR_MODELS:
         raise NotImplementedError(
-            f"model {c.model.name!r} is not ported yet: ROADMAP Queue 1 {item}; the port "
-            "trains dcn and dcnv2")
+            f"CTR model {c.model.name!r} over interaction data ([user, item] field batches) is "
+            "not ported yet: ROADMAP Queue 1 item 9")
+    if interaction and c.train.eval_protocol == "sampled":
+        raise NotImplementedError(
+            "train.eval_protocol='sampled' (eval/sampled.py) is not ported yet: ROADMAP Queue 1 "
+            "item 9; the port ranks the full catalog")
     t = c.train
     if t.checkpoint_dir and t.checkpoint_every_epochs > 0:
         raise NotImplementedError(
@@ -98,10 +120,6 @@ def _refuse_unported(c: Config) -> None:
         raise ValueError(
             "mesh.row_permute requires the sharded (mesh) path; the port trains on one "
             "device: drop the flag")
-    if t.neg_sampling != "uniform":
-        raise ValueError(
-            f"train.neg_sampling={t.neg_sampling!r} applies to the pairwise/pointwise "
-            "interaction samplers, not the CTR data path")
 
 
 class Trainer:
@@ -119,50 +137,105 @@ class Trainer:
         # The full run config as the stream's first record.
         self.logger.log({"event": "run_config", "config": dataclasses.asdict(c)})
 
-        # ---- data: synthetic CTR examples, the last test_fraction held out ----
-        dense, cat, label = synthetic_ctr(
-            c.data.num_examples,
-            num_dense=c.data.num_dense_features,
-            vocab_sizes=c.data.categorical_vocab_sizes,
-            seed=c.data.seed,
-            field_widths=c.data.categorical_field_widths or None,
-        )
-        n_test = int(len(label) * c.data.test_fraction)
-        if n_test == 0 or n_test >= len(label):
-            raise ValueError(
-                f"test_fraction={c.data.test_fraction} with {len(label)} examples yields an "
-                "empty train or test split; adjust num_examples/test_fraction")
-        self.ctr_arrays = {
-            "train": (dense[:-n_test], cat[:-n_test], label[:-n_test]),
-            "test": (dense[-n_test:], cat[-n_test:], label[-n_test:]),
-        }
-        self.data_spec = DataSpec.ctr(
-            tuple(c.data.categorical_vocab_sizes), num_dense=dense.shape[1],
-            field_widths=c.data.categorical_field_widths or None)
+        # ---- data ----
+        self.dataset = self.ctr_arrays = None
+        if c.data.source in INTERACTION_SOURCES:
+            self.dataset = build_dataset(c.data)
+            self.data_spec = DataSpec.interaction(self.dataset.num_users, self.dataset.num_items)
+        else:
+            # Synthetic CTR examples, the last test_fraction held out.
+            dense, cat, label = synthetic_ctr(
+                c.data.num_examples,
+                num_dense=c.data.num_dense_features,
+                vocab_sizes=c.data.categorical_vocab_sizes,
+                seed=c.data.seed,
+                field_widths=c.data.categorical_field_widths or None,
+            )
+            n_test = int(len(label) * c.data.test_fraction)
+            if n_test == 0 or n_test >= len(label):
+                raise ValueError(
+                    f"test_fraction={c.data.test_fraction} with {len(label)} examples yields an "
+                    "empty train or test split; adjust num_examples/test_fraction")
+            self.ctr_arrays = {
+                "train": (dense[:-n_test], cat[:-n_test], label[:-n_test]),
+                "test": (dense[-n_test:], cat[-n_test:], label[-n_test:]),
+            }
+            self.data_spec = DataSpec.ctr(
+                tuple(c.data.categorical_vocab_sizes), num_dense=dense.shape[1],
+                field_widths=c.data.categorical_field_widths or None)
+            if c.model.name.lower() not in CTR_MODELS:
+                raise ValueError(
+                    f"model {c.model.name!r} needs interaction data, got {c.data.source!r}")
 
         # ---- model + step ----
         self.model = build_model(c.model, self.data_spec)
         loss = c.train.loss
-        if loss in PAIRWISE_LOSSES:
+        if self.ctr_arrays is not None and loss in PAIRWISE_LOSSES:
             self.logger.log({"event": "loss_coerced", "from": loss, "to": "logloss",
                              "reason": "CTR models train pointwise"})
             loss = "logloss"
         self.loss_name = loss
-        self.builder = TrainStepBuilder(self.model, loss, c.optim, l2_reg=c.model.l2_reg,
-                                        seed=c.train.seed, device=self.device)
+        self.builder = TrainStepBuilder(
+            self.model, loss, c.optim, l2_reg=c.model.l2_reg, seed=c.train.seed,
+            device=self.device, device_negatives=self._use_device_negs(loss),
+            num_items=getattr(self.dataset, "num_items", 0))
         self.state = self.builder.init_state(
             torch.Generator(device=self.device).manual_seed(c.train.seed))
         self.start_epoch = 0
-        dense, cat, label = self.ctr_arrays["train"]
-        self.sampler = CTRBatcher(dense, cat, label, c.train.batch_size, seed=c.train.seed)
+        self.sampler = self._make_sampler()
         self.global_step = 0
         self._es_best = None  # early-stopping monitor state
         self._es_stall = 0
+        self._retrieval_eval = None  # built at the first eval
+
+    def _use_device_negs(self, loss: str) -> bool:
+        return (self.config.train.device_negatives and self.dataset is not None
+                and loss in ("bpr", "hinge"))
+
+    def _make_sampler(self):
+        """The batches of the loss: CTRBatcher for CTR data; for interaction
+        data PairwiseSampler under the pairwise losses (K negatives a row
+        for sampled softmax, none for in-batch losses and device
+        negatives), else PointwiseSampler; uniform or popularity^beta
+        negatives, with the reference's refusals."""
+        c = self.config
+        bs, seed = c.train.batch_size, c.train.seed
+        if self.ctr_arrays is not None:
+            if c.train.neg_sampling != "uniform":
+                raise ValueError(
+                    f"train.neg_sampling={c.train.neg_sampling!r} applies to the pairwise/pointwise "
+                    "interaction samplers, not the CTR data path")
+            dense, cat, label = self.ctr_arrays["train"]
+            return CTRBatcher(dense, cat, label, bs, seed=seed)
+        neg_cdf = None
+        if c.train.neg_sampling == "popularity":
+            if self._use_device_negs(self.loss_name):
+                raise ValueError(
+                    "train.neg_sampling='popularity' is a host-sampler proposal; device_negatives "
+                    "draws uniformly on device — disable one of the two")
+            if self.loss_name in IN_BATCH_LOSSES:
+                raise ValueError(
+                    "train.neg_sampling='popularity' has no effect under "
+                    f"{self.loss_name!r}: in-batch losses take negatives from the batch's other "
+                    "positives, not from a sampler")
+            neg_cdf = popularity_cdf(self.dataset, c.train.neg_sampling_beta)
+        elif c.train.neg_sampling != "uniform":
+            raise ValueError(
+                f"unknown train.neg_sampling {c.train.neg_sampling!r}; options: uniform, popularity")
+        if self.loss_name in PAIRWISE_LOSSES:
+            return PairwiseSampler(
+                self.dataset, bs, c.train.num_negatives, seed,
+                multi_neg=self.loss_name in MULTI_NEG_LOSSES,
+                no_negatives=(self.loss_name in IN_BATCH_LOSSES
+                              or self._use_device_negs(self.loss_name)),
+                neg_cdf=neg_cdf)
+        return PointwiseSampler(self.dataset, bs, max(c.train.num_negatives, 1), seed,
+                                neg_cdf=neg_cdf)
 
     def _to_device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """The host-to-device copy of a batch (or of K stacked batches). CTR
-        batches go to the model as the sampler makes them (the reference's
-        ``_host_batch`` adapts only interaction batches)."""
+        """The host-to-device copy of a batch (or of K stacked batches), as
+        the sampler makes it (the reference's ``_host_batch`` adapts only
+        interaction batches for CTR models, item 9)."""
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
@@ -173,9 +246,38 @@ class Trainer:
     # ---- evaluation ----
 
     def evaluate(self) -> Dict[str, float]:
-        """AUC and logloss on the held-out rows."""
-        dense, cat, label = self.ctr_arrays["test"]
-        return self._eval_ctr(dense, cat, label)
+        """CTR data: AUC and logloss on the held-out rows. Interaction data:
+        the full-catalog ranking metrics, and AUC over sampled negatives
+        when the loss is logloss."""
+        if self.ctr_arrays is not None:
+            dense, cat, label = self.ctr_arrays["test"]
+            return self._eval_ctr(dense, cat, label)
+        c = self.config
+        if self._retrieval_eval is None:
+            self._retrieval_eval = RetrievalEvaluator(
+                self.model.score_all, self.dataset, ks=tuple(c.train.eval_topk),
+                user_batch=c.train.eval_user_batch, device=self.device)
+        out = self._retrieval_eval(self.params)
+        if self.loss_name == "logloss":
+            out.update(self._eval_interaction_auc())
+        return out
+
+    def _eval_interaction_auc(self, num_neg: int = 50) -> Dict[str, float]:
+        """AUC of held-out positives against ``num_neg`` uniform negatives a
+        positive, in one forward of ~20 000 rows (the reference's draws from
+        seed + 7)."""
+        rng = np.random.default_rng(self.config.train.seed + 7)
+        test = self.dataset.test
+        n = min(len(test), max(20_000 // (1 + num_neg), 1))
+        users = np.repeat(test.users[:n], 1 + num_neg)
+        neg_items = rng.integers(0, self.dataset.num_items, size=(n, num_neg)).astype(np.int32)
+        items = np.concatenate([test.items[:n, None], neg_items], axis=1).reshape(-1)
+        labels = np.tile(np.concatenate([[1.0], np.zeros(num_neg)]).astype(np.float32), n)
+        batch = self._to_device_batch({"user": users.astype(np.int32), "item": items,
+                                       "label": labels})
+        with torch.no_grad():
+            logits = self._forward(batch)
+            return {"auc": float(auc_metric(logits, batch["label"]))}
 
     def _forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The eval forward (the reference's ``_forward_fn``): the builder's
@@ -262,15 +364,20 @@ class Trainer:
 
     def _early_stop_monitor(self, rec: Dict[str, float]):
         """(name, value, sign) of the monitored metric in this eval record;
-        sign +1 maximizes, -1 minimizes. "auto" picks auc, which the CTR
-        eval emits, else the loss (the reference's retrieval metrics come
-        with the retrieval eval, ROADMAP Queue 1 item 8)."""
+        sign +1 maximizes, -1 minimizes. "auto" picks auc where the eval
+        emits it, else recall (or hr) at the largest k, else the loss."""
         want = self.config.train.early_stop_metric
         if want != "auto":
             sign = -1.0 if want in ("loss", "logloss") else 1.0
             return want, rec.get(want), sign
         if "auc" in rec:
             return "auc", rec["auc"], 1.0
+        for family in ("recall@", "hr@"):
+            ks = [int(k.split("@")[1]) for k in rec
+                  if k.startswith(family) and k.split("@")[1].isdigit()]
+            if ks:
+                name = f"{family}{max(ks)}"
+                return name, rec[name], 1.0
         return "loss", rec.get("loss"), -1.0
 
     def train(self) -> List[Dict[str, float]]:
