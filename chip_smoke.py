@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving, training and retrieval slices on one NVIDIA GPU.
+"""Drive tfrec_tpu_torch's serving, training and retrieval slices, and configs 1-4, on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
@@ -90,15 +90,45 @@ non-zero if any phase fails:
     1 000 000 items: ids and values those of a plain ``torch.matmul`` +
     ``torch.topk`` on the card (ties aside); latency (median, p99) and
     users/s; the product's and the top-k's device times beside their
-    bounds; a profile of one call.
+    bounds; a profile of one call;
+16. config 4's full band: ``trainer.run(dcn_criteo())`` whole (2M
+    synthetic_ctr examples, 2 epochs), AUC and logloss in the band of
+    tests/test_golden.py:109-112;
+17. (A) config 2, ``trainer.run(fm_ctr_ml1m())`` (FM over the stand-in at
+    ML-1M's shape with synthetic side fields: 6 fields, 12 tables, d=64,
+    batch 4096, 20 epochs): AUC in its band (tests/test_golden.py:87-91);
+    one gather and one Adagrad launch a step, one gather an eval pass;
+    examples_per_s, each eval pass's time, the host's input time a batch,
+    a step's median and profile;
+18. (B) config 3, ``trainer.run(neumf_ml20m())`` (NeuMF over the stand-in,
+    8192 x 4096, rowwise Adam, batch 8192, 20 epochs, the sampled eval of
+    100 negatives a case): HR@10 and ndcg_sampled@10 in their band
+    (tests/test_golden.py:79-84); one gather a step, one a batch of the
+    sampled eval; examples_per_s, the eval passes' times, a step's profile
+    and rowwise Adam's device time a step;
+19. (C) configs 2 and 3 for 8 steps on the card against the CPU from one
+    state: losses, AUC, and for config 3 HR@10, ndcg_sampled@10 and the
+    number of cases whose rank differs;
+20. (D) the gather kernel at FM's 12 and NeuMF's 4 tables and the Adagrad
+    kernel at FM's 12, with a real batch's ids: one launch, bit for bit
+    their plain versions and on repeat; a step of each repeats bit for bit
+    (FM's also through the plain versions); times beside bounds, plain
+    versions and ``index_select``;
+21. (E) serving: NeuMF ``predict`` of 8192 pairs and ``recommend(users,
+    k=10)`` for 1024 users over its 4096 items, FM ``predict_ctr`` of 8192
+    6-field rows, each against a plain run on the card, one gather launch
+    a call; latency (median, p99) and rates.
 
 No earlier path is cut in depth for time (PERF.md gives a whole run's
 time on an H100). The last lines are the kernels' JSON record (the v2
 records carry the general route's shapes as ``general_route``, the gather
-and Adagrad records their times at MF's shape as ``mf_bench``, and
-``launches_by_path`` the trainers' and MF's paths: ``trainer_mf`` phase
-12, ``train_mf`` phase 13's card run, ``bench_mf`` phase 14's 8 steps,
-``serve_mf`` phase 15's first call) and ``{"ok": true, ...}``.
+and Adagrad records their times at MF's shape as ``mf_bench`` and at
+FM's and NeuMF's as ``fm`` and ``neumf``, and ``launches_by_path`` the
+trainers', MF's and configs 2 and 3's paths: ``trainer_mf`` phase 12,
+``train_mf`` phase 13's card run, ``bench_mf`` phase 14's 8 steps,
+``serve_mf`` phase 15's first call, ``trainer_fm`` and ``trainer_neumf``
+phases 17 and 18, ``serve_neumf`` and ``serve_fm`` phase 21's first
+calls) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -214,6 +244,24 @@ MF_CPU_ROWS = 10_000
 MF_CPU_RTOL = 1e-5
 TOPK_USERS = 1024
 TOPK_K = 100
+# Configs 2 and 3 on their seeded stand-ins (tests/test_golden.py:79-91) and
+# config 4's full band (2M synthetic_ctr examples, 2 epochs;
+# tests/test_golden.py:109-112).
+CONFIG2_AUC_BAND = (0.705, 0.735)
+CONFIG3_BAND = {"hr@10": (0.265, 0.298), "ndcg_sampled@10": (0.125, 0.157)}
+CONFIG4_BAND = {"auc": (0.8424, 0.8492), "logloss": (0.478, 0.492)}
+# Configs 2 and 3 on the card against the CPU over 8 steps from one state:
+# the same sums in other orders through the normalised rowwise updates
+# (Adagrad's for FM, Adam's for NeuMF) and Adam's first dense steps. The
+# sampled eval counts strict wins of a negative over the positive, so a
+# near-tie that rounds the other way on the other device moves a case's
+# rank by one: such cases are counted, bounded, and each moves HR@k and
+# NDCG@k by at most 1/cases.
+CONFIG23_LOSS_RTOL = 1e-4
+CONFIG23_AUC_ATOL = 1e-4
+CONFIG3_MAX_RANK_FLIPS = 0.01  # of the eval's cases
+SERVE_USERS = 1024  # recommend's users for NeuMF, k=10 over the 4096 items
+SERVE_K = 10
 
 # The kernels of the main paths. The gather and Adagrad kernels run there
 # as one launch over every table (the ``_multi`` wrappers); their one-table
@@ -1002,6 +1050,18 @@ def medians_in_turns(runs: dict, reps: int = 11) -> dict:
     return {name: statistics.median(t[1:]) for name, t in times.items()}
 
 
+def latency(fn, calls: int = 51) -> tuple[float, float]:
+    """(median, p99) ms of ``fn`` on the host clock over ``calls`` - 1 calls
+    after a warm-up; ``fn`` ends in copying its result to the host."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = sorted(times[1:])
+    return statistics.median(times), times[int(0.99 * (len(times) - 1))]
+
+
 def serving_routes(rec, dense, cat) -> None:
     """predict_ctr's latency and a profile of one call, through one gather
     launch (the path) and through a launch a field (the route before it),
@@ -1419,6 +1479,14 @@ def run_counted(cfg):
     return trainer, history, train_counts, evals, run_s
 
 
+def whole_run_launches(train_counts: dict, evals: list) -> dict:
+    return {k: c + sum(e[1][k] for e in evals) for k, c in train_counts.items()}
+
+
+def check_launches(counts: dict, expected: dict, what: str) -> None:
+    check(all(counts[k] == expected.get(k, 0) for k in counts), what)
+
+
 def phase_trainer(card: str, paths: dict) -> None:
     """``trainer.run`` on the card at Criteo's shape: launch counters show
     the gather, both v1 cross kernels and the Adagrad kernel in training,
@@ -1445,11 +1513,10 @@ def phase_trainer(card: str, paths: dict) -> None:
     check(all(np.isfinite(v) for v in rec.values()), "the history is finite")
     trained = {"gather_rows_multi": steps, "cross_v1_fwd": steps, "cross_v1_bwd": steps,
                "fused_rowwise_adagrad_multi": steps}
-    check(all(train_counts[k] == trained.get(k, 0) for k in train_counts),
-          "training ran one gather, v1 forward, v1 backward and Adagrad launch a step, and no other")
-    evaluated = {"gather_rows_multi": eval_batches, "cross_v1_fwd": eval_batches}
-    check(all(eval_counts[k] == evaluated.get(k, 0) for k in eval_counts),
-          "the eval pass ran one gather and one v1 forward launch a batch, and no other")
+    check_launches(train_counts, trained,
+                   "training ran one gather, v1 forward, v1 backward and Adagrad launch a step, and no other")
+    check_launches(eval_counts, {"gather_rows_multi": eval_batches, "cross_v1_fwd": eval_batches},
+                   "the eval pass ran one gather and one v1 forward launch a batch, and no other")
 
 
 def phase_proxy_band(card: str) -> None:
@@ -1463,17 +1530,14 @@ def phase_proxy_band(card: str) -> None:
     check(PROXY_AUC_BAND[0] <= rec["auc"] <= PROXY_AUC_BAND[1], "the proxy AUC lies in its band")
 
 
-def phase_trainer_card_vs_cpu() -> None:
-    """The proxy configuration for 8 steps on the card and on the CPU (the
-    plain versions) from the same initial state: each step's loss, and the
-    eval's AUC and logloss."""
-    cfg = trainer_configs()["proxy"]
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps_per_epoch=8))
+def card_and_cpu_runs(cfg):
+    """``cfg`` trained on the card and on the CPU (the plain versions) from
+    one state, each step's loss logged: (card trainer, cpu trainer, losses
+    by device, final records by device, the card run's launches)."""
     card = Trainer(cfg, quiet=True)
     cpu = Trainer(cfg, quiet=True, device="cpu")
     cpu.state = copy_state(card.state, "cpu")
     losses, finals = {}, {}
-    t0 = time.perf_counter()
     for name, trainer in (("card", card), ("cpu", cpu)):
         seen = losses[name] = []
         step = trainer.builder.step
@@ -1484,7 +1548,25 @@ def phase_trainer_card_vs_cpu() -> None:
             return new, metrics
 
         trainer.builder.step = logged  # multi_step takes its steps through it
+        reset_launches()
         finals[name] = trainer.train()[-1]
+        if name == "card":
+            torch.cuda.synchronize()
+            launches = read_launches()
+    return card, cpu, losses, finals, launches
+
+
+def eight_steps(cfg):
+    """``cfg`` cut to one epoch of 8 steps, the eval after it."""
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, epochs=1, steps_per_epoch=8))
+
+
+def phase_trainer_card_vs_cpu() -> None:
+    """The proxy configuration for 8 steps on the card and on the CPU (the
+    plain versions) from the same initial state: each step's loss, and the
+    eval's AUC and logloss."""
+    t0 = time.perf_counter()
+    _, _, losses, finals, _ = card_and_cpu_runs(eight_steps(trainer_configs()["proxy"]))
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
     auc_err = abs(finals["card"]["auc"] - finals["cpu"]["auc"])
     ll_rel = abs(finals["card"]["logloss"] - finals["cpu"]["logloss"]) / finals["cpu"]["logloss"]
@@ -1514,7 +1596,7 @@ def phase_config1_band(card: str, paths: dict) -> None:
     steps = trainer.global_step
     evaluator = trainer._retrieval_eval
     eval_batches = -(-len(evaluator.users_with_test) // evaluator.user_batch)
-    paths["trainer_mf"] = {k: c + sum(e[1][k] for e in evals) for k, c in train_counts.items()}
+    paths["trainer_mf"] = whole_run_launches(train_counts, evals)
     rec = history[-1]
     rates = [r["examples_per_s"] for r in history]
     print(f"config 1 (run, mf_bpr_ml100k: synthetic_implicit {trainer.dataset.num_users} x "
@@ -1528,12 +1610,11 @@ def phase_config1_band(card: str, paths: dict) -> None:
           + ", ".join(f"{ms:.3f} ms" for ms, _ in evals))
     check(len(evals) == cfg.train.epochs // cfg.train.eval_every_epochs, "an eval pass every 10 epochs")
     check(all(np.isfinite(v) for r in history for v in r.values()), "the history is finite")
-    trained = {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps}
-    check(all(train_counts[k] == trained.get(k, 0) for k in train_counts),
-          "config 1 ran one gather and one Adagrad launch a step, and no other")
-    check(all(counts[k] == (eval_batches if k == "gather_rows_multi" else 0)
-              for _, counts in evals for k in counts),
-          "each eval pass ran one gather a batch of users, and no other")
+    check_launches(train_counts, {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps},
+                   "config 1 ran one gather and one Adagrad launch a step, and no other")
+    for _, counts in evals:
+        check_launches(counts, {"gather_rows_multi": eval_batches},
+                       "each eval pass ran one gather a batch of users, and no other")
     for name, (lo, hi) in CONFIG1_BAND.items():
         print(f"config 1 band: {name} {rec[name]:.6f} in [{lo}, {hi}]")
         check(lo <= rec[name] <= hi, f"config 1's {name} lies in its band")
@@ -1545,26 +1626,8 @@ def phase_config1_card_vs_cpu(paths: dict) -> None:
     ndcg@20."""
     base = zoo_configs.mf_bpr_ml100k()
     cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, epochs=2, eval_every_epochs=2))
-    card = Trainer(cfg, quiet=True)
-    cpu = Trainer(cfg, quiet=True, device="cpu")
-    cpu.state = copy_state(card.state, "cpu")
-    losses, finals = {}, {}
     t0 = time.perf_counter()
-    for name, trainer in (("card", card), ("cpu", cpu)):
-        seen = losses[name] = []
-        step = trainer.builder.step
-
-        def logged(state, batch, step=step, seen=seen):
-            new, metrics = step(state, batch)
-            seen.append(metrics["loss"].item())
-            return new, metrics
-
-        trainer.builder.step = logged
-        reset_launches()
-        finals[name] = trainer.train()[-1]
-        if name == "card":
-            torch.cuda.synchronize()
-            paths["train_mf"] = read_launches()
+    card, _, losses, finals, paths["train_mf"] = card_and_cpu_runs(cfg)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
     errs = {k: abs(finals["card"][k] - finals["cpu"][k]) for k in ("recall@20", "ndcg@20")}
     print(f"config 1, card against the CPU ({time.perf_counter() - t0:.1f} s), 2 epochs from one state "
@@ -1674,6 +1737,20 @@ def mf_card_vs_cpu() -> None:
     check(ok, "MF's tables and accumulators on the card match the CPU's")
 
 
+def gather_times(tables, field_ids, what: str) -> dict:
+    """The gather of every (table, ids) pair in one launch beside its bound,
+    its plain version and one ``index_select`` a table (ids in range)."""
+    g_ms = device_ms(lambda: gather_rows_multi(tables, field_ids), 1)
+    g_plain = device_ms(lambda: gather_rows_multi_ref(tables, field_ids), 1)
+    g_lib = device_ms(lambda: [torch.index_select(t, 0, i) for t, i in zip(tables, field_ids)], 1)
+    g_bound, g_by = bound_ms(sum(i.shape[0] * (t.shape[1] * 4 * 2 + 4) for t, i in zip(tables, field_ids)), 0)
+    shapes = [(tuple(t.shape), i.shape[0]) for t, i in zip(tables, field_ids)]
+    print(f"gather_rows_multi at {what} {shapes} [device time, CUDA graph]: one launch {g_ms:.4f} ms; "
+          f"plain {g_plain:.4f} ms; {len(tables)} index_select {g_lib:.4f} ms; bound {g_bound:.4f} ms ({g_by})")
+    return {"ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib, "bound_ms": g_bound, "bound_by": g_by,
+            "shapes": shapes}
+
+
 def mf_kernel_times(builder, state, batch) -> dict:
     """Both kernels at MF's shape (3 tables: B, 2B and 2B ids; D = 64, 64,
     1): the gather beside its bound, its plain version and 3
@@ -1682,14 +1759,8 @@ def mf_kernel_times(builder, state, batch) -> dict:
     model = builder.model
     ids = model.lookup_ids(batch)
     tables = [state["tables"][n] for n in ids]
-    field_ids = list(ids.values())
-    g_ms = device_ms(lambda: gather_rows_multi(tables, field_ids), 1)
-    g_plain = device_ms(lambda: gather_rows_multi_ref(tables, field_ids), 1)
-    g_lib = device_ms(lambda: [torch.index_select(t, 0, i) for t, i in zip(tables, field_ids)], 1)
-    g_bound, g_by = bound_ms(sum(i.shape[0] * (t.shape[1] * 4 * 2 + 4) for t, i in zip(tables, field_ids)), 0)
-    shapes = [(tuple(t.shape), i.shape[0]) for t, i in zip(tables, field_ids)]
-    print(f"gather_rows_multi at MF's shape {shapes} [device time, CUDA graph]: one launch {g_ms:.4f} ms; "
-          f"plain {g_plain:.4f} ms; 3 index_select {g_lib:.4f} ms; bound {g_bound:.4f} ms ({g_by})")
+    gather = gather_times(tables, list(ids.values()), "MF's shape")
+    shapes = gather["shapes"]
 
     _, _, row_grads, _ = builder.loss_and_grads(state, batch)
     lr = builder.sparse_schedule(state["step"])
@@ -1710,8 +1781,7 @@ def mf_kernel_times(builder, state, batch) -> dict:
     print(f"MF step at bench.py's shape, batch {BATCH} (host clock, batch on the card), median over 10 "
           f"steps {median:.3f} ms ({BATCH / median * 1e3:.1f} examples/s)")
     busy = profile(run_step, "MF step at bench.py's shape", median)
-    return {"gather_rows_multi": {"ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib, "bound_ms": g_bound,
-                                  "bound_by": g_by, "shapes": shapes},
+    return {"gather_rows_multi": gather,
             "fused_rowwise_adagrad_multi": {**adagrad, "shapes": shapes},
             "step_ms": median, "step_device_busy": busy}
 
@@ -1762,13 +1832,7 @@ def phase_mf_topk(card: str, paths: dict, model, state) -> None:
           "recommend gives finite [users, k] ids and scores")
     check(same, "recommend's ids and values are those of the plain top-k")
 
-    times = []
-    for _ in range(51):
-        t0 = time.perf_counter()
-        rec.recommend(users_np, TOPK_K)  # ends in copying ids and scores to the host
-        times.append((time.perf_counter() - t0) * 1e3)
-    times = sorted(times[1:])
-    median, p99 = statistics.median(times), times[int(0.99 * (len(times) - 1))]
+    median, p99 = latency(lambda: rec.recommend(users_np, TOPK_K))
     prod_ms = device_ms(lambda: torch.matmul(u, tables["item_emb"].T), 1)
     topk_ms = device_ms(lambda: torch.topk(scores, TOPK_K), 1)
     score_bytes = TOPK_USERS * MF_ROWS * 4
@@ -1784,6 +1848,352 @@ def phase_mf_topk(card: str, paths: dict, model, state) -> None:
           f"[{TOPK_USERS}, {MF_ROWS}] {topk_ms:.4f} ms (bound {topk_bound:.4f} ms, {topk_by}); the whole "
           f"call's bound {call_bound:.4f} ms ({call_by}: the 4.1 GB score matrix written and read)")
     profile(lambda: rec.recommend(users_np, TOPK_K), "recommend call", median)
+
+
+# ---- configs 2 and 3 (FM over multi-field interaction data; NeuMF with the
+# sampled-candidate eval), and config 4's full band ----
+
+def phase_config4_band(card: str) -> None:
+    """``trainer.run(dcn_criteo())`` whole on the card: 2M synthetic_ctr
+    examples, 2 epochs of 8 steps a dispatch, the eval after each; AUC and
+    logloss in the full band of tests/test_golden.py:109-112."""
+    t0 = time.perf_counter()
+    _, history = run(zoo_configs.dcn_criteo(), quiet=True)
+    rec = history[-1]
+    print(f"config 4, full band (dcn_criteo(): 2000000 synthetic_ctr examples, 2 epochs, on the card; "
+          f"run() took {time.perf_counter() - t0:.1f} s, data made included): history {history}; "
+          f"examples_per_s {[round(r['examples_per_s'], 1) for r in history]} ({card})")
+    for name, (lo, hi) in CONFIG4_BAND.items():
+        print(f"config 4 band: {name} {rec[name]:.6f} in [{lo}, {hi}]")
+        check(lo <= rec[name] <= hi, f"config 4's {name} lies in its full band")
+
+
+def phase_config2(card: str, paths: dict):
+    """``trainer.run(fm_ctr_ml1m())`` on the card: FM over the stand-in at
+    ML-1M's shape (6040 x 3706, synthetic side fields: 6 fields, d=64),
+    batch 4096, 20 epochs, the eval every 5 (AUC over sampled negatives: FM
+    with side fields does not score the catalog); AUC in its band; one
+    gather and one Adagrad launch a step for the 12 tables, one gather an
+    eval pass; examples_per_s, each eval pass's time, the host's input
+    time a batch, and a step's median and device-busy share. Returns the
+    trainer."""
+    cfg = zoo_configs.fm_ctr_ml1m()
+    trainer, history, train_counts, evals, run_s = run_counted(cfg)
+    steps = trainer.global_step
+    paths["trainer_fm"] = whole_run_launches(train_counts, evals)
+    rec = history[-1]
+    rates = [r["examples_per_s"] for r in history]
+    tables = trainer.model.table_specs()
+    print(f"config 2 (run, fm_ctr_ml1m: synthetic_implicit {trainer.dataset.num_users} x "
+          f"{trainer.dataset.num_items} with side fields, field vocabs {trainer.data_spec.field_vocabs}, "
+          f"{len(trainer.dataset.train)} train and {len(trainer.dataset.test)} test interactions, "
+          f"{len(tables)} tables, d={cfg.model.embed_dim}, batch {cfg.train.batch_size}, {cfg.train.epochs} "
+          f"epochs): {steps} steps; history {history}; launches in training {train_counts}, in each eval "
+          f"pass {evals[0][1]}; run() took {run_s:.1f} s (data made included)")
+    print(f"config 2: examples_per_s median over the epochs {statistics.median(rates):.1f} (min "
+          f"{min(rates):.1f}, max {max(rates):.1f}; host clock over each epoch, fenced by the last loss's "
+          f"value; {card}); eval passes (host clock): " + ", ".join(f"{ms:.3f} ms" for ms, _ in evals))
+    check(len(evals) == cfg.train.epochs // cfg.train.eval_every_epochs, "an eval pass every 5 epochs")
+    check(all(np.isfinite(v) for r in history for v in r.values()), "the history is finite")
+    check(set(rec) == {"epoch", "loss", "examples_per_s", "auc"}, "FM with side fields reports AUC only")
+    check_launches(train_counts, {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps},
+                   "config 2 ran one gather and one Adagrad launch a step for the 12 tables, and no other")
+    for _, counts in evals:
+        check_launches(counts, {"gather_rows_multi": 1}, "each eval pass ran one gather (its AUC batch), and no other")
+    lo, hi = CONFIG2_AUC_BAND
+    print(f"config 2 band: auc {rec['auc']:.6f} in [{lo}, {hi}]")
+    check(lo <= rec["auc"] <= hi, "config 2's AUC lies in its band")
+
+    # The host's part: a whole epoch of the sampler (negatives, shuffle) and
+    # the adapter to 6-field batches, per batch.
+    t0 = time.perf_counter()
+    raw = list(trainer.sampler.epoch(0))
+    t1 = time.perf_counter()
+    host = [trainer._host_batch(b) for b in raw]
+    t2 = time.perf_counter()
+    n = len(raw)
+    print(f"config 2 host input a batch of {cfg.train.batch_size} (host clock over one epoch of {n} batches): "
+          f"sampler {(t1 - t0) * 1e3 / n:.3f} ms, _host_batch (side-field gathers, the 6-field cat) "
+          f"{(t2 - t1) * 1e3 / n:.3f} ms")
+    step_profile(trainer, trainer._to_device_batch(host[0]), "config 2 (FM) step")
+    return trainer
+
+
+def step_profile(trainer, batch, what: str) -> float:
+    """The trainer's step on ``batch`` (on the card): its median over 10
+    steps (host clock, ended by a synchronize) and a profile of one step
+    with its device-busy share. Returns the median."""
+    holder = {"state": trainer.state}
+
+    def run_step():
+        holder["state"], _ = trainer.builder.step(holder["state"], batch)
+
+    median = medians_in_turns({what: run_step})[what]
+    rows = next(iter(batch.values())).shape[0]
+    print(f"{what}, batch {rows} (host clock, batch on the card), median over 10 steps {median:.3f} ms "
+          f"({rows / median * 1e3:.1f} examples/s)")
+    profile(run_step, what, median)
+    trainer.state = holder["state"]
+    return median
+
+
+def phase_config3(card: str, paths: dict):
+    """``trainer.run(neumf_ml20m())`` on the card: NeuMF (gmf 32, mlp 32,
+    tower 64-32-16) over the stand-in (8192 x 4096, leave one out), batch
+    8192, rowwise Adam, 20 epochs, the sampled eval (100 negatives a case)
+    every 5; HR@10 and ndcg_sampled@10 in their band; one gather launch a
+    step for the 4 tables, one a batch of the sampled eval and one for its
+    AUC batch; examples_per_s, each eval pass's time, a step's median and
+    profile, and rowwise Adam's device time a step. Returns the trainer."""
+    cfg = zoo_configs.neumf_ml20m()
+    trainer, history, train_counts, evals, run_s = run_counted(cfg)
+    steps = trainer.global_step
+    paths["trainer_neumf"] = whole_run_launches(train_counts, evals)
+    evaluator = trainer._retrieval_eval
+    eval_batches = -(-len(evaluator.users) // evaluator.user_batch)
+    rec = history[-1]
+    rates = [r["examples_per_s"] for r in history]
+    print(f"config 3 (run, neumf_ml20m: synthetic_implicit {trainer.dataset.num_users} x "
+          f"{trainer.dataset.num_items}, {len(trainer.dataset.train)} train interactions, leave one out, "
+          f"batch {cfg.train.batch_size}, {cfg.optim.sparse_optimizer}, {cfg.train.epochs} epochs): {steps} "
+          f"steps; history {history}; launches in training {train_counts}, in each eval pass "
+          f"({len(evaluator.users)} cases x {evaluator.candidates.shape[1]} candidates in {eval_batches} "
+          f"batches of {evaluator.user_batch}, and the AUC batch) {evals[0][1]}; run() took {run_s:.1f} s "
+          f"(data made included)")
+    print(f"config 3: examples_per_s median over the epochs {statistics.median(rates):.1f} (min "
+          f"{min(rates):.1f}, max {max(rates):.1f}; host clock over each epoch, fenced by the last loss's "
+          f"value; {card}); eval passes (host clock, sampled eval and AUC): "
+          + ", ".join(f"{ms:.3f} ms" for ms, _ in evals))
+    check(len(evals) == cfg.train.epochs // cfg.train.eval_every_epochs, "an eval pass every 5 epochs")
+    check(all(np.isfinite(v) for r in history for v in r.values()), "the history is finite")
+    check(rec["eval_cases"] == trainer.dataset.num_users, "the sampled eval ranks one case a user")
+    check_launches(train_counts, {"gather_rows_multi": steps},
+                   "config 3 ran one gather launch a step for the 4 tables, and no other")
+    for _, counts in evals:
+        check_launches(counts, {"gather_rows_multi": eval_batches + 1},
+                       "each eval pass ran one gather a batch of the sampled eval and one for the AUC")
+    for name, (lo, hi) in CONFIG3_BAND.items():
+        print(f"config 3 band: {name} {rec[name]:.6f} in [{lo}, {hi}]")
+        check(lo <= rec[name] <= hi, f"config 3's {name} lies in its band")
+
+    batch = trainer._to_device_batch(next(trainer.sampler.epoch(0)))
+    step_profile(trainer, batch, "config 3 (NeuMF) step")
+    # Rowwise Adam (plain PyTorch: the reference has no Pallas site for it)
+    # on the step's gradients, apart from the combine before it.
+    builder, state = trainer.builder, copy_state(trainer.state)
+    _, _, row_grads, ids = builder.loss_and_grads(state, batch)
+    lr = builder.sparse_schedule(state["step"])
+
+    def combine():
+        return {n: combine_duplicate_ids(ids[n], row_grads[n], sentinel=state["tables"][n].shape[0]) for n in ids}
+
+    combine_us = sum(kernel_times_us(combine).values())
+    combined = combine()
+    adam = kernel_times_us(lambda: builder.sparse_update_deduped_all(
+        state["tables"], state["sparse_opt"], {n: u for n, (u, _) in combined.items()},
+        {n: g for n, (_, g) in combined.items()}, lr))
+    print(f"config 3 rowwise Adam a step (profiler, device time): the update of the 4 tables "
+          f"{sum(adam.values()):.1f} us in {len(adam)} kernels; the duplicate combine before it {combine_us:.1f} us; "
+          f"top: " + ", ".join(f"{k[:60]} {v:.1f} us" for k, v in sorted(adam.items(), key=lambda kv: -kv[1])[:5]))
+    return trainer
+
+
+def phase_configs_card_vs_cpu() -> None:
+    """Configs 2 and 3 for 8 steps on the card and on the CPU from one state:
+    each step's loss, the eval's AUC, and for config 3 HR@10 and
+    ndcg_sampled@10 with the number of cases whose rank differs."""
+    for name, cfg in (("config 2", zoo_configs.fm_ctr_ml1m()), ("config 3", zoo_configs.neumf_ml20m())):
+        t0 = time.perf_counter()
+        card, cpu, losses, finals, _ = card_and_cpu_runs(eight_steps(cfg))
+        check(len(losses["card"]) == len(losses["cpu"]) == 8, "8 steps on each device")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+        auc_err = abs(finals["card"]["auc"] - finals["cpu"]["auc"])
+        line = (f"{name}, card against the CPU ({time.perf_counter() - t0:.1f} s), 8 steps from one state: "
+                f"losses card {losses['card']}, cpu {losses['cpu']} (max relative error {rel:.3e}, rtol "
+                f"{CONFIG23_LOSS_RTOL}); auc {finals['card']['auc']:.6f} against {finals['cpu']['auc']:.6f} "
+                f"(error {auc_err:.3e}, atol {CONFIG23_AUC_ATOL})")
+        check(rel <= CONFIG23_LOSS_RTOL, f"{name}'s losses on the card match the CPU's")
+        check(auc_err <= CONFIG23_AUC_ATOL, f"{name}'s AUC on the card matches the CPU's")
+        if name == "config 3":
+            ranks = {k: t._retrieval_eval.ranks(t.params) for k, t in (("card", card), ("cpu", cpu))}
+            cases = len(ranks["cpu"])
+            flips = int((ranks["card"] != ranks["cpu"]).sum())
+            errs = {k: abs(finals["card"][k] - finals["cpu"][k]) for k in CONFIG3_BAND}
+            line += (f"; {flips} of {cases} cases rank differently (at most {CONFIG3_MAX_RANK_FLIPS:.0%}); "
+                     + ", ".join(f"{k} {finals['card'][k]:.6f} against {finals['cpu'][k]:.6f} (error {e:.3e})"
+                                 for k, e in errs.items()))
+            check(flips <= CONFIG3_MAX_RANK_FLIPS * cases, "few of config 3's cases rank differently")
+            check(all(e <= flips / cases + 1e-12 for e in errs.values()),
+                  "config 3's HR@10 and ndcg_sampled@10 differ by no more than the cases that rank differently")
+        print(line)
+
+
+def phase_new_shapes(fm_trainer, neumf_trainer) -> dict:
+    """The gather kernel at FM's 12 tables and NeuMF's 4, and the Adagrad
+    kernel at FM's 12, with the ids of a real batch of each config: one
+    launch each, bit for bit their plain versions and on repeat; a step of
+    each repeats bit for bit (FM's also through the plain versions); the
+    kernels' times beside their bounds, plain versions and index_select.
+    Returns the kernels' records by config."""
+    records = {"gather_rows_multi": {}, "fused_rowwise_adagrad_multi": {}}
+    for label, trainer in (("fm", fm_trainer), ("neumf", neumf_trainer)):
+        builder, state = trainer.builder, trainer.state
+        batch = trainer._to_device_batch(trainer._host_batch(next(trainer.sampler.epoch(0))))
+        ids = trainer.model.lookup_ids(batch)
+        tables, field_ids = [state["tables"][n] for n in ids], list(ids.values())
+        got, launches = launches_of(gather_rows_multi, lambda: gather_rows_multi(tables, field_ids))
+        again = gather_rows_multi(tables, field_ids)
+        want = gather_rows_multi_ref(tables, field_ids)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+        print(f"gather_rows_multi at {label}'s {len(tables)} tables {[tuple(t.shape) for t in tables]}: "
+              f"{launches} launch, bit for bit the plain version {bitwise}, on repeat {repeat}")
+        check(launches == 1 and bitwise and repeat,
+              f"gather_rows_multi at {label}'s shape: one launch, bit for bit its plain version and on repeat")
+        records["gather_rows_multi"][label] = gather_times(tables, field_ids, f"{label}'s shape")
+
+        start = copy_state(state)
+        one, m_one = builder.step(copy_state(start), batch)
+        two, m_two = builder.step(copy_state(start), batch)
+        same = states_equal(one, two) and torch.equal(m_one["loss"], m_two["loss"])
+        line = f"{label} step: repeats bit for bit {same}"
+        check(same, f"a {label} step repeats bit for bit")
+        if label == "fm":
+            plain, m_plain = PlainSteps(trainer.model, trainer.loss_name, trainer.config.optim).step(
+                copy_state(start), batch)
+            same_plain = states_equal(one, plain) and torch.equal(m_one["loss"], m_plain["loss"])
+            line += f"; bit for bit the step through the plain versions on the card {same_plain}"
+            check(same_plain, "an FM step is bit for bit the step through the plain versions")
+        print(line)
+        del one, two
+        if label != "fm":
+            continue
+        _, _, row_grads, _ = builder.loss_and_grads(start, batch)
+        lr = builder.sparse_schedule(start["step"])
+        eps = trainer.config.optim.eps
+        uids, grads = [], []
+        for name, i in ids.items():
+            u, g = combine_duplicate_ids(i, row_grads[name], sentinel=start["tables"][name].shape[0])
+            uids.append(u)
+            grads.append(g)
+        accs = [start["sparse_opt"][n]["acc"] for n in ids]
+
+        def copies():
+            return [t.clone() for t in tables], [a.clone() for a in accs]
+
+        (got_t, got_a), launches = launches_of(
+            fused_rowwise_adagrad_multi, lambda: fused_rowwise_adagrad_multi(*copies(), uids, grads, lr, eps))
+        again_t, again_a = fused_rowwise_adagrad_multi(*copies(), uids, grads, lr, eps)
+        ref_t, ref_a = fused_rowwise_adagrad_multi_ref(*copies(), uids, grads, lr, eps)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, e) for a, e in zip(got_t + got_a, ref_t + ref_a))
+        repeat = all(torch.equal(a, e) for a, e in zip(got_t + got_a, again_t + again_a))
+        distinct = {n: int((u < t.shape[0]).sum().item()) for n, u, t in zip(ids, uids, tables)}
+        print(f"fused_rowwise_adagrad_multi at FM's 12 tables, a config-2 batch's combined ids (distinct real "
+              f"ids a table {distinct}): {launches} launch, bit for bit the plain version {bitwise}, on repeat "
+              f"{repeat}")
+        check(launches == 1 and bitwise and repeat,
+              "fused_rowwise_adagrad_multi at FM's shape: one launch, bit for bit its plain version and on repeat")
+        work = [(t, a, u, g) for t, a, u, g in zip(*copies(), uids, grads)]
+        records["fused_rowwise_adagrad_multi"]["fm"] = {
+            **adagrad_times(work, lr, "FM's 12 tables (a config-2 batch)"),
+            "shapes": records["gather_rows_multi"]["fm"]["shapes"], "distinct_ids": distinct}
+    return records
+
+
+def plain_forward(model, params, batch) -> torch.Tensor:
+    """``model``'s forward with its rows gathered by the gather's plain
+    version, on the card."""
+    ids = model.lookup_ids(batch)
+    rows = gather_rows_multi_ref([params["tables"][k] for k in ids], list(ids.values()))
+    return model(params["dense"], dict(zip(ids, rows)), batch)
+
+
+def phase_serve_configs(card: str, paths: dict, fm_trainer, neumf_trainer) -> None:
+    """Serving the trained models of phases A and B on the card. NeuMF:
+    ``predict`` on a batch of (user, item) pairs and ``recommend(users,
+    k=10)`` for 1024 users over the 4096 items, train items excluded,
+    against a plain run of the same model on the card (the gather's plain
+    version; for recommend one product of every pair, the train items
+    masked, ``torch.topk``): values to tolerance, ids where untied. FM:
+    ``predict_ctr`` on 6-field batches against its plain run. One gather
+    launch a call; latency (median, p99) and rates."""
+    rng = np.random.default_rng(SEED + 7)
+    rec = Recommender.from_trainer(neumf_trainer)
+    model, params = rec.model, rec.params
+    nu, ni = neumf_trainer.dataset.num_users, neumf_trainer.dataset.num_items
+    users, items = rng.integers(0, nu, BATCH).astype(np.int32), rng.integers(0, ni, BATCH).astype(np.int32)
+    reset_launches()
+    scores = rec.predict(users, items)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches(launches, {"gather_rows_multi": 1}, "NeuMF's predict ran one gather launch, and no other")
+    with torch.inference_mode():
+        batch = {"user": to_device(users), "item": to_device(items)}
+        want = plain_forward(model, params, batch)
+    got = torch.from_numpy(scores).to(DEVICE)
+    ok = within(got, want, LOGIT_TOL, LOGIT_TOL)
+    predict_ms = latency(lambda: rec.predict(users, items))
+    print(f"NeuMF predict, {BATCH} pairs: launches {launches}; max_abs_err against the plain run on the card "
+          f"{max_err(got, want):.3e} (rtol {LOGIT_TOL}, atol {LOGIT_TOL} x max|ref|); latency (host clock, "
+          f"request copy and scores included) median {predict_ms[0]:.3f} ms, p99 {predict_ms[1]:.3f} ms, "
+          f"{BATCH / predict_ms[0] * 1e3:.1f} pairs/s ({card})")
+    check(bool(np.isfinite(scores).all()) and ok, "NeuMF's predict is finite and matches its plain run")
+
+    serve_users = rng.choice(nu, SERVE_USERS, replace=False).astype(np.int32)
+    reset_launches()
+    ids, vals = rec.recommend(serve_users, SERVE_K)
+    torch.cuda.synchronize()
+    paths["serve_neumf"] = launches = read_launches()
+    check_launches(launches, {"gather_rows_multi": 1},
+                   "NeuMF's recommend ran one gather launch (users and every item chunk), and no other")
+    with torch.inference_mode():
+        u = to_device(np.repeat(serve_users, ni))
+        i = torch.arange(ni, dtype=torch.int32, device=DEVICE).repeat(SERVE_USERS)
+        plain = plain_forward(model, params, {"user": u, "item": i}).reshape(SERVE_USERS, ni)
+        train = neumf_trainer.dataset.train_csr[serve_users].toarray() > 0
+        plain.masked_fill_(to_device(train), float("-inf"))
+        top = torch.topk(plain, SERVE_K + 1)
+    want_vals, want_ids = top.values[:, :SERVE_K], top.indices[:, :SERVE_K]
+    got_vals, got_ids = to_device(vals), to_device(ids).long()
+    tol = LOGIT_TOL * max(want_vals.abs().max().item(), 1.0)
+    gaps = top.values[:, :-1] - top.values[:, 1:] > 2 * tol  # [users, k]: each place against the next
+    untied = torch.ones_like(want_vals, dtype=torch.bool)
+    untied[:, 1:] &= gaps[:, :-1]
+    untied &= gaps
+    same_ids = torch.equal(got_ids[untied], want_ids[untied])
+    close = within(got_vals, want_vals, LOGIT_TOL, LOGIT_TOL)
+    excluded = bool(torch.gather(to_device(train), 1, got_ids).any())
+    rec_ms = latency(lambda: rec.recommend(serve_users, SERVE_K))
+    print(f"NeuMF recommend: {SERVE_USERS} users, k={SERVE_K} over {ni} items: launches {launches}; against the "
+          f"plain run on the card: values within rtol {LOGIT_TOL}, atol {LOGIT_TOL} x max|ref| {close} (max_abs_err "
+          f"{max_err(got_vals, want_vals):.3e}), ids equal where untied {same_ids} ({int(untied.sum())} of "
+          f"{untied.numel()} untied), a train item recommended {excluded}; latency median {rec_ms[0]:.3f} ms, "
+          f"p99 {rec_ms[1]:.3f} ms, {SERVE_USERS / rec_ms[0] * 1e3:.1f} users/s ({card})")
+    check(ids.shape == (SERVE_USERS, SERVE_K) and bool(np.isfinite(vals).all()), "recommend's shape, finite")
+    check(close and same_ids and not excluded, "NeuMF's recommend matches its plain run, train items excluded")
+    profile(lambda: rec.recommend(serve_users, SERVE_K), "NeuMF recommend call", rec_ms[0])
+
+    fm = Recommender.from_trainer(fm_trainer)
+    host = fm_trainer._host_batch({"user": rng.integers(0, fm_trainer.dataset.num_users, BATCH).astype(np.int32),
+                                   "item": rng.integers(0, fm_trainer.dataset.num_items, BATCH).astype(np.int32),
+                                   "label": np.zeros(BATCH, np.float32)})
+    reset_launches()
+    logits = fm.predict_ctr(host["dense"], host["cat"])
+    torch.cuda.synchronize()
+    paths["serve_fm"] = launches = read_launches()
+    check_launches(launches, {"gather_rows_multi": 1}, "FM's predict_ctr ran one gather launch, and no other")
+    with torch.inference_mode():
+        want = plain_forward(fm.model, fm.params, {"dense": to_device(host["dense"]), "cat": to_device(host["cat"])})
+    got = torch.from_numpy(logits).to(DEVICE)
+    ok = within(got, want, LOGIT_TOL, LOGIT_TOL)
+    fm_ms = latency(lambda: fm.predict_ctr(host["dense"], host["cat"]))
+    print(f"FM predict_ctr, {BATCH} rows of {host['cat'].shape[1]} fields: launches {launches}; max_abs_err against "
+          f"the plain run on the card {max_err(got, want):.3e}; latency median {fm_ms[0]:.3f} ms, p99 "
+          f"{fm_ms[1]:.3f} ms, {BATCH / fm_ms[0] * 1e3:.1f} rows/s ({card})")
+    check(bool(np.isfinite(logits).all()) and ok, "FM's predict_ctr is finite and matches its plain run")
+    profile(lambda: fm.predict_ctr(host["dense"], host["cat"]), "FM predict_ctr call", fm_ms[0])
 
 
 def main() -> int:
@@ -1815,6 +2225,12 @@ def main() -> int:
     model, state, mf_records = phase_mf_bench(card, paths)
     phase_mf_topk(card, paths, model, state)
     del model, state
+    phase_config4_band(card)
+    fm_trainer = phase_config2(card, paths)
+    neumf_trainer = phase_config3(card, paths)
+    phase_configs_card_vs_cpu()
+    shapes = phase_new_shapes(fm_trainer, neumf_trainer)
+    phase_serve_configs(card, paths, fm_trainer, neumf_trainer)
     for r in records:
         by_path = {path: launches[r["name"]] for path, launches in paths.items()}
         r.update({"launches": sum(by_path.values()), "launches_by_path": by_path})
@@ -1823,6 +2239,7 @@ def main() -> int:
             r["general_route"] = general  # the wide phase's shapes past the tiles
         if r["name"] in mf_records:
             r["mf_bench"] = mf_records[r["name"]]  # MF's 3 tables at bench.py's shape
+        r.update(shapes.get(r["name"], {}))  # FM's 12 tables, NeuMF's 4
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

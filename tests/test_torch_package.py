@@ -28,7 +28,9 @@ def test_port_imports_with_jax_blocked():
     assert "tfrec_tpu_torch.serve" in modules and "tfrec_tpu_torch.kernels.cross_cuda" in modules
     assert {"tfrec_tpu_torch.train.trainer", "tfrec_tpu_torch.eval.metrics", "tfrec_tpu_torch.data.samplers",
             "tfrec_tpu_torch.utils.logging", "tfrec_tpu_torch.utils.prefetch", "tfrec_tpu_torch.models.mf",
-            "tfrec_tpu_torch.data.dataset", "tfrec_tpu_torch.eval.retrieval"} <= set(modules)
+            "tfrec_tpu_torch.data.dataset", "tfrec_tpu_torch.eval.retrieval",
+            "tfrec_tpu_torch.models.fm", "tfrec_tpu_torch.models.ncf",
+            "tfrec_tpu_torch.eval.sampled"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -72,3 +74,10 @@ def test_dcn_criteo_copy_matches_the_reference(path):
 @pytest.mark.parametrize("path", [None, "ml-100k/u.data"])
 def test_mf_bpr_ml100k_copy_matches_the_reference(path):
     assert dataclasses.asdict(zoo.mf_bpr_ml100k(path)) == dataclasses.asdict(jax_zoo.mf_bpr_ml100k(path))
+
+
+@pytest.mark.parametrize("name,path", [("fm_ctr_ml1m", None), ("fm_ctr_ml1m", "ml-1m/ratings.dat"),
+                                       ("neumf_ml20m", None), ("neumf_ml20m", "ml-20m/ratings.csv")])
+def test_config2_and_config3_copies_match_the_reference(name, path):
+    ours, ref = getattr(zoo, name)(path), getattr(jax_zoo, name)(path)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)

@@ -201,9 +201,11 @@ def test_config1_stand_in_and_its_small_run():
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    ({"train": {"eval_protocol": "sampled"}}, NotImplementedError, "ROADMAP Queue 1 item 9"),
-    ({"model": {"name": "fm"}}, NotImplementedError, "ROADMAP Queue 1 item 9"),
-    ({"model": {"name": "dcn"}}, NotImplementedError, "ROADMAP Queue 1 item 9"),
+    ({"model": {"name": "fm"}, "data": {"user_features_path": "ml-1m/users.dat"}},
+     NotImplementedError, "ROADMAP Queue 1 item 10"),
+    ({"model": {"name": "fm"}, "data": {"item_features_path": "ml-1m/movies.dat"}},
+     NotImplementedError, "ROADMAP Queue 1 item 10"),
+    ({"model": {"name": "deepfm"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
     ({"model": {"name": "fism"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
     ({"train": {"loss": "sasrec"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
     ({"data": {"source": "movielens", "path": "ml-100k/u.data"}}, NotImplementedError,

@@ -3,16 +3,20 @@
 ``params_from_jax`` takes a JAX params tree whose leaves are numpy arrays
 (``{"tables": {...}, "dense": {...}}``, e.g. ``jax.tree.map(np.asarray,
 params)``) and returns the same tree of CPU float32 tensors. A retrieval
-model's tables (MF: ``user_emb``, ``item_emb``, ``item_bias`` [V, 1]) are
-carried by name, and its dense tree is ``{}``. A CTR model gets per-field
-tables, whichever of the three table layouts the JAX model used:
+model's tables (MF: ``user_emb``, ``item_emb``, ``item_bias`` [V, 1]; GMF
+and MLP: ``user_emb``, ``item_emb``; NeuMF: ``user_gmf``, ``item_gmf``,
+``user_mlp``, ``item_mlp``) are carried by name. A CTR model gets per-field
+tables, and FM its per-field linear tables ``lin_{f}`` [V_f, 1] too,
+whichever of the three table layouts the JAX model used:
 
-- per-field tables ``field_{f}`` [V_f, d_f];
+- per-field tables ``field_{f}`` [V_f, d_f] (and ``lin_{f}``);
 - lane-packed tables ``pack_{k}`` [max V, P*d]: fields sorted by descending
   vocab (a stable sort) in groups of P = 128 // d
   (``tfrec_tpu/models/ctr_base.py`` ``enable_lane_packing``); field f is
-  ``pack_k[:V_f, slot*d:(slot+1)*d]``;
-- one stacked table ``fields`` [sum V_f, d], split at the vocab offsets.
+  ``pack_k[:V_f, slot*d:(slot+1)*d]``; the linear tables in the same order
+  in groups of 128, one lane a field (``linpack_k[:V_f, slot]``);
+- one stacked table ``fields`` [sum V_f, d] (and ``lin`` [sum V_f, 1]),
+  split at the vocab offsets.
 
 Dense weights keep their layout (MLP weights are ``[in, out]`` in both).
 
@@ -44,44 +48,59 @@ def _tree(x: Any) -> Any:
     return _tensor(x)
 
 
+def _lane_groups(model: CTRBase, per_pack: int):
+    """The reference's packing order: fields sorted by descending vocab (a
+    stable sort), in groups of ``per_pack``."""
+    vocabs = model.data_spec.field_vocabs
+    order = sorted(range(len(vocabs)), key=lambda f: -vocabs[f])
+    return [order[i : i + per_pack] for i in range(0, len(order), per_pack)]
+
+
 def _unpack_lanes(tables: Dict[str, Any], model: CTRBase) -> Dict[str, np.ndarray]:
-    """Rebuild the reference's grouping: fields sorted by descending vocab,
-    P = 128 // d per pack; field f is its slot's d lanes of its pack."""
+    """Rebuild the reference's grouping: P = 128 // d fields a ``pack_{k}``,
+    field f its slot's d lanes; with linear tables, up to 128 fields a
+    ``linpack_{k}``, field f its slot's one lane."""
     vocabs = model.data_spec.field_vocabs
     d = model.field_dims[0]
     if len(set(model.field_dims)) > 1 or 128 % d != 0:
         raise ValueError(f"lane-packed tables need equal field dims dividing 128, got {model.field_dims}")
-    p = 128 // d
-    order = sorted(range(len(vocabs)), key=lambda f: -vocabs[f])
-    groups = [order[i : i + p] for i in range(0, len(order), p)]
-    if set(tables) != {f"pack_{k}" for k in range(len(groups))}:
-        raise ValueError(f"expected {len(groups)} lane-packed tables, got {sorted(tables)}")
+    layouts = [("pack", "field", d, _lane_groups(model, 128 // d))]
+    if model.use_linear_tables:
+        layouts.append(("linpack", "lin", 1, _lane_groups(model, 128)))
+    expected = {f"{pack}_{k}" for pack, _, _, groups in layouts for k in range(len(groups))}
+    if set(tables) != expected:
+        raise ValueError(f"expected lane-packed tables {sorted(expected)}, got {sorted(tables)}")
     out = {}
-    for k, grp in enumerate(groups):
-        pack = np.asarray(tables[f"pack_{k}"])
-        for slot, f in enumerate(grp):
-            out[f"field_{f}"] = pack[: vocabs[f], slot * d : (slot + 1) * d]
+    for pack, prefix, width, groups in layouts:
+        for k, grp in enumerate(groups):
+            packed = np.asarray(tables[f"{pack}_{k}"])
+            for slot, f in enumerate(grp):
+                out[f"{prefix}_{f}"] = packed[: vocabs[f], slot * width : (slot + 1) * width]
     return out
 
 
 def _field_tables(tables: Dict[str, Any], model: CTRBase) -> Dict[str, np.ndarray]:
     vocabs = model.data_spec.field_vocabs
     nf = len(vocabs)
+    prefixes = ("field", "lin") if model.use_linear_tables else ("field",)
     names = set(tables)
-    if names == {f"field_{f}" for f in range(nf)}:
-        return {f"field_{f}": np.asarray(tables[f"field_{f}"]) for f in range(nf)}
-    if names == {"fields"}:
-        stacked = np.asarray(tables["fields"])
-        out, off = {}, 0
-        for f, v in enumerate(vocabs):
-            out[f"field_{f}"] = stacked[off : off + v]
-            off += v
+    if names == {f"{p}_{f}" for p in prefixes for f in range(nf)}:
+        return {name: np.asarray(tables[name]) for name in names}
+    stacked = {"field": "fields", "lin": "lin"}
+    if names == {stacked[p] for p in prefixes}:
+        out = {}
+        for p in prefixes:
+            rows, off = np.asarray(tables[stacked[p]]), 0
+            for f, v in enumerate(vocabs):
+                out[f"{p}_{f}"] = rows[off : off + v]
+                off += v
         return out
-    if names and all(n.startswith("pack_") for n in names):
+    if names and all(n.startswith(("pack_", "linpack_")) for n in names):
         return _unpack_lanes(tables, model)
     raise ValueError(
         f"unrecognised table layout {sorted(names)} for {nf} fields: expected "
-        "per-field field_{f}, lane-packed pack_{k} or stacked 'fields' tables"
+        "per-field field_{f} (and lin_{f}), lane-packed pack_{k} (and linpack_{k}) "
+        "or stacked 'fields' (and 'lin') tables"
     )
 
 
@@ -105,7 +124,8 @@ def params_from_jax(np_params: Dict[str, Any], model) -> Dict[str, Any]:
                 f"the model needs {spec.shape}"
             )
     return {
-        "tables": {k: _tensor(np.ascontiguousarray(v)) for k, v in tables.items()},
+        "tables": {spec.name: _tensor(np.ascontiguousarray(tables[spec.name]))
+                   for spec in model.table_specs()},
         "dense": _tree(np_params["dense"]),
     }
 

@@ -1,5 +1,6 @@
-"""Evaluation of the port: ranking metrics and the full-catalog retrieval
-evaluator (``retrieval``), and CTR metrics."""
+"""Evaluation of the port: ranking metrics, the full-catalog retrieval
+evaluator (``retrieval``), the sampled-candidate evaluator (``sampled``),
+and CTR metrics."""
 
 from tfrec_tpu_torch.eval.metrics import auc, logloss, ranking_metrics_from_topk
 

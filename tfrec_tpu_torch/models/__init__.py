@@ -1,26 +1,28 @@
-"""Model registry of the port: ``mf``, ``dcn`` and ``dcnv2`` so far.
+"""Model registry of the port: ``mf``, ``fm``, ``gmf``, ``mlp``, ``neumf``,
+``dcn`` and ``dcnv2`` so far.
 
 The reference's other models are refused by naming the ROADMAP Queue 1
-item that ports them: fm, gmf, mlp and neumf (configs 2 and 3) item 9, the
-rest of the zoo item 12."""
+item that ports them, item 12."""
 
 from __future__ import annotations
 
 from tfrec_tpu_torch.configs import ModelConfig
 from tfrec_tpu_torch.models.base import DataSpec, RecModel
+from tfrec_tpu_torch.models.ctr_base import CTRBase
 from tfrec_tpu_torch.models.dcn import DCN
+from tfrec_tpu_torch.models.fm import FM
 from tfrec_tpu_torch.models.mf import MF
+from tfrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
 
-__all__ = ["DataSpec", "RecModel", "DCN", "MF", "build_model"]
+__all__ = ["DataSpec", "RecModel", "DCN", "FM", "GMF", "MF", "MLP", "NeuMF", "build_model"]
+BUILT = "mf, fm, gmf, mlp, neumf, dcn, dcnv2"
 
 # The reference's models that the port does not build yet, by the ROADMAP
 # Queue 1 item that ports them.
-NOT_PORTED = {
-    **dict.fromkeys(("fm", "gmf", "mlp", "neumf"), 9),
-    **dict.fromkeys(("pop", "sbpr", "apr", "irgan", "wrmf", "ease", "lightgcn", "ngcf", "convncf",
-                     "deepfm", "nfm", "widedeep", "dlrm", "fism", "multvae", "multdae", "nais",
-                     "cdae", "fpmc", "sasrec", "gru4rec", "caser"), 12),
-}
+NOT_PORTED = dict.fromkeys(
+    ("pop", "sbpr", "apr", "irgan", "wrmf", "ease", "lightgcn", "ngcf", "convncf", "deepfm", "nfm",
+     "widedeep", "dlrm", "fism", "multvae", "multdae", "nais", "cdae", "fpmc", "sasrec", "gru4rec",
+     "caser"), 12)
 
 
 def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
@@ -31,16 +33,21 @@ def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
     on the GPU. An explicit ``lane_pack=True`` or ``stack_tables=True`` is
     refused until those layouts are ported (ROADMAP Queue 1).
     """
-    name = cfg.name.lower()
+    model = _build(cfg, data_spec)
     if cfg.stack_tables or cfg.lane_pack:
         which = "stack_tables" if cfg.stack_tables else "lane_pack"
-        if name == "mf":
+        if not isinstance(model, CTRBase):
             raise ValueError(f"model.{which} applies to CTR models, not {cfg.name!r}")
         raise NotImplementedError(
             f"model.{which}=True: the port builds per-field tables only "
             "(ROADMAP Queue 1, lane-packed and stacked layouts); "
             "convert.params_from_jax reads JAX params of either layout"
         )
+    return model
+
+
+def _build(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
+    name = cfg.name.lower()
     if name == "mf":
         return MF(data_spec, cfg.embed_dim)
     if name in ("dcn", "dcnv2"):
@@ -60,9 +67,17 @@ def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
             dropout=cfg.dropout,
             field_dims=cfg.field_dims or None,
         )
+    if name == "fm":
+        return FM(data_spec, cfg.embed_dim, field_dims=cfg.field_dims or None)
+    if name == "gmf":
+        return GMF(data_spec, cfg.gmf_dim or cfg.embed_dim)
+    if name == "mlp":
+        return MLP(data_spec, cfg.mlp_embed_dim or cfg.embed_dim, cfg.mlp_dims, dropout=cfg.dropout)
+    if name == "neumf":
+        return NeuMF(data_spec, cfg.gmf_dim, cfg.mlp_embed_dim, cfg.mlp_dims, dropout=cfg.dropout)
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet: ROADMAP Queue 1 item {NOT_PORTED[name]}; "
-            "tfrec_tpu_torch builds: mf, dcn, dcnv2"
+            f"tfrec_tpu_torch builds: {BUILT}"
         )
-    raise ValueError(f"unknown model {cfg.name!r}; tfrec_tpu_torch builds: mf, dcn, dcnv2")
+    raise ValueError(f"unknown model {cfg.name!r}; tfrec_tpu_torch builds: {BUILT}")

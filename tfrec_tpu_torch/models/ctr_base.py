@@ -4,8 +4,10 @@ The counterpart of ``tfrec_tpu/models/ctr_base.py`` with per-field tables.
 Batch convention: {"dense": [B, Dd] f32 (Dd may be 0), "cat": [B, sum(W_f)]
 int32}. A width-W_f multi-hot field occupies W_f columns, padded with the
 sentinel ``vocab_f`` (clamped by the gather, masked out of the combine).
-One table per field ("field_{f}"); multi-hot bags are mean-combined over
-their valid ids. The lane-packed and stacked table layouts of the reference
+One table per field ("field_{f}"), and for models with linear terms (FM)
+one [V_f, 1] table per field ("lin_{f}", zeros at init) read with the
+field's own ids; multi-hot bags are mean-combined over their valid ids,
+linear terms summed. The lane-packed and stacked table layouts of the reference
 are not built here yet (ROADMAP Queue 1); ``convert.params_from_jax`` reads
 JAX params in those layouts into per-field tables.
 """
@@ -21,6 +23,7 @@ from tfrec_tpu_torch.ops.embedding import TableSpec
 
 
 class CTRBase(RecModel):
+    use_linear_tables = False
     # Models whose interaction needs EQUAL field dims set this False;
     # concat-based towers (DCN) accept mixed dims.
     supports_mixed_dims = False
@@ -57,10 +60,11 @@ class CTRBase(RecModel):
         return len(self.data_spec.field_vocabs)
 
     def table_specs(self) -> Tuple[TableSpec, ...]:
-        return tuple(
-            TableSpec(f"field_{f}", v, self.field_dims[f])
-            for f, v in enumerate(self.data_spec.field_vocabs)
-        )
+        vocabs = self.data_spec.field_vocabs
+        specs = [TableSpec(f"field_{f}", v, self.field_dims[f]) for f, v in enumerate(vocabs)]
+        if self.use_linear_tables:
+            specs += [TableSpec(f"lin_{f}", v, 1, initializer="zeros") for f, v in enumerate(vocabs)]
+        return tuple(specs)
 
     def lookup_ids(self, batch) -> Dict[str, torch.Tensor]:
         """{"field_f": [B * W_f] int32}, each contiguous (sentinel-padded
@@ -73,10 +77,12 @@ class CTRBase(RecModel):
             ids[f"field_{f}"] = (
                 cat_t[off] if w == 1 else cat_t[off : off + w].t().reshape(-1)
             )
+        if self.use_linear_tables:
+            ids.update({f"lin_{f}": ids[f"field_{f}"] for f in range(self.num_fields)})
         return ids
 
-    def _combine(self, gathered_rows: torch.Tensor, batch, f: int) -> torch.Tensor:
-        """[B*W, D] rows -> [B, D] masked mean over the bag width."""
+    def _combine(self, gathered_rows: torch.Tensor, batch, f: int, mean: bool = True) -> torch.Tensor:
+        """[B*W, D] rows -> [B, D] masked mean (or sum) over the bag width."""
         w = self.widths[f]
         if w == 1:
             return gathered_rows
@@ -85,8 +91,11 @@ class CTRBase(RecModel):
         valid = batch["cat"][:, off : off + w] < self.data_spec.field_vocabs[f]
         # where (not multiply): a masked row must contribute exactly 0.
         rows = torch.where(valid[:, :, None], gathered_rows.reshape(bsz, w, -1), 0.0)
+        out = rows.sum(dim=1)
+        if not mean:
+            return out
         denom = valid.sum(dim=1).to(rows.dtype).clamp_min(1.0)
-        return rows.sum(dim=1) / denom[:, None]
+        return out / denom[:, None]
 
     def field_list(self, gathered, batch) -> List[torch.Tensor]:
         """Per-field combined embeddings: list of [B, d_f]."""
@@ -95,9 +104,29 @@ class CTRBase(RecModel):
             for f in range(self.num_fields)
         ]
 
+    def field_stack(self, gathered, batch) -> torch.Tensor:
+        """[B, F, D] combined field embeddings (equal dims required)."""
+        return torch.stack(self.field_list(gathered, batch), dim=1)
+
+    def linear_sum(self, gathered, batch) -> torch.Tensor:
+        """[B] masked sum of the per-field linear weights."""
+        total = 0.0
+        for f in range(self.num_fields):
+            total = total + self._combine(gathered[f"lin_{f}"], batch, f, mean=False)[:, 0]
+        return total
+
     def flat_input(self, gathered, batch) -> torch.Tensor:
         """[B, sum(d_f) + Dd]: concatenated field embeddings + dense features."""
         parts = self.field_list(gathered, batch)
         if self.data_spec.num_dense > 0:
             parts.append(batch["dense"])
         return torch.cat(parts, dim=-1)
+
+
+def fm_second_order(field_vecs: torch.Tensor) -> torch.Tensor:
+    """0.5 * (||sum_f v_f||^2 - sum_f ||v_f||^2): every pairwise interaction
+    in O(F*D), the FM identity. field_vecs [B, F, D] -> [B]."""
+    total = field_vecs.sum(dim=1)
+    sum_sq = (total * total).sum(dim=-1)
+    sq_sum = (field_vecs * field_vecs).sum(dim=(1, 2))
+    return 0.5 * (sum_sq - sq_sum)

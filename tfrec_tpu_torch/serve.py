@@ -11,10 +11,13 @@ and its params on one device and serves:
 
 Each copies the request to the device, gathers one row per id through
 ``ops.embedding`` (one launch of the CUDA gather kernel for every table on
-a card), runs the model and returns numpy. The catalog product is one
-``torch.matmul`` in the model's ``score_all`` and the top-k
-``torch.topk`` (``eval.retrieval``; "approx" is exact here, as on the
-reference's CPU). Ids out of range clamp, as the reference's
+a card), runs the model and returns numpy. ``predict`` serves the
+retrieval models (MF, GMF, MLP, NeuMF), ``predict_ctr`` the CTR models (FM,
+DCN). The catalog is scored by the model's ``score_all``: one
+``torch.matmul`` for MF, GMF and 2-field FM, item chunks through the
+towers for MLP and NeuMF (FM with side fields has none and raises); the
+top-k is ``torch.topk`` (``eval.retrieval``; "approx" is exact here, as on
+the reference's CPU). Ids out of range clamp, as the reference's
 ``jnp.take(mode="clip")`` does in ``predict``.
 
 Refused by naming the ROADMAP Queue 1 item: int8 serving

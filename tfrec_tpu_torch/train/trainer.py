@@ -7,27 +7,36 @@ kernels, and for DCN the cross-stack kernels), fixed-shape batches copied
 to the device ahead of the step (``prefetch``), the epoch loop with K steps
 a dispatch (``multi_step``), the eval cadence, early stopping and the JSONL
 metric stream (``MetricLogger``), with the reference's records.
-``run(config)`` builds one and trains it. Two data paths:
+``run(config)`` builds one and trains it. Three data paths:
 
-- interaction data (``synthetic_implicit``) with MF: ``build_dataset``
-  splits it; ``PairwiseSampler`` feeds the pairwise losses (bpr, hinge,
-  sampled_softmax, in_batch_softmax; with ``train.device_negatives`` the
-  step draws bpr's and hinge's negatives on the device) and
-  ``PointwiseSampler`` logloss and mse; the eval ranks the full catalog
-  for every user with test items (``eval.retrieval.RetrievalEvaluator``:
-  precision, recall, MAP, NDCG and MRR at ``train.eval_topk``, train items
-  masked), plus an AUC over sampled negatives under logloss;
-- CTR data (``synthetic_ctr``) with DCN: shuffled batches
+- interaction data (``synthetic_implicit``) with a retrieval model (mf,
+  gmf, mlp, neumf): ``build_dataset`` splits it; ``PairwiseSampler`` feeds
+  the pairwise losses (bpr, hinge, sampled_softmax, in_batch_softmax; with
+  ``train.device_negatives`` the step draws bpr's and hinge's negatives on
+  the device) and ``PointwiseSampler`` logloss and mse; the eval ranks the
+  full catalog for every user with test items
+  (``eval.retrieval.RetrievalEvaluator``: precision, recall, MAP, NDCG and
+  MRR at ``train.eval_topk``, train items masked), or with
+  ``train.eval_protocol="sampled"`` each held-out item against sampled
+  negatives (``eval.sampled.SampledEvaluator``: HR and NDCG at k), plus an
+  AUC over sampled negatives under logloss;
+- interaction data with a CTR model (fm, dcn, dcnv2): pointwise samples
+  become multi-field batches, cat = [user, item, user side fields..., item
+  side fields...] (``_host_batch``; ``data.synthetic_side_features`` draws
+  the side fields); the eval adds the AUC over sampled negatives and, where
+  the model scores the catalog (2-field FM), the full-catalog metrics;
+- CTR data (``synthetic_ctr``) with a CTR model: shuffled batches
   (``CTRBatcher``), AUC and logloss on the held-out rows.
 
 The device is the card unless the caller passes ``device="cpu"`` (the
 kernels' plain versions); without CUDA the default raises. What the port
 does not take yet it refuses by naming the ROADMAP Queue 1 item, never
-passing it over: Criteo's files (not in the repository, item 10; MovieLens'
-are refused by ``build_dataset``), the sampled eval protocol and CTR models over interaction data
-(item 9), models other than mf, dcn and dcnv2 (items 9 and 12), user
-histories, sequences and the social graph (item 12), checkpoints, resume
-and warm starts (item 10), step profiles (item 10), a mesh (item 11),
+passing it over: Criteo's and MovieLens' files and the ML-1M side-feature
+files (``data.user_features_path`` / ``item_features_path``; not in the
+repository, item 10; MovieLens' ratings are refused by ``build_dataset``),
+models other than mf, fm, gmf, mlp, neumf, dcn and dcnv2, user histories,
+sequences and the social graph (item 12), checkpoints, resume and warm
+starts (item 10), step profiles (item 10), a mesh (item 11),
 ``train.matmul_precision`` other than "default" and host-computed dedup
 sorts (item 5).
 """
@@ -53,7 +62,8 @@ from tfrec_tpu_torch.data.synthetic import synthetic_ctr
 from tfrec_tpu_torch.eval.metrics import auc as auc_metric
 from tfrec_tpu_torch.eval.metrics import logloss as logloss_metric
 from tfrec_tpu_torch.eval.retrieval import RetrievalEvaluator
-from tfrec_tpu_torch.models import NOT_PORTED, DataSpec, build_model
+from tfrec_tpu_torch.eval.sampled import SampledEvaluator
+from tfrec_tpu_torch.models import BUILT, NOT_PORTED, DataSpec, build_model
 from tfrec_tpu_torch.train.losses import IN_BATCH_LOSSES, MULTI_NEG_LOSSES, PAIRWISE_LOSSES
 from tfrec_tpu_torch.train.step import TrainStepBuilder
 from tfrec_tpu_torch.utils.logging import MetricLogger
@@ -62,7 +72,7 @@ from tfrec_tpu_torch.utils.prefetch import prefetch
 INTERACTION_SOURCES = ("movielens", "synthetic_implicit")
 CTR_SOURCES = ("criteo", "synthetic_ctr")
 # The reference's CTR models (its trainer's CTR_MODELS); over interaction
-# data they train on [user, item] field batches, ROADMAP Queue 1 item 9.
+# data they train on [user, item, side fields...] batches.
 CTR_MODELS = ("fm", "dcn", "dcnv2", "deepfm", "nfm", "widedeep", "dlrm")
 EVAL_BATCH = 8192  # rows of a held-out forward, at most
 
@@ -81,16 +91,7 @@ def _refuse_unported(c: Config) -> None:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {c.model.name!r} is not ported yet: ROADMAP Queue 1 item {NOT_PORTED[name]}; "
-            "the port trains mf, dcn and dcnv2")
-    interaction = source in INTERACTION_SOURCES
-    if interaction and name in CTR_MODELS:
-        raise NotImplementedError(
-            f"CTR model {c.model.name!r} over interaction data ([user, item] field batches) is "
-            "not ported yet: ROADMAP Queue 1 item 9")
-    if interaction and c.train.eval_protocol == "sampled":
-        raise NotImplementedError(
-            "train.eval_protocol='sampled' (eval/sampled.py) is not ported yet: ROADMAP Queue 1 "
-            "item 9; the port ranks the full catalog")
+            f"the port trains {BUILT}")
     t = c.train
     if t.checkpoint_dir and t.checkpoint_every_epochs > 0:
         raise NotImplementedError(
@@ -138,10 +139,17 @@ class Trainer:
         self.logger.log({"event": "run_config", "config": dataclasses.asdict(c)})
 
         # ---- data ----
+        self.is_ctr_model = c.model.name.lower() in CTR_MODELS
         self.dataset = self.ctr_arrays = None
+        self.user_side = self.item_side = None
         if c.data.source in INTERACTION_SOURCES:
             self.dataset = build_dataset(c.data)
-            self.data_spec = DataSpec.interaction(self.dataset.num_users, self.dataset.num_items)
+            nu, ni = self.dataset.num_users, self.dataset.num_items
+            if self.is_ctr_model:
+                side_vocabs = self._load_side_features(nu, ni)
+                self.data_spec = DataSpec.ctr((nu, ni) + side_vocabs, num_dense=0)
+            else:
+                self.data_spec = DataSpec.interaction(nu, ni)
         else:
             # Synthetic CTR examples, the last test_fraction held out.
             dense, cat, label = synthetic_ctr(
@@ -163,14 +171,14 @@ class Trainer:
             self.data_spec = DataSpec.ctr(
                 tuple(c.data.categorical_vocab_sizes), num_dense=dense.shape[1],
                 field_widths=c.data.categorical_field_widths or None)
-            if c.model.name.lower() not in CTR_MODELS:
+            if not self.is_ctr_model:
                 raise ValueError(
                     f"model {c.model.name!r} needs interaction data, got {c.data.source!r}")
 
         # ---- model + step ----
         self.model = build_model(c.model, self.data_spec)
         loss = c.train.loss
-        if self.ctr_arrays is not None and loss in PAIRWISE_LOSSES:
+        if self.is_ctr_model and loss in PAIRWISE_LOSSES:
             self.logger.log({"event": "loss_coerced", "from": loss, "to": "logloss",
                              "reason": "CTR models train pointwise"})
             loss = "logloss"
@@ -187,6 +195,28 @@ class Trainer:
         self._es_best = None  # early-stopping monitor state
         self._es_stall = 0
         self._retrieval_eval = None  # built at the first eval
+
+    def _load_side_features(self, nu: int, ni: int) -> Tuple[int, ...]:
+        """The side fields of a CTR model over interaction data: fills
+        ``user_side`` [U, 3] and ``item_side`` [V, 1] int32 and returns their
+        vocabs, or leaves them None and returns (). The synthetic fields are
+        the reference's draws from ``data.seed + 11``: gender, age bucket and
+        occupation (vocabs 2, 7, 21) a user, a genre (18) an item."""
+        c = self.config
+        for knob in ("user_features_path", "item_features_path"):
+            if getattr(c.data, knob):
+                raise NotImplementedError(
+                    f"data.{knob} reads MovieLens-1M's side-feature files, which are not in the "
+                    "repository; their readers are not ported yet: ROADMAP Queue 1 item 10 (the "
+                    "port draws synthetic side fields with data.synthetic_side_features)")
+        if not c.data.synthetic_side_features:
+            return ()
+        rng = np.random.default_rng(c.data.seed + 11)
+        side_vocabs_u = (2, 7, 21)  # gender, age bucket, occupation
+        self.user_side = np.stack(
+            [rng.integers(0, v, nu) for v in side_vocabs_u], axis=1).astype(np.int32)
+        self.item_side = rng.integers(0, 18, (ni, 1)).astype(np.int32)
+        return side_vocabs_u + (18,)
 
     def _use_device_negs(self, loss: str) -> bool:
         return (self.config.train.device_negatives and self.dataset is not None
@@ -232,10 +262,27 @@ class Trainer:
         return PointwiseSampler(self.dataset, bs, max(c.train.num_negatives, 1), seed,
                                 neg_cdf=neg_cdf)
 
+    def _host_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The model's host batch: for a CTR model over interaction data a
+        pointwise batch becomes {"dense": [B, 0], "cat": [user, item, user
+        side fields..., item side fields...], "label"}; other batches pass
+        as they are."""
+        if not (self.is_ctr_model and self.ctr_arrays is None):
+            return batch
+        cols = [batch["user"][:, None], batch["item"][:, None]]
+        if self.user_side is not None:
+            cols.append(self.user_side[batch["user"]])
+        if self.item_side is not None:
+            cols.append(self.item_side[batch["item"]])
+        return {
+            "dense": np.zeros((len(batch["user"]), 0), np.float32),
+            "cat": np.concatenate(cols, axis=1).astype(np.int32),
+            "label": batch["label"],
+        }
+
     def _to_device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """The host-to-device copy of a batch (or of K stacked batches), as
-        the sampler makes it (the reference's ``_host_batch`` adapts only
-        interaction batches for CTR models, item 9)."""
+        """The host-to-device copy of a model's host batch (or of K stacked
+        ones)."""
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
@@ -247,18 +294,34 @@ class Trainer:
 
     def evaluate(self) -> Dict[str, float]:
         """CTR data: AUC and logloss on the held-out rows. Interaction data:
-        the full-catalog ranking metrics, and AUC over sampled negatives
-        when the loss is logloss."""
+        the sampled-candidate metrics (``train.eval_protocol="sampled"``,
+        for retrieval models) or the full-catalog ones, where the model
+        scores the catalog (FM with side fields does not, and reports AUC
+        only, as in the reference); and the AUC over sampled negatives when
+        the loss is logloss or the model a CTR model."""
         if self.ctr_arrays is not None:
             dense, cat, label = self.ctr_arrays["test"]
             return self._eval_ctr(dense, cat, label)
         c = self.config
-        if self._retrieval_eval is None:
-            self._retrieval_eval = RetrievalEvaluator(
-                self.model.score_all, self.dataset, ks=tuple(c.train.eval_topk),
-                user_batch=c.train.eval_user_batch, device=self.device)
-        out = self._retrieval_eval(self.params)
-        if self.loss_name == "logloss":
+        out: Dict[str, float] = {}
+        if c.train.eval_protocol == "sampled" and self.data_spec.kind == "interaction":
+            if self._retrieval_eval is None:
+                self._retrieval_eval = SampledEvaluator(
+                    self.model, self.dataset, ks=tuple(c.train.eval_topk),
+                    num_candidates=c.train.eval_num_candidates, seed=c.train.seed + 13,
+                    user_batch=c.train.eval_user_batch, device=self.device)
+            out.update(self._retrieval_eval(self.params))
+        else:
+            if self._retrieval_eval is None:
+                self._retrieval_eval = RetrievalEvaluator(
+                    self.model.score_all, self.dataset, ks=tuple(c.train.eval_topk),
+                    user_batch=c.train.eval_user_batch, device=self.device)
+            if self._retrieval_eval:
+                try:
+                    out.update(self._retrieval_eval(self.params))
+                except NotImplementedError:  # the model does not score the catalog
+                    self._retrieval_eval = False
+        if self.loss_name == "logloss" or self.is_ctr_model:
             out.update(self._eval_interaction_auc())
         return out
 
@@ -273,8 +336,8 @@ class Trainer:
         neg_items = rng.integers(0, self.dataset.num_items, size=(n, num_neg)).astype(np.int32)
         items = np.concatenate([test.items[:n, None], neg_items], axis=1).reshape(-1)
         labels = np.tile(np.concatenate([[1.0], np.zeros(num_neg)]).astype(np.float32), n)
-        batch = self._to_device_batch({"user": users.astype(np.int32), "item": items,
-                                       "label": labels})
+        batch = self._to_device_batch(self._host_batch(
+            {"user": users.astype(np.int32), "item": items, "label": labels}))
         with torch.no_grad():
             logits = self._forward(batch)
             return {"auc": float(auc_metric(logits, batch["label"]))}
@@ -405,7 +468,7 @@ class Trainer:
                         yield {key: np.stack([g[key] for g in group]) for key in group[0]}
                         group = []
 
-            batches = self.sampler.epoch(epoch)
+            batches = map(self._host_batch, self.sampler.epoch(epoch))
             batch_stream = prefetch(grouped(batches) if k_steps > 1 else batches,
                                     self._to_device_batch)
             # With K > 1 the cap rounds DOWN to whole dispatches. Where the

@@ -1,5 +1,6 @@
-"""Milestone configs ported so far: ``mf_bpr_ml100k`` (config 1) and
-``dcn_criteo`` (config 4).
+"""Milestone configs ported so far: ``mf_bpr_ml100k`` (config 1),
+``fm_ctr_ml1m`` (config 2), ``neumf_ml20m`` (config 3) and ``dcn_criteo``
+(config 4).
 
 Copies of ``tfrec_tpu.zoo_configs``' constructors; a test holds each equal
 to its original.
@@ -43,6 +44,65 @@ def mf_bpr_ml100k(path: str | None = None) -> Config:
         train=TrainConfig(
             batch_size=2048, epochs=60, loss="bpr", eval_every_epochs=10,
             eval_topk=(10, 20, 50),
+        ),
+    )
+
+
+def fm_ctr_ml1m(path: str | None = None) -> Config:
+    """Config 2: FM pointwise CTR on MovieLens-1M over multi-field
+    categoricals (user, item, and gender, age, occupation and genre side
+    fields). With a ``path`` the data is MovieLens' files and
+    ``data.user_features_path`` / ``item_features_path`` name users.dat and
+    movies.dat (not ported yet); without one, the seeded
+    ``synthetic_implicit`` stand-in at ML-1M's shape (6040 users, 3706
+    items, 64 interactions a user) with synthetic side fields."""
+    return Config(
+        run_name="fm_ctr_ml1m",
+        data=DataConfig(
+            source="movielens" if path else "synthetic_implicit",
+            path=path,
+            splitter="ratio",
+            test_fraction=0.2,
+            num_users=6040, num_items=3706, interactions_per_user=64,
+            synthetic_side_features=path is None,
+        ),
+        model=ModelConfig(name="fm", embed_dim=64),
+        optim=OptimConfig(
+            learning_rate=0.02, dense_optimizer="adagrad",
+            sparse_optimizer="rowwise_adagrad",
+        ),
+        train=TrainConfig(
+            batch_size=4096, epochs=20, loss="logloss", num_negatives=4,
+            eval_every_epochs=5, eval_topk=(10, 20),
+        ),
+    )
+
+
+def neumf_ml20m(path: str | None = None) -> Config:
+    """Config 3: NeuMF (GMF + MLP towers over separate embeddings) with
+    sampled negatives, evaluated by the NCF protocol: each held-out item
+    ranked against 100 sampled negatives. Without a ``path``, the seeded
+    ``synthetic_implicit`` stand-in (8192 users, 4096 items, 32
+    interactions a user, one held out each)."""
+    return Config(
+        run_name="neumf_ml20m",
+        data=DataConfig(
+            source="movielens" if path else "synthetic_implicit",
+            path=path,
+            splitter="leave_one_out",
+            num_users=8192, num_items=4096, interactions_per_user=32,
+        ),
+        model=ModelConfig(
+            name="neumf", gmf_dim=32, mlp_embed_dim=32, mlp_dims=(64, 32, 16)
+        ),
+        optim=OptimConfig(
+            learning_rate=0.001, dense_optimizer="adam",
+            sparse_optimizer="rowwise_adam",
+        ),
+        train=TrainConfig(
+            batch_size=8192, epochs=20, loss="logloss", num_negatives=4,
+            eval_every_epochs=5, eval_topk=(10, 20),
+            eval_protocol="sampled", eval_num_candidates=100,
         ),
     )
 
