@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving, training and retrieval slices, and configs 1-4, on one NVIDIA GPU.
+"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-4, and data files, checkpoints and the CLI, on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
@@ -117,7 +117,31 @@ non-zero if any phase fails:
 21. (E) serving: NeuMF ``predict`` of 8192 pairs and ``recommend(users,
     k=10)`` for 1024 users over its 4096 items, FM ``predict_ctr`` of 8192
     6-field rows, each against a plain run on the card, one gather launch
-    a call; latency (median, p99) and rates.
+    a call; latency (median, p99) and rates;
+22. (F) Criteo files: a TSV in Criteo's line format of 500 000 lines from
+    the seed (``synthetic_ctr``'s rows at Criteo's shape, ids as hex tokens,
+    some fields empty, a few malformed lines); the native parser against
+    the Python parser on the first 50 000 lines (ids and labels bit for
+    bit, dense values each parser's own arithmetic, within 1 ulp) and its
+    MB/s; ``dcn_criteo(path)`` trained at Criteo's shape materialized
+    (``load_criteo``, the Python parser as in the reference, the file's
+    first 200 000 lines) and streamed (``data.streaming``, 100 000 eval
+    lines, a checkpoint after each of 2 epochs; the train stream through
+    the native parser, asserted), one gather, v1 forward, v1 backward and
+    Adagrad launch a step; 8 steps against the CPU;
+23. (G) resume: the streamed run resumed from its epoch-1 checkpoint ends
+    with its whole run's state bit for bit; the save and the restore of
+    the Criteo-shaped state timed;
+24. (H) ``Recommender.from_checkpoint`` serves that checkpoint:
+    ``predict_ctr`` of 8192 requests bit for bit ``from_trainer``'s, one
+    gather and one v1 forward launch;
+25. (I) MovieLens files: ML-1M's ratings.dat, users.dat and movies.dat
+    from the seed at 6040 users x 3706 items (~1M ratings); the native UIRT
+    parser against the Python loop; ``fm_ctr_ml1m(path)`` with the side
+    files for 2 epochs (one gather and one Adagrad launch a step, its AUC);
+    NeuMF warm started from a 1-epoch GMF checkpoint (``init_from``);
+26. (J) ``python -m tfrec_tpu_torch.cli --config dcn_criteo --data_path
+    <F's file>`` as a process of its own, its last line parsed.
 
 No earlier path is cut in depth for time (PERF.md gives a whole run's
 time on an H100). The last lines are the kernels' JSON record (the v2
@@ -128,24 +152,33 @@ trainers', MF's and configs 2 and 3's paths: ``trainer_mf`` phase 12,
 ``train_mf`` phase 13's card run, ``bench_mf`` phase 14's 8 steps,
 ``serve_mf`` phase 15's first call, ``trainer_fm`` and ``trainer_neumf``
 phases 17 and 18, ``serve_neumf`` and ``serve_fm`` phase 21's first
-calls) and ``{"ok": true, ...}``.
+calls, ``trainer_criteo_file`` phase F's streamed run, ``serve_ckpt``
+phase H's first call and ``trainer_fm_files`` phase I's FM run) and
+``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from tfrec_tpu_torch import zoo_configs
-from tfrec_tpu_torch.data.synthetic import _zipf_ids, synthetic_ctr
+from tfrec_tpu_torch.data import criteo as criteo_data
+from tfrec_tpu_torch.data import criteo_native, movielens
+from tfrec_tpu_torch.data.synthetic import _zipf_ids, synthetic_ctr, synthetic_implicit
 from tfrec_tpu_torch.kernels import _build
 from tfrec_tpu_torch.kernels.adagrad_cuda import (
     fused_rowwise_adagrad,
@@ -181,6 +214,7 @@ from tfrec_tpu_torch.serve import Recommender
 from tfrec_tpu_torch.train import trainer as trainer_mod
 from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, tree_leaves
 from tfrec_tpu_torch.train.trainer import Trainer, run
+from tfrec_tpu_torch.utils import checkpoint
 
 SEED = 0
 DEVICE = "cuda"
@@ -262,6 +296,21 @@ CONFIG23_AUC_ATOL = 1e-4
 CONFIG3_MAX_RANK_FLIPS = 0.01  # of the eval's cases
 SERVE_USERS = 1024  # recommend's users for NeuMF, k=10 over the 4096 items
 SERVE_K = 10
+# Phases F-J: the data files written from the seed (Criteo's line format at
+# its shape; ML-1M's at 6040 users x 3706 items, ~1M ratings), under the
+# checkout's build/ (gitignored), removed at the end.
+DATA_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
+CRITEO_LINES = 500_000
+CRITEO_CHECK_LINES = 50_000  # read by both parsers
+CRITEO_MALFORMED_EVERY = 10_007
+# Materialized runs read the file with the Python parser (``load_criteo``, as
+# the reference does; ~82 us a line on the card's host), so they take its
+# first lines only; the streamed runs read it all through the native parser.
+CRITEO_MATERIALIZED_LINES = 200_000
+CRITEO_CARD_VS_CPU_LINES = 100_000  # 8 steps of 8192 and the held-out 5%
+CLI_OVERRIDES = ["train.epochs=1", f"data.num_examples={CRITEO_MATERIALIZED_LINES}"]
+STREAM_EVAL_EXAMPLES = 100_000  # the streamed run's held-out first lines
+ML1M_USERS, ML1M_ITEMS, ML1M_PER_USER = 6040, 3706, 165
 
 # The kernels of the main paths. The gather and Adagrad kernels run there
 # as one launch over every table (the ``_multi`` wrappers); their one-table
@@ -2196,6 +2245,371 @@ def phase_serve_configs(card: str, paths: dict, fm_trainer, neumf_trainer) -> No
     profile(lambda: fm.predict_ctr(host["dense"], host["cat"]), "FM predict_ctr call", fm_ms[0])
 
 
+# ---- data files, checkpoints, serving from disk and the CLI (phases F-J) ----
+
+def _hex8(values: np.ndarray) -> np.ndarray:
+    """uint32 values as 8-character lowercase hex tokens (bytes), as
+    Criteo's categorical columns hold them."""
+    digits = np.frombuffer(b"0123456789abcdef", np.uint8)
+    v = values.astype(np.uint32)
+    nibbles = np.stack([(v >> (4 * (7 - k))) & 0xF for k in range(8)], axis=1)
+    return np.ascontiguousarray(digits[nibbles]).view("S8").ravel()
+
+
+def _join_columns(columns, sep: bytes) -> list:
+    """Row-wise ``sep.join`` of equal-length bytes arrays."""
+    return [sep.join(row) for row in zip(*(col.tolist() for col in columns))]
+
+
+def _log1pf(values: np.ndarray) -> np.ndarray:
+    """The C library's float32 ``log1pf`` of integer values, the native
+    Criteo parser's dense transform (csrc/criteo_native.cpp), 0 where the
+    value is not positive."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.log1pf.restype, libm.log1pf.argtypes = ctypes.c_float, [ctypes.c_float]
+    uniq = np.unique(values)
+    table = np.array([libm.log1pf(float(v)) if v > 0 else 0.0 for v in uniq], np.float32)
+    return table[np.searchsorted(uniq, values)]
+
+
+def write_criteo_file(path: Path, lines: int, seed: int) -> dict:
+    """A Criteo TSV in the published line format from ``seed``: label, 13
+    integer columns and 26 hex tokens. The rows are ``synthetic_ctr``'s at
+    Criteo's shape (26 fields of 100 000 ids; the label depends on the
+    ids' pairwise interactions and the dense terms), each id written as a
+    hex token of its own per field, each dense value as an integer;
+    10% of dense and 5% of categorical fields empty, and a malformed line
+    every CRITEO_MALFORMED_EVERY lines. Returns the counts written."""
+    dense, cat, label = synthetic_ctr(lines, num_dense=13, vocab_sizes=(100_000,) * 26, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    cols = [np.where(label > 0.5, b"1", b"0").astype("S1")]
+    ints = np.floor(np.exp(dense + 1.5)).astype(np.int64) - 1  # ints from -1 up
+    for d in range(13):
+        cols.append(np.where(rng.random(lines) < 0.1, b"", ints[:, d].astype("S12")))
+    for f in range(26):
+        token = _hex8((cat[:, f].astype(np.uint64) * 2654435761 + f * 40503) & 0xFFFFFFFF)
+        cols.append(np.where(rng.random(lines) < 0.05, b"", token))
+    rows = _join_columns(cols, b"\t")
+    malformed = range(CRITEO_MALFORMED_EVERY // 2, lines, CRITEO_MALFORMED_EVERY)
+    for i in malformed:
+        rows[i] = b"malformed\tline"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"\n".join(rows) + b"\n")
+    return {"lines": lines, "malformed": len(malformed), "bytes": path.stat().st_size}
+
+
+def criteo_file_config(path: str, **train):
+    """``zoo_configs.dcn_criteo(path)``: Criteo's shape (26 fields of 100 000
+    rows, d=32, 3 cross layers, MLP 512/256/128, batch 8192, 8 steps a
+    dispatch), with ``train`` overrides."""
+    cfg = zoo_configs.dcn_criteo(path)
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train))
+
+
+def criteo_file_lines(cfg, lines: int):
+    """``cfg`` reading only the file's first ``lines`` lines."""
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, num_examples=lines))
+
+
+def phase_criteo_files(card: str, paths: dict) -> dict:
+    """(F) A Criteo TSV of CRITEO_LINES lines from the seed; the native
+    parser's batches against the Python parser's on its first
+    CRITEO_CHECK_LINES lines and its MB/s over the file; ``dcn_criteo(path)``
+    trained on the card materialized (its first CRITEO_MATERIALIZED_LINES
+    lines) and streamed (``data.streaming``, ``eval_examples``
+    STREAM_EVAL_EXAMPLES, a checkpoint after each of 2 epochs), the stream's
+    parser asserted native, the four kernels' launches in training and
+    eval; 8 steps on the card against the CPU from one state. Returns what
+    the later phases read."""
+    t_phase = time.perf_counter()
+    path = DATA_DIR / "criteo.tsv"
+    t0 = time.perf_counter()
+    written = write_criteo_file(path, CRITEO_LINES, SEED)
+    write_s = time.perf_counter() - t0
+    vocabs = [100_000] * 26
+    # Both parsers on the first lines: categorical ids and labels bit for bit;
+    # dense values bit for bit each parser's own arithmetic (the native one's
+    # log1pf in float32, the Python one's float64 log1p rounded), so within 1 ulp.
+    head = DATA_DIR / "criteo_head.tsv"
+    with open(path, "rb") as src:
+        head.write_bytes(b"".join(src.readline() for _ in range(CRITEO_CHECK_LINES)))
+    t0 = time.perf_counter()
+    py = list(criteo_data.iter_criteo_batches(str(head), 8192, vocabs, drop_remainder=False))
+    py_s = time.perf_counter() - t0
+    native = list(criteo_native.iter_criteo_batches_native(str(head), 8192, vocabs,
+                                                           drop_remainder=False))
+    py_d, py_c, py_l = (np.concatenate(a) for a in zip(*py))
+    nat_d, nat_c, nat_l = (np.concatenate(a) for a in zip(*native))
+    ulps = int(np.abs(nat_d.view(np.int32) - py_d.view(np.int32)).max())
+    raw = np.maximum(np.expm1(py_d.astype(np.float64)).round(), 0.0)  # the dense ints back
+    print(f"criteo file (F): {written['lines']} lines ({written['malformed']} malformed), "
+          f"{written['bytes'] / 1e6:.1f} MB written in {write_s:.1f} s; first {CRITEO_CHECK_LINES} lines: "
+          f"{len(py_l)} rows; python parser {py_s:.2f} s; cat and label bit for bit "
+          f"{np.array_equal(nat_c, py_c) and np.array_equal(nat_l, py_l)}; dense bit for bit "
+          f"{np.array_equal(nat_d, py_d)}, max {ulps} ulp apart "
+          f"({int((nat_d != py_d).sum())} of {nat_d.size} values)")
+    check(len(py_l) == len(nat_l) == CRITEO_CHECK_LINES - len(range(
+        CRITEO_MALFORMED_EVERY // 2, CRITEO_CHECK_LINES, CRITEO_MALFORMED_EVERY)),
+        "both parsers skip the malformed lines and read every other line once")
+    check(np.array_equal(nat_c, py_c) and np.array_equal(nat_l, py_l),
+          "the native parser's categorical ids and labels are the Python parser's bit for bit")
+    check(np.array_equal(nat_d, _log1pf(raw)) and np.array_equal(py_d, np.log1p(raw).astype(np.float32))
+          and ulps <= 1,
+          "each parser's dense values are its own arithmetic bit for bit, within 1 ulp of each other")
+    t0 = time.perf_counter()
+    rows = sum(len(b[2]) for b in criteo_native.iter_criteo_batches_native(str(path), 8192, vocabs))
+    parse_s = time.perf_counter() - t0
+    print(f"criteo file (F): native parser {written['bytes'] / 1e6 / parse_s:.1f} MB/s "
+          f"({rows} rows in full batches, {parse_s:.2f} s, {os.cpu_count()} host cores; host clock)")
+
+    # Materialized: load_criteo (the Python parser) over the first lines, the
+    # last 5% held out, 2 epochs.
+    cfg = criteo_file_lines(criteo_file_config(str(path)), CRITEO_MATERIALIZED_LINES)
+    trainer, history, train_counts, evals, run_s = run_counted(cfg)
+    steps, n_eval = trainer.global_step, len(trainer.ctr_arrays["test"][2])
+    eval_batches = -(-n_eval // trainer_mod.EVAL_BATCH)
+    print(f"criteo file (F), materialized: {len(trainer.ctr_arrays['train'][2])} train and {n_eval} "
+          f"held-out rows, {steps} steps; history {history}; launches in training {train_counts}, "
+          f"in each eval pass {evals[0][1]}; run() took {run_s:.1f} s (parse included)")
+    check(all(np.isfinite(v) for r in history for v in r.values()), "the history is finite")
+    trained = {"gather_rows_multi": steps, "cross_v1_fwd": steps, "cross_v1_bwd": steps,
+               "fused_rowwise_adagrad_multi": steps}
+    check_launches(train_counts, trained, "training from the file ran one gather, v1 forward, v1 "
+                   "backward and Adagrad launch a step, and no other")
+    for _, counts in evals:
+        check_launches(counts, {"gather_rows_multi": eval_batches, "cross_v1_fwd": eval_batches},
+                       "each eval pass ran one gather and one v1 forward launch a batch")
+    del trainer
+
+    # Streamed past the eval lines, a checkpoint after each epoch.
+    whole_dir = DATA_DIR / "ckpt_whole"
+    cfg = criteo_file_config(str(path), checkpoint_dir=str(whole_dir), checkpoint_every_epochs=1)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, streaming=True,
+                                                            eval_examples=STREAM_EVAL_EXAMPLES))
+    trainer, history, train_counts, evals, run_s = run_counted(cfg)
+    steps = trainer.global_step
+    eval_batches = -(-len(trainer.ctr_arrays["test"][2]) // trainer_mod.EVAL_BATCH)
+    paths["trainer_criteo_file"] = whole_run_launches(train_counts, evals)
+    print(f"criteo file (F), streamed: {steps} steps over 2 epochs; history {history}; launches in "
+          f"training {train_counts}, in each eval pass {evals[0][1]}; the train "
+          f"stream's parser {trainer.stream.parser!r}; checkpoints {sorted(os.listdir(whole_dir))}; run() "
+          f"took {run_s:.1f} s; examples_per_s {[round(r['examples_per_s'], 1) for r in history]} ({card})")
+    check(trainer.stream is not None and trainer.sampler is trainer.stream, "the trainer streamed the file")
+    check(trainer.stream.parser == "native", "the native parser read the train stream")
+    check(all(np.isfinite(v) for r in history for v in r.values()), "the history is finite")
+    check_launches(train_counts, {k: steps for k in trained}, "the streamed training ran one gather, "
+                   "v1 forward, v1 backward and Adagrad launch a step, and no other")
+    for _, counts in evals:
+        check_launches(counts, {"gather_rows_multi": eval_batches, "cross_v1_fwd": eval_batches},
+                       "each eval pass ran one gather and one v1 forward launch a batch")
+    check({"dcn_criteo.metrics.jsonl", "step_0000000001", "step_0000000002"} <= set(
+        os.listdir(whole_dir)), "a checkpoint after each epoch, beside the run's metric stream")
+
+    # 8 steps on the card against the CPU from one state (phase 11's tolerances).
+    t0 = time.perf_counter()
+    _, _, losses, finals, _ = card_and_cpu_runs(eight_steps(criteo_file_lines(
+        criteo_file_config(str(path)), CRITEO_CARD_VS_CPU_LINES)))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+    auc_err = abs(finals["card"]["auc"] - finals["cpu"]["auc"])
+    ll_rel = abs(finals["card"]["logloss"] - finals["cpu"]["logloss"]) / finals["cpu"]["logloss"]
+    print(f"criteo file (F), card against the CPU ({time.perf_counter() - t0:.1f} s), 8 steps from one "
+          f"state: losses card {losses['card']}, cpu {losses['cpu']} (max relative error {rel:.3e}, "
+          f"rtol {TRAIN_LOSS_RTOL}); auc error {auc_err:.3e} (atol {TRAIN_AUC_ATOL}); logloss relative "
+          f"error {ll_rel:.3e} (rtol {TRAIN_LOGLOSS_RTOL})")
+    check(len(losses["card"]) == len(losses["cpu"]) == 8 and rel <= TRAIN_LOSS_RTOL,
+          "the card's losses on the file match the CPU's")
+    check(auc_err <= TRAIN_AUC_ATOL and ll_rel <= TRAIN_LOGLOSS_RTOL,
+          "the card's eval auc and logloss on the file match the CPU's")
+    print(f"phase F took {time.perf_counter() - t_phase:.1f} s")
+    return {"path": path, "cfg": cfg, "trainer": trainer, "whole_dir": whole_dir}
+
+
+def phase_resume(card: str, files: dict) -> None:
+    """(G) The streamed run resumed from its epoch-1 checkpoint ends with the
+    uninterrupted run's state bit for bit (the reference's answer on the
+    CPU, tests/test_torch_checkpoint.py: its resumed run ends as its whole
+    run); the save and the restore of the Criteo-shaped state timed."""
+    t_phase = time.perf_counter()
+    whole, cfg = files["trainer"], files["cfg"]
+    half_dir = DATA_DIR / "ckpt_half"
+    half_dir.mkdir()
+    shutil.copytree(files["whole_dir"] / "step_0000000001", half_dir / "step_0000000001")
+    resumed = Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_dir=str(half_dir), resume=True)), quiet=True)
+    check(resumed.start_epoch == 1, "resume starts after the checkpoint's epoch")
+    history = resumed.train()
+    torch.cuda.synchronize()
+    same = states_equal(resumed.state, whole.state)
+    print(f"resume (G): from step_0000000001, history {history}; final state bit for bit the "
+          f"uninterrupted run's: {same}")
+    check([r["epoch"] for r in history] == [1] and same,
+          "the resumed run ends with the uninterrupted run's state bit for bit")
+
+    flat = whole.checkpoint_state()
+    tables = sum(v.nbytes for k, v in flat.items() if k.startswith("tables/"))
+    total = sum(v.nbytes for v in flat.values())
+    save_dir = DATA_DIR / "ckpt_timed"
+    times = {"save": [], "restore": []}
+    for step in (1, 2, 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(str(save_dir), step, whole.checkpoint_state())
+        times["save"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        back = whole.restore(str(save_dir), step)
+        torch.cuda.synchronize()
+        times["restore"].append((time.perf_counter() - t0) * 1e3)
+    check(states_equal(back, whole.state), "a saved and restored state is the trainer's bit for bit")
+    print(f"checkpoint (G): {len(flat)} leaves, {tables / 1e6:.1f} MB of tables, {total / 1e6:.1f} MB in "
+          f"all (tables, Adagrad and Adam state); save (device to host, .npy files) "
+          f"{statistics.median(times['save']):.1f} ms, restore (files to the card) "
+          f"{statistics.median(times['restore']):.1f} ms, medians of 3 (host clock; {card})")
+    print(f"phase G took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_serve_checkpoint(card: str, paths: dict, files: dict) -> None:
+    """(H) ``Recommender.from_checkpoint`` serves the streamed run's last
+    checkpoint: ``predict_ctr`` for 8192 held-out requests bit for bit
+    ``from_trainer``'s, one gather and one v1 forward launch a call."""
+    t_phase = time.perf_counter()
+    cfg = files["cfg"]
+    t0 = time.perf_counter()
+    cold = Recommender.from_checkpoint(cfg)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    live = Recommender.from_trainer(files["trainer"])
+    dense, cat, _ = files["trainer"].ctr_arrays["test"]
+    dense, cat = dense[:BATCH], cat[:BATCH]
+    want = live.predict_ctr(dense, cat)
+    reset_launches()
+    got = cold.predict_ctr(dense, cat)
+    torch.cuda.synchronize()
+    paths["serve_ckpt"] = read_launches()
+    ms, p99 = latency(lambda: cold.predict_ctr(dense, cat))
+    print(f"serve from checkpoint (H): from_checkpoint {cold_s:.2f} s cold start (model, eval slice, "
+          f"restore; host clock); predict_ctr of {len(got)} requests bit for bit from_trainer's "
+          f"{np.array_equal(got, want)}, launches {paths['serve_ckpt']}; latency median {ms:.3f} ms, "
+          f"p99 {p99:.3f} ms (host clock; {card})")
+    check(cold.device.type == "cuda" and np.array_equal(got, want) and np.isfinite(got).all(),
+          "from_checkpoint serves on the card, bit for bit from_trainer's answers")
+    check_launches(paths["serve_ckpt"], {"gather_rows_multi": 1, "cross_v1_fwd": 1},
+                   "serving from the checkpoint ran one gather and one v1 forward launch, and no other")
+    print(f"phase H took {time.perf_counter() - t_phase:.1f} s")
+
+
+def write_ml1m_files(root: Path, seed: int) -> dict:
+    """ML-1M's ratings.dat, users.dat and movies.dat in its ``::`` format from
+    ``seed``, at its shape: the interactions of ``synthetic_implicit`` at
+    6040 users x 3706 items (ML1M_PER_USER a user, ~1M ratings), ids 1-based,
+    ratings 1-5 and timestamps drawn; each user's gender, age bucket,
+    occupation and zip code, each movie's title and 1-3 of ML-1M's 18
+    genres."""
+    inter = synthetic_implicit(num_users=ML1M_USERS, num_items=ML1M_ITEMS,
+                               interactions_per_user=ML1M_PER_USER, seed=seed)
+    rng = np.random.default_rng(seed + 2)
+    n = len(inter)
+    ratings = _join_columns([(inter.users + 1).astype("S8"), (inter.items + 1).astype("S8"),
+                             rng.integers(1, 6, n).astype("S1"),
+                             rng.integers(956_703_932, 1_046_454_590, n).astype("S10")], b"::")
+    genres = ["Action", "Adventure", "Animation", "Children's", "Comedy", "Crime", "Documentary",
+              "Drama", "Fantasy", "Film-Noir", "Horror", "Musical", "Mystery", "Romance", "Sci-Fi",
+              "Thriller", "War", "Western"]
+    users = [f"{u}::{'MF'[rng.integers(0, 2)]}::{rng.choice([1, 18, 25, 35, 45, 50, 56])}::"
+             f"{rng.integers(0, 21)}::{rng.integers(10000, 99999)}" for u in range(1, ML1M_USERS + 1)]
+    movies = [f"{m}::Movie {m} ({rng.integers(1919, 2001)})::"
+              + "|".join(rng.choice(genres, rng.integers(1, 4), replace=False))
+              for m in range(1, ML1M_ITEMS + 1)]
+    root.mkdir(parents=True, exist_ok=True)
+    files = {"ratings": root / "ratings.dat", "users": root / "users.dat", "movies": root / "movies.dat"}
+    files["ratings"].write_bytes(b"\n".join(ratings) + b"\n")
+    files["users"].write_text("\n".join(users) + "\n", encoding="latin-1")
+    files["movies"].write_text("\n".join(movies) + "\n", encoding="latin-1")
+    return {k: str(v) for k, v in files.items()}
+
+
+def phase_movielens_files(card: str, paths: dict) -> None:
+    """(I) ML-1M's files from the seed; the native UIRT parser against the
+    Python loop; ``fm_ctr_ml1m(path)`` with ML-1M's side-feature files for 2
+    epochs on the card (one gather and one Adagrad launch a step); NeuMF
+    warm started from a 1-epoch GMF checkpoint (``init_from``)."""
+    t_phase = time.perf_counter()
+    files = write_ml1m_files(DATA_DIR / "ml-1m", SEED)
+    t0 = time.perf_counter()
+    native = movielens.load_uirt_raw(files["ratings"], native=True)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = movielens.load_uirt_raw(files["ratings"], native=False)
+    python_s = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(native, python))
+    print(f"movielens files (I): {len(native[0])} ratings of {len(np.unique(native[0]))} users and "
+          f"{len(np.unique(native[1]))} items; native parser {native_s:.2f} s, Python loop {python_s:.2f} s "
+          f"(host clock); equal array for array: {same}")
+    check(same, "the native UIRT parser reads the Python loop's arrays")
+
+    cfg = zoo_configs.fm_ctr_ml1m(files["ratings"])
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, user_features_path=files["users"],
+                                      item_features_path=files["movies"]),
+        train=dataclasses.replace(cfg.train, epochs=2, eval_every_epochs=2))
+    trainer, history, train_counts, evals, run_s = run_counted(cfg)
+    steps = trainer.global_step
+    paths["trainer_fm_files"] = whole_run_launches(train_counts, evals)
+    print(f"movielens files (I), fm_ctr_ml1m(path) with users.dat and movies.dat: field vocabs "
+          f"{trainer.data_spec.field_vocabs}, {len(trainer.dataset.train)} train interactions, {steps} "
+          f"steps over 2 epochs; history {history}; auc {history[-1]['auc']:.6f}; launches in training "
+          f"{train_counts}, in the eval pass {evals[0][1]}; run() took {run_s:.1f} s ({card})")
+    check(len(trainer.data_spec.field_vocabs) == 6 and all(np.isfinite(v) for r in history
+                                                           for v in r.values()),
+          "FM reads the side fields of the files and its history is finite")
+    check_launches(train_counts, {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps},
+                   "FM over the files ran one gather and one Adagrad launch a step, and no other")
+    del trainer
+
+    gmf_dir = DATA_DIR / "ckpt_gmf"
+    base = zoo_configs.neumf_ml20m(files["ratings"])
+    gmf = dataclasses.replace(base, run_name="gmf", model=dataclasses.replace(base.model, name="gmf"),
+                              train=dataclasses.replace(base.train, epochs=1, eval_every_epochs=0,
+                                                        checkpoint_dir=str(gmf_dir),
+                                                        checkpoint_every_epochs=1))
+    run(gmf, quiet=True)
+    neumf_dir = DATA_DIR / "neumf_stream"
+    neumf = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, epochs=1, eval_every_epochs=0, init_from=str(gmf_dir),
+        checkpoint_dir=str(neumf_dir)))
+    warm = Trainer(neumf, quiet=True)
+    tables = checkpoint.load_table_arrays(str(gmf_dir))
+    event = next(json.loads(x) for x in open(neumf_dir / "neumf_ml20m.metrics.jsonl")
+                 if '"warm_start"' in x)
+    copied = all(np.array_equal(warm.state["tables"][t].cpu().numpy(), tables[s])
+                 for t, s in (("user_gmf", "user_emb"), ("item_gmf", "item_emb"),
+                              ("user_mlp", "user_emb"), ("item_mlp", "item_emb")))
+    loss = warm.train()[-1]["loss"]
+    print(f"movielens files (I), neumf warm started from a 1-epoch gmf checkpoint: event {event}; "
+          f"the four tables are gmf's {copied}; one epoch after it, loss {loss:.6f}")
+    check(event["copied"] == ["item_gmf", "item_mlp", "user_gmf", "user_mlp"] and event["skipped"] == []
+          and copied and np.isfinite(loss), "the warm_start event lists the copied tables")
+    print(f"phase I took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_cli(card: str, files: dict) -> None:
+    """(J) ``python -m tfrec_tpu_torch.cli --config dcn_criteo --data_path
+    <F's file>`` as a process of its own on the card, its last line parsed."""
+    t_phase = time.perf_counter()
+    cmd = [sys.executable, "-m", "tfrec_tpu_torch.cli", "--config", "dcn_criteo", "--data_path",
+           str(files["path"]), "--device", DEVICE, *CLI_OVERRIDES]
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"cli (J): {' '.join(cmd[1:])} exited {proc.returncode}; last line {last}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, "the CLI ran")
+    rec = json.loads(last)
+    check(rec["epoch"] == 0 and all(np.isfinite(rec[k]) for k in ("loss", "auc", "logloss")),
+          "the CLI's last line is the epoch's finite record with auc and logloss")
+    print(f"phase J took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -2231,6 +2645,17 @@ def main() -> int:
     phase_configs_card_vs_cpu()
     shapes = phase_new_shapes(fm_trainer, neumf_trainer)
     phase_serve_configs(card, paths, fm_trainer, neumf_trainer)
+    del fm_trainer, neumf_trainer
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    try:
+        files = phase_criteo_files(card, paths)
+        phase_resume(card, files)
+        phase_serve_checkpoint(card, paths, files)
+        del files["trainer"]
+        phase_movielens_files(card, paths)
+        phase_cli(card, files)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
     for r in records:
         by_path = {path: launches[r["name"]] for path, launches in paths.items()}
         r.update({"launches": sum(by_path.values()), "launches_by_path": by_path})

@@ -30,7 +30,10 @@ def test_port_imports_with_jax_blocked():
             "tfrec_tpu_torch.utils.logging", "tfrec_tpu_torch.utils.prefetch", "tfrec_tpu_torch.models.mf",
             "tfrec_tpu_torch.data.dataset", "tfrec_tpu_torch.eval.retrieval",
             "tfrec_tpu_torch.models.fm", "tfrec_tpu_torch.models.ncf",
-            "tfrec_tpu_torch.eval.sampled"} <= set(modules)
+            "tfrec_tpu_torch.eval.sampled", "tfrec_tpu_torch.data.criteo",
+            "tfrec_tpu_torch.data.criteo_native", "tfrec_tpu_torch.data.movielens",
+            "tfrec_tpu_torch.data.uirt_native", "tfrec_tpu_torch.utils.checkpoint",
+            "tfrec_tpu_torch.cli"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

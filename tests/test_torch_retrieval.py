@@ -109,8 +109,6 @@ def test_build_dataset_and_padded_positives_match_the_reference(kw):
 
 
 def test_build_dataset_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        dataset.build_dataset(DataConfig(source="movielens", path="ml-100k/u.data"))
     for kw in ({"social_degree": 3}, {"social_path": "edges.txt"}):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
             dataset.build_dataset(_data_config(DataConfig, **kw))
@@ -599,8 +597,6 @@ def test_recommender_from_trainer_and_refusals():
     for kw, item in (({"quantize": True}, 13), ({"mesh": object()}, 11), ({"state": {}}, 11)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
             Recommender(rec.model, rec.params, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
-        Recommender.from_checkpoint(None, "ckpt")
     with pytest.raises(ValueError, match="topk method"):
         Recommender(rec.model, rec.params, device="cpu", topk_method="nope")
     if not torch.cuda.is_available():

@@ -201,15 +201,9 @@ def test_config1_stand_in_and_its_small_run():
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    ({"model": {"name": "fm"}, "data": {"user_features_path": "ml-1m/users.dat"}},
-     NotImplementedError, "ROADMAP Queue 1 item 10"),
-    ({"model": {"name": "fm"}, "data": {"item_features_path": "ml-1m/movies.dat"}},
-     NotImplementedError, "ROADMAP Queue 1 item 10"),
     ({"model": {"name": "deepfm"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
     ({"model": {"name": "fism"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
     ({"train": {"loss": "sasrec"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
-    ({"data": {"source": "movielens", "path": "ml-100k/u.data"}}, NotImplementedError,
-     "ROADMAP Queue 1 item 10"),
     ({"data": {"social_degree": 4}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
     ({"train": {"device_negatives": True, "neg_sampling": "popularity"}}, ValueError,
      "device_negatives"),

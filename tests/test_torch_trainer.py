@@ -253,18 +253,8 @@ def test_trainer_logs_an_empty_epoch_and_a_dispatch_past_the_step_cap():
         Trainer(_config(configs, "dcn", batch_size=4096), quiet=True, device="cpu").train()
 
 
-# Interaction data with ML-1M's side-feature files, which FM would read.
-_SIDE_FILES = {"source": "synthetic_implicit", "num_users": 64, "num_items": 128,
-               "interactions_per_user": 8, "user_features_path": "ml-1m/users.dat"}
-
-
 @pytest.mark.parametrize("section,override,match", [
-    ("data", {"source": "criteo", "path": "criteo/train.txt"}, "item 10"),
-    ("model", {"name": "fm", "data": _SIDE_FILES}, "item 10"),
     ("model", {"name": "deepfm"}, "item 12"),
-    ("train", {"checkpoint_dir": "ckpt", "checkpoint_every_epochs": 1}, "item 10"),
-    ("train", {"checkpoint_dir": "ckpt", "resume": True}, "item 10"),
-    ("train", {"init_from": "ckpt"}, "item 10"),
     ("train", {"profile_steps": (1, 2)}, "item 10"),
     ("train", {"matmul_precision": "bfloat16"}, "item 5"),
     ("train", {"host_dedup": True}, "item 5"),

@@ -13,10 +13,15 @@ MF + BPR trained, ranked over the full catalog and served as top-k; FM over
 multi-field interaction data, ``fm_ctr_ml1m``; and NeuMF with the
 sampled-candidate eval, ``neumf_ml20m``):
 
-- ``configs``, ``zoo_configs.mf_bpr_ml100k``, ``fm_ctr_ml1m``,
-  ``neumf_ml20m`` and ``dcn_criteo``;
-- ``data``: ``dataset`` (``synthetic_implicit`` split by ratio or leave one
-  out), ``synthetic``, the pairwise, pointwise and CTR samplers;
+- ``configs`` (with ``with_overrides``), ``zoo_configs.mf_bpr_ml100k``,
+  ``fm_ctr_ml1m``, ``neumf_ml20m`` and ``dcn_criteo`` (``ZOO``), and
+  ``cli`` (``python -m tfrec_tpu_torch.cli``);
+- ``data``: ``dataset`` (MovieLens' files or ``synthetic_implicit``, split
+  by ratio, leave one out or given train and test files), ``synthetic``,
+  ``criteo`` and ``movielens`` (Criteo's TSV and MovieLens' rating and
+  ML-1M side-feature files, through the native parsers of ``csrc/``,
+  ``criteo_native`` and ``uirt_native``, or the Python ones), the
+  pairwise, pointwise and CTR samplers;
 - ``ops.embedding`` (table specs, seeded init, clip-semantics gather, the
   duplicate-id combine) and ``ops.sparse_optim``;
 - ``kernels``: the row gather, the DCN-v1 and low-rank DCN-v2 cross stacks
@@ -24,7 +29,11 @@ sampled-candidate eval, ``neumf_ml20m``):
 - ``models``: ``MF``, ``GMF``, ``MLP``, ``NeuMF``, and ``FM`` and ``DCN``
   (v1, v2 full-rank, v2 low-rank) over per-field tables;
 - ``convert``: JAX params of the retrieval models and of any CTR table
-  layout (FM's linear tables too), and JAX train states;
+  layout (FM's linear tables too), JAX train states, and the port's state
+  as the JAX package's checkpoint keys and back;
+- ``utils.checkpoint``: checkpoints in the JAX package's on-disk layout
+  (save, resume and warm starts in the trainer; serving from disk by
+  ``Recommender.from_checkpoint``);
 - ``serve.Recommender`` (``predict``, ``predict_ctr``, ``score_catalog``,
   ``recommend``), ``train.step.TrainStepBuilder`` (with device negatives),
   ``train.losses`` (pairwise and pointwise);

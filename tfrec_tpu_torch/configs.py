@@ -2,7 +2,7 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 Field names, types and defaults are the reference's (a test holds them
-equal). Dotted-path overrides (``with_overrides``) come with the CLI.
+equal), and so are the dotted-path overrides of ``with_overrides``.
 Several knobs (lane packing, table stacking, mesh layout, ``kernels``) were
 tuned for the TPU; the port reads them but decides each again on the GPU.
 """
@@ -10,7 +10,7 @@ tuned for the TPU; the port reads them but decides each again on the GPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Mapping, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,3 +184,38 @@ class Config:
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def _apply_overrides_dc(dc: Any, dotted: str, value: Any) -> Any:
+    parts = dotted.split(".", 1)
+    if len(parts) == 1:
+        field_types = {f.name: f.type for f in dataclasses.fields(dc)}
+        if parts[0] not in field_types:
+            raise KeyError(f"unknown config field {parts[0]!r} on {type(dc).__name__}")
+        ftype = field_types[parts[0]]
+        ftype_str = ftype if isinstance(ftype, str) else str(ftype)
+        if isinstance(value, str) and "bool" in ftype_str:
+            # "false" is truthy: a string on a bool (or bool | None) field is
+            # always a caller's mistake. The CLI turns true/false into bools.
+            raise ValueError(
+                f"config field {parts[0]!r} on {type(dc).__name__} is {ftype_str}; got string "
+                f"{value!r} (use true/false)")
+        return dataclasses.replace(dc, **{parts[0]: value})
+    child = getattr(dc, parts[0])
+    return dataclasses.replace(dc, **{parts[0]: _apply_overrides_dc(child, parts[1], value)})
+
+
+def with_overrides(cfg: Config, overrides: Mapping[str, Any]) -> Config:
+    """``cfg`` with dotted-path overrides applied, e.g.
+    ``{"train.batch_size": 512}``; a top-level name (``run_name``) replaces
+    that field."""
+    for key, value in overrides.items():
+        parts = key.split(".")
+        if len(parts) == 1:
+            cfg = dataclasses.replace(cfg, **{parts[0]: value})
+            continue
+        section_name, field_name = parts[0], ".".join(parts[1:])
+        section = getattr(cfg, section_name)
+        cfg = dataclasses.replace(
+            cfg, **{section_name: _apply_overrides_dc(section, field_name, value)})
+    return cfg

@@ -1,4 +1,4 @@
-"""Parameters written by the JAX package -> the port's parameters.
+"""The JAX package's parameters and train states <-> the port's.
 
 ``params_from_jax`` takes a JAX params tree whose leaves are numpy arrays
 (``{"tables": {...}, "dense": {...}}``, e.g. ``jax.tree.map(np.asarray,
@@ -24,11 +24,31 @@ Dense weights keep their layout (MLP weights are ``[in, out]`` in both).
 ``TrainStepBuilder.init_state`` tree after ``jax.tree.map(np.asarray,
 ...)``) and returns the port's train state, so that a state trained in JAX
 carries on training in the port.
+
+Checkpoints (``utils/checkpoint.py``) hold a state as flat keys, the JAX
+package's pytree path strings. ``flat_from_state`` writes the port's state
+under the keys JAX saves for the same model and optimizer;
+``train_state_from_flat`` and ``params_from_flat`` read them back, from the
+port or from JAX, by ``params_from_jax``'s table layouts and
+``train_state_from_jax``'s optimizer-state rules.
+
+The dense optimizer's keys follow ``make_dense_tx``
+(tfrec_tpu/train/step.py:127-142): an optax chain of the optimizer and the
+learning-rate schedule's ``ScaleByScheduleState``, itself after
+``add_decayed_weights`` (an empty state) when ``weight_decay > 0``. So
+under ``P = "dense_opt/"``, or ``"dense_opt/1/"`` with weight decay:
+
+- Adam: ``P0/.count``, ``P0/.mu/<dense path>``, ``P0/.nu/<dense path>`` and
+  ``P1/.count``;
+- Adagrad: ``P0/.sum_of_squares/<dense path>`` and ``P1/.count``;
+- SGD: ``P1/.count``.
+
+Every ``.count`` is an int32 scalar holding the port's one update count.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -150,6 +170,19 @@ def _optax_state(tree: Any, field: str):
     return None
 
 
+def _sparse_opt(sparse: Mapping[str, Mapping[str, Any]], model) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The per-table sparse optimizer states, ``{table: {"acc": ...}}``;
+    lane-packed and stacked state is refused."""
+    names = [spec.name for spec in model.table_specs()]
+    if set(sparse) != set(names):
+        raise NotImplementedError(
+            f"sparse optimizer state of tables {sorted(sparse)}: the port reads per-field "
+            "state only; lane-packed and stacked state is ROADMAP Queue 1 item 15"
+        )
+    return {name: {k: torch.from_numpy(np.array(v)) for k, v in sparse[name].items()}
+            for name in names}
+
+
 def train_state_from_jax(np_state: Dict[str, Any], model) -> Dict[str, Any]:
     """A JAX train state of numpy arrays -> the port's train state (CPU
     tensors; ``train.step.copy_state(state, "cuda")`` moves it).
@@ -161,17 +194,7 @@ def train_state_from_jax(np_state: Dict[str, Any], model) -> Dict[str, Any]:
     ``sum_of_squares`` and the schedule's ``count``, or SGD's ``count``.
     """
     params = params_from_jax({"tables": np_state["tables"], "dense": np_state["dense"]}, model)
-    names = [spec.name for spec in model.table_specs()]
-    sparse = np_state["sparse_opt"]
-    if set(sparse) != set(names):
-        raise NotImplementedError(
-            f"sparse optimizer state of tables {sorted(sparse)}: the port reads per-field "
-            "state only; lane-packed and stacked state is ROADMAP Queue 1 item 15"
-        )
-    sparse_opt = {
-        name: {k: torch.from_numpy(np.array(v)) for k, v in sparse[name].items()}
-        for name in names
-    }
+    sparse_opt = _sparse_opt(np_state["sparse_opt"], model)
     opt = np_state["dense_opt"]
     adam = _optax_state(opt, "mu")
     rss = _optax_state(opt, "sum_of_squares")
@@ -189,5 +212,113 @@ def train_state_from_jax(np_state: Dict[str, Any], model) -> Dict[str, Any]:
         "tables": params["tables"],
         "dense": params["dense"],
         "sparse_opt": sparse_opt,
+        "dense_opt": dense_opt,
+    }
+
+
+# ---- flat checkpoint keys ----
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _flat_tree(prefix: str, tree: Any, out: Dict[str, np.ndarray], leaf: Callable) -> None:
+    """``leaf`` of each tensor of nested dicts, lists and tuples, under its
+    path key."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat_tree(f"{prefix}/{k}", v, out, leaf)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flat_tree(f"{prefix}/{i}", v, out, leaf)
+    else:
+        out[prefix] = leaf(tree)
+
+
+def _unflat_like(template: Any, flat: Mapping[str, np.ndarray], prefix: str) -> Any:
+    """The tree of ``template``'s structure read from ``flat`` (CPU float32
+    tensors)."""
+    if isinstance(template, dict):
+        return {k: _unflat_like(v, flat, f"{prefix}/{k}") for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_unflat_like(v, flat, f"{prefix}/{i}") for i, v in enumerate(template))
+    return _tensor(flat[prefix])
+
+
+def _dense_opt_prefix(weight_decay: float) -> str:
+    return "dense_opt/1/" if weight_decay > 0 else "dense_opt/"
+
+
+def flat_from_state(state: Dict[str, Any], dense_optimizer: str, weight_decay: float = 0.0,
+                    leaf: Callable = _to_numpy) -> Dict[str, np.ndarray]:
+    """The port's train state as the flat keys and dtypes the JAX package
+    saves for the same model and optimizer (``dense_optimizer`` and
+    ``weight_decay`` of ``OptimConfig``). ``leaf`` maps each tensor (by
+    default to a numpy copy on the host)."""
+    count = np.asarray(state["dense_opt"]["count"], np.int32)
+    out: Dict[str, np.ndarray] = {"step": np.asarray(state["step"], np.int32)}
+    _flat_tree("tables", state["tables"], out, leaf)
+    _flat_tree("dense", state["dense"], out, leaf)
+    _flat_tree("sparse_opt", state["sparse_opt"], out, leaf)
+    p = _dense_opt_prefix(weight_decay)
+    if dense_optimizer == "adam":
+        out[f"{p}0/.count"] = count
+        _flat_tree(f"{p}0/.mu", state["dense_opt"]["mu"], out, leaf)
+        _flat_tree(f"{p}0/.nu", state["dense_opt"]["nu"], out, leaf)
+    elif dense_optimizer == "adagrad":
+        _flat_tree(f"{p}0/.sum_of_squares", state["dense_opt"]["sum_of_squares"], out, leaf)
+    elif dense_optimizer != "sgd":
+        raise ValueError(f"unknown dense optimizer {dense_optimizer!r}")
+    out[f"{p}1/.count"] = count
+    return out
+
+
+def _tables_from_flat(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    return {k[len("tables/"):]: v for k, v in flat.items() if k.startswith("tables/")}
+
+
+def params_from_flat(flat: Mapping[str, np.ndarray], model, dense_template: Any) -> Dict[str, Any]:
+    """A checkpoint's params (any of ``params_from_jax``'s table layouts)
+    as the port's params; the dense tree takes ``dense_template``'s
+    structure (the model's own ``init``)."""
+    return params_from_jax({"tables": _tables_from_flat(flat),
+                            "dense": _unflat_like(dense_template, flat, "dense")}, model)
+
+
+def train_state_from_flat(flat: Mapping[str, np.ndarray], model, template: Dict[str, Any]
+                          ) -> Dict[str, Any]:
+    """A checkpoint's train state (the port's or the JAX package's flat
+    keys) as the port's train state of CPU tensors. ``template`` (a state
+    of the same model and optimizer, e.g. ``TrainStepBuilder.init_state``)
+    gives the dense trees their structure, and its ``dense_opt`` names the
+    dense optimizer's leaves: Adam's ``mu``/``nu`` and its ``count``,
+    Adagrad's ``sum_of_squares`` and the schedule's ``count``, or SGD's
+    ``count`` (``flat_from_state``'s keys, with or without weight decay).
+    Only per-table sparse state is read (item 15)."""
+    params = params_from_flat(flat, model, template["dense"])
+    sparse: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in flat.items():
+        if key.startswith("sparse_opt/"):
+            table, leaf = key[len("sparse_opt/"):].rsplit("/", 1)
+            sparse.setdefault(table, {})[leaf] = v
+    sparse_names = {n for n in template["sparse_opt"]} | set(sparse)
+    for name in sparse_names - set(sparse):
+        sparse[name] = {}  # a stateless sparse optimizer (sgd) saves no leaf
+    opt_t = template["dense_opt"]
+    # Weight decay puts the chain one level down (``dense_opt/1/...``).
+    p = _dense_opt_prefix(1.0 if "dense_opt/1/1/.count" in flat else 0.0)
+    count_key = f"{p}0/.count" if "mu" in opt_t else f"{p}1/.count"
+    if count_key not in flat:
+        raise ValueError(f"dense_opt holds no optax count at {count_key!r}")
+    dense_opt = {"count": int(flat[count_key])}
+    for leaf in ("mu", "nu", "sum_of_squares"):
+        if leaf in opt_t:  # the template's own optimizer, even over an empty dense tree
+            dense_opt[leaf] = _unflat_like(opt_t[leaf], flat, f"{p}0/.{leaf}")
+    return {
+        "step": int(np.asarray(flat["step"])),
+        "tables": params["tables"],
+        "dense": params["dense"],
+        "sparse_opt": _sparse_opt(sparse, model),
         "dense_opt": dense_opt,
     }

@@ -6,11 +6,12 @@ one out, with user x item CSR matrices of the train and test parts. The
 port imports nothing of the JAX package, so it keeps its own copy; a test
 holds the two equal array for array.
 
-``build_dataset`` generates ``synthetic_implicit`` data. Two sources of the
-reference are refused by naming their ROADMAP Queue 1 item: MovieLens'
-files (``source="movielens"``, ``splitter="given"``; the files are not in
-the repository, item 10) and the social graph of SBPR
-(``social_path``/``social_degree``, item 12).
+``build_dataset`` reads MovieLens' rating files (``source="movielens"``,
+``data/movielens.py``; split by ratio, leave one out, or "given" train and
+test files densified together, ``split_given``) or generates
+``synthetic_implicit`` data. The social graph of SBPR
+(``social_path``/``social_degree``) is refused by naming its ROADMAP Queue
+1 item, 12.
 """
 
 from __future__ import annotations
@@ -148,28 +149,49 @@ def _make_split(inter: Interactions, is_test: np.ndarray) -> Dataset:
                    num_users=inter.num_users, num_items=inter.num_items)
 
 
+def split_given(train_raw, test_raw) -> Dataset:
+    """Pre-split ("given") train and test files: ids are densified over the
+    union, so both sides share one id space; test pairs unseen in train
+    stay."""
+    all_u = np.concatenate([train_raw[0], test_raw[0]])
+    all_i = np.concatenate([train_raw[1], test_raw[1]])
+    users, items, nu, ni = densify_ids(all_u, all_i)
+    n_train = len(train_raw[0])
+
+    def mk(sl, raw):
+        return Interactions(users=users[sl], items=items[sl], ratings=raw[2].astype(np.float32),
+                            times=raw[3].astype(np.float64), num_users=nu, num_items=ni)
+
+    return Dataset(train=mk(slice(0, n_train), train_raw), test=mk(slice(n_train, None), test_raw),
+                   num_users=nu, num_items=ni)
+
+
 def build_dataset(cfg: DataConfig) -> Dataset:
-    """Config-driven entry: generate the interactions, then split."""
-    if cfg.source == "movielens":
-        raise NotImplementedError(
-            "data.source='movielens' reads MovieLens' files, which are not in the repository; "
-            "the port trains on data.source='synthetic_implicit' until they are and its loader "
-            "is ported (ROADMAP Queue 1 item 10)")
-    if cfg.source != "synthetic_implicit":
-        raise ValueError(f"unknown interaction source {cfg.source!r}")
+    """Config-driven entry: load or generate the interactions, then split."""
     if cfg.social_path or cfg.social_degree > 0:
         raise NotImplementedError(
             "data.social_path / data.social_degree (the SBPR trust graph) is not ported yet: "
             "ROADMAP Queue 1 item 12")
-    from tfrec_tpu_torch.data.synthetic import synthetic_implicit
+    if cfg.source == "movielens":
+        from tfrec_tpu_torch.data.movielens import load_uirt, load_uirt_raw
 
-    inter = synthetic_implicit(
-        num_users=cfg.num_users,
-        num_items=cfg.num_items,
-        interactions_per_user=cfg.interactions_per_user,
-        latent_rank=cfg.latent_rank,
-        seed=cfg.seed,
-    )
+        if cfg.splitter == "given":
+            if not cfg.test_path:
+                raise ValueError("splitter='given' requires data.test_path")
+            return split_given(load_uirt_raw(cfg.path), load_uirt_raw(cfg.test_path))
+        inter = load_uirt(cfg.path)
+    elif cfg.source == "synthetic_implicit":
+        from tfrec_tpu_torch.data.synthetic import synthetic_implicit
+
+        inter = synthetic_implicit(
+            num_users=cfg.num_users,
+            num_items=cfg.num_items,
+            interactions_per_user=cfg.interactions_per_user,
+            latent_rank=cfg.latent_rank,
+            seed=cfg.seed,
+        )
+    else:
+        raise ValueError(f"unknown interaction source {cfg.source!r}")
     if cfg.binarize_threshold > 0:
         keep = inter.ratings >= cfg.binarize_threshold
         users, items, nu, ni = densify_ids(inter.users[keep], inter.items[keep])

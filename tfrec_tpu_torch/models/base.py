@@ -111,6 +111,11 @@ class RecModel(nn.Module, abc.ABC):
             "dense": self.init_dense(generator, device),
         }
 
+    def warm_start_aliases(self) -> Dict[str, str]:
+        """Target table -> source table for warm starts across models
+        (``train.init_from``); unmapped tables match by name."""
+        return {}
+
     # ---- the retrieval surface (interaction models override) ----
 
     def score_all(self, params, user_ids: torch.Tensor) -> torch.Tensor:

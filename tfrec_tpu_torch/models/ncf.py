@@ -192,9 +192,8 @@ class NeuMF(_NCFBase):
 
     def warm_start_aliases(self) -> Dict[str, str]:
         """The paper's pretraining: both towers start from a trained
-        factorization's user_emb and item_emb (a GMF or MF run). Data for
-        warm starts (``train.init_from``, not ported yet: ROADMAP Queue 1
-        item 10)."""
+        factorization's user_emb and item_emb (a GMF or MF run), through
+        ``train.init_from``; a tower whose dim differs is skipped."""
         return {"user_gmf": "user_emb", "item_gmf": "item_emb",
                 "user_mlp": "user_emb", "item_mlp": "item_emb"}
 

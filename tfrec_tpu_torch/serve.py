@@ -20,9 +20,13 @@ top-k is ``torch.topk`` (``eval.retrieval``; "approx" is exact here, as on
 the reference's CPU). Ids out of range clamp, as the reference's
 ``jnp.take(mode="clip")`` does in ``predict``.
 
+``from_checkpoint(config)`` serves from disk: it rebuilds the model (and
+its dataset) from the config and restores the latest checkpoint, saved by
+the port or by the JAX package in any table layout.
+
 Refused by naming the ROADMAP Queue 1 item: int8 serving
-(``quantize=True``, item 13), a mesh or a live sharded train state (item
-11) and ``from_checkpoint`` (item 16).
+(``quantize=True``, item 13) and a mesh or a live sharded train state
+(item 11).
 """
 
 from __future__ import annotations
@@ -78,9 +82,31 @@ class Recommender:
         self._train_padded = None
 
     @classmethod
-    def from_checkpoint(cls, config, checkpoint_dir: str | None = None) -> "Recommender":
-        raise NotImplementedError(
-            "Recommender.from_checkpoint is not ported yet: ROADMAP Queue 1 item 16")
+    def from_checkpoint(cls, config, checkpoint_dir: str | None = None,
+                        device: torch.device | str = "cuda") -> "Recommender":
+        """Cold-start serving from disk, the deploy path once the training
+        job is gone: rebuild the model and its dataset from ``config``,
+        restore the params of the latest checkpoint of ``checkpoint_dir``
+        (default: ``config.train.checkpoint_dir``) and serve them on
+        ``device``. No step runs, and nothing is appended to the run's
+        metric stream. Raises where there is no checkpoint: serving fresh
+        random tables would go unnoticed."""
+        import dataclasses
+
+        from tfrec_tpu_torch.train.trainer import Trainer
+        from tfrec_tpu_torch.utils.checkpoint import latest_step
+
+        ckpt = checkpoint_dir or config.train.checkpoint_dir
+        if not ckpt:
+            raise ValueError("from_checkpoint needs a checkpoint_dir")
+        step = latest_step(ckpt)
+        if step is None:
+            raise ValueError(f"no checkpoint found under {ckpt!r}")
+        cfg = dataclasses.replace(config, train=dataclasses.replace(
+            config.train, resume=False, init_from=None, checkpoint_dir=ckpt))
+        trainer = Trainer(cfg, quiet=True, device=device, log_metrics=False)
+        params = trainer.restore(ckpt, step, params_only=True)
+        return cls(trainer.model, params, dataset=trainer.dataset, device=trainer.device)
 
     @classmethod
     def from_trainer(cls, trainer) -> "Recommender":

@@ -25,18 +25,30 @@ metric stream (``MetricLogger``), with the reference's records.
   side fields...] (``_host_batch``; ``data.synthetic_side_features`` draws
   the side fields); the eval adds the AUC over sampled negatives and, where
   the model scores the catalog (2-field FM), the full-catalog metrics;
-- CTR data (``synthetic_ctr``) with a CTR model: shuffled batches
-  (``CTRBatcher``), AUC and logloss on the held-out rows.
+- CTR data (``synthetic_ctr``, or a Criteo TSV, ``source="criteo"``) with a
+  CTR model: shuffled batches (``CTRBatcher``) of the materialized rows
+  (``load_criteo``), or with ``data.streaming`` the file streamed in order
+  past its first ``data.eval_examples`` lines (``CriteoStreamBatcher``);
+  AUC and logloss on the held-out rows.
+
+Interaction data is generated (``synthetic_implicit``) or read from
+MovieLens' rating files (``build_dataset``), and a CTR model over it reads
+ML-1M's ``users.dat`` and ``movies.dat`` side fields
+(``data.user_features_path`` / ``item_features_path``).
+
+Checkpoints are the JAX package's on-disk layout (``utils/checkpoint.py``,
+the keys of ``convert.flat_from_state``): ``train.checkpoint_every_epochs``
+saves the state after those epochs, ``train.resume`` carries on from the
+latest checkpoint of ``train.checkpoint_dir`` (whether the port or JAX
+saved it), and ``train.init_from`` copies another run's embedding tables
+first (the model's ``warm_start_aliases``, then the same name).
 
 The device is the card unless the caller passes ``device="cpu"`` (the
 kernels' plain versions); without CUDA the default raises. What the port
 does not take yet it refuses by naming the ROADMAP Queue 1 item, never
-passing it over: Criteo's and MovieLens' files and the ML-1M side-feature
-files (``data.user_features_path`` / ``item_features_path``; not in the
-repository, item 10; MovieLens' ratings are refused by ``build_dataset``),
-models other than mf, fm, gmf, mlp, neumf, dcn and dcnv2, user histories,
-sequences and the social graph (item 12), checkpoints, resume and warm
-starts (item 10), step profiles (item 10), a mesh (item 11),
+passing it over: models other than mf, fm, gmf, mlp, neumf, dcn and dcnv2,
+user histories, sequences and the social graph (item 12), step profiles
+(item 10), a mesh (item 11),
 ``train.matmul_precision`` other than "default" and host-computed dedup
 sorts (item 5).
 """
@@ -50,7 +62,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from tfrec_tpu_torch import convert
 from tfrec_tpu_torch.configs import Config
+from tfrec_tpu_torch.data.criteo import NUM_CATEGORICAL, CriteoStreamBatcher, load_criteo
 from tfrec_tpu_torch.data.dataset import build_dataset
 from tfrec_tpu_torch.data.samplers import (
     CTRBatcher,
@@ -65,7 +79,8 @@ from tfrec_tpu_torch.eval.retrieval import RetrievalEvaluator
 from tfrec_tpu_torch.eval.sampled import SampledEvaluator
 from tfrec_tpu_torch.models import BUILT, NOT_PORTED, DataSpec, build_model
 from tfrec_tpu_torch.train.losses import IN_BATCH_LOSSES, MULTI_NEG_LOSSES, PAIRWISE_LOSSES
-from tfrec_tpu_torch.train.step import TrainStepBuilder
+from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state
+from tfrec_tpu_torch.utils import checkpoint
 from tfrec_tpu_torch.utils.logging import MetricLogger
 from tfrec_tpu_torch.utils.prefetch import prefetch
 
@@ -77,31 +92,29 @@ CTR_MODELS = ("fm", "dcn", "dcnv2", "deepfm", "nfm", "widedeep", "dlrm")
 EVAL_BATCH = 8192  # rows of a held-out forward, at most
 
 
+def _criteo_vocabs(sizes) -> tuple:
+    """Criteo's 26 per-field vocabs: one size is broadcast, 26 are taken as
+    they are, any other count is a config error."""
+    sizes = tuple(sizes)
+    if len(sizes) == 1:
+        return sizes * NUM_CATEGORICAL
+    if len(sizes) != NUM_CATEGORICAL:
+        raise ValueError(
+            f"criteo needs 1 or {NUM_CATEGORICAL} categorical_vocab_sizes, got {len(sizes)}")
+    return sizes
+
+
 def _refuse_unported(c: Config) -> None:
     """Raise on every setting the port does not take yet, naming the
     ROADMAP Queue 1 item that ports it."""
     source, name = c.data.source, c.model.name.lower()
     if source not in INTERACTION_SOURCES + CTR_SOURCES:
         raise ValueError(f"unknown data source {source!r}")
-    if source == "criteo":
-        raise NotImplementedError(
-            "data.source='criteo' reads Criteo's files, which are not in the repository; "
-            "the port trains on data.source='synthetic_ctr' until they are and its loader "
-            "is ported (ROADMAP Queue 1 item 10)")
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {c.model.name!r} is not ported yet: ROADMAP Queue 1 item {NOT_PORTED[name]}; "
             f"the port trains {BUILT}")
     t = c.train
-    if t.checkpoint_dir and t.checkpoint_every_epochs > 0:
-        raise NotImplementedError(
-            "train.checkpoint_every_epochs (checkpoints) is not ported yet: ROADMAP Queue 1 "
-            "item 10; train.checkpoint_dir alone holds the metric stream")
-    if t.resume and t.checkpoint_dir:
-        raise NotImplementedError("train.resume is not ported yet: ROADMAP Queue 1 item 10")
-    if t.init_from:
-        raise NotImplementedError(
-            "train.init_from (warm start from a checkpoint) is not ported yet: ROADMAP Queue 1 item 10")
     if t.profile_steps is not None:
         raise NotImplementedError(
             "train.profile_steps (utils/profile.py) is not ported yet: ROADMAP Queue 1 item 10")
@@ -124,9 +137,14 @@ def _refuse_unported(c: Config) -> None:
 
 
 class Trainer:
-    def __init__(self, config: Config, quiet: bool = False, device: torch.device | str = "cuda"):
+    def __init__(self, config: Config, quiet: bool = False, device: torch.device | str = "cuda",
+                 log_metrics: bool = True):
         """``device``: the card by default; without CUDA this raises rather
-        than train on the CPU, so pass ``device="cpu"`` for that."""
+        than train on the CPU, so pass ``device="cpu"`` for that.
+        ``log_metrics=False`` keeps this construction out of the run's
+        metric stream on disk (``serve.Recommender.from_checkpoint`` builds a
+        Trainer only to restore a state; a second run_config record would
+        corrupt the training run's stream)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -134,13 +152,14 @@ class Trainer:
                 "pass device='cpu' to train on the CPU")
         _refuse_unported(config)
         self.config = c = config
-        self.logger = MetricLogger(c.run_name, out_dir=c.train.checkpoint_dir, quiet=quiet)
+        self.logger = MetricLogger(
+            c.run_name, out_dir=c.train.checkpoint_dir if log_metrics else None, quiet=quiet)
         # The full run config as the stream's first record.
         self.logger.log({"event": "run_config", "config": dataclasses.asdict(c)})
 
         # ---- data ----
         self.is_ctr_model = c.model.name.lower() in CTR_MODELS
-        self.dataset = self.ctr_arrays = None
+        self.dataset = self.ctr_arrays = self.stream = None
         self.user_side = self.item_side = None
         if c.data.source in INTERACTION_SOURCES:
             self.dataset = build_dataset(c.data)
@@ -151,29 +170,47 @@ class Trainer:
             else:
                 self.data_spec = DataSpec.interaction(nu, ni)
         else:
-            # Synthetic CTR examples, the last test_fraction held out.
-            dense, cat, label = synthetic_ctr(
-                c.data.num_examples,
-                num_dense=c.data.num_dense_features,
-                vocab_sizes=c.data.categorical_vocab_sizes,
-                seed=c.data.seed,
-                field_widths=c.data.categorical_field_widths or None,
-            )
-            n_test = int(len(label) * c.data.test_fraction)
-            if n_test == 0 or n_test >= len(label):
-                raise ValueError(
-                    f"test_fraction={c.data.test_fraction} with {len(label)} examples yields an "
-                    "empty train or test split; adjust num_examples/test_fraction")
-            self.ctr_arrays = {
-                "train": (dense[:-n_test], cat[:-n_test], label[:-n_test]),
-                "test": (dense[-n_test:], cat[-n_test:], label[-n_test:]),
-            }
-            self.data_spec = DataSpec.ctr(
-                tuple(c.data.categorical_vocab_sizes), num_dense=dense.shape[1],
-                field_widths=c.data.categorical_field_widths or None)
             if not self.is_ctr_model:
                 raise ValueError(
                     f"model {c.model.name!r} needs interaction data, got {c.data.source!r}")
+            if c.data.source == "criteo" and c.data.streaming:
+                # The file streamed in order past its eval slice (one
+                # process: the whole stream is this process's shard).
+                vocabs = _criteo_vocabs(c.data.categorical_vocab_sizes)
+                self.stream = CriteoStreamBatcher(
+                    c.data.path, c.train.batch_size, vocabs,
+                    eval_examples=c.data.eval_examples,
+                    max_examples=c.data.num_examples or None)
+                test = self.stream.eval_arrays()
+                self.ctr_arrays = {"train": None, "test": test}
+                self.data_spec = DataSpec.ctr(vocabs, num_dense=test[0].shape[1])
+            else:
+                if c.data.source == "criteo":
+                    vocabs = _criteo_vocabs(c.data.categorical_vocab_sizes)
+                    dense, cat, label = load_criteo(
+                        c.data.path, vocabs, max_examples=c.data.num_examples or None)
+                else:  # synthetic CTR examples
+                    vocabs = tuple(c.data.categorical_vocab_sizes)
+                    dense, cat, label = synthetic_ctr(
+                        c.data.num_examples,
+                        num_dense=c.data.num_dense_features,
+                        vocab_sizes=c.data.categorical_vocab_sizes,
+                        seed=c.data.seed,
+                        field_widths=c.data.categorical_field_widths or None,
+                    )
+                # The last test_fraction held out.
+                n_test = int(len(label) * c.data.test_fraction)
+                if n_test == 0 or n_test >= len(label):
+                    raise ValueError(
+                        f"test_fraction={c.data.test_fraction} with {len(label)} examples yields "
+                        "an empty train or test split; adjust num_examples/test_fraction")
+                self.ctr_arrays = {
+                    "train": (dense[:-n_test], cat[:-n_test], label[:-n_test]),
+                    "test": (dense[-n_test:], cat[-n_test:], label[-n_test:]),
+                }
+                self.data_spec = DataSpec.ctr(
+                    vocabs, num_dense=dense.shape[1],
+                    field_widths=c.data.categorical_field_widths or None)
 
         # ---- model + step ----
         self.model = build_model(c.model, self.data_spec)
@@ -190,33 +227,144 @@ class Trainer:
         self.state = self.builder.init_state(
             torch.Generator(device=self.device).manual_seed(c.train.seed))
         self.start_epoch = 0
+        if c.train.resume and c.train.checkpoint_dir:
+            step = checkpoint.latest_step(c.train.checkpoint_dir)
+            if step is not None:
+                self.state = self.restore(c.train.checkpoint_dir, step)
+                self.start_epoch = step
+                self.logger.log({"event": "resumed", "epoch": step})
+        if c.train.init_from:
+            if self.start_epoch == 0:
+                self._warm_start(c.train.init_from)
+            else:
+                self.logger.log({
+                    "event": "warm_start_skipped",
+                    "reason": "resume restored this run's checkpoint (resume wins over init_from)",
+                })
         self.sampler = self._make_sampler()
         self.global_step = 0
         self._es_best = None  # early-stopping monitor state
         self._es_stall = 0
         self._retrieval_eval = None  # built at the first eval
 
+    # ---- checkpoints ----
+
+    def checkpoint_state(self) -> Dict[str, np.ndarray]:
+        """The train state as the flat keys the JAX package saves for the
+        same model and optimizer (``convert.flat_from_state``)."""
+        o = self.config.optim
+        return convert.flat_from_state(self.state, o.dense_optimizer, o.weight_decay)
+
+    def restore(self, ckpt_dir: str, step: int | None = None, params_only: bool = False):
+        """The checkpoint at ``step`` (default: the latest) of ``ckpt_dir``,
+        saved by the port or by the JAX package on any topology and in any
+        table layout, on this trainer's device: the whole train state, or
+        with ``params_only`` the params ``{"tables", "dense"}`` (a
+        lane-packed or stacked checkpoint's optimizer state is refused,
+        ROADMAP Queue 1 item 15, but its params load)."""
+        keys = set(checkpoint.read_tree(ckpt_dir, step).get("keys", []))
+        template = {k: np.shape(v) for k, v in convert.flat_from_state(
+            self.state, self.config.optim.dense_optimizer, self.config.optim.weight_decay,
+            leaf=lambda t: np.broadcast_to(np.float32(0), t.shape)).items()}
+        if params_only:
+            template = {k: v for k, v in template.items() if k.startswith(("tables/", "dense/"))}
+        missing = set(template) - keys
+        if any(not k.startswith(("tables/", "sparse_opt/")) for k in missing):
+            raise ValueError(
+                f"checkpoint {ckpt_dir!r} does not hold this run's model and optimizer: it lacks "
+                f"{sorted(k for k in missing if not k.startswith(('tables/', 'sparse_opt/')))}")
+        if missing:  # another table layout: convert reads it as saved
+            template = None
+        flat = checkpoint.restore_checkpoint(ckpt_dir, template, step)
+        if params_only:
+            params = convert.params_from_flat(flat, self.model, self.state["dense"])
+            return copy_state(params, self.device)
+        return copy_state(convert.train_state_from_flat(flat, self.model, self.state), self.device)
+
+    def _warm_start(self, ckpt_dir: str) -> None:
+        """Copy matching embedding tables from another run's checkpoint
+        (``train.init_from``): the reference family's pretraining, NeuMF
+        from GMF or MF. The model's ``warm_start_aliases`` first, then the
+        same name; rows past the source's keep their fresh init, extra
+        source rows are cut (and the copy says so), and shape mismatches
+        and absent sources are skipped, each in the ``warm_start`` event.
+        Copying nothing raises."""
+        if checkpoint.checkpoint_row_permute(ckpt_dir):
+            raise ValueError(
+                f"init_from checkpoint {ckpt_dir!r} was saved with mesh.row_permute=True; warm "
+                "starting from a permuted physical layout is not supported — export/de-permute "
+                "it first (e.g. resume it and save with row_permute off)")
+        src_tables = checkpoint.load_table_arrays(ckpt_dir)
+        aliases = self.model.warm_start_aliases()
+        copied, skipped = [], []
+        tables = dict(self.state["tables"])
+        for name, tbl in tables.items():
+            s_name = aliases.get(name, name)
+            if s_name not in src_tables:
+                skipped.append([name, f"no source table {s_name!r}"])
+                continue
+            arr = src_tables[s_name]
+            if arr.ndim != tbl.ndim or tuple(arr.shape[1:]) != tuple(tbl.shape[1:]):
+                skipped.append([name, f"shape {list(arr.shape)} vs {list(tbl.shape)}"])
+                continue
+            rows = min(arr.shape[0], tbl.shape[0])
+            new = tbl.clone()
+            new[:rows] = torch.from_numpy(np.ascontiguousarray(arr[:rows], np.float32)).to(tbl.device)
+            tables[name] = new
+            if rows < arr.shape[0]:
+                copied.append([name, f"first {rows} of {arr.shape[0]} source rows"])
+            else:
+                copied.append(name)
+        self.state = {**self.state, "tables": tables}
+        self.logger.log({"event": "warm_start", "from": ckpt_dir,
+                         "copied": sorted(copied, key=str), "skipped": skipped})
+        if not copied:
+            raise ValueError(
+                f"warm start from {ckpt_dir!r} copied no tables (skipped: {skipped}); check "
+                "warm_start_aliases / dims")
+
+    # ---- data ----
+
     def _load_side_features(self, nu: int, ni: int) -> Tuple[int, ...]:
         """The side fields of a CTR model over interaction data: fills
-        ``user_side`` [U, 3] and ``item_side`` [V, 1] int32 and returns their
-        vocabs, or leaves them None and returns (). The synthetic fields are
-        the reference's draws from ``data.seed + 11``: gender, age bucket and
-        occupation (vocabs 2, 7, 21) a user, a genre (18) an item."""
+        ``user_side`` [U, Fu] and ``item_side`` [V, Fi] int32 and returns
+        their vocabs, or leaves them None and returns (). ML-1M's
+        ``users.dat`` gives gender, age bucket and occupation, ``movies.dat``
+        the first genre; their raw ids are 1-based and dense, and a user or
+        item the file does not name gets code 0 in each field. Without
+        files, ``data.synthetic_side_features`` draws the reference's
+        fields from ``data.seed + 11`` (vocabs 2, 7, 21 a user, 18 an
+        item)."""
         c = self.config
-        for knob in ("user_features_path", "item_features_path"):
-            if getattr(c.data, knob):
-                raise NotImplementedError(
-                    f"data.{knob} reads MovieLens-1M's side-feature files, which are not in the "
-                    "repository; their readers are not ported yet: ROADMAP Queue 1 item 10 (the "
-                    "port draws synthetic side fields with data.synthetic_side_features)")
-        if not c.data.synthetic_side_features:
-            return ()
-        rng = np.random.default_rng(c.data.seed + 11)
-        side_vocabs_u = (2, 7, 21)  # gender, age bucket, occupation
-        self.user_side = np.stack(
-            [rng.integers(0, v, nu) for v in side_vocabs_u], axis=1).astype(np.int32)
-        self.item_side = rng.integers(0, 18, (ni, 1)).astype(np.int32)
-        return side_vocabs_u + (18,)
+        vocabs: Tuple[int, ...] = ()
+        if c.data.user_features_path:
+            from tfrec_tpu_torch.data.movielens import load_ml1m_user_features
+
+            feats, fv = load_ml1m_user_features(c.data.user_features_path)
+            arr = np.zeros((nu, len(fv)), np.int32)
+            for raw, vec in feats.items():
+                if raw - 1 < nu:
+                    arr[raw - 1] = vec
+            self.user_side = arr
+            vocabs += fv
+        if c.data.item_features_path:
+            from tfrec_tpu_torch.data.movielens import load_ml1m_item_genres
+
+            genres, n_genres = load_ml1m_item_genres(c.data.item_features_path)
+            arr = np.zeros((ni, 1), np.int32)
+            for raw, g in genres.items():
+                if raw - 1 < ni:
+                    arr[raw - 1, 0] = g
+            self.item_side = arr
+            vocabs += (n_genres,)
+        if c.data.synthetic_side_features and not vocabs:
+            rng = np.random.default_rng(c.data.seed + 11)
+            side_vocabs_u = (2, 7, 21)  # gender, age bucket, occupation
+            self.user_side = np.stack(
+                [rng.integers(0, v, nu) for v in side_vocabs_u], axis=1).astype(np.int32)
+            self.item_side = rng.integers(0, 18, (ni, 1)).astype(np.int32)
+            vocabs = side_vocabs_u + (18,)
+        return vocabs
 
     def _use_device_negs(self, loss: str) -> bool:
         return (self.config.train.device_negatives and self.dataset is not None
@@ -235,6 +383,8 @@ class Trainer:
                 raise ValueError(
                     f"train.neg_sampling={c.train.neg_sampling!r} applies to the pairwise/pointwise "
                     "interaction samplers, not the CTR data path")
+            if self.stream is not None:
+                return self.stream
             dense, cat, label = self.ctr_arrays["train"]
             return CTRBatcher(dense, cat, label, bs, seed=seed)
         neg_cdf = None
@@ -386,7 +536,8 @@ class Trainer:
 
     def _post_epoch(self, epoch: int, rec: Dict[str, float], history) -> bool:
         """Per-epoch bookkeeping: the eval cadence (always on the final
-        epoch), logging, early stopping. True when training should stop."""
+        epoch), logging, checkpoints, early stopping. True when training
+        should stop."""
         c = self.config
         is_last = epoch + 1 == c.train.epochs
         evaluated = False
@@ -397,6 +548,10 @@ class Trainer:
             evaluated = True
         self.logger.log(rec)
         history.append(rec)
+        if (c.train.checkpoint_dir and c.train.checkpoint_every_epochs
+                and (epoch + 1) % c.train.checkpoint_every_epochs == 0):
+            checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch + 1, self.checkpoint_state(),
+                                       meta={"row_permute": False})
         if not (c.train.early_stop_patience > 0 and evaluated):
             return False
         name, value, sign = self._early_stop_monitor(rec)
@@ -446,7 +601,7 @@ class Trainer:
     def train(self) -> List[Dict[str, float]]:
         c = self.config
         history: List[Dict[str, float]] = []
-        if self.sampler.num_batches() == 0:
+        if self.stream is None and self.sampler.num_batches() == 0:
             raise ValueError(
                 "0 train batches per epoch: the (remainder-dropping) sampler has fewer "
                 f"than batch_size={c.train.batch_size} rows — shrink train.batch_size or "
@@ -521,6 +676,7 @@ class Trainer:
 
 def run(config: Config, quiet: bool = False,
         device: torch.device | str = "cuda") -> Tuple[Trainer, List[Dict[str, float]]]:
+    """Build a ``Trainer`` on ``device`` and train it: (trainer, history)."""
     trainer = Trainer(config, quiet=quiet, device=device)
     history = trainer.train()
     return trainer, history

@@ -133,3 +133,20 @@ def dcn_criteo(path: str | None = None, max_examples: int = 2_000_000) -> Config
                           eval_every_epochs=1, steps_per_dispatch=8),
         mesh=MeshConfig(table_sharding="row"),
     )
+
+
+# The zoo configs the port builds, by name (the CLI's --config).
+ZOO = {
+    "mf_bpr_ml100k": mf_bpr_ml100k,
+    "fm_ctr_ml1m": fm_ctr_ml1m,
+    "neumf_ml20m": neumf_ml20m,
+    "dcn_criteo": dcn_criteo,
+}
+# The reference's other zoo configs, by the ROADMAP Queue 1 item that ports
+# them: the sharded multi-host DCN (item 11) and the long tail (item 12).
+NOT_PORTED = {
+    "dcn_multihost": 11,
+    **{name: 12 for name in ("fism_ml100k", "multvae_ml100k", "nais_ml100k", "cdae_ml100k",
+                             "sasrec_ml1m", "gru4rec_ml1m", "caser_ml1m", "sbpr_ml100k",
+                             "apr_ml100k", "irgan_ml100k", "wrmf_ml100k", "ease_ml100k")},
+}
