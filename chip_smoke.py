@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-4, and data files, checkpoints and the CLI, on one NVIDIA GPU.
+"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-4, data files, checkpoints and the CLI, and every table layout and duplicate combine of the step, on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
@@ -141,7 +141,26 @@ non-zero if any phase fails:
     files for 2 epochs (one gather and one Adagrad launch a step, its AUC);
     NeuMF warm started from a 1-epoch GMF checkpoint (``init_from``);
 26. (J) ``python -m tfrec_tpu_torch.cli --config dcn_criteo --data_path
-    <F's file>`` as a process of its own, its last line parsed.
+    <F's file>`` as a process of its own, its last line parsed;
+27. (K) the table layouts and duplicate combines: ``dcn_criteo`` at
+    Criteo's shape (26 x 100 000, d=32, B=8192, Zipf(1.2) ids), 8
+    ``multi_step`` steps from one state in each mode (per field, the 26
+    tables' duplicates combined in one batched sort; lane-packed, 7 packs:
+    ``gather_rows_multi`` at D = 128 and 64, the Adagrad kernel on the
+    packs' lane groups as rows, G = 4 and 2; stacked, one [2 600 000, 32]
+    table of 212 992 ids a step; the host's dedup sorts, each table's
+    combine alone), each bit for bit the per-field run (losses, tables,
+    accumulators), its launches counted; each
+    mode's step median (host clock, in turns), device-busy share and
+    kernels a step; the host's sorts of a batch; the gather and Adagrad
+    kernels at the packed and stacked shapes, bit for bit their plain
+    versions and on repeat, beside their bounds, plain versions and
+    ``index_select``. Then ``trainer.run(fm_ctr_ml1m())`` with
+    ``model.lane_pack=True`` whole (3 packs of 2 fields and ``linpack_0``,
+    G = 2 and 6): config 2's band, one gather and one Adagrad launch a
+    step, the kernels at its shapes; its checkpoint
+    resumed under ``lane_pack=None`` (the saved layout taken) bit for bit,
+    and served by ``from_checkpoint`` packed and per field.
 
 No earlier path is cut in depth for time (PERF.md gives a whole run's
 time on an H100). The last lines are the kernels' JSON record (the v2
@@ -153,8 +172,12 @@ trainers', MF's and configs 2 and 3's paths: ``trainer_mf`` phase 12,
 ``serve_mf`` phase 15's first call, ``trainer_fm`` and ``trainer_neumf``
 phases 17 and 18, ``serve_neumf`` and ``serve_fm`` phase 21's first
 calls, ``trainer_criteo_file`` phase F's streamed run, ``serve_ckpt``
-phase H's first call and ``trainer_fm_files`` phase I's FM run) and
-``{"ok": true, ...}``.
+phase H's first call, ``trainer_fm_files`` phase I's FM run, and phase
+K's ``layouts_<mode>``, ``trainer_fm_packed`` and ``serve_fm_packed``;
+the gather and Adagrad records carry phase K's shapes as ``dcn_packed``,
+``dcn_stacked`` and ``fm_packed``, and ``fused_rowwise_adagrad_multi_
+grouped`` is the Adagrad kernel on lane-grouped tables, its launches the
+Adagrad launches of phase K's packed paths) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -170,6 +193,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -212,7 +236,7 @@ from tfrec_tpu_torch.models.mf import MF
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
 from tfrec_tpu_torch.serve import Recommender
 from tfrec_tpu_torch.train import trainer as trainer_mod
-from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, tree_leaves
+from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, host_dedup_sorts, tree_leaves
 from tfrec_tpu_torch.train.trainer import Trainer, run
 from tfrec_tpu_torch.utils import checkpoint
 
@@ -340,7 +364,16 @@ KERNELS = {
         "source": "tfrec_tpu_torch/kernels/csrc/cross_v2.cu",
         "replaces": "tfrec_tpu/kernels/cross_pallas.py:342",
     },
+    # The Adagrad kernel on lane-packed tables ([V, G] accumulators, taken
+    # as [V*G, d] rows): fused_rowwise_adagrad_multi's launches on the
+    # packed paths (GROUPED_PATHS).
+    "fused_rowwise_adagrad_multi_grouped": {
+        "source": "tfrec_tpu_torch/kernels/csrc/adagrad.cu",
+        "replaces": "tfrec_tpu/kernels/scatter_pallas.py:182",
+    },
 }
+GROUPED = "fused_rowwise_adagrad_multi_grouped"
+GROUPED_PATHS = ("layouts_lane_packed", "trainer_fm_packed")
 WRAPPERS = {"gather_rows_multi": gather_rows_multi, "gather_rows": gather_rows,
             "cross_v1_fwd": cross_v1_fwd, "cross_v1_bwd": cross_v1_bwd,
             "fused_rowwise_adagrad_multi": fused_rowwise_adagrad_multi,
@@ -979,6 +1012,7 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
+    """Each wrapper's launches."""
     return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
 
 
@@ -1390,7 +1424,10 @@ def adagrad_times(work, lr: float, what: str) -> dict:
     host_one = dispatch_ms(lambda: [fused_rowwise_adagrad(*w, lr) for w in work], 1)
     plain = dispatch_ms(lambda: fused_rowwise_adagrad_multi_ref(tables, accs, uids, grads, lr), 1)
     distinct = [int((u < t.shape[0]).sum().item()) for t, u in zip(tables, uids)]
-    nbytes = sum(k * (3 * t.shape[1] * 4 + 2 * 4) + u.shape[0] * 4 for k, t, u in zip(distinct, tables, uids))
+    # A real id reads its gradient row and reads and writes its table row
+    # and its accumulator (G floats for a lane-grouped table); and every id.
+    nbytes = sum(k * (3 * t.shape[1] * 4 + 2 * 4 * (a.numel() // max(a.shape[0], 1))) + u.shape[0] * 4
+                 for k, t, a, u in zip(distinct, tables, accs, uids))
     bound, by = bound_ms(nbytes, sum(4 * k * t.shape[1] for k, t in zip(distinct, tables)))
     print(f"fused_rowwise_adagrad_multi, {what}: {f} x [{tables[0].shape[0]}, {tables[0].shape[1]}], "
           f"{uids[0].shape[0]} slots a table, distinct real ids a table: mean {sum(distinct) / f:.1f}, "
@@ -1788,10 +1825,12 @@ def mf_card_vs_cpu() -> None:
 
 def gather_times(tables, field_ids, what: str) -> dict:
     """The gather of every (table, ids) pair in one launch beside its bound,
-    its plain version and one ``index_select`` a table (ids in range)."""
+    its plain version and one ``index_select`` a table (its ids clamped
+    first, outside the timing)."""
     g_ms = device_ms(lambda: gather_rows_multi(tables, field_ids), 1)
     g_plain = device_ms(lambda: gather_rows_multi_ref(tables, field_ids), 1)
-    g_lib = device_ms(lambda: [torch.index_select(t, 0, i) for t, i in zip(tables, field_ids)], 1)
+    in_range = [i.clamp(0, t.shape[0] - 1) for t, i in zip(tables, field_ids)]  # index_select raises past them
+    g_lib = device_ms(lambda: [torch.index_select(t, 0, i) for t, i in zip(tables, in_range)], 1)
     g_bound, g_by = bound_ms(sum(i.shape[0] * (t.shape[1] * 4 * 2 + 4) for t, i in zip(tables, field_ids)), 0)
     shapes = [(tuple(t.shape), i.shape[0]) for t, i in zip(tables, field_ids)]
     print(f"gather_rows_multi at {what} {shapes} [device time, CUDA graph]: one launch {g_ms:.4f} ms; "
@@ -2610,6 +2649,259 @@ def phase_cli(card: str, files: dict) -> None:
     print(f"phase J took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- every table layout and duplicate combine of the step (phase K) ----
+
+# name: (model overrides, host sorts)
+LAYOUT_MODES = {
+    "per-field": ({}, False),
+    "lane-packed": ({"lane_pack": True}, False),
+    "stacked": ({"stack_tables": True}, False),
+    "host sorts": ({}, True),
+}
+
+
+def layout_state(model, builder, start):
+    """``start``, a per-field train state at step 0, in ``model``'s table
+    layout: the per-field tables joined into it, the sparse optimizer's
+    step-0 state (its initial values), the dense params and their
+    optimizer state copied."""
+    zeros = {spec.name: torch.zeros(spec.shape, device=DEVICE) for spec in model.table_specs()}
+    tables = model.join_fields(start["tables"], zeros)
+    sparse = {spec.name: builder.sparse_opt.init(tables[spec.name], lane_groups=spec.lane_groups)
+              for spec in model.table_specs()}
+    rest = copy_state({"dense": start["dense"], "dense_opt": start["dense_opt"]})
+    return {"step": start["step"], "tables": tables, "sparse_opt": sparse, **rest}
+
+
+def per_field_view(model, state) -> tuple:
+    """(per-field tables, per-field accumulators) of a state in any layout."""
+    accs = {name: s["acc"] for name, s in state["sparse_opt"].items()}
+    return model.split_fields(state["tables"]), model.split_fields(accs, stat=True)
+
+
+def sparse_kernel_checks(builder, state, batch, label: str, records: dict) -> None:
+    """The gather and the Adagrad kernel at ``builder``'s tables on
+    ``batch``'s ids and combined gradients: one launch each, bit for bit
+    their plain versions and on repeat; their device times beside their
+    bounds, plain versions and (the gather) ``index_select``, into
+    ``records`` under ``label``."""
+    model = builder.model
+    ids = model.lookup_ids(batch)
+    tables, field_ids = [state["tables"][n] for n in ids], list(ids.values())
+    got, launches = launches_of(gather_rows_multi, lambda: gather_rows_multi(tables, field_ids))
+    again = gather_rows_multi(tables, field_ids)
+    want = gather_rows_multi_ref(tables, field_ids)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    print(f"gather_rows_multi at {label} {[(tuple(t.shape), i.shape[0]) for t, i in zip(tables, field_ids)]}: "
+          f"{launches} launch, bit for bit the plain version {bitwise}, on repeat {repeat}")
+    check(launches == 1 and bitwise and repeat,
+          f"gather_rows_multi at {label}: one launch, bit for bit its plain version and on repeat")
+    del got, again, want
+    records["gather_rows_multi"][label] = gather_times(tables, field_ids, label)
+
+    _, _, row_grads, _ = builder.loss_and_grads(state, batch)
+    lr, eps = builder.sparse_schedule(state["step"]), builder.optim_cfg.eps
+    uids, grads = [], []
+    for name, i in ids.items():
+        u, g = combine_duplicate_ids(i, row_grads[name], sentinel=state["tables"][name].shape[0])
+        uids.append(u)
+        grads.append(g)
+    accs = [state["sparse_opt"][n]["acc"] for n in ids]
+
+    def copies():
+        return [t.clone() for t in tables], [a.clone() for a in accs]
+
+    (got_t, got_a), launches = launches_of(
+        fused_rowwise_adagrad_multi, lambda: fused_rowwise_adagrad_multi(*copies(), uids, grads, lr, eps))
+    again_t, again_a = fused_rowwise_adagrad_multi(*copies(), uids, grads, lr, eps)
+    ref_t, ref_a = fused_rowwise_adagrad_multi_ref(*copies(), uids, grads, lr, eps)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, e) for a, e in zip(got_t + got_a, ref_t + ref_a))
+    repeat = all(torch.equal(a, e) for a, e in zip(got_t + got_a, again_t + again_a))
+    err = max(max_err(a, e) for a, e in zip(got_t + got_a, ref_t + ref_a))
+    groups = [a.shape[1] if a.dim() == 2 else 1 for a in accs]
+    distinct = [int((u < t.shape[0]).sum().item()) for u, t in zip(uids, tables)]
+    print(f"fused_rowwise_adagrad_multi at {label}, lane groups {groups}, distinct real ids a table "
+          f"{distinct}: {launches} launch, bit for bit the plain version {bitwise}, on repeat {repeat}")
+    check(launches == 1 and bitwise and repeat,
+          f"fused_rowwise_adagrad_multi at {label}: one launch, bit for bit its plain version and on repeat")
+    del got_t, got_a, again_t, again_a, ref_t, ref_a
+    work = list(zip(*copies(), uids, grads))
+    records["fused_rowwise_adagrad_multi"][label] = {
+        **adagrad_times(work, lr, label), "groups": groups, "distinct_ids": distinct, "max_abs_err": err}
+
+
+def phase_layouts(card: str, paths: dict) -> dict:
+    """(K) ``dcn_criteo`` at Criteo's shape (26 x 100 000, d=32, B=8192,
+    Zipf(1.2) ids) in every table layout and duplicate combine of the step:
+    8 ``multi_step`` steps from one state (made per-field, then joined into
+    each layout) per mode; every mode's losses, tables and accumulators bit
+    for bit the per-field run's, its launches counted; each mode's step median
+    (host clock, in turns) and a profile of one step; the gather and Adagrad
+    kernels at the packed (7 packs: D = 128 at G = 4, and 64 at G = 2) and
+    stacked ([2 600 000, 32], 212 992 ids) shapes beside their bounds, plain
+    versions and ``index_select``; the host's sorts of a batch. Returns the
+    kernels' records by shape."""
+    t_phase = time.perf_counter()
+    cfg = configs()["v1"]
+    vocabs = tuple(cfg.data.categorical_vocab_sizes)
+    spec = DataSpec.ctr(vocabs, cfg.data.num_dense_features)
+    k = cfg.train.steps_per_dispatch
+    dense, cat, label = synthetic_ctr(k * BATCH, cfg.data.num_dense_features, vocabs, seed=SEED + 5)
+    host = [{"dense": dense[i * BATCH:(i + 1) * BATCH], "cat": cat[i * BATCH:(i + 1) * BATCH],
+             "label": label[i * BATCH:(i + 1) * BATCH]} for i in range(k)]
+    stacked = {key: to_device(np.stack([b[key] for b in host])) for key in host[0]}
+    runs, builders, states = {}, {}, {}
+    start = None
+    for mode, (overrides, host_sorts) in LAYOUT_MODES.items():
+        model = build_model(dataclasses.replace(cfg.model, **overrides), spec)
+        builder = TrainStepBuilder(model, cfg.train.loss, cfg.optim)
+        if start is None:  # the per-field mode, first
+            start = builder.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+            state = copy_state(start)
+        else:
+            state = layout_state(model, builder, start)
+        batches = stacked
+        if host_sorts:
+            sorts = [host_dedup_sorts(model, b) for b in host]
+            batches = {**stacked, **{key: to_device(np.stack([s[key] for s in sorts])) for key in sorts[0]}}
+        builders[mode], states[mode] = builder, copy_state(state)
+        reset_launches()
+        state, metrics = builder.multi_step(state, batches)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in read_launches().items() if c}
+        paths["layouts_" + re.sub(r"\W+", "_", mode)] = read_launches()
+        runs[mode] = (metrics["loss"], metrics["loss_mean"], *per_field_view(model, state))
+        ref = runs["per-field"]
+        same = (torch.equal(runs[mode][0], ref[0]) and torch.equal(runs[mode][1], ref[1])
+                and all(torch.equal(runs[mode][2][n], ref[2][n]) for n in ref[2])
+                and all(torch.equal(runs[mode][3][n], ref[3][n]) for n in ref[3]))
+        tables = {s.name: (s.shape, s.lane_groups) for s in model.table_specs()}
+        print(f"layouts (K) {mode}: {len(tables)} tables {tables if len(tables) < 10 else ''}; {k} steps, "
+              f"launches {launches}; loss_mean {runs[mode][1].item():.6f}; losses, tables and accumulators bit "
+              f"for bit the per-field run's: {same}")
+        check(same, f"{mode}: {k} steps bit for bit the per-field steps")
+        check(launches.get("gather_rows_multi") == k and launches.get("fused_rowwise_adagrad_multi") == k
+              and launches.get("cross_v1_fwd") == k and launches.get("cross_v1_bwd") == k
+              and len(launches) == 4,
+              f"{mode}: one gather, Adagrad, v1 forward and backward launch a step, and no other")
+        del state, metrics
+
+    # Each mode's step on one batch, in turns, then a profile of one step.
+    batch = {key: v[0] for key, v in stacked.items()}
+    sorts0 = {key: to_device(v) for key, v in host_dedup_sorts(builders["host sorts"].model, host[0]).items()}
+
+    def stepper(mode):
+        b = {**batch, **sorts0} if LAYOUT_MODES[mode][1] else batch
+
+        def run_step():
+            states[mode], _ = builders[mode].step(states[mode], b)
+        return run_step
+
+    steps = {mode: stepper(mode) for mode in LAYOUT_MODES}
+    medians = medians_in_turns(steps)
+    print(f"layouts (K): train step of {BATCH} (host clock, batch on the card), median over 10 steps in turns: "
+          + ", ".join(f"{mode} {ms:.3f} ms" for mode, ms in medians.items()) + f" ({card})")
+    for mode, run_step in steps.items():
+        profile(run_step, f"train step ({mode})", medians[mode])
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        sort_ms = []
+        for b in host:
+            t0 = time.perf_counter()
+            host_dedup_sorts(builders["host sorts"].model, b, pool)
+            sort_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"layouts (K): host_dedup_sorts of a batch (26 tables of {BATCH} ids, {min(8, os.cpu_count() or 1)} "
+          f"threads; host clock, median of {len(sort_ms)}): {statistics.median(sort_ms):.3f} ms")
+
+    records = {"gather_rows_multi": {}, "fused_rowwise_adagrad_multi": {}}
+    for mode, label in (("lane-packed", "dcn_packed"), ("stacked", "dcn_stacked")):
+        sparse_kernel_checks(builders[mode], layout_state(builders[mode].model, builders[mode], start), batch,
+                             label, records)
+    del builders, states, stacked, batch
+    print(f"phase K (DCN) took {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def phase_fm_packed(card: str, paths: dict, records: dict) -> dict:
+    """(K) ``trainer.run(fm_ctr_ml1m())`` with ``model.lane_pack=True``,
+    whole on the card: 3 packs of 2 fields ([6040, 128], [21, 128], [7, 128],
+    G = 2) and ``linpack_0`` [6040, 6] (G = 6); config 2's band; one gather
+    and one Adagrad launch a step; the kernels at its
+    shapes; its checkpoint saved after the last epoch, resumed under AUTO
+    (the saved layout taken) bit for bit, and served by ``from_checkpoint``
+    bit for bit ``from_trainer``. Returns the record of the Adagrad kernel on lane-grouped tables."""
+    t_phase = time.perf_counter()
+    base = zoo_configs.fm_ctr_ml1m()
+    ckpt = DATA_DIR / "fm_packed"
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, lane_pack=True),
+        train=dataclasses.replace(base.train, checkpoint_dir=str(ckpt),
+                                  checkpoint_every_epochs=base.train.epochs))
+    trainer, history, train_counts, evals, run_s = run_counted(cfg)
+    steps = trainer.global_step
+    paths["trainer_fm_packed"] = whole_run_launches(train_counts, evals)
+    tables = {s.name: (s.shape, s.lane_groups) for s in trainer.model.table_specs()}
+    rec = history[-1]
+    rates = [r["examples_per_s"] for r in history]
+    print(f"config 2 lane-packed (K): tables {tables}; {steps} steps; history {history}; launches in training "
+          f"{train_counts}, in each eval pass {evals[0][1]}; examples_per_s median "
+          f"{statistics.median(rates):.1f}; run() took {run_s:.1f} s ({card})")
+    check(list(tables) == ["pack_0", "pack_1", "pack_2", "linpack_0"], "config 2 packs as the reference does")
+    check_launches(train_counts, {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps},
+                   "config 2 packed: one gather and one Adagrad launch a step, and no other")
+    lo, hi = CONFIG2_AUC_BAND
+    print(f"config 2 lane-packed band: auc {rec['auc']:.6f} in [{lo}, {hi}]")
+    check(lo <= rec["auc"] <= hi, "config 2 lane-packed holds its band")
+
+    batch = trainer._to_device_batch(trainer._host_batch(next(trainer.sampler.epoch(0)), train=False))
+    sparse_kernel_checks(trainer.builder, trainer.state, batch, "fm_packed", records)
+
+    auto = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, lane_pack=None),
+                               train=dataclasses.replace(cfg.train, resume=True))
+    resumed = Trainer(auto, quiet=True, log_metrics=False)
+    same = resumed.model.lane_pack and resumed.start_epoch == base.train.epochs and states_equal(
+        resumed.state, trainer.state)
+    one, _ = trainer.builder.step(copy_state(trainer.state), batch)
+    two, _ = resumed.builder.step(copy_state(resumed.state), batch)
+    torch.cuda.synchronize()
+    same_step = states_equal(one, two)
+    print(f"config 2 lane-packed checkpoint: resumed under lane_pack=None as packed {resumed.model.lane_pack}, "
+          f"from epoch {resumed.start_epoch}, its state bit for bit the trainer's {same}, a step from each bit "
+          f"for bit {same_step}")
+    check(same and same_step, "the packed checkpoint resumes bit for bit")
+    del one, two, resumed
+
+    host = trainer._host_batch(next(trainer.sampler.epoch(1)), train=False)
+    live = Recommender.from_trainer(trainer).predict_ctr(host["dense"], host["cat"])
+    cold = Recommender.from_checkpoint(cfg)
+    reset_launches()
+    got = cold.predict_ctr(host["dense"], host["cat"])
+    torch.cuda.synchronize()
+    paths["serve_fm_packed"] = read_launches()
+    per_field = Recommender.from_checkpoint(dataclasses.replace(auto, train=dataclasses.replace(
+        cfg.train, resume=False)))
+    unpacked = per_field.predict_ctr(host["dense"], host["cat"])
+    print(f"config 2 lane-packed serving: from_checkpoint ({[n for n in cold.params['tables']]}) bit for bit "
+          f"from_trainer {np.array_equal(got, live)}, launches {paths['serve_fm_packed']}; from_checkpoint "
+          f"per-field (AUTO, {len(per_field.params['tables'])} tables) bit for bit {np.array_equal(unpacked, live)}")
+    check(cold.model.lane_pack and np.array_equal(got, live) and np.isfinite(got).all(),
+          "from_checkpoint serves the packed model bit for bit from_trainer's answers")
+    check_launches(paths["serve_fm_packed"], {"gather_rows_multi": 1}, "packed serving: one gather launch")
+    check(np.allclose(unpacked, live, rtol=LOGIT_TOL, atol=LOGIT_TOL),
+          "the packed checkpoint served per-field gives the packed answers")
+    print(f"phase K (config 2 lane-packed) took {time.perf_counter() - t_phase:.1f} s")
+    fm = records["fused_rowwise_adagrad_multi"]
+    return {"name": GROUPED, "route": "cuda", "max_abs_err": max(fm[k]["max_abs_err"] for k in ("dcn_packed",
+                                                                                               "fm_packed")),
+            **{key: fm["dcn_packed"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "at": "dcn_packed", "groups": fm["dcn_packed"]["groups"],
+            "fm_packed": fm["fm_packed"],
+            "reference_route": "XLA (tfrec_tpu/ops/sparse_optim.py:365 fused_adagrad_gate leaves lane-grouped "
+                               "tables to it)"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -2656,8 +2948,16 @@ def main() -> int:
         phase_cli(card, files)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+    try:
+        layouts = phase_layouts(card, paths)
+        records.append(phase_fm_packed(card, paths, layouts))
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
     for r in records:
-        by_path = {path: launches[r["name"]] for path, launches in paths.items()}
+        if r["name"] == GROUPED:  # the Adagrad kernel's launches on the packed paths
+            by_path = {path: paths[path]["fused_rowwise_adagrad_multi"] for path in GROUPED_PATHS}
+        else:
+            by_path = {path: launches[r["name"]] for path, launches in paths.items()}
         r.update({"launches": sum(by_path.values()), "launches_by_path": by_path})
         r.update({k: KERNELS[r["name"]][k] for k in ("source", "replaces")})
         if r["name"].startswith("cross_v2"):
@@ -2665,6 +2965,7 @@ def main() -> int:
         if r["name"] in mf_records:
             r["mf_bench"] = mf_records[r["name"]]  # MF's 3 tables at bench.py's shape
         r.update(shapes.get(r["name"], {}))  # FM's 12 tables, NeuMF's 4
+        r.update(layouts.get(r["name"], {}))  # phase K's packed and stacked shapes
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -422,6 +422,118 @@ def test_fused_rowwise_adagrad_matches_the_plain_version(device, dim):
         assert torch.equal(t_k[row], table[row]) and torch.equal(a_k[row], acc[row])
 
 
+# (D, G): DCN's packs (128 at 4 groups, 64 at 2: d = 32), FM's (128 at 2: d =
+# 64), a linear pack (6 at 6, 128 at 128: d = 1) and d = 16.
+GROUPED = [(128, 4), (64, 2), (128, 2), (6, 6), (128, 128), (96, 6)]
+
+
+def _grouped_inputs(device, vocab, dim, groups, n, seed):
+    """A table, a [V, G] accumulator and combined Zipf-ish ids whose rows
+    touch only some of their groups (zero gradient elsewhere), as a pack's
+    do, with negatives and sentinels among them."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(vocab, dim)).astype(np.float32)).to(device)
+    acc = torch.from_numpy(rng.uniform(0, 0.1, (vocab, groups)).astype(np.float32)).to(device)
+    ids = np.clip(rng.zipf(1.2, n), 1, vocab - 2).astype(np.int32)
+    ids[:6] = [vocab, vocab + 2, -1, -3, 7, 7]
+    g = rng.normal(size=(n, groups, dim // groups)).astype(np.float32)
+    g[rng.integers(0, groups, n)[:, None] != np.arange(groups)[None, :]] = 0.0
+    return (table, acc) + combine_duplicate_ids(torch.from_numpy(ids).to(device),
+                                                torch.from_numpy(g.reshape(n, dim)).to(device),
+                                                sentinel=vocab)
+
+
+@pytest.mark.parametrize("dim,groups", GROUPED)
+def test_grouped_adagrad_is_bitwise_the_plain_version_and_each_groups_own_update(device, dim, groups):
+    """A lane-grouped table (as [V*G, d] rows): bit for bit its plain
+    version and itself on repeat, and each group bit for bit the one-group kernel on that group's
+    lanes alone (the per-field update of a lane-packed field)."""
+    vocab = 3000
+    table, acc, uids, g = _grouped_inputs(device, vocab, dim, groups, 4099, dim + groups)
+    before = fused_rowwise_adagrad.launches
+    t_k, a_k = fused_rowwise_adagrad(table.clone(), acc.clone(), uids, g, 0.05)
+    torch.cuda.synchronize()
+    assert fused_rowwise_adagrad.launches == before + 1
+    t_r, a_r = fused_rowwise_adagrad_ref(table.clone(), acc.clone(), uids, g, 0.05)
+    t_2, a_2 = fused_rowwise_adagrad(table.clone(), acc.clone(), uids, g, 0.05)
+    assert torch.equal(t_k, t_r) and torch.equal(a_k, a_r)
+    assert torch.equal(t_k, t_2) and torch.equal(a_k, a_2)
+    d = dim // groups
+    for j in range(groups):
+        lanes = slice(j * d, (j + 1) * d)
+        t_j, a_j = fused_rowwise_adagrad(table[:, lanes].contiguous(), acc[:, j].contiguous(), uids,
+                                         g[:, lanes].contiguous(), 0.05)
+        assert torch.equal(t_k[:, lanes], t_j) and torch.equal(a_k[:, j], a_j)
+    for row in (0, vocab - 1):
+        assert torch.equal(t_k[row], table[row]) and torch.equal(a_k[row], acc[row])
+
+
+def test_grouped_and_one_group_tables_share_a_launch(device):
+    """One launch over tables of G = 1 and G > 1: each table's result is its
+    own one-table launch's and its plain version's, bit for bit, whatever
+    its launch-mates."""
+    shapes = [(5000, 32, 1), (3000, 128, 4), (700, 6, 6), (4000, 64, 2), (900, 1, 1), (2000, 100, 1)]
+    work = [_grouped_inputs(device, v, d, gr, 2049, i) for i, (v, d, gr) in enumerate(shapes)]
+    tables, accs, uids, grads = (list(x) for x in zip(*work))
+    for t in range(len(shapes)):  # the one-group tables with a [V] accumulator
+        if accs[t].shape[1] == 1:
+            accs[t] = accs[t][:, 0].contiguous()
+
+    def copies():
+        return [t.clone() for t in tables], [a.clone() for a in accs]
+
+    before = fused_rowwise_adagrad_multi.launches
+    got_t, got_a = fused_rowwise_adagrad_multi(*copies(), uids, grads, 0.02)
+    torch.cuda.synchronize()
+    assert fused_rowwise_adagrad_multi.launches == before + 1
+    ref_t, ref_a = fused_rowwise_adagrad_multi_ref(*copies(), uids, grads, 0.02)
+    for f in range(len(shapes)):
+        one_t, one_a = fused_rowwise_adagrad(tables[f].clone(), accs[f].clone(), uids[f], grads[f], 0.02)
+        assert torch.equal(got_t[f], one_t) and torch.equal(got_a[f], one_a)
+        assert torch.equal(got_t[f], ref_t[f]) and torch.equal(got_a[f], ref_a[f])
+
+
+@pytest.mark.parametrize("mode", ["lane_pack", "stack_tables", "per_table", "lane_pack_per_table",
+                                  "host_dedup"])
+def test_train_steps_of_every_layout_and_combine_are_bitwise_the_per_field_steps(device, mode):
+    """Three DCN steps (rowwise Adagrad) on the card in each table layout
+    and combine mode, from one state: losses, tables and accumulators bit
+    for bit the per-field run's (its same-shaped tables combined in one
+    batched sort; "per_table" overrides the per-table seam, so each table
+    is combined and updated alone)."""
+    from tfrec_tpu_torch.train.step import host_dedup_sorts
+
+    vocabs, widths = (300, 120, 80, 50, 200, 64, 33), (1, 1, 3, 1, 1, 2, 1)
+    spec = DataSpec.ctr(vocabs, 3, widths)
+    optim = OptimConfig(learning_rate=0.01, sparse_optimizer="rowwise_adagrad", sparse_learning_rate=0.05)
+    layout = {"lane_pack": {"lane_pack": True}, "stack_tables": {"stack_tables": True},
+              "lane_pack_per_table": {"lane_pack": True}}.get(mode, {})
+
+    class PerTable(TrainStepBuilder):
+        def sparse_update(self, *args, **kw):
+            return super().sparse_update(*args, **kw)
+    runs = []
+    for changed in (False, True):
+        model = build_model(ModelConfig(name="dcn", embed_dim=32, num_cross_layers=2, mlp_dims=(16,),
+                                        **(layout if changed else {})), spec)
+        builder = (PerTable if changed and mode.endswith("per_table") else TrainStepBuilder)(
+            model, "logloss", optim)
+        state = builder.init_state(torch.Generator(device="cuda").manual_seed(0))
+        losses = []
+        for step in range(3):
+            dense, cat, label = synthetic_ctr(256, 3, vocabs, seed=step, field_widths=widths)
+            batch = {"dense": dense, "cat": cat, "label": label}
+            if changed and mode == "host_dedup":
+                batch.update(host_dedup_sorts(model, batch))
+            state, m = builder.step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+            losses.append(m["loss"])
+        runs.append((torch.stack(losses), model.split_fields(state["tables"]),
+                     model.split_fields({n: s["acc"] for n, s in state["sparse_opt"].items()}, stat=True)))
+    (l0, t0, a0), (l1, t1, a1) = runs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(t0[k], t1[k]) for k in t0) and all(torch.equal(a0[k], a1[k]) for k in a0)
+
+
 def test_combine_duplicate_ids_repeats_and_matches_the_cpu(device):
     rng = np.random.default_rng(5)
     ids = rng.zipf(1.2, 8192).clip(max=100_000).astype(np.int32) - 1

@@ -295,8 +295,17 @@ def test_build_model_guards_of_the_new_models():
             build_model(ModelConfig(name=name, lane_pack=True), inter)
         with pytest.raises(ValueError, match="interaction DataSpec"):
             build_model(ModelConfig(name=name), DataSpec.ctr(VOCABS, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ModelConfig(name="fm", lane_pack=True), DataSpec.ctr(VOCABS, 0))
+    # FM builds the reference's lane-packed and stacked layouts, with its checks.
+    packed = build_model(ModelConfig(name="fm", lane_pack=True), DataSpec.ctr(VOCABS, 0))
+    jpacked = jax_build_model(JaxModelConfig(name="fm", lane_pack=True), JaxDataSpec.ctr(VOCABS, 0))
+    assert [(s.name, s.shape, s.lane_groups) for s in packed.table_specs()] == [
+        (s.name, s.shape, s.lane_groups) for s in jpacked.table_specs()]
+    stacked = build_model(ModelConfig(name="fm", stack_tables=True), DataSpec.ctr(VOCABS, 0))
+    assert [s.name for s in stacked.table_specs()] == ["fields", "lin"]
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        build_model(ModelConfig(name="fm", lane_pack=True, stack_tables=True), DataSpec.ctr(VOCABS, 0))
+    with pytest.raises(ValueError, match="dividing 128"):
+        build_model(ModelConfig(name="fm", embed_dim=48, lane_pack=True), DataSpec.ctr(VOCABS, 0))
     with pytest.raises(ValueError, match="equal field dims"):
         build_model(ModelConfig(name="fm", field_dims=(8, 8, 8, 8, 16)), DataSpec.ctr(VOCABS, 0))
     assert isinstance(build_model(ModelConfig(name="gmf", gmf_dim=0, embed_dim=12), inter), GMF)

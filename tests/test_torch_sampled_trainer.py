@@ -13,13 +13,13 @@ CPU.
   rowwise Adam with the sampled eval, and GMF under bpr with the sampled
   eval. The history and the JSONL stream must match with
   tests/test_torch_retrieval_trainer.py's tolerances. JAX's FM sets
-  ``model.lane_pack=False``: its default packs config 2's tables, and the
-  port reads packed params (``params_from_jax``, tested below) but not
-  packed optimizer state (ROADMAP Queue 1 item 15);
+  ``model.lane_pack=False`` here, as the port's does (its default packs
+  config 2's tables; tests/test_torch_layouts.py holds the packed layout);
 - ``Recommender.predict`` / ``score_catalog`` / ``recommend`` of NeuMF and
   GMF, and ``predict_ctr`` of FM with side fields, against the JAX
   ``Recommender`` at the same params; JAX's default (lane-packed) FM
-  params served by the port, and its eval at those params;
+  params and state carried into the port's packed FM, its params served
+  per field and packed, and its eval at those params;
 - configs 2 and 3 at a small size: the refusals of ROADMAP Queue 1 item 9
   are gone; those still owed name their items.
 """
@@ -41,6 +41,7 @@ from tfrec_tpu.train.trainer import Trainer as JaxTrainer
 from tfrec_tpu_torch import configs, zoo_configs
 from tfrec_tpu_torch.convert import params_from_jax, train_state_from_jax
 from tfrec_tpu_torch.eval.sampled import SampledEvaluator, build_candidates
+from tfrec_tpu_torch.models import build_model
 from tfrec_tpu_torch.serve import Recommender
 from tfrec_tpu_torch.train.trainer import Trainer, run
 
@@ -252,14 +253,23 @@ def test_fm_with_side_fields_serves_and_evaluates_like_jax(lane_pack):
     sampled negatives; no full-catalog metrics), at JAX's params in the
     per-field layout and in JAX's default, lane-packed, one (at d=16 the six
     fields share one ``pack_0`` of 128 // 16 = 8 slots, and their linear
-    tables one ``linpack_0``); its packed optimizer state is refused
-    (ROADMAP Queue 1 item 15)."""
+    tables one ``linpack_0``); the packed train state, [V, G] optimizer
+    state included, carries into the port's packed FM as it is, and that
+    model serves as the per-field one does."""
     pt, jt, np_params = _fm_side_pair(lane_pack)
     packed = any(k.startswith("pack_") for k in np_params["tables"])
     assert packed == (lane_pack is None)
-    if packed:  # packed params load; packed optimizer state is refused
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-            train_state_from_jax(jax.tree_util.tree_map(np.asarray, jt.state), pt.model)
+    packed_model = None
+    if packed:
+        packed_model = build_model(dataclasses.replace(pt.config.model, lane_pack=True), pt.data_spec)
+        jstate = jax.tree_util.tree_map(np.asarray, jt.state)
+        state = train_state_from_jax(jstate, packed_model)
+        assert set(state["tables"]) == {"pack_0", "linpack_0"}
+        for name, table in jstate["tables"].items():
+            np.testing.assert_array_equal(state["tables"][name].numpy(), table)
+            for k, leaf in jstate["sparse_opt"][name].items():
+                assert state["sparse_opt"][name][k].shape == leaf.shape and leaf.ndim == 2
+                np.testing.assert_array_equal(state["sparse_opt"][name][k].numpy(), leaf)
     params = params_from_jax(np_params, pt.model)
     rng = np.random.default_rng(9)
     users, items = rng.integers(0, 128, 64), rng.integers(0, 256, 64)
@@ -270,6 +280,9 @@ def test_fm_with_side_fields_serves_and_evaluates_like_jax(lane_pack):
     got, want = rec.predict_ctr(host["dense"], host["cat"]), jrec.predict_ctr(host["dense"], host["cat"])
     assert got.shape == (64,)
     np.testing.assert_allclose(got, want, rtol=FWD_RTOL, atol=FWD_ATOL)
+    if packed_model is not None:
+        rec_packed = Recommender(packed_model, params_from_jax(np_params, packed_model), device="cpu")
+        np.testing.assert_array_equal(rec_packed.predict_ctr(host["dense"], host["cat"]), got)
     with pytest.raises(NotImplementedError, match="2-field"):
         rec.score_catalog([0, 1])
     jt.state = {**jt.state, "tables": jax.tree.map(jnp.asarray, np_params["tables"]),

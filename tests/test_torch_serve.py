@@ -138,9 +138,12 @@ def test_build_model_guards():
     spec = DataSpec.ctr(VOCABS, NUM_DENSE, WIDTHS)
     with pytest.raises(ValueError, match="dcnv2"):
         build_model(ModelConfig(name="dcn", cross_rank=4), spec)
-    for kw in ({"lane_pack": True}, {"stack_tables": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(ModelConfig(name="dcn", **kw), spec)
+    # The lane-packed and stacked layouts build (one pack of 16 fields at
+    # d=8; one stacked table), and refuse mixed dims.
+    for kw, names in (({"lane_pack": True}, ["pack_0"]), ({"stack_tables": True}, ["fields"])):
+        assert [s.name for s in build_model(ModelConfig(name="dcn", embed_dim=8, **kw), spec).table_specs()] == names
+        with pytest.raises(ValueError, match="equal per-field"):
+            build_model(ModelConfig(name="dcn", field_dims=(8, 8, 8, 16), **kw), spec)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
         build_model(ModelConfig(name="fism"), spec)
     with pytest.raises(ValueError, match="interaction DataSpec"):

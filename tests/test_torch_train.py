@@ -50,6 +50,7 @@ from tfrec_tpu_torch.train.step import (
     TrainStepBuilder,
     apply_updates,
     copy_state,
+    host_dedup_sorts,
     make_dense_tx,
     make_schedule,
     tree_leaves,
@@ -293,15 +294,33 @@ def test_apply_deduped_many_is_apply_deduped_table_by_table(name):
 
 @pytest.mark.parametrize("name", ["rowwise_adagrad", "rowwise_adam", "sgd"])
 def test_sparse_optimizer_refuses_lane_grouped_state(name):
-    opt = make_sparse_optimizer(name)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        opt.init(torch.zeros((8, 4)), lane_groups=2)
-    if name != "sgd":
-        state = {"acc": torch.zeros((8, 2))} if name == "rowwise_adagrad" else {
-            "m": torch.zeros((8, 4)), "v": torch.zeros((8, 2)), "t": torch.zeros((8, 2), dtype=torch.int32)}
-        ids = torch.tensor([1, 2], dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            opt.apply_deduped(torch.zeros((8, 4)), state, ids, torch.ones((2, 4)), 0.1)
+    """Lane-grouped [V, G] state (lane-packed tables) is the reference's,
+    and a grouped update is each group's own per-table update; only grouped
+    Adam's ``apply_deduped``, which cannot tell the touched groups, refuses
+    (its ``apply`` takes the slots); an unknown optimizer is refused."""
+    opt, jopt = make_sparse_optimizer(name), jax_sparse_optimizer(name)
+    table = _normal(11, (8, 4))
+    state = opt.init(torch.from_numpy(table), lane_groups=2)
+    want = jopt.init(jnp.asarray(table), lane_groups=2)
+    assert {k: tuple(v.shape) for k, v in state.items()} == {k: tuple(v.shape) for k, v in want.items()}
+    ids = np.array([1, 2, 2, 5, 8, -1], np.int32)
+    grads = _normal(12, (6, 4))
+    grads[1, 2:] = 0.0  # id 2 touches group 0 only at this position
+    slots = np.array([0, 0, 1, 1, 0, 1], np.int32)
+    got_t, got_s = opt.apply(torch.from_numpy(table.copy()), state, torch.from_numpy(ids),
+                             torch.from_numpy(grads), 0.1, slots=torch.from_numpy(slots))
+    want_t, want_s = jopt.apply(jnp.asarray(table), want, jnp.asarray(ids), jnp.asarray(grads), 0.1,
+                                slots=jnp.asarray(slots))
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=1e-6, atol=1e-7)
+    for k in got_s:
+        np.testing.assert_allclose(got_s[k].numpy(), np.asarray(want_s[k]), rtol=1e-6, atol=1e-7)
+    if name == "rowwise_adam":
+        with pytest.raises(ValueError, match="slots"):
+            opt.apply_deduped(torch.zeros((8, 4)), opt.init(torch.zeros((8, 4)), lane_groups=2),
+                              torch.tensor([1, 2], dtype=torch.int32), torch.ones((2, 4)), 0.1)
+        with pytest.raises(ValueError, match="slot"):
+            opt.apply(torch.zeros((8, 4)), opt.init(torch.zeros((8, 4)), lane_groups=2),
+                      torch.tensor([1, 2], dtype=torch.int32), torch.ones((2, 4)), 0.1)
     with pytest.raises(ValueError, match="unknown sparse optimizer"):
         make_sparse_optimizer("nope")
 
@@ -615,8 +634,8 @@ def test_lookup_rows_share_one_buffer_and_each_gets_its_own_gradient():
 
 
 def test_sparse_update_is_one_call_for_all_tables_unless_per_table_seams_are_overridden():
-    """The default step combines per table, then makes one
-    ``sparse_update_deduped_all`` call; a subclass that overrides
+    """The default step combines the duplicates (same-shaped tables in one
+    batched sort), then makes one ``sparse_update_deduped_all`` call; a subclass that overrides
     ``sparse_update_deduped`` (or ``sparse_update``) is called table by
     table instead, with the same result, bit for bit."""
     calls = []
@@ -683,14 +702,28 @@ def test_train_step_builder_defaults_to_cuda_and_refuses_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrainStepBuilder(model, "logloss", OptimConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        TrainStepBuilder(model, "logloss", OptimConfig(), device="cpu", group_dedup=True)
     with pytest.raises(ValueError, match=r"\(bpr/hinge\), not 'logloss'"):
         TrainStepBuilder(model, "logloss", OptimConfig(), device="cpu", device_negatives=True)
+    # The per-table combine (the per-table seam overridden) and the host's
+    # dedup sorts ("_sort_<table>" batch keys, stripped before the model)
+    # give the default step, whose same-shaped tables share one batched
+    # combine, bit for bit.
     builder = TrainStepBuilder(model, "logloss", OptimConfig(), device="cpu")
     state = builder.init_state(torch.Generator().manual_seed(0))
     dense, cat, label = _batches(4, 1)[0]
-    batch = {"dense": torch.from_numpy(dense), "cat": torch.from_numpy(cat),
-             "label": torch.from_numpy(label), "_sort_field_0": torch.zeros(BATCH, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        builder.step(state, batch)
+    host = {"dense": dense, "cat": cat, "label": label}
+    want, m_want = builder.step(copy_state(state), {k: torch.from_numpy(v) for k, v in host.items()})
+    sorted_batch = {k: torch.from_numpy(v) for k, v in {**host, **host_dedup_sorts(model, host)}.items()}
+
+    class PerTable(TrainStepBuilder):
+        def sparse_update(self, *args, **kw):
+            return super().sparse_update(*args, **kw)
+
+    plain = {k: torch.from_numpy(v) for k, v in host.items()}
+    for cls, batch in ((PerTable, plain), (PerTable, sorted_batch), (TrainStepBuilder, sorted_batch)):
+        other = cls(model, "logloss", OptimConfig(), device="cpu")
+        got, m_got = other.step(copy_state(state), batch)
+        assert torch.equal(m_got["loss"], m_want["loss"])
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got["tables"]), tree_leaves(want["tables"])))
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got["sparse_opt"]),
+                                                     tree_leaves(want["sparse_opt"])))

@@ -257,7 +257,7 @@ def test_trainer_logs_an_empty_epoch_and_a_dispatch_past_the_step_cap():
     ("model", {"name": "deepfm"}, "item 12"),
     ("train", {"profile_steps": (1, 2)}, "item 10"),
     ("train", {"matmul_precision": "bfloat16"}, "item 5"),
-    ("train", {"host_dedup": True}, "item 5"),
+    ("train", {"matmul_precision": "highest"}, "item 5"),
     ("mesh", {"table_axis_size": 2}, "item 11"),
 ])
 def test_trainer_refuses_what_is_not_ported_by_naming_its_item(section, override, match):

@@ -141,13 +141,15 @@ def test_from_checkpoint_equals_from_trainer_and_keeps_one_run_config(tmp_path):
 def test_from_checkpoint_serves_a_packed_or_stacked_jax_model(tmp_path, layout):
     """JAX's FM in its lane-packed (``pack_k``/``linpack_k``) or stacked
     (``fields``/``lin``) table layout: the port serves its checkpoint's
-    params, though it refuses to resume their optimizer state (ROADMAP Queue
-    1 item 15)."""
+    params, and resumes its state in that layout (a packed one under
+    ``lane_pack=None``, which takes the checkpoint's layout), its [V, G]
+    or [sum V] optimizer state as saved."""
     d = str(tmp_path / "ck")
     jcfg = _config(jax_configs, "fm", d, epochs=1)
     jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, lane_pack=layout == "lane_pack",
                                                   stack_tables=layout == "stack_tables"))
-    JaxTrainer(jcfg, quiet=True).train()
+    jt = JaxTrainer(jcfg, quiet=True)
+    jt.train()
     keys = json.load(open(os.path.join(d, "step_0000000001", "tree.json")))["keys"]
     assert ("tables/pack_0" in keys) == (layout == "lane_pack")
     assert ("tables/fields" in keys) == (layout == "stack_tables")
@@ -160,5 +162,12 @@ def test_from_checkpoint_serves_a_packed_or_stacked_jax_model(tmp_path, layout):
                                rtol=SCORE_RTOL, atol=SCORE_ATOL)
     np.testing.assert_allclose(cold.score_catalog(users), np.asarray(want.score_catalog(users)),
                                rtol=SCORE_RTOL, atol=SCORE_ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-        Trainer(_config(configs, "fm", d, epochs=1, resume=True), quiet=True, device="cpu")
+    pcfg = _config(configs, "fm", d, epochs=1, resume=True)
+    pcfg = pcfg.replace(model=dataclasses.replace(pcfg.model, lane_pack=None if layout == "lane_pack" else False,
+                                                  stack_tables=layout == "stack_tables"))
+    pt = Trainer(pcfg, quiet=True, device="cpu")
+    assert pt.start_epoch == 1 and getattr(pt.model, layout)
+    for name, table in jt.state["tables"].items():
+        np.testing.assert_array_equal(pt.state["tables"][name].numpy(), np.asarray(table), err_msg=name)
+        for k, leaf in jt.state["sparse_opt"][name].items():
+            np.testing.assert_array_equal(pt.state["sparse_opt"][name][k].numpy(), np.asarray(leaf))

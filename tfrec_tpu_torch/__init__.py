@@ -23,19 +23,23 @@ sampled-candidate eval, ``neumf_ml20m``):
   ``criteo_native`` and ``uirt_native``, or the Python ones), the
   pairwise, pointwise and CTR samplers;
 - ``ops.embedding`` (table specs, seeded init, clip-semantics gather, the
-  duplicate-id combine) and ``ops.sparse_optim``;
+  duplicate-id combine per table, batched, flat, or from the host's sorts)
+  and ``ops.sparse_optim`` (with lane-grouped state);
 - ``kernels``: the row gather, the DCN-v1 and low-rank DCN-v2 cross stacks
-  (forward and backward) and the fused rowwise-Adagrad update;
+  (forward and backward) and the fused rowwise-Adagrad update (lane-grouped
+  rows too);
 - ``models``: ``MF``, ``GMF``, ``MLP``, ``NeuMF``, and ``FM`` and ``DCN``
-  (v1, v2 full-rank, v2 low-rank) over per-field tables;
+  (v1, v2 full-rank, v2 low-rank) over per-field, lane-packed or stacked
+  tables;
 - ``convert``: JAX params of the retrieval models and of any CTR table
-  layout (FM's linear tables too), JAX train states, and the port's state
-  as the JAX package's checkpoint keys and back;
+  layout (FM's linear tables too), JAX train states in any layout, and the
+  port's state as the JAX package's checkpoint keys and back;
 - ``utils.checkpoint``: checkpoints in the JAX package's on-disk layout
   (save, resume and warm starts in the trainer; serving from disk by
   ``Recommender.from_checkpoint``);
 - ``serve.Recommender`` (``predict``, ``predict_ctr``, ``score_catalog``,
-  ``recommend``), ``train.step.TrainStepBuilder`` (with device negatives),
+  ``recommend``), ``train.step.TrainStepBuilder`` (with device negatives,
+  the batched duplicate combine and the host's dedup sorts),
   ``train.losses`` (pairwise and pointwise);
 - ``train.trainer.Trainer`` and ``run`` on one device, with ``eval.metrics``
   (ranking metrics, ``auc``, ``logloss``), ``eval.retrieval`` (masking,

@@ -71,10 +71,10 @@ class ModelConfig:
     mlp_embed_dim: int = 32
     dropout: float = 0.0
     l2_reg: float = 0.0
-    # CTR: one [sum(V_f), D] table for all fields (not built by the port yet).
+    # CTR: one [sum(V_f), D] table for all fields.
     stack_tables: bool = False
-    # CTR: pack 128/d fields side by side in one table. None = AUTO; the
-    # port builds per-field tables for AUTO and refuses an explicit True.
+    # CTR: pack 128/d fields side by side in one table. None = AUTO: the
+    # port builds per-field tables then, or a resumed checkpoint's layout.
     lane_pack: bool | None = None
     # History-conditioned models.
     max_history: int = 50

@@ -5,14 +5,14 @@
 params)``) and returns the same tree of CPU float32 tensors. A retrieval
 model's tables (MF: ``user_emb``, ``item_emb``, ``item_bias`` [V, 1]; GMF
 and MLP: ``user_emb``, ``item_emb``; NeuMF: ``user_gmf``, ``item_gmf``,
-``user_mlp``, ``item_mlp``) are carried by name. A CTR model gets per-field
-tables, and FM its per-field linear tables ``lin_{f}`` [V_f, 1] too,
-whichever of the three table layouts the JAX model used:
+``user_mlp``, ``item_mlp``) are carried by name. A CTR model's tables come
+in any of the three table layouts (``models/ctr_base.py``), and arrive in
+the port model's own: as they are where the two layouts agree, else
+through the per-field tables (``CTRBase.split_fields`` / ``join_fields``):
 
-- per-field tables ``field_{f}`` [V_f, d_f] (and ``lin_{f}``);
+- per-field tables ``field_{f}`` [V_f, d_f] (and FM's ``lin_{f}`` [V_f, 1]);
 - lane-packed tables ``pack_{k}`` [max V, P*d]: fields sorted by descending
-  vocab (a stable sort) in groups of P = 128 // d
-  (``tfrec_tpu/models/ctr_base.py`` ``enable_lane_packing``); field f is
+  vocab (a stable sort) in groups of P = 128 // d; field f is
   ``pack_k[:V_f, slot*d:(slot+1)*d]``; the linear tables in the same order
   in groups of 128, one lane a field (``linpack_k[:V_f, slot]``);
 - one stacked table ``fields`` [sum V_f, d] (and ``lin`` [sum V_f, 1]),
@@ -68,60 +68,35 @@ def _tree(x: Any) -> Any:
     return _tensor(x)
 
 
-def _lane_groups(model: CTRBase, per_pack: int):
-    """The reference's packing order: fields sorted by descending vocab (a
-    stable sort), in groups of ``per_pack``."""
-    vocabs = model.data_spec.field_vocabs
-    order = sorted(range(len(vocabs)), key=lambda f: -vocabs[f])
-    return [order[i : i + per_pack] for i in range(0, len(order), per_pack)]
-
-
-def _unpack_lanes(tables: Dict[str, Any], model: CTRBase) -> Dict[str, np.ndarray]:
-    """Rebuild the reference's grouping: P = 128 // d fields a ``pack_{k}``,
-    field f its slot's d lanes; with linear tables, up to 128 fields a
-    ``linpack_{k}``, field f its slot's one lane."""
-    vocabs = model.data_spec.field_vocabs
-    d = model.field_dims[0]
-    if len(set(model.field_dims)) > 1 or 128 % d != 0:
-        raise ValueError(f"lane-packed tables need equal field dims dividing 128, got {model.field_dims}")
-    layouts = [("pack", "field", d, _lane_groups(model, 128 // d))]
-    if model.use_linear_tables:
-        layouts.append(("linpack", "lin", 1, _lane_groups(model, 128)))
-    expected = {f"{pack}_{k}" for pack, _, _, groups in layouts for k in range(len(groups))}
-    if set(tables) != expected:
-        raise ValueError(f"expected lane-packed tables {sorted(expected)}, got {sorted(tables)}")
-    out = {}
-    for pack, prefix, width, groups in layouts:
-        for k, grp in enumerate(groups):
-            packed = np.asarray(tables[f"{pack}_{k}"])
-            for slot, f in enumerate(grp):
-                out[f"{prefix}_{f}"] = packed[: vocabs[f], slot * width : (slot + 1) * width]
-    return out
-
-
-def _field_tables(tables: Dict[str, Any], model: CTRBase) -> Dict[str, np.ndarray]:
-    vocabs = model.data_spec.field_vocabs
-    nf = len(vocabs)
-    prefixes = ("field", "lin") if model.use_linear_tables else ("field",)
+def _source_layout(tables: Dict[str, Any], model: CTRBase) -> str:
+    """Which of the three layouts ``tables`` (by their names) is in."""
     names = set(tables)
-    if names == {f"{p}_{f}" for p in prefixes for f in range(nf)}:
-        return {name: np.asarray(tables[name]) for name in names}
-    stacked = {"field": "fields", "lin": "lin"}
-    if names == {stacked[p] for p in prefixes}:
-        out = {}
-        for p in prefixes:
-            rows, off = np.asarray(tables[stacked[p]]), 0
-            for f, v in enumerate(vocabs):
-                out[f"{p}_{f}"] = rows[off : off + v]
-                off += v
-        return out
+    for layout in ("field", "stack"):
+        if names == set(model.layout_blocks(layout)):
+            return layout
     if names and all(n.startswith(("pack_", "linpack_")) for n in names):
-        return _unpack_lanes(tables, model)
+        try:
+            expected = set(model.layout_blocks("pack"))
+        except ValueError as e:
+            raise ValueError(f"lane-packed tables {sorted(names)} for this model: {e}") from None
+        if names == expected:
+            return "pack"
+        raise ValueError(f"expected lane-packed tables {sorted(expected)}, got {sorted(names)}")
     raise ValueError(
-        f"unrecognised table layout {sorted(names)} for {nf} fields: expected "
+        f"unrecognised table layout {sorted(names)} for {model.num_fields} fields: expected "
         "per-field field_{f} (and lin_{f}), lane-packed pack_{k} (and linpack_{k}) "
         "or stacked 'fields' (and 'lin') tables"
     )
+
+
+def _ctr_tables(tables: Dict[str, Any], model: CTRBase) -> Dict[str, torch.Tensor]:
+    """A CTR model's tables from any layout into the model's."""
+    src = _source_layout(tables, model)
+    tensors = {name: _tensor(t) for name, t in tables.items()}
+    if src == model.layout:
+        return tensors
+    zeros = {s.name: torch.zeros(s.shape) for s in model.table_specs()}
+    return model.join_fields(model.split_fields(tensors, layout=src), zeros)
 
 
 def _named_tables(tables: Dict[str, Any], model) -> Dict[str, np.ndarray]:
@@ -134,18 +109,17 @@ def _named_tables(tables: Dict[str, Any], model) -> Dict[str, np.ndarray]:
 def params_from_jax(np_params: Dict[str, Any], model) -> Dict[str, Any]:
     """JAX params tree of numpy arrays -> the port's params (CPU tensors)."""
     if isinstance(model, CTRBase):
-        tables = _field_tables(np_params["tables"], model)
+        tables = _ctr_tables(np_params["tables"], model)
     else:
-        tables = _named_tables(np_params["tables"], model)
+        tables = {k: _tensor(v) for k, v in _named_tables(np_params["tables"], model).items()}
     for spec in model.table_specs():
-        if tables[spec.name].shape != spec.shape:
+        if tuple(tables[spec.name].shape) != spec.shape:
             raise ValueError(
-                f"table {spec.name}: JAX params give {tables[spec.name].shape}, "
+                f"table {spec.name}: JAX params give {tuple(tables[spec.name].shape)}, "
                 f"the model needs {spec.shape}"
             )
     return {
-        "tables": {spec.name: _tensor(np.ascontiguousarray(tables[spec.name]))
-                   for spec in model.table_specs()},
+        "tables": {spec.name: tables[spec.name].contiguous() for spec in model.table_specs()},
         "dense": _tree(np_params["dense"]),
     }
 
@@ -171,13 +145,14 @@ def _optax_state(tree: Any, field: str):
 
 
 def _sparse_opt(sparse: Mapping[str, Mapping[str, Any]], model) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The per-table sparse optimizer states, ``{table: {"acc": ...}}``;
-    lane-packed and stacked state is refused."""
+    """The per-table sparse optimizer states, ``{table: {"acc": ...}}``,
+    of the model's own tables (a lane-packed or stacked layout's too)."""
     names = [spec.name for spec in model.table_specs()]
     if set(sparse) != set(names):
-        raise NotImplementedError(
-            f"sparse optimizer state of tables {sorted(sparse)}: the port reads per-field "
-            "state only; lane-packed and stacked state is ROADMAP Queue 1 item 15"
+        raise ValueError(
+            f"sparse optimizer state of tables {sorted(sparse)}, but the model has {names}: the "
+            "state is in another table layout; build the model in the saved one "
+            "(model.lane_pack / model.stack_tables)"
         )
     return {name: {k: torch.from_numpy(np.array(v)) for k, v in sparse[name].items()}
             for name in names}
@@ -295,7 +270,7 @@ def train_state_from_flat(flat: Mapping[str, np.ndarray], model, template: Dict[
     dense optimizer's leaves: Adam's ``mu``/``nu`` and its ``count``,
     Adagrad's ``sum_of_squares`` and the schedule's ``count``, or SGD's
     ``count`` (``flat_from_state``'s keys, with or without weight decay).
-    Only per-table sparse state is read (item 15)."""
+    The sparse state is read in the model's table layout."""
     params = params_from_flat(flat, model, template["dense"])
     sparse: Dict[str, Dict[str, np.ndarray]] = {}
     for key, v in flat.items():

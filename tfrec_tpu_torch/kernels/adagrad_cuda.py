@@ -11,6 +11,16 @@ the sentinel tail of ``combine_duplicate_ids`` is skipped)::
     acc[u]   += mean(g_u ** 2)
     table[u] -= lr * g_u / (sqrt(acc[u]) + eps)
 
+A lane-packed table (``TableSpec.lane_groups`` G > 1) holds G logical
+tables side by side, d = D / G lanes each, and its accumulator is [V, G]:
+group j of a row takes the rule above on its own lanes [j*d, (j+1)*d) with
+``acc[u, j]``, so each logical table follows its per-table update bit for
+bit (a group its batch did not touch has a zero gradient and gains
+nothing). As views such a table is a [V*G, d] table with a [V*G]
+accumulator, id u its rows u*G + j (``_lane_rows``), so the kernel and the
+plain version take it as any other table, in the same launch as the
+others. The reference sends such tables to XLA.
+
 Tables and accumulators are updated IN PLACE and returned, as the TPU
 kernel aliases its table input to its output; a caller that needs the old
 values clones them first. On the card one pass does both parts (the TPU
@@ -41,7 +51,9 @@ def _mean_square(g: torch.Tensor) -> torch.Tensor:
     warp adds the squares of elements j, j + 32, ... in turn (a lane past
     the row adds nothing, as adding 0 here), then a butterfly of pairwise
     adds across the 32 lanes (lane l takes lane l ^ 16, ^ 8, ^ 4, ^ 2, ^ 1),
-    then the division by the width. Each add rounds alone, in f32."""
+    then the division by the width. Each add rounds alone, in f32, and the
+    division is a true one (on CUDA a tensor divided by a Python number is
+    multiplied by its reciprocal)."""
     n, dim = g.shape
     chunks = max(-(-dim // 32), 1)
     sq = torch.nn.functional.pad(g * g, (0, chunks * 32 - dim)).view(n, chunks, 32)
@@ -51,21 +63,42 @@ def _mean_square(g: torch.Tensor) -> torch.Tensor:
     lane = torch.arange(32, device=g.device)
     for off in (16, 8, 4, 2, 1):
         s = s + s[:, lane ^ off]
-    return s[:, 0] / dim
+    return s[:, 0] / torch.full_like(s[:, 0], dim)
+
+
+def _lane_rows(table, acc, uids, grads):
+    """A lane-grouped table (acc [V, G]) as the views the one-group rule
+    takes: table [V*G, d], acc [V*G], each real uid u the G distinct rows
+    u*G + j (ascending as the uids do) and any other slot the sentinel
+    V*G, grads [n*G, d]. A table with acc [V] passes as it is."""
+    if acc.dim() == 1:
+        return table, acc, uids, grads
+    vocab, dim = table.shape
+    groups = acc.shape[1]
+    rows = vocab * groups
+    if rows >= 2**31:
+        raise ValueError(f"a [{vocab}, {dim}] table of {groups} lane groups has {rows} rows of "
+                         "its groups, past int32 ids")
+    lane = torch.arange(groups, dtype=uids.dtype, device=uids.device)
+    real = ((uids >= 0) & (uids < vocab))[:, None]
+    group_ids = torch.where(real, uids[:, None] * groups + lane, rows).reshape(-1)
+    return table.view(rows, dim // groups), acc.view(rows), group_ids, grads.view(-1, dim // groups)
 
 
 def fused_rowwise_adagrad_ref(table: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
                               grads: torch.Tensor, lr: float, eps: float = 1e-8):
-    """Plain PyTorch version of the kernel, in place as well."""
-    vocab, dim = table.shape
+    """Plain PyTorch version of the kernel, in place as well (a lane-grouped
+    table through ``_lane_rows``)."""
+    t, a, uids, grads = _lane_rows(table, acc, uids, grads)
+    vocab = t.shape[0]
     valid = (uids >= 0) & (uids < vocab)
     rows = uids[valid].long()
     g = grads[valid]
-    acc_rows = acc[rows] + _mean_square(g)
-    acc[rows] = acc_rows
+    acc_rows = a[rows] + _mean_square(g)
+    a[rows] = acc_rows
     # A true division (``lr / tensor`` would multiply by a reciprocal).
     scale = torch.full_like(acc_rows, lr) / (acc_rows.sqrt() + eps)
-    table[rows] = table[rows] - scale[:, None] * g
+    t[rows] = t[rows] - scale[:, None] * g
     return table, acc
 
 
@@ -83,8 +116,11 @@ def _check(table, acc, uids, grads, device: torch.device, what: str) -> None:
     if table.dim() != 2 or table.dtype != torch.float32:
         raise TypeError(f"table must be [V, D] float32, got {table.dtype} {tuple(table.shape)}")
     vocab, dim = table.shape
-    if acc.shape != (vocab,) or acc.dtype != torch.float32:
-        raise TypeError(f"acc must be [{vocab}] float32, got {acc.dtype} {tuple(acc.shape)}")
+    if acc.dim() not in (1, 2) or acc.shape[0] != vocab or acc.dtype != torch.float32:
+        raise TypeError(f"acc must be [{vocab}] or [{vocab}, G] float32, got {acc.dtype} "
+                        f"{tuple(acc.shape)}")
+    if acc.dim() == 2 and (acc.shape[1] < 1 or dim % acc.shape[1]):
+        raise ValueError(f"acc {tuple(acc.shape)}: the groups must divide the table's width {dim}")
     if uids.dim() != 1 or uids.dtype != torch.int32:
         raise TypeError(f"uids must be [N] int32, got {uids.dtype} {tuple(uids.shape)}")
     if grads.shape != (uids.shape[0], dim) or grads.dtype != torch.float32:
@@ -117,10 +153,13 @@ def _check_numbers(lr, eps) -> None:
 
 def _launch(tables, accs, uids, grads, lr, eps, what: str) -> int:
     """One kernel launch (one a 64 tables) over the tables with slots to
-    update; returns the number of launches made."""
-    desc = []
+    update, lane-grouped ones as ``_lane_rows`` views; returns the number
+    of launches made."""
+    desc, keep = [], []
     for t, a, u, g in zip(tables, accs, uids, grads):
         if u.shape[0] and t.shape[1]:
+            t, a, u, g = _lane_rows(t, a, u, g)
+            keep.append(u)  # a grouped table's row ids live until the launch
             desc += (t.data_ptr(), a.data_ptr(), u.data_ptr(), g.data_ptr(),
                      u.shape[0], t.shape[0], t.shape[1])
     if not desc:
@@ -136,9 +175,10 @@ def _launch(tables, accs, uids, grads, lr, eps, what: str) -> int:
 
 def fused_rowwise_adagrad(table: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
                           grads: torch.Tensor, lr: float, eps: float = 1e-8):
-    """table [V, D] f32, acc [V] f32, uids [N] int32 (distinct real ids, a
-    sentinel >= V for unused slots), grads [N, D] f32 (combined), lr and eps
-    numbers -> (table, acc), the same tensors, updated in place.
+    """table [V, D] f32, acc [V] f32 (or [V, G] for G lane groups of D / G
+    lanes), uids [N] int32 (distinct real ids, a sentinel >= V for unused
+    slots), grads [N, D] f32 (combined), lr and eps numbers -> (table, acc),
+    the same tensors, updated in place.
 
     A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
     """
@@ -156,10 +196,10 @@ def fused_rowwise_adagrad_multi(tables: Sequence[torch.Tensor], accs: Sequence[t
                                 uids: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                                 lr: float, eps: float = 1e-8) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """``fused_rowwise_adagrad`` for many tables at once, with one lr and
-    eps: table by table, table [V_f, D_f] f32, acc [V_f] f32, uids [N_f]
-    int32, grads [N_f, D_f] f32, all on one device -> (tables, accs) as
-    lists of the same tensors, updated in place. No two tables or
-    accumulators may share memory.
+    eps: table by table, table [V_f, D_f] f32, acc [V_f] or [V_f, G_f] f32
+    (G_f may differ between tables), uids [N_f] int32, grads [N_f, D_f]
+    f32, all on one device -> (tables, accs) as lists of the same tensors,
+    updated in place. No two tables or accumulators may share memory.
 
     CUDA tensors launch the kernel once for every 64 tables; CPU tensors
     take the plain version.

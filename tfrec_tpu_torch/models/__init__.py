@@ -26,23 +26,24 @@ NOT_PORTED = dict.fromkeys(
 
 
 def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
-    """The model ``cfg`` names, over per-field tables.
+    """The model ``cfg`` names, in the table layout it asks for.
 
-    ``lane_pack=None`` (AUTO, the default) builds per-field tables here: the
-    reference's packing answers the TPU's 128-lane rows and is decided again
-    on the GPU. An explicit ``lane_pack=True`` or ``stack_tables=True`` is
-    refused until those layouts are ported (ROADMAP Queue 1).
+    ``lane_pack=True`` and ``stack_tables=True`` build a CTR model's
+    lane-packed or stacked tables (``models/ctr_base.py``), with the
+    reference's checks. ``lane_pack=None`` (AUTO, the default) builds
+    per-field tables here: the reference packs under AUTO for the TPU's
+    128-lane rows (its ``lane_pack_applies``, not ported), while on the card
+    a pack makes every gathered row 128 floats wide where a field needs d
+    (PERF.md, the three layouts measured on the H100).
     """
     model = _build(cfg, data_spec)
     if cfg.stack_tables or cfg.lane_pack:
         which = "stack_tables" if cfg.stack_tables else "lane_pack"
         if not isinstance(model, CTRBase):
             raise ValueError(f"model.{which} applies to CTR models, not {cfg.name!r}")
-        raise NotImplementedError(
-            f"model.{which}=True: the port builds per-field tables only "
-            "(ROADMAP Queue 1, lane-packed and stacked layouts); "
-            "convert.params_from_jax reads JAX params of either layout"
-        )
+        if cfg.stack_tables and cfg.lane_pack:
+            raise ValueError("stack_tables and lane_pack are mutually exclusive")
+        return model.enable_stacked_tables() if cfg.stack_tables else model.enable_lane_packing()
     return model
 
 

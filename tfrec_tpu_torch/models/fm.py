@@ -42,9 +42,11 @@ class FM(CTRBase):
         return self.num_fields == 2 and self.data_spec.num_dense == 0
 
     def dot_decomposition(self) -> DotRetrieval | None:
-        """The 2-field form only: its scores differ from ``score_all``'s by
-        the per-user constant u_lin + w0, which does not change a ranking."""
-        if not self._two_field():
+        """The 2-field form over per-field tables only (a packed or stacked
+        layout has no per-field table to name, as in the reference): its
+        scores differ from ``score_all``'s by the per-user constant u_lin +
+        w0, which does not change a ranking."""
+        if not self._two_field() or self.layout != "field":
             return None
         return DotRetrieval("field_0", "field_1", "lin_1")
 
@@ -52,10 +54,13 @@ class FM(CTRBase):
         """[B, V] full-catalog scores of the (user, item) form, whose only
         cross-field term is <v_u, v_i>: the user's rows (embedding and
         linear weight, one gather launch) against the item table, plus the
-        linear terms and w0."""
+        linear terms and w0. A packed or stacked model's per-field tables
+        are copied out of its layout first."""
         if not self._two_field():
             raise NotImplementedError("score_all requires the 2-field (u,i) form")
         t, d = params["tables"], params["dense"]
+        if self.layout != "field":
+            t = {k: v.contiguous() for k, v in self.split_fields(t).items()}
         u, u_lin = gather_many([t["field_0"], t["lin_0"]], [user_ids, user_ids])
         scores = torch.matmul(u, t["field_1"].T)
         return scores + u_lin + t["lin_1"][:, 0][None, :] + d["w0"]

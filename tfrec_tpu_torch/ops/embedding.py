@@ -7,9 +7,10 @@ negative ids, to a real row as ``jnp.take(mode="clip")`` does, and callers
 mask those rows. ``combine_duplicate_ids`` sums the gradient rows that
 share an id before a sparse update. ``run_first_index`` and
 ``run_last_index_plus1`` bound each element's run of equal values (the
-tie spans of ``eval.metrics.auc``). The batched variants of the reference
-(``combine_duplicate_ids_grouped`` and ``_multi``) and host-computed sort
-orders are not ported (ROADMAP Queue 1 items 2 and 5).
+tie spans of ``eval.metrics.auc``). ``combine_duplicate_ids`` takes a
+stable argsort computed on the host (``order``, train.host_dedup), and
+``combine_duplicate_ids_grouped`` combines many same-shaped tables in one
+batched sort, bit for bit the per-table combine.
 """
 
 from __future__ import annotations
@@ -56,6 +57,11 @@ class TableSpec:
     # Initializer: "normal" (std = init_scale or 1/sqrt(dim)) | "zeros".
     initializer: str = "normal"
     init_scale: float | None = None
+    # Lane-packed tables (``models/ctr_base.CTRBase.enable_lane_packing``):
+    # this table holds ``lane_groups`` logical tables side by side along its
+    # width (dim = G * d), and the rowwise optimizer keeps its statistics
+    # per group ([V, G]), so each follows its own per-table rule.
+    lane_groups: int = 1
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -97,8 +103,34 @@ def gather_many(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor]) -> 
     return gather_rows_multi(tables, ids)
 
 
+def _run_starts(sorted_keys: torch.Tensor) -> torch.Tensor:
+    """1 where a run of equal keys starts along the last axis, else 0
+    (int64)."""
+    starts = torch.ones(sorted_keys.shape, dtype=torch.int64, device=sorted_keys.device)
+    starts[..., 1:] = (sorted_keys[..., 1:] != sorted_keys[..., :-1]).to(torch.int64)
+    return starts
+
+
+def _segment_sums(seg: torch.Tensor, sorted_grads: torch.Tensor) -> torch.Tensor:
+    """[M, D] sums of the rows of ``sorted_grads`` by ``seg``, [M] int64,
+    ascending, each row's segment: row j of the result is segment j's sum
+    (zeros for a segment no row names).
+
+    ``torch.segment_reduce`` makes each output element one sequential pass
+    over its segment in sorted order (one thread each on CUDA, a loop on the
+    CPU), with no atomics, so results repeat bit for bit on either device
+    (``chip_smoke.py`` checks it on the card at the training path's shapes
+    and against the CPU). Neither ``index_add_`` (float atomics on CUDA) nor
+    ``index_put_(accumulate=True)`` (parallel adds on a multi-threaded CPU)
+    repeats. Segment lengths are integer adds, exact in any order."""
+    m = seg.shape[0]
+    lengths = torch.zeros(m, dtype=torch.int64, device=seg.device).index_add_(
+        0, seg, torch.ones_like(seg))
+    return torch.segment_reduce(sorted_grads, "sum", lengths=lengths, axis=0, unsafe=True)
+
+
 def combine_duplicate_ids(
-    ids: torch.Tensor, grads: torch.Tensor, sentinel: int
+    ids: torch.Tensor, grads: torch.Tensor, sentinel: int, order: torch.Tensor | None = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sum gradient rows that share an id, with static output shapes.
 
@@ -110,31 +142,45 @@ def combine_duplicate_ids(
     slots hold ``sentinel`` and zeros. ``uids`` ascends and each real id
     appears once, as the reference promises its scatters.
 
-    The sums are ``torch.segment_reduce`` over the sorted rows: each output
-    element is one sequential pass over its segment in sorted order (one
-    thread each on CUDA, a loop on the CPU), with no atomics, so results
-    repeat bit for bit on either device (``chip_smoke.py`` checks it on the
-    card at the training path's shapes and against the CPU). Neither
-    ``index_add_`` (float atomics on CUDA) nor ``index_put_(accumulate=True)``
-    (parallel adds on a multi-threaded CPU) repeats. This serves every
+    ``order`` (train.host_dedup): a stable argsort of the ids computed on
+    the host (``train.step.host_dedup_sorts``), [N] int32 on the ids'
+    device; the combine then skips its own sort and is bit for bit the same.
+
+    The sums are ``_segment_sums`` over the sorted rows. This serves every
     sparse optimizer, not only the fused Adagrad kernel, and keeps that
     kernel's inputs the reference's.
     """
-    n = ids.shape[0]
     # Negative ids become the sentinel BEFORE the sort, as in the
     # reference: they are dropped by every update and keep uids ascending.
     ids = torch.where(ids < 0, torch.full_like(ids, sentinel), ids)
-    sids, order = torch.sort(ids, stable=True)
-    sorted_grads = grads.index_select(0, order)
-    starts = torch.ones(n, dtype=torch.int64, device=ids.device)
-    if n > 1:
-        starts[1:] = (sids[1:] != sids[:-1]).to(torch.int64)
-    seg = torch.cumsum(starts, dim=0) - 1  # segment of each sorted slot
-    # Segment lengths, [N] with zeros past the last segment (integer adds
-    # are exact in any order). Empty segments sum to zero.
-    lengths = torch.zeros(n, dtype=torch.int64, device=ids.device).index_add_(
-        0, seg, torch.ones_like(seg))
-    combined = torch.segment_reduce(sorted_grads, "sum", lengths=lengths, axis=0, unsafe=True)
+    if order is None:
+        sids, order = torch.sort(ids, stable=True)
+    else:
+        sids = ids.index_select(0, order)
+    seg = torch.cumsum(_run_starts(sids), dim=0) - 1  # segment of each sorted slot
+    combined = _segment_sums(seg, grads.index_select(0, order))
     # Every member of a segment writes the same id, so the result is fixed.
     uids = torch.full_like(ids, sentinel).scatter_(0, seg, sids)
+    return uids, combined
+
+
+def combine_duplicate_ids_grouped(
+    ids: torch.Tensor, grads: torch.Tensor, sentinels: Sequence[int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``combine_duplicate_ids`` of F same-shaped tables in one batched
+    sort, gather, segment sum and scatter: ids [F, N] int32 (row f
+    addressing table f), grads [F, N, D] f32, ``sentinels`` F pad ids (each
+    table's vocab) -> (uids [F, N], combined [F, N, D]), row f bit for bit
+    ``combine_duplicate_ids(ids[f], grads[f], sentinels[f])``: the same
+    stable order within a row, and each segment summed alone in it."""
+    f, n = ids.shape
+    sent = torch.tensor([int(s) for s in sentinels], dtype=ids.dtype, device=ids.device)[:, None]
+    ids = torch.where(ids < 0, sent.expand(f, n), ids)
+    sids, order = torch.sort(ids, dim=-1, stable=True)
+    sg = torch.take_along_dim(grads, order[..., None], dim=1)
+    seg = torch.cumsum(_run_starts(sids), dim=-1) - 1  # [F, N], each row from 0
+    # Row-strided, the segments ascend over the flattened [F * N].
+    flat_seg = (seg + torch.arange(f, device=ids.device)[:, None] * n).reshape(-1)
+    combined = _segment_sums(flat_seg, sg.reshape(f * n, -1)).reshape(f, n, -1)
+    uids = sent.expand(f, n).clone().scatter_(1, seg, sids)
     return uids, combined

@@ -13,7 +13,8 @@ Each copies the request to the device, gathers one row per id through
 ``ops.embedding`` (one launch of the CUDA gather kernel for every table on
 a card), runs the model and returns numpy. ``predict`` serves the
 retrieval models (MF, GMF, MLP, NeuMF), ``predict_ctr`` the CTR models (FM,
-DCN). The catalog is scored by the model's ``score_all``: one
+DCN), in the model's own table layout (per field, lane-packed or
+stacked). The catalog is scored by the model's ``score_all``: one
 ``torch.matmul`` for MF, GMF and 2-field FM, item chunks through the
 towers for MLP and NeuMF (FM with side fields has none and raises); the
 top-k is ``torch.topk`` (``eval.retrieval``; "approx" is exact here, as on
@@ -22,7 +23,8 @@ the reference's CPU). Ids out of range clamp, as the reference's
 
 ``from_checkpoint(config)`` serves from disk: it rebuilds the model (and
 its dataset) from the config and restores the latest checkpoint, saved by
-the port or by the JAX package in any table layout.
+the port or by the JAX package in any table layout, into the config's
+layout (per field under ``model.lane_pack=None``).
 
 Refused by naming the ROADMAP Queue 1 item: int8 serving
 (``quantize=True``, item 13) and a mesh or a live sharded train state

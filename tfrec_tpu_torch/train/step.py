@@ -4,9 +4,8 @@ One step, on the builder's device::
 
     lookup ids -> gather rows (every table in one launch) -> gradients with
     respect to (dense params, gathered rows) -> dense update (optax's
-    rules) -> per table the duplicate-id combine -> the rowwise sparse
-    update of the touched rows of every table (one launch for rowwise
-    Adagrad).
+    rules) -> the duplicate-id combine -> the rowwise sparse update of the
+    touched rows of every table (one launch for rowwise Adagrad).
 
 As in the reference, autograd stops at the gathered rows: the tables are
 never differentiated, so no [V, D] gradient is ever written, and the sparse
@@ -27,15 +26,21 @@ device each step, from a generator seeded by (seed, step), with no
 train-positive exclusion (the reference's large-catalog approximation).
 Its numbers differ from JAX's for the same seed, as every generator does.
 
-Not ported, and refused by name rather than ignored: ``group_dedup``
-(ROADMAP Queue 1 item 2) and host-computed dedup sorts (``_sort_*`` batch
-keys, train.host_dedup, item 5).
+The duplicate combine runs over each group of same-shaped tables at once,
+one batched sort (``combine_duplicate_ids_grouped``), and per table for a
+table alone in its shape, or where a batch carries ``_sort_<table>`` keys
+(train.host_dedup, ``host_dedup_sorts``) from the host's stable argsorts.
+Both are bit for bit the per-table combine of the reference's default.
+Lane-packed tables (``TableSpec.lane_groups`` > 1) keep [V, G] optimizer
+state: grouped Adagrad goes to the same kernel launch as the others, and
+grouped rowwise Adam through the per-table seam with each id's lane group.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from concurrent.futures import Executor
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -43,11 +48,39 @@ import torch
 
 from tfrec_tpu_torch.configs import OptimConfig
 from tfrec_tpu_torch.models.base import RecModel
-from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids, gather_many
+from tfrec_tpu_torch.ops.embedding import (
+    combine_duplicate_ids,
+    combine_duplicate_ids_grouped,
+    gather_many,
+)
 from tfrec_tpu_torch.ops.sparse_optim import SparseOptimizer, make_sparse_optimizer
 from tfrec_tpu_torch.train.losses import make_loss
 
 State = Dict[str, Any]
+
+
+def host_dedup_sorts(model: RecModel, host_batch: Dict[str, np.ndarray],
+                     pool: Executor | None = None) -> Dict[str, np.ndarray]:
+    """The stable argsort of each table's ids for this host batch (numpy),
+    as ``{"_sort_<table>": [N] int32}`` keys to merge into it
+    (train.host_dedup): the step's duplicate combine then takes them in
+    place of its device sort, bit for bit the same. Each sorts the key ``id
+    * N + position`` (negative ids ranked at the table's sentinel, as the
+    combine ranks them) with numpy's quicksort, the stable permutation
+    without the stable kind's cost; with a ``pool``, one task a table."""
+    ids = model.lookup_ids({k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in host_batch.items()})
+    vocabs = {spec.name: spec.vocab for spec in model.table_specs()}
+
+    def one(v: np.ndarray, sentinel: int) -> np.ndarray:
+        v = np.where(v < 0, sentinel, v)
+        key = v.astype(np.int64) * len(v) + np.arange(len(v), dtype=np.int64)
+        return np.argsort(key, kind="quicksort").astype(np.int32)
+
+    if pool is None or len(ids) == 1:
+        return {f"_sort_{k}": one(v.numpy(), vocabs[k]) for k, v in ids.items()}
+    futures = {k: pool.submit(one, v.numpy(), vocabs[k]) for k, v in ids.items()}
+    return {f"_sort_{k}": f.result() for k, f in futures.items()}
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -209,7 +242,6 @@ class TrainStepBuilder:
         device: torch.device | str = "cuda",
         device_negatives: bool = False,
         num_items: int = 0,
-        group_dedup: bool | str = False,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -221,12 +253,6 @@ class TrainStepBuilder:
             raise ValueError(
                 "device_negatives supports single-negative pairwise losses "
                 f"(bpr/hinge), not {loss_name!r}"
-            )
-        if group_dedup:
-            raise NotImplementedError(
-                f"group_dedup={group_dedup!r} (one batched combine over same-shaped "
-                "tables) is not ported yet: ROADMAP Queue 1 item 2; the port "
-                "combines per table"
             )
         self.device_negatives = device_negatives
         self.num_items = num_items
@@ -249,17 +275,38 @@ class TrainStepBuilder:
             else optim_cfg.learning_rate
         )
         self.sparse_schedule = make_schedule(optim_cfg, self.sparse_lr)
+        self._groups = {s.name: s.lane_groups for s in model.table_specs()}
 
     def init_state(self, generator: torch.Generator) -> State:
-        """A fresh state, params drawn from ``generator`` (on this device)."""
+        """A fresh state, params drawn from ``generator`` (on this device);
+        a lane-packed table's optimizer state per lane group."""
         params = self.model.init(generator, self.device)
         return {
             "step": 0,
             "tables": params["tables"],
             "dense": params["dense"],
-            "sparse_opt": {name: self.sparse_opt.init(t) for name, t in params["tables"].items()},
+            "sparse_opt": {name: self.sparse_opt.init(t, lane_groups=self._groups.get(name, 1))
+                           for name, t in params["tables"].items()},
             "dense_opt": self.dense_tx.init(params["dense"]),
         }
+
+    def _grouped_adam(self, name: str) -> bool:
+        """A lane-packed table under rowwise Adam: its update needs each
+        id's lane group, so it goes through ``sparse_update`` with them."""
+        return self._groups.get(name, 1) > 1 and self.sparse_opt.name == "rowwise_adam"
+
+    def _slots_for(self, name: str, n_ids: int) -> torch.Tensor | None:
+        """Each position's lane group in a lane-packed table's id vector
+        (a CTR model's), [n_ids] int64 on this device; None for other
+        tables."""
+        widths = self.model.lane_slot_widths(name)
+        if widths is None:
+            return None
+        b, rem = divmod(n_ids, sum(widths))
+        if rem:
+            raise ValueError(f"{name}: {n_ids} ids are not a batch of bags of widths {widths}")
+        return torch.repeat_interleave(torch.arange(len(widths), device=self.device),
+                                       torch.tensor([w * b for w in widths], device=self.device))
 
     # ---- seams a sharded subsystem overrides ----
 
@@ -270,9 +317,16 @@ class TrainStepBuilder:
         rows = gather_many([tables[name] for name in ids], list(ids.values()))
         return dict(zip(ids, rows)), {}
 
-    def sparse_update(self, name: str, table, opt_state, ids, grads, lr):
-        """One table's duplicate combine and sparse update -> (table, state)."""
-        uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0])
+    def sparse_update(self, name: str, table, opt_state, ids, grads, lr, order=None):
+        """One table's duplicate combine and sparse update -> (table, state).
+        ``order``: the host's stable argsort of ``ids`` (train.host_dedup),
+        which the combine then takes in place of its sort. A lane-packed
+        table under rowwise Adam takes its ids' lane groups instead (its
+        combine carries a touch channel)."""
+        if self._grouped_adam(name):
+            return self.sparse_opt.apply(table, opt_state, ids, grads, lr,
+                                         slots=self._slots_for(name, ids.shape[0]))
+        uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0], order=order)
         return self.sparse_update_deduped(name, table, opt_state, uids, g, lr)
 
     def sparse_update_deduped(self, name: str, table, opt_state, uids, g, lr):
@@ -297,27 +351,55 @@ class TrainStepBuilder:
         return any(getattr(getattr(self, seam), "__func__", None) is not getattr(TrainStepBuilder, seam)
                    for seam in ("sparse_update", "sparse_update_deduped"))
 
-    def sparse_update_all(self, state: State, ids, gathered_grad, lr):
-        """The sparse update of every table: the duplicate combine table by
-        table, then ``sparse_update_deduped_all`` over all of them; or, where
-        the per-table seams are overridden, ``sparse_update`` table by table."""
+    def sparse_update_all(self, state: State, ids, gathered_grad, lr, host_sort=None):
+        """The sparse update of every table: the duplicate combine (one
+        batched sort over each group of same-shaped tables; per table for a
+        table alone in its shape or with the host's sort in ``host_sort``),
+        then ``sparse_update_deduped_all`` over all of them. Through
+        ``sparse_update`` table by table instead: a lane-packed table under
+        rowwise Adam, a table whose ids are not [N], and every table where
+        the per-table seams are overridden."""
         new_tables = dict(state["tables"])
         new_sparse = dict(state["sparse_opt"])
+        host_sort = host_sort or {}
+
+        def per_table(name):
+            new_tables[name], new_sparse[name] = self.sparse_update(
+                name, state["tables"][name], state["sparse_opt"][name],
+                ids[name], gathered_grad[name], lr, order=host_sort.get(name))
+
         if self._per_table_seams():
             for name in gathered_grad:
-                new_tables[name], new_sparse[name] = self.sparse_update(
-                    name, state["tables"][name], state["sparse_opt"][name],
-                    ids[name], gathered_grad[name], lr,
-                )
+                per_table(name)
             return new_tables, new_sparse
-        uids, grads = {}, {}
+        uids, grads, groups = {}, {}, {}
         for name in gathered_grad:
-            uids[name], grads[name] = combine_duplicate_ids(
-                ids[name], gathered_grad[name], sentinel=state["tables"][name].shape[0])
-        tables, states = self.sparse_update_deduped_all(
-            state["tables"], state["sparse_opt"], uids, grads, lr)
-        new_tables.update(tables)
-        new_sparse.update(states)
+            if ids[name].dim() != 1 or self._grouped_adam(name):
+                per_table(name)
+                continue
+            key = ((tuple(ids[name].shape), ids[name].dtype, tuple(gathered_grad[name].shape))
+                   if name not in host_sort else name)
+            groups.setdefault(key, []).append(name)
+        for members in groups.values():
+            if len(members) == 1:
+                name = members[0]
+                uids[name], grads[name] = combine_duplicate_ids(
+                    ids[name], gathered_grad[name], sentinel=state["tables"][name].shape[0],
+                    order=host_sort.get(name))
+                continue
+            u, c = combine_duplicate_ids_grouped(
+                torch.stack([ids[n] for n in members]),
+                torch.stack([gathered_grad[n] for n in members]),
+                [state["tables"][n].shape[0] for n in members])
+            uids.update(zip(members, u))
+            grads.update(zip(members, c))
+        if uids:
+            names = [n for n in gathered_grad if n in uids]  # the tables' order
+            tables, states = self.sparse_update_deduped_all(
+                state["tables"], state["sparse_opt"], {n: uids[n] for n in names},
+                {n: grads[n] for n in names}, lr)
+            new_tables.update(tables)
+            new_sparse.update(states)
         return new_tables, new_sparse
 
     def _generator(self, step: int) -> torch.Generator | None:
@@ -368,21 +450,21 @@ class TrainStepBuilder:
     def step(self, state: State, batch: Dict[str, torch.Tensor]) -> Tuple[State, Dict]:
         """One step on a batch of tensors on this device (CTR {"dense",
         "cat", "label"}, pairwise {"user", "pos", "neg" or "negs"},
-        pointwise {"user", "item", "label"}) -> (new state, {"loss"}); the
-        loss stays on the device."""
-        host_sort = sorted(k for k in batch if k.startswith("_sort_"))
+        pointwise {"user", "item", "label"}; any "_sort_<table>" keys are
+        the host's dedup sorts) -> (new state, {"loss"}); the loss stays on
+        the device."""
+        # The host's dedup sorts (train.host_dedup) ride the batch as
+        # "_sort_<table>" keys; the model never sees them.
+        host_sort = {k[len("_sort_"):]: v for k, v in batch.items() if k.startswith("_sort_")}
         if host_sort:
-            raise NotImplementedError(
-                f"host-computed dedup sorts (train.host_dedup; batch keys {host_sort}) "
-                "are not ported yet: ROADMAP Queue 1 item 5"
-            )
+            batch = {k: v for k, v in batch.items() if not k.startswith("_sort_")}
         generator = self._generator(state["step"])
         batch = self._draw_negatives(batch, generator)
         loss, dense_grad, gathered_grad, ids = self.loss_and_grads(state, batch, generator)
         updates, new_dense_opt = self.dense_tx.update(dense_grad, state["dense_opt"], state["dense"])
         new_dense = apply_updates(state["dense"], updates)
         lr = self.sparse_schedule(state["step"])
-        new_tables, new_sparse = self.sparse_update_all(state, ids, gathered_grad, lr)
+        new_tables, new_sparse = self.sparse_update_all(state, ids, gathered_grad, lr, host_sort)
         new_state = {
             "step": state["step"] + 1,
             "tables": new_tables,

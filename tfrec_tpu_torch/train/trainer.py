@@ -48,15 +48,22 @@ kernels' plain versions); without CUDA the default raises. What the port
 does not take yet it refuses by naming the ROADMAP Queue 1 item, never
 passing it over: models other than mf, fm, gmf, mlp, neumf, dcn and dcnv2,
 user histories, sequences and the social graph (item 12), step profiles
-(item 10), a mesh (item 11),
-``train.matmul_precision`` other than "default" and host-computed dedup
-sorts (item 5).
+(item 10), a mesh (item 11) and
+``train.matmul_precision`` other than "default" (item 5).
+
+``train.host_dedup`` sorts each train batch's ids on the host, in the
+prefetch worker, for the step's duplicate combine (``host_dedup_sorts``).
+``model.lane_pack=None`` (AUTO) builds per-field tables, except where a run
+resumes from a checkpoint: then it takes the checkpoint's layout, packed or
+per-field, as the reference does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -79,7 +86,7 @@ from tfrec_tpu_torch.eval.retrieval import RetrievalEvaluator
 from tfrec_tpu_torch.eval.sampled import SampledEvaluator
 from tfrec_tpu_torch.models import BUILT, NOT_PORTED, DataSpec, build_model
 from tfrec_tpu_torch.train.losses import IN_BATCH_LOSSES, MULTI_NEG_LOSSES, PAIRWISE_LOSSES
-from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state
+from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, host_dedup_sorts
 from tfrec_tpu_torch.utils import checkpoint
 from tfrec_tpu_torch.utils.logging import MetricLogger
 from tfrec_tpu_torch.utils.prefetch import prefetch
@@ -122,9 +129,6 @@ def _refuse_unported(c: Config) -> None:
         raise NotImplementedError(
             f"train.matmul_precision={t.matmul_precision!r} is not ported yet: ROADMAP Queue 1 "
             "item 5; the port runs f32 matmuls with TF32 off")
-    if t.host_dedup:
-        raise NotImplementedError(
-            "train.host_dedup (host-computed dedup sorts) is not ported yet: ROADMAP Queue 1 item 5")
     if c.mesh.data_axis_size > 1 or c.mesh.table_axis_size > 1:
         raise NotImplementedError(
             f"a mesh (mesh.data_axis_size={c.mesh.data_axis_size}, "
@@ -213,7 +217,15 @@ class Trainer:
                     field_widths=c.data.categorical_field_widths or None)
 
         # ---- model + step ----
-        self.model = build_model(c.model, self.data_spec)
+        model_cfg = c.model
+        if model_cfg.lane_pack is None and c.train.resume and c.train.checkpoint_dir:
+            # Checkpoints name their tables by layout: a resume under AUTO
+            # takes the saved layout rather than deriving it again.
+            saved = checkpoint.checkpoint_table_layout(c.train.checkpoint_dir)
+            if saved is not None:
+                model_cfg = dataclasses.replace(model_cfg, lane_pack=saved)
+                self.logger.log({"event": "lane_pack_from_checkpoint", "lane_pack": saved})
+        self.model = build_model(model_cfg, self.data_spec)
         loss = c.train.loss
         if self.is_ctr_model and loss in PAIRWISE_LOSSES:
             self.logger.log({"event": "loss_coerced", "from": loss, "to": "logloss",
@@ -242,6 +254,7 @@ class Trainer:
                     "reason": "resume restored this run's checkpoint (resume wins over init_from)",
                 })
         self.sampler = self._make_sampler()
+        self._sort_pool = None  # the host dedup sorts' threads, made at their first batch
         self.global_step = 0
         self._es_best = None  # early-stopping monitor state
         self._es_stall = 0
@@ -259,9 +272,9 @@ class Trainer:
         """The checkpoint at ``step`` (default: the latest) of ``ckpt_dir``,
         saved by the port or by the JAX package on any topology and in any
         table layout, on this trainer's device: the whole train state, or
-        with ``params_only`` the params ``{"tables", "dense"}`` (a
-        lane-packed or stacked checkpoint's optimizer state is refused,
-        ROADMAP Queue 1 item 15, but its params load)."""
+        with ``params_only`` the params ``{"tables", "dense"}``, in this
+        model's layout (the optimizer state only from a checkpoint of the
+        same layout)."""
         keys = set(checkpoint.read_tree(ckpt_dir, step).get("keys", []))
         template = {k: np.shape(v) for k, v in convert.flat_from_state(
             self.state, self.config.optim.dense_optimizer, self.config.optim.weight_decay,
@@ -412,23 +425,34 @@ class Trainer:
         return PointwiseSampler(self.dataset, bs, max(c.train.num_negatives, 1), seed,
                                 neg_cdf=neg_cdf)
 
-    def _host_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    @property
+    def _host_dedup_on(self) -> bool:
+        return self.config.train.host_dedup and self.is_ctr_model
+
+    def _host_batch(self, batch: Dict[str, np.ndarray], train: bool = True) -> Dict[str, np.ndarray]:
         """The model's host batch: for a CTR model over interaction data a
         pointwise batch becomes {"dense": [B, 0], "cat": [user, item, user
         side fields..., item side fields...], "label"}; other batches pass
-        as they are."""
-        if not (self.is_ctr_model and self.ctr_arrays is None):
-            return batch
-        cols = [batch["user"][:, None], batch["item"][:, None]]
-        if self.user_side is not None:
-            cols.append(self.user_side[batch["user"]])
-        if self.item_side is not None:
-            cols.append(self.item_side[batch["item"]])
-        return {
-            "dense": np.zeros((len(batch["user"]), 0), np.float32),
-            "cat": np.concatenate(cols, axis=1).astype(np.int32),
-            "label": batch["label"],
-        }
+        as they are. With train.host_dedup a train batch also carries the
+        host's dedup sorts (``host_dedup_sorts``); an eval batch would not
+        use them."""
+        if self.is_ctr_model and self.ctr_arrays is None:
+            cols = [batch["user"][:, None], batch["item"][:, None]]
+            if self.user_side is not None:
+                cols.append(self.user_side[batch["user"]])
+            if self.item_side is not None:
+                cols.append(self.item_side[batch["item"]])
+            batch = {
+                "dense": np.zeros((len(batch["user"]), 0), np.float32),
+                "cat": np.concatenate(cols, axis=1).astype(np.int32),
+                "label": batch["label"],
+            }
+        if train and self._host_dedup_on:
+            if self._sort_pool is None:
+                self._sort_pool = ThreadPoolExecutor(min(8, os.cpu_count() or 1),
+                                                     thread_name_prefix="hostdedup")
+            batch = {**batch, **host_dedup_sorts(self.model, batch, self._sort_pool)}
+        return batch
 
     def _to_device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The host-to-device copy of a model's host batch (or of K stacked
@@ -487,7 +511,7 @@ class Trainer:
         items = np.concatenate([test.items[:n, None], neg_items], axis=1).reshape(-1)
         labels = np.tile(np.concatenate([[1.0], np.zeros(num_neg)]).astype(np.float32), n)
         batch = self._to_device_batch(self._host_batch(
-            {"user": users.astype(np.int32), "item": items, "label": labels}))
+            {"user": users.astype(np.int32), "item": items, "label": labels}, train=False))
         with torch.no_grad():
             logits = self._forward(batch)
             return {"auc": float(auc_metric(logits, batch["label"]))}
