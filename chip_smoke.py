@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-4, data files, checkpoints and the CLI, and every table layout and duplicate combine of the step, on one NVIDIA GPU.
+"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-5, data files, checkpoints and the CLI, and every table layout and duplicate combine of the step, on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
@@ -160,7 +160,28 @@ non-zero if any phase fails:
     G = 2 and 6): config 2's band, one gather and one Adagrad launch a
     step, the kernels at its shapes; its checkpoint
     resumed under ``lane_pack=None`` (the saved layout taken) bit for bit,
-    and served by ``from_checkpoint`` packed and per field.
+    and served by ``from_checkpoint`` packed and per field;
+28. (L) config 5, the row-sharded tables: (L1) ``ShardedTrainStepBuilder``
+    for ``dcn_multihost`` at Criteo's shape at world 1 over NCCL (the
+    exchange an identity; dedup, bucketing, the collectives, the owner's
+    gather and update all real), 8 steps of 8192 Zipf(1.2) ids from the
+    single-device init: at the f32 wire within the tolerance of
+    tests/test_parallel.py:205-208 of the single-device step on every
+    table, accumulator and dense leaf (it reads bit for bit), repeating
+    bit for bit, no id dropped, one owner gather, Adagrad, v1 forward and
+    backward launch a step and 5 NCCL calls; the bf16 wire's losses
+    within 1e-3 of the f32 wire's; host medians in turns and profiles
+    beside the single-device step's; the gather and Adagrad kernels at the
+    owner's shapes, bit for bit their plain versions and on repeat,
+    beside their bounds, plain versions and ``index_select``. (L2)
+    ``trainer.run(dcn_multihost())`` whole (2M synthetic examples, 2
+    epochs) on 2 ranks sharing the card over gloo, a process each
+    (``chip_smoke.py --sharded-rank``, started and stopped by the phase):
+    config 4's full band, the ranks' histories the same, a checkpoint an
+    epoch, launches counted on each rank; examples/s, which is no scaling
+    figure. (L3) ``Recommender.from_checkpoint`` serves the ranks' last
+    checkpoint on one card: ``predict_ctr`` bit for bit the restored
+    single-device forward, its AUC within 1e-3 of the ranks' last eval.
 
 No earlier path is cut in depth for time (PERF.md gives a whole run's
 time on an H100). The last lines are the kernels' JSON record (the v2
@@ -177,7 +198,10 @@ K's ``layouts_<mode>``, ``trainer_fm_packed`` and ``serve_fm_packed``;
 the gather and Adagrad records carry phase K's shapes as ``dcn_packed``,
 ``dcn_stacked`` and ``fm_packed``, and ``fused_rowwise_adagrad_multi_
 grouped`` is the Adagrad kernel on lane-grouped tables, its launches the
-Adagrad launches of phase K's packed paths) and ``{"ok": true, ...}``.
+Adagrad launches of phase K's packed paths; phase L adds ``train_sharded``
+(L1's counted run) and ``trainer_sharded`` (L2, both ranks' launches
+summed) to ``launches_by_path``, and its shapes to the gather and Adagrad
+records as ``sharded``) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -233,7 +257,11 @@ from tfrec_tpu_torch.kernels.gather_cuda import (
 from tfrec_tpu_torch.configs import OptimConfig
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.models.mf import MF
+from tfrec_tpu_torch.ops import sparse_optim
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
+from tfrec_tpu_torch.parallel import embedding as sharded_embedding
+from tfrec_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
 from tfrec_tpu_torch.serve import Recommender
 from tfrec_tpu_torch.train import trainer as trainer_mod
 from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, host_dedup_sorts, tree_leaves
@@ -335,6 +363,23 @@ CRITEO_CARD_VS_CPU_LINES = 100_000  # 8 steps of 8192 and the held-out 5%
 CLI_OVERRIDES = ["train.epochs=1", f"data.num_examples={CRITEO_MATERIALIZED_LINES}"]
 STREAM_EVAL_EXAMPLES = 100_000  # the streamed run's held-out first lines
 ML1M_USERS, ML1M_ITEMS, ML1M_PER_USER = 6040, 3706, 165
+# Phase L, config 5 (row-sharded tables): the sharded step at world 1 over
+# NCCL against the single-device step (f32 wire) at the tolerance of
+# tests/test_parallel.py:205-208, and its bf16 wire's losses against the
+# f32 run's; then ``trainer.run(dcn_multihost())`` on 2 ranks sharing the
+# card over gloo, in config 4's band (QUALITY_BANDS.json gives
+# dcn_multihost the same band as dcn_criteo); then its checkpoint served
+# on one card, whose AUC (the f32 lookup) lies within 1e-3 of the ranks'
+# last eval (through the bf16 wire).
+SHARDED_RTOL, SHARDED_ATOL = 2e-4, 1e-5
+SHARDED_BF16_LOSS_ATOL = 1e-3
+# The collectives of a sharded step: the id and row exchanges, the
+# overflow's sum, the dense gradients' and loss's mean, the gradient
+# exchange (the update reuses the lookup's route).
+SHARDED_CALLS_A_STEP = 5
+SHARDED_RANKS = 2
+SHARDED_RANK_TIMEOUT_S = 480
+SHARDED_SERVE_AUC_ATOL = 1e-3
 
 # The kernels of the main paths. The gather and Adagrad kernels run there
 # as one launch over every table (the ``_multi`` wrappers); their one-table
@@ -2902,6 +2947,319 @@ def phase_fm_packed(card: str, paths: dict, records: dict) -> dict:
                                "tables to it)"}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def captured_sparse_calls(builder, state, batch) -> dict:
+    """The owner's gather and Adagrad calls of one sharded step, as called:
+    {"gather": (tables, request ids), "adagrad": (tables, accs, uids,
+    grads, lr, eps)}, each input copied before the call."""
+    seen = {}
+    gather, adagrad = sharded_embedding.gather_many, sparse_optim.fused_rowwise_adagrad_multi
+
+    def gather_spy(tables, ids):
+        seen["gather"] = (list(tables), [i.clone() for i in ids])
+        return gather(tables, ids)
+
+    def adagrad_spy(tables, accs, uids, grads, lr, eps):
+        seen["adagrad"] = ([t.clone() for t in tables], [a.clone() for a in accs],
+                           [u.clone() for u in uids], [g.clone() for g in grads], lr, eps)
+        return adagrad(tables, accs, uids, grads, lr, eps)
+
+    sharded_embedding.gather_many, sparse_optim.fused_rowwise_adagrad_multi = gather_spy, adagrad_spy
+    try:
+        builder.step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        sharded_embedding.gather_many, sparse_optim.fused_rowwise_adagrad_multi = gather, adagrad
+    return seen
+
+
+def sharded_kernel_checks(builder, state, batch) -> dict:
+    """The gather and Adagrad kernels at the sharded step's shapes (the
+    owner's gather of the received requests, the owner's update after the
+    receive-side combine), on one step's own inputs: one launch each, bit
+    for bit their plain versions and on repeat; times beside bounds, plain
+    versions and ``index_select``."""
+    seen = captured_sparse_calls(builder, state, batch)
+    tables, ids = seen["gather"]
+    got, launches = launches_of(gather_rows_multi, lambda: gather_rows_multi(tables, ids))
+    again, want = gather_rows_multi(tables, ids), gather_rows_multi_ref(tables, ids)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    print(f"gather_rows_multi at the sharded step's owner gather ({len(tables)} blocks {tuple(tables[0].shape)}, "
+          f"{ids[0].shape[0]} requests each): {launches} launch, bit for bit the plain version {bitwise}, on repeat "
+          f"{repeat}")
+    check(launches == 1 and bitwise and repeat,
+          "gather_rows_multi at the sharded shapes: one launch, bit for bit its plain version and on repeat")
+    records = {"gather_rows_multi": {"sharded": {**gather_times(tables, ids, "the sharded owner gather"),
+                                                 "max_abs_err": 0.0}}}
+    del got, again, want
+    tabs, accs, uids, grads, lr, eps = seen["adagrad"]
+
+    def copies():
+        return [t.clone() for t in tabs], [a.clone() for a in accs]
+
+    (got_t, got_a), launches = launches_of(
+        fused_rowwise_adagrad_multi, lambda: fused_rowwise_adagrad_multi(*copies(), uids, grads, lr, eps))
+    again_t, again_a = fused_rowwise_adagrad_multi(*copies(), uids, grads, lr, eps)
+    ref_t, ref_a = fused_rowwise_adagrad_multi_ref(*copies(), uids, grads, lr, eps)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, e) for a, e in zip(got_t + got_a, ref_t + ref_a))
+    repeat = all(torch.equal(a, e) for a, e in zip(got_t + got_a, again_t + again_a))
+    err = max(max_err(a, e) for a, e in zip(got_t + got_a, ref_t + ref_a))
+    distinct = [int((u < t.shape[0]).sum().item()) for u, t in zip(uids, tabs)]
+    print(f"fused_rowwise_adagrad_multi at the sharded step's owner update ({len(tabs)} blocks, {uids[0].shape[0]} "
+          f"combined slots each, distinct real ids {min(distinct)}-{max(distinct)}): {launches} launch, bit for "
+          f"bit the plain version {bitwise}, on repeat {repeat}")
+    check(launches == 1 and bitwise and repeat,
+          "fused_rowwise_adagrad_multi at the sharded shapes: one launch, bit for bit its plain version and on repeat")
+    del got_t, got_a, again_t, again_a, ref_t, ref_a
+    records["fused_rowwise_adagrad_multi"] = {"sharded": {
+        **adagrad_times(list(zip(*copies(), uids, grads)), lr, "the sharded owner update"),
+        "distinct_ids": distinct, "max_abs_err": err}}
+    return records
+
+
+def sharded_config(**train):
+    """Config 5 at Criteo's shape (26 fields of 100 000 rows; the data
+    synthetic), its train section overridden by ``train``."""
+    cfg = zoo_configs.dcn_multihost(path="criteo")
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train))
+
+
+def phase_sharded_step(card: str, paths: dict) -> dict:
+    """(L1) The sharded step at world 1 over NCCL: ``ShardedTrainStepBuilder``
+    for config 5 at Criteo's shape, 8 steps of 8192 (Zipf(1.2) ids) from one
+    state, its init the single-device one bit for bit; at the f32 wire within
+    tolerance of the single-device step on every table, accumulator and dense
+    leaf, repeating bit for bit, no id dropped, its launches and collectives
+    counted; at the bf16 wire its losses within 1e-3 of the f32 run's; host
+    medians in turns and profiles beside the single-device step's; the
+    gather and Adagrad kernels at its shapes. Returns their records."""
+    t_phase = time.perf_counter()
+    device = init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl", device=DEVICE)
+    try:
+        mesh = make_mesh(-1, 1, device=DEVICE)
+        cfg = sharded_config()
+        vocabs = tuple(cfg.data.categorical_vocab_sizes)
+        model = build_model(cfg.model, DataSpec.ctr(vocabs, cfg.data.num_dense_features))
+        k = cfg.train.steps_per_dispatch
+        dense, cat, label = synthetic_ctr(k * BATCH, cfg.data.num_dense_features, vocabs, seed=SEED + 5)
+        batches = [{"dense": to_device(dense[i * BATCH:(i + 1) * BATCH]),
+                    "cat": to_device(cat[i * BATCH:(i + 1) * BATCH]),
+                    "label": to_device(label[i * BATCH:(i + 1) * BATCH])} for i in range(k)]
+        single = TrainStepBuilder(model, cfg.train.loss, cfg.optim)
+        start = single.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+        builders = {wire: ShardedTrainStepBuilder(model, cfg.train.loss, cfg.optim, mesh,
+                                                  dataclasses.replace(cfg.mesh, a2a_dtype=wire))
+                    for wire in ("float32", "bfloat16")}
+        sharded_start = builders["float32"].init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+        print(f"sharded (L1): world 1 over {mesh.backend} on {device} ({card}); {len(vocabs)} tables of "
+              f"{vocabs[0]} rows, rows a rank {builders['float32'].plans['field_0'].rows_per_shard}; the init "
+              f"bit for bit the single-device one: {states_equal(sharded_start, start)}")
+        check(states_equal(sharded_start, start), "the sharded init is the single-device init at world 1")
+
+        def run(builder, state):
+            losses, overflow = [], 0
+            for b in batches:
+                state, metrics = builder.step(state, b)
+                losses.append(metrics["loss"])
+                overflow = overflow + metrics.get("lookup_overflow", 0)
+            torch.cuda.synchronize()
+            return state, torch.stack(losses), int(overflow)
+
+        want, want_losses, _ = run(single, copy_state(start))
+        reset_launches()
+        mesh.calls = 0
+        got, losses, overflow = run(builders["float32"], copy_state(sharded_start))
+        paths["train_sharded"] = read_launches()
+        calls = mesh.calls
+        launches = {n: c for n, c in paths["train_sharded"].items() if c}
+        print(f"sharded (L1): {k} steps, launches {launches}, collectives {calls} ({calls / k:.0f} a step), ids "
+              f"dropped {overflow}; losses {[round(x, 6) for x in losses.tolist()]}")
+        check(launches == {"gather_rows_multi": k, "cross_v1_fwd": k, "cross_v1_bwd": k,
+                           "fused_rowwise_adagrad_multi": k},
+              "the sharded step: one owner gather, Adagrad, v1 forward and backward launch a step, and no other")
+        check(calls == SHARDED_CALLS_A_STEP * k, f"{SHARDED_CALLS_A_STEP} collectives a sharded step")
+        check(overflow == 0, "no id dropped at world 1")
+        pairs = [("tables", got["tables"], want["tables"]),
+                 ("accumulators", {n: s["acc"] for n, s in got["sparse_opt"].items()},
+                  {n: s["acc"] for n, s in want["sparse_opt"].items()}),
+                 ("dense", dict(enumerate(tree_leaves(got["dense"]))), dict(enumerate(tree_leaves(want["dense"]))))]
+        for what, a, b in pairs:
+            err = max(max_err(a[n], b[n]) for n in b)
+            close = all(torch.allclose(a[n], b[n], rtol=SHARDED_RTOL, atol=SHARDED_ATOL) for n in b)
+            same = all(torch.equal(a[n], b[n]) for n in b)
+            print(f"sharded (L1) against the single-device step, {what}: max_abs_err {err:.3e}, bit for bit "
+                  f"{same} (rtol {SHARDED_RTOL}, atol {SHARDED_ATOL})")
+            check(close, f"the sharded step's {what} match the single-device step's")
+        check(torch.allclose(losses, want_losses, rtol=SHARDED_RTOL), "the sharded losses match")
+        again, again_losses, _ = run(builders["float32"], copy_state(sharded_start))
+        check(states_equal(again, got) and torch.equal(again_losses, losses), "the sharded step repeats bit for bit")
+        del want, again
+        _, bf16_losses, bf16_overflow = run(builders["bfloat16"], copy_state(sharded_start))
+        gap = (bf16_losses - losses).abs().max().item()
+        print(f"sharded (L1) bf16 wire: losses {[round(x, 6) for x in bf16_losses.tolist()]}, max gap to the f32 "
+              f"wire {gap:.3e} (limit {SHARDED_BF16_LOSS_ATOL}); repeats bit for bit: True; ids dropped {bf16_overflow}")
+        check(bool(torch.isfinite(bf16_losses).all()) and gap <= SHARDED_BF16_LOSS_ATOL,
+              "the bf16 wire's losses lie within 1e-3 of the f32 wire's")
+        del got
+
+        states = {"single-device": copy_state(start), "sharded f32": copy_state(sharded_start),
+                  "sharded bf16": copy_state(sharded_start)}
+        steppers = {"single-device": single, "sharded f32": builders["float32"],
+                    "sharded bf16": builders["bfloat16"]}
+
+        def stepper(name):
+            def run_step():
+                states[name], _ = steppers[name].step(states[name], batches[0])
+            return run_step
+
+        steps = {name: stepper(name) for name in steppers}
+        medians = medians_in_turns(steps)
+        print(f"sharded (L1): train step of {BATCH} (host clock, batch on the card), median over 10 steps in turns: "
+              + ", ".join(f"{name} {ms:.3f} ms" for name, ms in medians.items()) + f" ({card})")
+        for name, run_step in steps.items():
+            profile(run_step, f"train step ({name})", medians[name])
+        mesh.calls = 0
+        steps["sharded f32"]()
+        print(f"sharded (L1): NCCL calls a step {mesh.calls}")
+        del states
+        records = sharded_kernel_checks(builders["float32"], copy_state(sharded_start), batches[0])
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"phase L1 took {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def sharded_rank(rank: int, port: int, ckpt_dir: str) -> int:
+    """One of phase L2's ranks (``chip_smoke.py --sharded-rank R PORT DIR``):
+    ``trainer.run(dcn_multihost())`` whole, with a checkpoint an epoch,
+    over gloo on the one card; its history, launches and time as
+    ``DIR/rank<R>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"tcp://127.0.0.1:{port}", SHARDED_RANKS, rank, backend="gloo", device=DEVICE)
+    try:
+        cfg = zoo_configs.dcn_multihost()
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, checkpoint_dir=ckpt_dir, checkpoint_every_epochs=1))
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer, history = run(cfg, quiet=True)
+        torch.cuda.synchronize()
+        out = {"rank": rank, "history": history, "launches": read_launches(), "steps": trainer.global_step,
+               "seconds": time.perf_counter() - t0, "device": str(trainer.device), "backend": trainer.mesh.backend,
+               "collectives": trainer.mesh.calls}
+        with open(os.path.join(ckpt_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_sharded_trainer(card: str, paths: dict) -> dict:
+    """(L2) ``trainer.run(dcn_multihost())`` whole (2M synthetic examples, 2
+    epochs) on 2 ranks sharing the card over gloo, a process each: both
+    ranks' histories the same, config 4's full band, one owner gather and one
+    Adagrad launch a step on each rank, a checkpoint an epoch. Returns the
+    run's checkpoint directory, config and last record."""
+    t_phase = time.perf_counter()
+    ckpt = DATA_DIR / "dcn_multihost"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank", str(rank), str(port),
+                               str(ckpt)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(SHARDED_RANKS)]
+    deadline = time.monotonic() + SHARDED_RANK_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        print(f"sharded (L2) rank {rank} exit {p.returncode}; its output's last lines:\n  "
+              + "\n  ".join(out.strip().splitlines()[-6:]))
+    check(len(outs) == SHARDED_RANKS and all(p.returncode == 0 for p in procs), "both ranks ran to their end")
+    results = [json.loads((ckpt / f"rank{rank}.json").read_text()) for rank in range(SHARDED_RANKS)]
+    history = results[0]["history"]
+    same = all([{k: v for k, v in r.items() if k != "examples_per_s"} for r in res["history"]]
+               == [{k: v for k, v in r.items() if k != "examples_per_s"} for r in history] for res in results)
+    rec = history[-1]
+    steps = results[0]["steps"]
+    print(f"sharded (L2): trainer.run(dcn_multihost()) on {SHARDED_RANKS} ranks over {results[0]['backend']} "
+          f"sharing {results[0]['device']} ({card}): {steps} steps a rank, run() took "
+          f"{[round(r['seconds'], 1) for r in results]} s (data made included); history {history}; the ranks' "
+          f"histories the same: {same}")
+    print(f"sharded (L2): examples_per_s {[round(r['examples_per_s'], 1) for r in history]} - two ranks sharing one "
+          "card, every collective through host copies: no scaling figure")
+    check(same, "every rank reports the same history")
+    for name, (lo, hi) in CONFIG4_BAND.items():
+        print(f"config 5 band: {name} {rec[name]:.6f} in [{lo}, {hi}]")
+        check(lo <= rec[name] <= hi, f"config 5's {name} lies in its full band")
+    check("eval_lookup_overflow" not in rec, "the eval dropped no id")
+    paths["trainer_sharded"] = {name: sum(r["launches"][name] for r in results) for name in WRAPPERS}
+    for r in results:
+        lnch = r["launches"]
+        print(f"sharded (L2) rank {r['rank']}: launches {{{', '.join(f'{n}: {c}' for n, c in lnch.items() if c)}}}, "
+              f"collectives {r['collectives']}")
+        check(lnch["fused_rowwise_adagrad_multi"] == steps and lnch["cross_v1_bwd"] == steps
+              and lnch["gather_rows_multi"] == lnch["cross_v1_fwd"] > steps,
+              "each rank: one Adagrad and v1 backward launch a step, one owner gather a step and an eval batch")
+    check(checkpoint.latest_step(str(ckpt)) == len(history), "a checkpoint an epoch")
+    tree = checkpoint.read_tree(str(ckpt))
+    check(tree.get("process_count") == SHARDED_RANKS, "the checkpoint holds both ranks' blocks")
+    print(f"phase L2 took {time.perf_counter() - t_phase:.1f} s")
+    cfg = zoo_configs.dcn_multihost()
+    return {"ckpt": str(ckpt), "record": rec, "config": dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_dir=str(ckpt)))}
+
+
+def phase_sharded_serve(card: str, paths: dict, sharded: dict) -> None:
+    """(L3) ``Recommender.from_checkpoint`` serves L2's last checkpoint,
+    which 2 ranks saved, on one card: ``predict_ctr`` of 4 held-out batches
+    bit for bit the single-device forward of the same checkpoint restored in
+    a ``Trainer``, whose AUC (the f32 lookup) lies within 1e-3 of the ranks'
+    last eval (through the bf16 wire)."""
+    t_phase = time.perf_counter()
+    cfg = sharded["config"]
+    rec = Recommender.from_checkpoint(cfg)
+    trainer = Trainer(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, resume=True)), quiet=True,
+                      log_metrics=False)
+    check(trainer.mesh is None and trainer.start_epoch == cfg.train.epochs,
+          "the 2-rank checkpoint resumes on one card at its last epoch")
+    dense, cat, label = trainer.ctr_arrays["test"]
+    reset_launches()
+    same = True
+    for i in range(NUM_BATCHES):
+        rows = slice(i * BATCH, (i + 1) * BATCH)
+        got = rec.predict_ctr(dense[rows], cat[rows])
+        with torch.no_grad():
+            want = trainer._forward({"dense": to_device(dense[rows]), "cat": to_device(cat[rows]),
+                                     "label": to_device(label[rows])}).cpu().numpy()
+        same = same and np.array_equal(got, want)
+    auc = trainer.evaluate()["auc"]
+    gap = abs(auc - sharded["record"]["auc"])
+    print(f"sharded (L3): from_checkpoint of the 2-rank checkpoint on one card ({card}): predict_ctr of "
+          f"{NUM_BATCHES} x {BATCH} held-out rows bit for bit the restored Trainer's forward: {same}; its AUC "
+          f"{auc:.6f} against the ranks' last eval {sharded['record']['auc']:.6f} (gap {gap:.2e}, limit "
+          f"{SHARDED_SERVE_AUC_ATOL})")
+    check(same, "from_checkpoint serves the 2-rank checkpoint bit for bit the restored Trainer's forward")
+    check(gap <= SHARDED_SERVE_AUC_ATOL, "the served checkpoint's AUC lies within 1e-3 of the ranks' last eval")
+    print(f"phase L3 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -2953,6 +3311,11 @@ def main() -> int:
         records.append(phase_fm_packed(card, paths, layouts))
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+    sharded_records = phase_sharded_step(card, paths)
+    try:
+        phase_sharded_serve(card, paths, phase_sharded_trainer(card, paths))
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
     for r in records:
         if r["name"] == GROUPED:  # the Adagrad kernel's launches on the packed paths
             by_path = {path: paths[path]["fused_rowwise_adagrad_multi"] for path in GROUPED_PATHS}
@@ -2966,6 +3329,7 @@ def main() -> int:
             r["mf_bench"] = mf_records[r["name"]]  # MF's 3 tables at bench.py's shape
         r.update(shapes.get(r["name"], {}))  # FM's 12 tables, NeuMF's 4
         r.update(layouts.get(r["name"], {}))  # phase K's packed and stacked shapes
+        r.update(sharded_records.get(r["name"], {}))  # phase L's owner gather and update
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2974,4 +3338,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:  # one of phase L2's ranks
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

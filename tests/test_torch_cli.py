@@ -4,10 +4,11 @@ on the CPU.
 ``parse_overrides`` and ``with_overrides`` give the reference's results on
 the same inputs (its refusals too); ``python -m tfrec_tpu_torch.cli`` runs
 as a real process with ``--device cpu``: it lists its configs, refuses an
-unknown or unported config and multi-process start-up by name, and trains
-``dcn_criteo`` from a small Criteo file and ``mf_bpr_ml100k`` from a small
-MovieLens file, its last line one JSON record (after tests/test_utils.py's
-CLI tests).
+unknown or unported config by name, starts 2 ranks from the reference's
+``JAX_*`` variables (``dcn_multihost`` on the mesh path over gloo), and
+trains ``dcn_criteo`` from a small Criteo file and ``mf_bpr_ml100k`` from a
+small MovieLens file, its last line one JSON record (after
+tests/test_utils.py's CLI tests).
 """
 
 import dataclasses
@@ -24,6 +25,8 @@ import tfrec_tpu.cli as jax_cli
 import tfrec_tpu.configs as jax_configs
 from tfrec_tpu_torch import cli, configs, zoo_configs
 from test_torch_loaders import write_criteo
+
+from torch_dist_worker import _free_port
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -76,13 +79,48 @@ def test_cli_lists_and_refuses_configs():
     out = _cli("--list_configs")
     assert out.returncode == 0
     assert out.stdout.split() == list(zoo_configs.ZOO) == \
-        ["mf_bpr_ml100k", "fm_ctr_ml1m", "neumf_ml20m", "dcn_criteo"]
+        ["mf_bpr_ml100k", "fm_ctr_ml1m", "neumf_ml20m", "dcn_criteo", "dcn_multihost"]
     bad = _cli("--config", "nope")
     assert bad.returncode != 0 and "unknown config 'nope'" in bad.stderr
     tail = _cli("--config", "sasrec_ml1m")
     assert tail.returncode != 0 and "ROADMAP Queue 1 item 12" in tail.stderr
-    multi = _cli("--config", "dcn_criteo", env={"JAX_COORDINATOR": "localhost:1234"})
-    assert multi.returncode != 0 and "ROADMAP Queue 1 item 11" in multi.stderr
+    # Under the JAX_* variables a process joins a group; column sharding
+    # (a table axis) stays refused by its item.
+    col = _cli("--config", "dcn_multihost", "--device", "cpu", "mesh.table_axis_size=2",
+               env={"JAX_COORDINATOR": f"127.0.0.1:{_free_port()}", "JAX_NUM_PROCESSES": "1",
+                    "JAX_PROCESS_ID": "0"})
+    assert col.returncode != 0 and "ROADMAP Queue 1 item 11" in col.stderr
+
+
+def test_cli_starts_ranks_from_the_jax_variables(tmp_path):
+    """Two processes started with the reference's JAX_COORDINATOR,
+    JAX_NUM_PROCESSES and JAX_PROCESS_ID join one gloo group, train a tiny
+    dcn_multihost on the mesh path and print the same last record."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    args = ["--config", "dcn_multihost", "--device", "cpu", "train.epochs=1",
+            "train.batch_size=256", "train.steps_per_dispatch=2", "data.num_examples=3000",
+            "data.categorical_vocab_sizes=(50,)", "model.mlp_dims=(16,)", "model.embed_dim=4",
+            f"train.checkpoint_dir={tmp_path}", "train.checkpoint_every_epochs=1"]
+    env = {k: v for k, v in os.environ.items() if k != "JAX_COORDINATOR"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tfrec_tpu_torch.cli", *args], cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**env, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR": coordinator,
+             "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(rank)}) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180))
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), outs
+    recs = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    for rec in recs:
+        rec.pop("examples_per_s")
+    assert recs[0] == recs[1] and recs[0]["epoch"] == 0 and np.isfinite(recs[0]["auc"])
+    tree = json.loads((tmp_path / "step_0000000001" / "tree.json").read_text())
+    assert tree["process_count"] == 2
 
 
 def test_cli_trains_dcn_criteo_from_a_criteo_file(tmp_path):

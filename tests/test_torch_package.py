@@ -33,7 +33,8 @@ def test_port_imports_with_jax_blocked():
             "tfrec_tpu_torch.eval.sampled", "tfrec_tpu_torch.data.criteo",
             "tfrec_tpu_torch.data.criteo_native", "tfrec_tpu_torch.data.movielens",
             "tfrec_tpu_torch.data.uirt_native", "tfrec_tpu_torch.utils.checkpoint",
-            "tfrec_tpu_torch.cli"} <= set(modules)
+            "tfrec_tpu_torch.cli", "tfrec_tpu_torch.parallel.mesh",
+            "tfrec_tpu_torch.parallel.embedding", "tfrec_tpu_torch.parallel.step"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -72,6 +73,12 @@ def test_config_copies_match_the_reference(name):
 def test_dcn_criteo_copy_matches_the_reference(path):
     assert dataclasses.asdict(zoo.dcn_criteo(path)) == dataclasses.asdict(jax_zoo.dcn_criteo(path))
     assert tfrec_tpu_torch.__version__
+
+
+@pytest.mark.parametrize("path", [None, "criteo/train.txt"])
+def test_dcn_multihost_copy_matches_the_reference(path):
+    assert dataclasses.asdict(zoo.dcn_multihost(path)) == \
+        dataclasses.asdict(jax_zoo.ZOO["dcn_multihost"](path))
 
 
 @pytest.mark.parametrize("path", [None, "ml-100k/u.data"])

@@ -10,12 +10,14 @@ its plain PyTorch version only for tensors that lie on the CPU.
 Ported so far (serving, training and evaluating ``zoo_configs.dcn_criteo``,
 as DCN-v1 and as low-rank DCN-v2; retrieval, ``zoo_configs.mf_bpr_ml100k``,
 MF + BPR trained, ranked over the full catalog and served as top-k; FM over
-multi-field interaction data, ``fm_ctr_ml1m``; and NeuMF with the
-sampled-candidate eval, ``neumf_ml20m``):
+multi-field interaction data, ``fm_ctr_ml1m``; NeuMF with the
+sampled-candidate eval, ``neumf_ml20m``; and config 5's row-sharded tables
+on N ranks, ``dcn_multihost``):
 
 - ``configs`` (with ``with_overrides``), ``zoo_configs.mf_bpr_ml100k``,
-  ``fm_ctr_ml1m``, ``neumf_ml20m`` and ``dcn_criteo`` (``ZOO``), and
-  ``cli`` (``python -m tfrec_tpu_torch.cli``);
+  ``fm_ctr_ml1m``, ``neumf_ml20m``, ``dcn_criteo`` and ``dcn_multihost``
+  (``ZOO``), and ``cli`` (``python -m tfrec_tpu_torch.cli``; N ranks from
+  the reference's ``JAX_*`` variables);
 - ``data``: ``dataset`` (MovieLens' files or ``synthetic_implicit``, split
   by ratio, leave one out or given train and test files), ``synthetic``,
   ``criteo`` and ``movielens`` (Criteo's TSV and MovieLens' rating and
@@ -41,7 +43,12 @@ sampled-candidate eval, ``neumf_ml20m``):
   ``recommend``), ``train.step.TrainStepBuilder`` (with device negatives,
   the batched duplicate combine and the host's dedup sorts),
   ``train.losses`` (pairwise and pointwise);
-- ``train.trainer.Trainer`` and ``run`` on one device, with ``eval.metrics``
+- ``parallel``: ``mesh`` (process groups: NCCL, gloo, gloo over CUDA
+  tensors for ranks sharing a card; the collectives), ``embedding``
+  (row-sharded tables: the all-to-all lookup and gradient combine) and
+  ``step`` (``ShardedTrainStepBuilder``);
+- ``train.trainer.Trainer`` and ``run`` on one device or on N ranks (CTR
+  data, row-sharded tables), with ``eval.metrics``
   (ranking metrics, ``auc``, ``logloss``), ``eval.retrieval`` (masking,
   top-k, the full-catalog evaluator), ``eval.sampled`` (the
   sampled-candidate evaluator), ``utils.logging.MetricLogger`` and

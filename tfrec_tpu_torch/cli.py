@@ -9,8 +9,12 @@ Criteo TSV; without one, the seeded stand-in), applies dotted
 and evaluates, and prints the last history record as one JSON line. It
 runs on the card unless given ``--device cpu``.
 
-Multi-process start-up (the reference's ``JAX_COORDINATOR``) comes with
-the sharded tables, ROADMAP Queue 1 item 11: it is refused by name.
+Multi-process start-up takes the reference's variables: with
+``JAX_COORDINATOR=host:port`` (rank 0's address), ``JAX_NUM_PROCESSES`` and
+``JAX_PROCESS_ID`` set, each process joins one ``torch.distributed`` group
+(``parallel.mesh.init_distributed``; ``--backend``: NCCL on a card a rank,
+gloo on the CPU, ``gloo`` by name for ranks that share one card) and the
+trainer takes the mesh path. Every rank prints the last record.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ def main(argv=None) -> int:
                         help="dataset path (MovieLens UIRT / Criteo TSV)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="train on the card (default) or on the CPU")
+    parser.add_argument("--backend", default="auto", choices=("auto", "nccl", "gloo"),
+                        help="the process group's backend under JAX_COORDINATOR (auto: NCCL on "
+                             "the card, gloo on the CPU)")
     parser.add_argument("--list_configs", action="store_true")
     parser.add_argument("overrides", nargs="*",
                         help="dotted config overrides, e.g. train.batch_size=4096 model.embed_dim=128")
@@ -67,17 +74,26 @@ def main(argv=None) -> int:
                          f"{NOT_PORTED[args.config]}; options: {sorted(ZOO)}")
     if args.config not in ZOO:
         raise SystemExit(f"unknown config {args.config!r}; options: {sorted(ZOO)}")
-    if os.environ.get("JAX_COORDINATOR"):
-        raise SystemExit("multi-process start-up (JAX_COORDINATOR) is not ported yet: ROADMAP "
-                         "Queue 1 item 11; the port trains in one process")
-
     from tfrec_tpu_torch.configs import with_overrides
     from tfrec_tpu_torch.train.trainer import run
 
     cfg = ZOO[args.config](args.data_path)
     if args.overrides:
         cfg = with_overrides(cfg, parse_overrides(args.overrides))
-    _, history = run(cfg, device=args.device)
+    ranks = os.environ.get("JAX_COORDINATOR")
+    if ranks:
+        import torch.distributed as dist
+
+        from tfrec_tpu_torch.parallel.mesh import init_distributed
+
+        init_distributed(f"tcp://{ranks}", int(os.environ.get("JAX_NUM_PROCESSES", "1")),
+                         int(os.environ.get("JAX_PROCESS_ID", "0")), backend=args.backend,
+                         device=args.device)
+    try:
+        _, history = run(cfg, device=args.device)
+    finally:
+        if ranks:
+            dist.destroy_process_group()
     if history:
         print(json.dumps(history[-1], default=float))
     return 0

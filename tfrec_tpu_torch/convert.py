@@ -44,6 +44,13 @@ under ``P = "dense_opt/"``, or ``"dense_opt/1/"`` with weight decay:
 - SGD: ``P1/.count``.
 
 Every ``.count`` is an int32 scalar holding the port's one update count.
+
+A row-sharded state (``parallel/step.ShardedTrainStepBuilder``) holds on
+each rank its block of every table and of its optimizer state.
+``shard_state`` turns a global (unpadded, logical) train state, the port's
+or one read from JAX by ``train_state_from_jax``, into a rank's padded,
+permuted blocks; ``RowShardedTable.unshard_rows`` (a collective) gives a
+table or a per-row leaf back whole.
 """
 
 from __future__ import annotations
@@ -297,3 +304,35 @@ def train_state_from_flat(flat: Mapping[str, np.ndarray], model, template: Dict[
         "sparse_opt": _sparse_opt(sparse, model),
         "dense_opt": dense_opt,
     }
+
+
+# ---- row-sharded states ----
+
+
+def shard_state(state: Dict[str, Any], mesh, plans) -> Dict[str, Any]:
+    """A global logical train state -> this rank's (``mesh.rank``) state on
+    ``mesh.device``: each row-sharded table (``plans[name]`` a
+    ``RowShardedTable``; None replicates) and its per-row optimizer state
+    padded with zero rows, permuted and cut to the rank's block; the rest
+    copied."""
+    device = mesh.device
+
+    def move(tree):
+        if isinstance(tree, dict):
+            return {k: move(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(move(v) for v in tree)
+        return tree.to(device, copy=True) if isinstance(tree, torch.Tensor) else tree
+
+    tables, sparse = {}, {}
+    for name, table in state["tables"].items():
+        plan = plans.get(name)
+        if plan is None:
+            tables[name], sparse[name] = move(table), move(state["sparse_opt"][name])
+            continue
+        per_row = table.shape[0]
+        tables[name] = plan.shard_rows(table.to(device))
+        sparse[name] = {k: (plan.shard_rows(v.to(device)) if v.dim() and v.shape[0] == per_row else move(v))
+                        for k, v in state["sparse_opt"][name].items()}
+    return {"step": move(state["step"]), "tables": tables, "dense": move(state["dense"]),
+            "sparse_opt": sparse, "dense_opt": move(state["dense_opt"])}

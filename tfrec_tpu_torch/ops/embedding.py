@@ -10,7 +10,9 @@ share an id before a sparse update. ``run_first_index`` and
 tie spans of ``eval.metrics.auc``). ``combine_duplicate_ids`` takes a
 stable argsort computed on the host (``order``, train.host_dedup), and
 ``combine_duplicate_ids_grouped`` combines many same-shaped tables in one
-batched sort, bit for bit the per-table combine.
+batched sort, bit for bit the per-table combine. ``dedup_ids_sorted``
+(unique ids with the inverse and the stable order) serves the row-sharded
+exchange (``parallel/embedding.py``).
 """
 
 from __future__ import annotations
@@ -24,15 +26,15 @@ from tfrec_tpu_torch.kernels.gather_cuda import gather_rows, gather_rows_multi
 
 
 def run_first_index(x: torch.Tensor) -> torch.Tensor:
-    """``searchsorted(x, x, side="left")`` for a 1-D tensor whose equal
-    values are contiguous (a sorted one, say): the first index of each
-    element's run, int32, as an O(n) ``cummax``. A run of a value elsewhere
-    indexes its own run, as in the reference."""
-    n = x.shape[0]
-    is_start = torch.ones(n, dtype=torch.bool, device=x.device)
-    is_start[1:] = x[1:] != x[:-1]
+    """``searchsorted(x, x, side="left")`` along the last axis of a tensor
+    whose equal values are contiguous (a sorted one, say): the first index
+    of each element's run, int32, as an O(n) ``cummax``. A run of a value
+    elsewhere indexes its own run, as in the reference."""
+    n = x.shape[-1]
+    is_start = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    is_start[..., 1:] = x[..., 1:] != x[..., :-1]
     idx = torch.arange(n, device=x.device)
-    return torch.cummax(torch.where(is_start, idx, 0), 0).values.to(torch.int32)
+    return torch.cummax(torch.where(is_start, idx, 0), -1).values.to(torch.int32)
 
 
 def run_last_index_plus1(x: torch.Tensor) -> torch.Tensor:
@@ -184,3 +186,29 @@ def combine_duplicate_ids_grouped(
     combined = _segment_sums(flat_seg, sg.reshape(f * n, -1)).reshape(f, n, -1)
     uids = sent.expand(f, n).clone().scatter_(1, seg, sids)
     return uids, combined
+
+
+def fill_like(x: torch.Tensor, value) -> torch.Tensor:
+    """A new tensor of ``x``'s shape and dtype holding ``value``: a number,
+    or a tensor broadcast to it (one value a row of a batch of tables)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(x.dtype).expand(x.shape).clone()
+    return torch.full_like(x, value)
+
+
+def dedup_ids_sorted(ids: torch.Tensor, sentinel):
+    """Unique ids with the inverse and the stable order, at static shapes,
+    along the last axis: ids [..., N] -> (uids [..., N], inv [..., N]
+    int64, order [..., N]) with ``uids[inv] == ids``; slot j < the number
+    of distinct values holds the j-th smallest, the other slots
+    ``sentinel`` (a number, or one a row as an [F, 1] tensor). Negative ids
+    are values like any other (they sort first), as in the reference's
+    ``dedup_ids``; the exchange counts them. ``order`` is the stable
+    argsort of ``ids``: ``inv[order]`` ascends, and each run of it lists an
+    id's positions in batch order (the order in which its gradient rows
+    are summed)."""
+    sids, order = torch.sort(ids, dim=-1, stable=True)
+    seg = torch.cumsum(_run_starts(sids), dim=-1) - 1
+    uids = fill_like(ids, sentinel).scatter_(-1, seg, sids)
+    inv = torch.empty_like(seg).scatter_(-1, order, seg)
+    return uids, inv, order

@@ -429,23 +429,33 @@ class TrainStepBuilder:
         the step's own."""
         if generator is None:
             generator = self._generator(state["step"])
-        model = self.model
-        ids = model.lookup_ids(batch)
+        ids = self.model.lookup_ids(batch)
         gathered, _ = self.lookup(state["tables"], ids)
+        return (*self.grads_at(state, batch, gathered, generator), ids)
+
+    def grads_at(self, state: State, batch, gathered, generator):
+        """(loss, dense grads, gathered-row grads per table) of ``batch`` at
+        its gathered rows."""
         dense = tree_map(lambda p: p.detach().requires_grad_(), state["dense"])
         gathered = {k: v.requires_grad_() for k, v in gathered.items()}
         dense_leaves = tree_leaves(dense)
         names = list(gathered)
         with torch.enable_grad():
-            logits = model(dense, gathered, batch, generator=generator)
-            loss = self.loss_fn(logits, batch)
-            if self.l2_reg > 0:
-                reg = sum((v * v).sum() for v in gathered.values())
-                reg = reg + sum((p * p).sum() for p in dense_leaves)
-                loss = loss + self.l2_reg * reg / logits.shape[0]
+            logits = self.model(dense, gathered, batch, generator=generator)
+            loss = self.objective(logits, batch, gathered, dense_leaves)
             grads = torch.autograd.grad(loss, dense_leaves + [gathered[n] for n in names])
         dense_grad = _unflatten(state["dense"], grads[: len(dense_leaves)])
-        return loss.detach(), dense_grad, dict(zip(names, grads[len(dense_leaves):])), ids
+        return loss.detach(), dense_grad, dict(zip(names, grads[len(dense_leaves):]))
+
+    def objective(self, logits, batch, gathered, dense_leaves) -> torch.Tensor:
+        """The loss, plus ``l2_reg`` times the squares of the gathered rows
+        and dense params over the batch size."""
+        loss = self.loss_fn(logits, batch)
+        if self.l2_reg > 0:
+            reg = sum((v * v).sum() for v in gathered.values())
+            reg = reg + sum((p * p).sum() for p in dense_leaves)
+            loss = loss + self.l2_reg * reg / logits.shape[0]
+        return loss
 
     def step(self, state: State, batch: Dict[str, torch.Tensor]) -> Tuple[State, Dict]:
         """One step on a batch of tensors on this device (CTR {"dense",

@@ -48,8 +48,28 @@ kernels' plain versions); without CUDA the default raises. What the port
 does not take yet it refuses by naming the ROADMAP Queue 1 item, never
 passing it over: models other than mf, fm, gmf, mlp, neumf, dcn and dcnv2,
 user histories, sequences and the social graph (item 12), step profiles
-(item 10), a mesh (item 11) and
-``train.matmul_precision`` other than "default" (item 5).
+(item 10), column-sharded, FSDP and lane-packed sharded tables and the
+sharded retrieval evals (item 11), and ``train.matmul_precision`` other
+than "default" (item 5).
+
+On N ranks (a ``torch.distributed`` process group, ``parallel.mesh.
+init_distributed``; the CLI starts one from the reference's ``JAX_*``
+variables), the reference's rule picks the mesh path: ``mesh.data_axis_size
+!= 0`` and a world size above 1 (or a table axis above 1, refused);
+``mesh.data_axis_size=0`` on more than one rank is refused. Then
+the step is ``parallel.step.ShardedTrainStepBuilder`` (row-sharded tables,
+replicated dense params), each rank samples its B / N rows of every global
+batch with the seed ``seed * N + rank`` (a stream takes its round-robin
+stripe) and an epoch is the sampler's batches over N; the step's loss and
+overflow are global, and an epoch that dropped ids over capacity logs a
+``lookup_overflow`` event with its drop rate. CTR data only: the eval
+forwards each rank's contiguous block of every held-out batch through the
+exchange and all-gathers the logits, so AUC and logloss are the same on
+every rank (``eval_lookup_overflow`` where the eval dropped ids). Rank 0
+alone writes the metric stream; every rank writes its blocks of a
+checkpoint, and a checkpoint of any world size (the port's or JAX's)
+resumes at any other through the global state (``convert.shard_state``),
+under the reference's row-permute guards.
 
 ``train.host_dedup`` sorts each train batch's ids on the host, in the
 prefetch worker, for the step's duplicate combine (``host_dedup_sorts``).
@@ -85,6 +105,7 @@ from tfrec_tpu_torch.eval.metrics import logloss as logloss_metric
 from tfrec_tpu_torch.eval.retrieval import RetrievalEvaluator
 from tfrec_tpu_torch.eval.sampled import SampledEvaluator
 from tfrec_tpu_torch.models import BUILT, NOT_PORTED, DataSpec, build_model
+from tfrec_tpu_torch.parallel.mesh import make_mesh, world_size
 from tfrec_tpu_torch.train.losses import IN_BATCH_LOSSES, MULTI_NEG_LOSSES, PAIRWISE_LOSSES
 from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, host_dedup_sorts
 from tfrec_tpu_torch.utils import checkpoint
@@ -129,15 +150,10 @@ def _refuse_unported(c: Config) -> None:
         raise NotImplementedError(
             f"train.matmul_precision={t.matmul_precision!r} is not ported yet: ROADMAP Queue 1 "
             "item 5; the port runs f32 matmuls with TF32 off")
-    if c.mesh.data_axis_size > 1 or c.mesh.table_axis_size > 1:
+    if c.mesh.table_axis_size > 1:
         raise NotImplementedError(
-            f"a mesh (mesh.data_axis_size={c.mesh.data_axis_size}, "
-            f"table_axis_size={c.mesh.table_axis_size}) is not ported yet: ROADMAP Queue 1 "
-            "item 11; the port trains on one device")
-    if c.mesh.row_permute:
-        raise ValueError(
-            "mesh.row_permute requires the sharded (mesh) path; the port trains on one "
-            "device: drop the flag")
+            f"a table axis of {c.mesh.table_axis_size} (column-sharded tables) is not ported "
+            "yet: ROADMAP Queue 1 item 11; the port row-shards over the data axis")
 
 
 class Trainer:
@@ -156,8 +172,33 @@ class Trainer:
                 "pass device='cpu' to train on the CPU")
         _refuse_unported(config)
         self.config = c = config
+        # The reference's rule: the mesh path where the data axis is not
+        # forced off and there is more than one rank.
+        self.mesh = None
+        if world_size() > 1:
+            if c.mesh.data_axis_size == 0:
+                # Every rank would train alone as the lead, each writing the
+                # stream and the checkpoints into one directory.
+                raise ValueError(
+                    f"mesh.data_axis_size=0 (the single-device path) on {world_size()} ranks: "
+                    "start one process for a single-device run, or let the ranks share the "
+                    "data axis (mesh.data_axis_size=-1)")
+            self.mesh = make_mesh(c.mesh.data_axis_size, c.mesh.table_axis_size, device)
+            self.device = self.mesh.device
+            n_data = self.mesh.size
+            if c.train.batch_size % n_data != 0:
+                raise ValueError(
+                    f"train.batch_size={c.train.batch_size} must be divisible by the data mesh "
+                    f"axis ({n_data} ranks); use e.g. {(c.train.batch_size // n_data + 1) * n_data}")
+        elif c.mesh.row_permute:
+            raise ValueError(
+                "mesh.row_permute requires the sharded (mesh) path; this run resolved to the "
+                "single-device builder — drop the flag or run on a mesh")
+        self.rank, self.num_ranks = (self.mesh.rank, self.mesh.size) if self.mesh else (0, 1)
+        lead = self.rank == 0  # the rank that writes the metric stream
         self.logger = MetricLogger(
-            c.run_name, out_dir=c.train.checkpoint_dir if log_metrics else None, quiet=quiet)
+            c.run_name, out_dir=c.train.checkpoint_dir if log_metrics and lead else None,
+            quiet=quiet or not lead)
         # The full run config as the stream's first record.
         self.logger.log({"event": "run_config", "config": dataclasses.asdict(c)})
 
@@ -165,6 +206,11 @@ class Trainer:
         self.is_ctr_model = c.model.name.lower() in CTR_MODELS
         self.dataset = self.ctr_arrays = self.stream = None
         self.user_side = self.item_side = None
+        if self.mesh is not None and c.data.source not in CTR_SOURCES:
+            raise NotImplementedError(
+                f"data.source={c.data.source!r} on a mesh (the sharded retrieval, sampled and "
+                "sampled-AUC evals, ShardedRetrievalEvaluator) is not ported yet: ROADMAP Queue 1 "
+                "item 11; the mesh path trains CTR data (synthetic_ctr, criteo)")
         if c.data.source in INTERACTION_SOURCES:
             self.dataset = build_dataset(c.data)
             nu, ni = self.dataset.num_users, self.dataset.num_items
@@ -178,13 +224,14 @@ class Trainer:
                 raise ValueError(
                     f"model {c.model.name!r} needs interaction data, got {c.data.source!r}")
             if c.data.source == "criteo" and c.data.streaming:
-                # The file streamed in order past its eval slice (one
-                # process: the whole stream is this process's shard).
+                # The file streamed in order past its eval slice; on N ranks
+                # each streams its round-robin stripe of B / N batches.
                 vocabs = _criteo_vocabs(c.data.categorical_vocab_sizes)
                 self.stream = CriteoStreamBatcher(
-                    c.data.path, c.train.batch_size, vocabs,
+                    c.data.path, c.train.batch_size // self.num_ranks, vocabs,
                     eval_examples=c.data.eval_examples,
-                    max_examples=c.data.num_examples or None)
+                    max_examples=c.data.num_examples or None,
+                    num_shards=self.num_ranks, shard_index=self.rank)
                 test = self.stream.eval_arrays()
                 self.ctr_arrays = {"train": None, "test": test}
                 self.data_spec = DataSpec.ctr(vocabs, num_dense=test[0].shape[1])
@@ -232,10 +279,18 @@ class Trainer:
                              "reason": "CTR models train pointwise"})
             loss = "logloss"
         self.loss_name = loss
-        self.builder = TrainStepBuilder(
-            self.model, loss, c.optim, l2_reg=c.model.l2_reg, seed=c.train.seed,
-            device=self.device, device_negatives=self._use_device_negs(loss),
-            num_items=getattr(self.dataset, "num_items", 0))
+        if self.mesh is not None:
+            from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
+
+            self.builder = ShardedTrainStepBuilder(
+                self.model, loss, c.optim, self.mesh, c.mesh, l2_reg=c.model.l2_reg,
+                seed=c.train.seed, device_negatives=self._use_device_negs(loss),
+                num_items=getattr(self.dataset, "num_items", 0))
+        else:
+            self.builder = TrainStepBuilder(
+                self.model, loss, c.optim, l2_reg=c.model.l2_reg, seed=c.train.seed,
+                device=self.device, device_negatives=self._use_device_negs(loss),
+                num_items=getattr(self.dataset, "num_items", 0))
         self.state = self.builder.init_state(
             torch.Generator(device=self.device).manual_seed(c.train.seed))
         self.start_epoch = 0
@@ -259,26 +314,78 @@ class Trainer:
         self._es_best = None  # early-stopping monitor state
         self._es_stall = 0
         self._retrieval_eval = None  # built at the first eval
+        self._eval_overflow = 0  # the eval exchange's dropped ids (a mesh's)
 
     # ---- checkpoints ----
 
     def checkpoint_state(self) -> Dict[str, np.ndarray]:
         """The train state as the flat keys the JAX package saves for the
-        same model and optimizer (``convert.flat_from_state``)."""
+        same model and optimizer (``convert.flat_from_state``); on a mesh,
+        this rank's blocks."""
         o = self.config.optim
         return convert.flat_from_state(self.state, o.dense_optimizer, o.weight_decay)
+
+    def _row_keys(self) -> Dict[str, object]:
+        """On a mesh, each row-sharded leaf's flat key -> its table's plan."""
+        if self.mesh is None:
+            return {}
+        out = {}
+        for name, plan in self.builder.plans.items():
+            if plan is None:
+                continue
+            out[f"tables/{name}"] = plan
+            for leaf, v in self.state["sparse_opt"][name].items():
+                if v.dim() and v.shape[0] == plan.rows_per_shard:
+                    out[f"sparse_opt/{name}/{leaf}"] = plan
+        return out
+
+    def _block_spans(self, flat: Dict[str, np.ndarray]) -> Dict[str, dict]:
+        """The reference's ``blocks.p<i>.json`` of this rank's ``flat``:
+        a row-sharded leaf its rows of the padded global array, any other
+        leaf whole."""
+        rows = self._row_keys()
+        spans = {}
+        for key, arr in flat.items():
+            plan = rows.get(key)
+            if plan is None:
+                spans[key] = {"axis": None, "global_shape": list(np.shape(arr))}
+                continue
+            spans[key] = {"axis": 0, "spans": [[plan.base, plan.base + plan.rows_per_shard]],
+                          "global_shape": [plan.vocab_padded] + list(arr.shape[1:])}
+        return spans
+
+    def _row_permute_active(self) -> bool:
+        return self.mesh is not None and self.config.mesh.row_permute
+
+    def save(self, epoch: int) -> None:
+        """Checkpoint ``epoch`` of ``train.checkpoint_dir`` (every rank its
+        blocks on a mesh), with the row layout's facts."""
+        c = self.config
+        meta = {"row_permute": self._row_permute_active()}
+        if meta["row_permute"]:
+            meta["row_permute_shards"] = self.mesh.size
+        flat = self.checkpoint_state()
+        if self.mesh is None:
+            checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch, flat, meta=meta)
+        else:
+            checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch, flat, meta=meta,
+                                       mesh=self.mesh, spans=self._block_spans(flat))
 
     def restore(self, ckpt_dir: str, step: int | None = None, params_only: bool = False):
         """The checkpoint at ``step`` (default: the latest) of ``ckpt_dir``,
         saved by the port or by the JAX package on any topology and in any
-        table layout, on this trainer's device: the whole train state, or
-        with ``params_only`` the params ``{"tables", "dense"}``, in this
-        model's layout (the optimizer state only from a checkpoint of the
-        same layout)."""
+        table layout, on this trainer's device (on a mesh, as this rank's
+        blocks): the whole train state, or with ``params_only`` the params
+        ``{"tables", "dense"}``, in this model's layout (the optimizer state
+        only from a checkpoint of the same layout)."""
         keys = set(checkpoint.read_tree(ckpt_dir, step).get("keys", []))
         template = {k: np.shape(v) for k, v in convert.flat_from_state(
             self.state, self.config.optim.dense_optimizer, self.config.optim.weight_decay,
             leaf=lambda t: np.broadcast_to(np.float32(0), t.shape)).items()}
+        permuted = self._row_permute_active()
+        rows = self._row_keys()
+        for key, plan in rows.items():  # the global shapes: padded where permuted
+            template[key] = ((plan.vocab_padded if permuted else plan.vocab),) + template[key][1:]
         if params_only:
             template = {k: v for k, v in template.items() if k.startswith(("tables/", "dense/"))}
         missing = set(template) - keys
@@ -288,11 +395,24 @@ class Trainer:
                 f"{sorted(k for k in missing if not k.startswith(('tables/', 'sparse_opt/')))}")
         if missing:  # another table layout: convert reads it as saved
             template = None
-        flat = checkpoint.restore_checkpoint(ckpt_dir, template, step)
+        flat = checkpoint.restore_checkpoint(
+            ckpt_dir, template, step, expect_row_permute=permuted,
+            expect_row_permute_shards=self.mesh.size if permuted else None)
+        if permuted:  # physical rows -> logical
+            for key, plan in rows.items():
+                if key in flat:
+                    flat[key] = flat[key][plan.perm_rows().numpy()][: plan.vocab]
         if params_only:
             params = convert.params_from_flat(flat, self.model, self.state["dense"])
+            if self.mesh is not None:
+                params["tables"] = {n: (self.builder.plans[n].shard_rows(t)
+                                        if self.builder.plans.get(n) is not None else t)
+                                    for n, t in params["tables"].items()}
             return copy_state(params, self.device)
-        return copy_state(convert.train_state_from_flat(flat, self.model, self.state), self.device)
+        state = convert.train_state_from_flat(flat, self.model, self.state)
+        if self.mesh is not None:
+            return convert.shard_state(state, self.mesh, self.builder.plans)
+        return copy_state(state, self.device)
 
     def _warm_start(self, ckpt_dir: str) -> None:
         """Copy matching embedding tables from another run's checkpoint
@@ -310,7 +430,8 @@ class Trainer:
         src_tables = checkpoint.load_table_arrays(ckpt_dir)
         aliases = self.model.warm_start_aliases()
         copied, skipped = [], []
-        tables = dict(self.state["tables"])
+        # The logical tables (on a mesh, gathered from every rank).
+        tables = dict(self.builder.unpadded_tables(self.state) if self.mesh else self.state["tables"])
         for name, tbl in tables.items():
             s_name = aliases.get(name, name)
             if s_name not in src_tables:
@@ -328,6 +449,9 @@ class Trainer:
                 copied.append([name, f"first {rows} of {arr.shape[0]} source rows"])
             else:
                 copied.append(name)
+        if self.mesh is not None:
+            tables = {n: (self.builder.plans[n].shard_rows(t) if self.builder.plans.get(n) is not None
+                          else t) for n, t in tables.items()}
         self.state = {**self.state, "tables": tables}
         self.logger.log({"event": "warm_start", "from": ckpt_dir,
                          "copied": sorted(copied, key=str), "skipped": skipped})
@@ -390,7 +514,9 @@ class Trainer:
         negatives), else PointwiseSampler; uniform or popularity^beta
         negatives, with the reference's refusals."""
         c = self.config
-        bs, seed = c.train.batch_size, c.train.seed
+        # On N ranks each samples its B / N rows with its own seed.
+        bs = c.train.batch_size // self.num_ranks
+        seed = c.train.seed * self.num_ranks + self.rank
         if self.ctr_arrays is not None:
             if c.train.neg_sampling != "uniform":
                 raise ValueError(
@@ -427,7 +553,9 @@ class Trainer:
 
     @property
     def _host_dedup_on(self) -> bool:
-        return self.config.train.host_dedup and self.is_ctr_model
+        # Host sorts of a rank's local ids mean nothing after the exchange:
+        # off on a mesh, as in the reference.
+        return self.config.train.host_dedup and self.is_ctr_model and self.mesh is None
 
     def _host_batch(self, batch: Dict[str, np.ndarray], train: bool = True) -> Dict[str, np.ndarray]:
         """The model's host batch: for a CTR model over interaction data a
@@ -462,6 +590,11 @@ class Trainer:
 
     @property
     def params(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the params of a live sharded state (serving from a mesh) are not ported yet: "
+                "ROADMAP Queue 1 item 11; save a checkpoint and serve it with "
+                "Recommender.from_checkpoint")
         return {"tables": self.state["tables"], "dense": self.state["dense"]}
 
     # ---- evaluation ----
@@ -518,8 +651,11 @@ class Trainer:
 
     def _forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The eval forward (the reference's ``_forward_fn``): the builder's
-        lookup seam, then the model, without dropout; logits [B]."""
-        gathered, _ = self.builder.lookup(self.state["tables"], self.model.lookup_ids(batch))
+        lookup seam (on a mesh the exchange, its overflow added to
+        ``_eval_overflow``), then the model, without dropout; logits [B]."""
+        gathered, aux = self.builder.lookup(self.state["tables"], self.model.lookup_ids(batch))
+        if "lookup_overflow" in aux:
+            self._eval_overflow += aux["lookup_overflow"]
         return self.model.forward(self.state["dense"], gathered, batch)
 
     def _eval_ctr(self, dense, cat, label) -> Dict[str, float]:
@@ -534,8 +670,14 @@ class Trainer:
                 "holdout_rows": len(label),
                 "knob": "train.eval_ctr_max_rows",
             })
-        bs = min(EVAL_BATCH, n)
+        # On a mesh a batch splits evenly over the ranks: each forwards its
+        # contiguous rows through the exchange, and the logits are gathered.
+        mult = self.num_ranks
+        bs = -(-min(EVAL_BATCH, -(-n // mult) * mult) // mult) * mult
+        rows = bs // mult
+        lo = self.rank * rows
         logits_out = []
+        self._eval_overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         with torch.no_grad():
             for s in range(0, n, bs):
                 take = min(bs, n - s)
@@ -546,14 +688,21 @@ class Trainer:
                     la = np.zeros(bs, label.dtype)
                 else:
                     d, ca, la = dense[s : s + bs], cat[s : s + bs], label[s : s + bs]
-                batch = self._to_device_batch({"dense": d, "cat": ca, "label": la})
-                logits_out.append(self._forward(batch)[:take])
+                batch = self._to_device_batch({"dense": d[lo:lo + rows], "cat": ca[lo:lo + rows],
+                                               "label": la[lo:lo + rows]})
+                logits = self._forward(batch)
+                if self.mesh is not None:
+                    logits = self.mesh.all_gather(logits)
+                logits_out.append(logits[:take])
             logits = torch.cat(logits_out)
             labels = torch.from_numpy(label[:n]).to(self.device)
             out = {"auc": float(auc_metric(logits, labels)),
                    "logloss": float(logloss_metric(logits, labels))}
         if n < len(label):
             out["eval_rows"] = float(n)  # truncated: see the eval_truncated event
+        overflow = int(self._eval_overflow)
+        if overflow:  # the exchange dropped eval ids over capacity: loud, never silent
+            out["eval_lookup_overflow"] = float(overflow)
         return out
 
     # ---- the epoch loop ----
@@ -574,8 +723,7 @@ class Trainer:
         history.append(rec)
         if (c.train.checkpoint_dir and c.train.checkpoint_every_epochs
                 and (epoch + 1) % c.train.checkpoint_every_epochs == 0):
-            checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch + 1, self.checkpoint_state(),
-                                       meta={"row_permute": False})
+            self.save(epoch + 1)
         if not (c.train.early_stop_patience > 0 and evaluated):
             return False
         name, value, sign = self._early_stop_monitor(rec)
@@ -603,6 +751,19 @@ class Trainer:
             })
             return True
         return False
+
+    def _log_overflow(self, epoch: int, dropped: int, n_examples: int) -> None:
+        """An epoch that dropped ids over the exchange's capacity says so in
+        the stream: the count and its rate over the ids the epoch looked up
+        in its row-sharded tables."""
+        if not dropped:
+            return
+        dense, cat, label = self.ctr_arrays["test"]
+        one = self._to_device_batch({"dense": dense[:1], "cat": cat[:1], "label": label[:1]})
+        per_example = sum(v.numel() for k, v in self.model.lookup_ids(one).items()
+                          if self.builder.plans.get(k) is not None)
+        self.logger.log({"event": "lookup_overflow", "epoch": epoch, "dropped_ids": dropped,
+                         "drop_rate": dropped / max(per_example * n_examples, 1)})
 
     def _early_stop_monitor(self, rec: Dict[str, float]):
         """(name, value, sign) of the monitored metric in this eval record;
@@ -632,6 +793,12 @@ class Trainer:
                 "supply more data (a silent 0-step epoch would report nan loss)"
             )
         steps_cap = c.train.steps_per_epoch
+        if steps_cap <= 0 and self.num_ranks > 1:
+            # Each rank samples local batches over the whole train set: an
+            # epoch is its batches over N, one pass over the data in all.
+            total = self.sampler.num_batches()
+            if total > 0:
+                steps_cap = max(total // self.num_ranks, 1)
         k_steps = max(c.train.steps_per_dispatch, 1)
         step = self.builder.multi_step if k_steps > 1 else self.builder.step
         for epoch in range(self.start_epoch, c.train.epochs):
@@ -662,10 +829,13 @@ class Trainer:
                 })
                 cap_dispatch = 1
             metrics = None
+            dropped = 0  # ids over the exchange's capacity, summed on the device
             for i, dev_batch in enumerate(batch_stream):
                 if cap_dispatch > 0 and i >= cap_dispatch:
                     break
                 self.state, metrics = step(self.state, dev_batch)
+                if "lookup_overflow" in metrics:
+                    dropped = dropped + metrics["lookup_overflow"]
                 prev_step = self.global_step
                 self.global_step += k_steps
                 n_examples += c.train.batch_size * k_steps
@@ -693,6 +863,7 @@ class Trainer:
                 "loss": last_loss,
                 "examples_per_s": n_examples / max(dt, 1e-9),
             }
+            self._log_overflow(epoch, int(dropped), n_examples)
             if self._post_epoch(epoch, rec, history):
                 break
         return history

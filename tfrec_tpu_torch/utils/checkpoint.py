@@ -10,14 +10,22 @@ mapping; the keys are JAX's pytree path strings (``"tables/field_0"``,
 ``"dense/mlp/0/0"``, ``"dense_opt/0/.mu/w_out"``), and ``convert`` maps the
 port's train state to them and back.
 
-The port saves from one process on one device, so every leaf is whole
-(``blocks.p0.json`` is empty). It restores what the JAX package saved on
-any topology: where the saving process or device count differs, each leaf
-is reassembled from every process's blocks by their recorded spans, and
-pad rows on axis 0 (the mesh path pads vocabularies to a multiple of the
+On one device every leaf is whole (``blocks.p0.json`` is empty). On N
+ranks (``parallel/``, one device a rank) each rank writes its ``.p<rank>``
+blocks and their spans, the reference's multi-process layout: a row-sharded
+leaf as its rows [rank * rps, (rank + 1) * rps) of the padded global array,
+a replicated leaf whole with ``{"axis": null}``; rank 0 writes
+``tree.json`` (``process_count`` and ``device_count`` N), and barriers
+order the temporary directory's clean-up, the writes and rank 0's publish.
+A checkpoint is restored from any topology, the port's or the JAX
+package's: where the saving process or device count differs, each leaf is
+reassembled from every process's blocks by their recorded spans, and pad
+rows on axis 0 (the mesh path pads vocabularies to a multiple of the
 device count; pad rows are zeros) are dropped or added to fit the
-template. Row-permuted checkpoints (``mesh.row_permute``) are refused: the
-permutation is a function of the saving mesh.
+template. A row-permuted checkpoint (``mesh.row_permute``: the physical
+row order is a function of the saving mesh's data axis) is read only by a
+run that expects it over the same number of shards, as in the reference
+(``expect_row_permute``, ``expect_row_permute_shards``).
 
 The reference's orbax backend (``save_checkpoint_orbax``) is a JAX library
 with no PyTorch counterpart and is not ported.
@@ -47,29 +55,44 @@ def step_dir(ckpt_dir: str, step: int) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, flat: Mapping[str, np.ndarray], keep: int = 3,
-                    meta: dict | None = None) -> str:
+                    meta: dict | None = None, mesh=None, spans: Mapping[str, dict] | None = None
+                    ) -> str:
     """Write ``flat`` as checkpoint ``step`` and return its directory. The
     files go to ``step_<N>.tmp`` first (a stale one from a crashed save is
     removed), which then replaces any checkpoint of the same step; the
-    newest ``keep`` checkpoints stay (all with ``keep <= 0``)."""
+    newest ``keep`` checkpoints stay (all with ``keep <= 0``).
+
+    On a ``mesh`` (``parallel.mesh.Mesh``) every rank calls this with its
+    own ``flat`` blocks and their ``spans`` (``{key: {"axis", "spans",
+    "global_shape"}}``, the reference's ``blocks.p<i>.json``); rank 0 alone
+    cleans, writes ``tree.json``, publishes and prunes, between barriers."""
     out = step_dir(ckpt_dir, step)
     tmp = out + ".tmp"
-    if os.path.exists(tmp):
+    proc, count = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    if proc == 0 and os.path.exists(tmp):
         shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if mesh is not None:
+        mesh.barrier()  # no rank writes into a stale tmp
+    os.makedirs(tmp, exist_ok=True)
     for key, arr in flat.items():
-        np.save(os.path.join(tmp, f"{leaf_file(key)}.p0.npy"), np.asarray(arr))
-    with open(os.path.join(tmp, "blocks.p0.json"), "w") as f:
-        json.dump({}, f)
-    with open(os.path.join(tmp, "tree.json"), "w") as f:
-        json.dump({"step": step, "keys": sorted(flat), "process_count": 1, "device_count": 1,
-                   **(meta or {})}, f)
-    if os.path.exists(out):
-        shutil.rmtree(out)
-    os.replace(tmp, out)
-    if keep > 0:
-        for old in _steps(ckpt_dir)[:-keep]:
-            shutil.rmtree(step_dir(ckpt_dir, old), ignore_errors=True)
+        np.save(os.path.join(tmp, f"{leaf_file(key)}.p{proc}.npy"), np.asarray(arr))
+    with open(os.path.join(tmp, f"blocks.p{proc}.json"), "w") as f:
+        json.dump(dict(spans or {}), f)
+    if proc == 0:
+        with open(os.path.join(tmp, "tree.json"), "w") as f:
+            json.dump({"step": step, "keys": sorted(flat), "process_count": count,
+                       "device_count": count, **(meta or {})}, f)
+    if mesh is not None:
+        mesh.barrier()  # every rank's blocks are in tmp
+    if proc == 0:
+        if os.path.exists(out):
+            shutil.rmtree(out)
+        os.replace(tmp, out)
+        if keep > 0:
+            for old in _steps(ckpt_dir)[:-keep]:
+                shutil.rmtree(step_dir(ckpt_dir, old), ignore_errors=True)
+    if mesh is not None:
+        mesh.barrier()  # published before any rank goes on
     return out
 
 
@@ -182,9 +205,30 @@ def _assemble_global(src: str, key: str, fname: str, blocks_meta: Dict[int, dict
     return out
 
 
+def _check_row_permute(src: str, tree: dict, expect: bool, shards: int | None) -> None:
+    """The reference's guards: a row-permuted checkpoint is read only by a
+    run in the same permuted layout, over the same number of data shards."""
+    saved = bool(tree.get("row_permute", False))
+    if saved != expect:
+        raise ValueError(
+            f"checkpoint {src!r} was saved with row_permute={saved} but this run has "
+            f"mesh.row_permute={expect}; the physical row layouts differ — restore with the "
+            "matching config (a permuted checkpoint: on its mesh; or export/de-permute it first)")
+    if not saved:
+        return
+    saved_shards = tree.get("row_permute_shards", tree.get("device_count"))
+    if saved_shards is not None and shards is not None and saved_shards != shards:
+        raise ValueError(
+            f"checkpoint {src!r} was saved with row_permute=True over {saved_shards} data-axis "
+            f"shards; this mesh has {shards} — the row layouts differ, restore at the saved "
+            "shard count (or export/de-permute first)")
+
+
 def restore_checkpoint(ckpt_dir: str, template: Mapping[str, Sequence[int]] | None = None,
-                       step: int | None = None) -> Dict[str, np.ndarray]:
-    """The checkpoint at ``step`` (default: the latest) as ``{key: array}``.
+                       step: int | None = None, expect_row_permute: bool = False,
+                       expect_row_permute_shards: int | None = None) -> Dict[str, np.ndarray]:
+    """The checkpoint at ``step`` (default: the latest) as ``{key: array}``
+    in the saved (physical) row order.
 
     ``template`` maps the keys to restore to their shapes (every key the
     checkpoint lists without one). A checkpoint saved by one process on
@@ -192,18 +236,16 @@ def restore_checkpoint(ckpt_dir: str, template: Mapping[str, Sequence[int]] | No
     one saved on another topology is reassembled from its blocks, each leaf
     fitted to its template shape on axis 0. Raises FileNotFoundError where
     there is no checkpoint or a leaf's file is missing, and ValueError for
-    a row-permuted one or a leaf of another shape."""
+    a leaf of another shape, or a row-permuted checkpoint unless
+    ``expect_row_permute`` over ``expect_row_permute_shards`` shards (and a
+    permuted run's expectation of a plain one)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     src = step_dir(ckpt_dir, step)
     tree = read_tree(ckpt_dir, step)
-    if tree.get("row_permute", False):
-        raise ValueError(
-            f"checkpoint {src!r} was saved with mesh.row_permute=True: its rows are in the "
-            "saving mesh's physical order, and the port restores on one device; export or "
-            "de-permute it first (resume it on its mesh and save with row_permute off)")
+    _check_row_permute(src, tree, expect_row_permute, expect_row_permute_shards)
     keys = list(template) if template is not None else tree.get("keys", [])
     saved_procs, saved_devs = tree.get("process_count"), tree.get("device_count")
     same_topology = saved_procs is None or (saved_procs == 1 and saved_devs in (None, 1))

@@ -1,6 +1,7 @@
 """Milestone configs ported so far: ``mf_bpr_ml100k`` (config 1),
-``fm_ctr_ml1m`` (config 2), ``neumf_ml20m`` (config 3) and ``dcn_criteo``
-(config 4).
+``fm_ctr_ml1m`` (config 2), ``neumf_ml20m`` (config 3), ``dcn_criteo``
+(config 4) and ``dcn_multihost`` (config 5, row-sharded tables on N
+ranks).
 
 Copies of ``tfrec_tpu.zoo_configs``' constructors; a test holds each equal
 to its original.
@@ -135,17 +136,29 @@ def dcn_criteo(path: str | None = None, max_examples: int = 2_000_000) -> Config
     )
 
 
+def dcn_multihost(path: str | None = None) -> Config:
+    """Config 5: config 4's DCN with row-sharded tables exchanged all to all
+    on N ranks (``mesh.table_sharding="row"``, the bf16 wire, capacity
+    factor 2, route reuse; per-field tables). On one rank it is config 4 on
+    one device, as in the reference."""
+    cfg = dcn_criteo(path)
+    return cfg.replace(
+        run_name="dcn_multihost",
+        mesh=MeshConfig(table_sharding="row", a2a_capacity_factor=2.0),
+    )
+
+
 # The zoo configs the port builds, by name (the CLI's --config).
 ZOO = {
     "mf_bpr_ml100k": mf_bpr_ml100k,
     "fm_ctr_ml1m": fm_ctr_ml1m,
     "neumf_ml20m": neumf_ml20m,
     "dcn_criteo": dcn_criteo,
+    "dcn_multihost": dcn_multihost,
 }
 # The reference's other zoo configs, by the ROADMAP Queue 1 item that ports
-# them: the sharded multi-host DCN (item 11) and the long tail (item 12).
+# them: the long tail (item 12).
 NOT_PORTED = {
-    "dcn_multihost": 11,
     **{name: 12 for name in ("fism_ml100k", "multvae_ml100k", "nais_ml100k", "cdae_ml100k",
                              "sasrec_ml1m", "gru4rec_ml1m", "caser_ml1m", "sbpr_ml100k",
                              "apr_ml100k", "irgan_ml100k", "wrmf_ml100k", "ease_ml100k")},
