@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-5, data files, checkpoints and the CLI, and every table layout and duplicate combine of the step, on one NVIDIA GPU.
+"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-5 (config 5's row- and column-sharded tables and retrieval on a mesh), data files, checkpoints and the CLI, and every table layout and duplicate combine of the step, on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
@@ -182,6 +182,28 @@ non-zero if any phase fails:
     figure. (L3) ``Recommender.from_checkpoint`` serves the ranks' last
     checkpoint on one card: ``predict_ctr`` bit for bit the restored
     single-device forward, its AUC within 1e-3 of the ranks' last eval.
+29. (M) config 5's column-sharded tables and retrieval on a mesh, ranks
+    sharing the card over gloo (``chip_smoke.py --mesh-rank``, a process
+    each, started and stopped by the phase): (M1) ``dcn_multihost`` at
+    Criteo's shape with ``table_sharding="col"`` on a (1, 2) mesh (26
+    blocks [100000, 16] a rank), 8 steps of 8192 Zipf(1.2) ids from the
+    single-device init: each col step taken from the single-device run's
+    state within the tolerance of L1 of the single-device step (tables,
+    accumulators, dense leaves, loss), the free run's losses within it
+    (its tables and dense leaves reported), one gather launch a step a
+    rank for the 26 column blocks, both v1 kernels, no Adagrad kernel (the
+    reference's XLA route), no id dropped; host median, busy share and
+    collectives a step. (M2) ``trainer.run(mf_bpr_ml100k())`` whole on a
+    (2, 1) mesh, its eval through ``ShardedRetrievalEvaluator``: config
+    1's band, the owner's gather and Adagrad launch a step and a user
+    gather an eval batch on each rank; ``Recommender.from_trainer`` on the
+    live state equal to one card's ``recommend``. (M3) ``recommend`` of
+    1024 users, k=100, over 1M items at d=64 (build_topk_bench's shape) on
+    a (2, 1) mesh from the live sharded state: ids equal to the single
+    card's where untied, values within 1e-5; both latencies and each
+    rank's ``torch.topk`` of [1024, 500000]. (M4) MF under col sharding on
+    a (2, 2) mesh of 4 ranks, 2 epochs: its checkpoint served on one card
+    by ``from_checkpoint`` gives the live mesh's top-k.
 
 No earlier path is cut in depth for time (PERF.md gives a whole run's
 time on an H100). The last lines are the kernels' JSON record (the v2
@@ -201,7 +223,9 @@ grouped`` is the Adagrad kernel on lane-grouped tables, its launches the
 Adagrad launches of phase K's packed paths; phase L adds ``train_sharded``
 (L1's counted run) and ``trainer_sharded`` (L2, both ranks' launches
 summed) to ``launches_by_path``, and its shapes to the gather and Adagrad
-records as ``sharded``) and ``{"ok": true, ...}``.
+records as ``sharded``; phase M adds ``train_col`` (M1), ``trainer_mesh_mf``
+(M2), ``serve_mesh_mf`` (M3's first call) and ``trainer_col_mf`` (M4),
+every rank's launches summed) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -223,7 +247,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tfrec_tpu_torch import zoo_configs
+from tfrec_tpu_torch import convert, zoo_configs
 from tfrec_tpu_torch.data import criteo as criteo_data
 from tfrec_tpu_torch.data import criteo_native, movielens
 from tfrec_tpu_torch.data.synthetic import _zipf_ids, synthetic_ctr, synthetic_implicit
@@ -380,6 +404,13 @@ SHARDED_CALLS_A_STEP = 5
 SHARDED_RANKS = 2
 SHARDED_RANK_TIMEOUT_S = 480
 SHARDED_SERVE_AUC_ATOL = 1e-3
+# Phase M, config 5's column-sharded tables and retrieval on a mesh: the col
+# step against the single-device step at phase L1's tolerance; top-k ids
+# equal where untied and values within 1e-5 relative (the products of a
+# block and of the whole table may round apart); each spawn of ranks within
+# its time limit.
+MESH_VALUE_RTOL = 1e-5
+MESH_RANK_TIMEOUT_S = 420
 
 # The kernels of the main paths. The gather and Adagrad kernels run there
 # as one launch over every table (the ``_multi`` wrappers); their one-table
@@ -3260,6 +3291,361 @@ def phase_sharded_serve(card: str, paths: dict, sharded: dict) -> None:
     print(f"phase L3 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase M: config 5's column-sharded tables and retrieval on a mesh ----
+
+def mesh_ranks(world: int, work: Path, timeout_s: float) -> list:
+    """Start ``world`` ranks of this script (``--mesh-rank R WORLD PORT
+    DIR``) sharing the card over gloo, wait for them within ``timeout_s``
+    (killing them past it), print rank 0's output and the others' last
+    lines, and return each rank's ``DIR/rank<R>.json``."""
+    work.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(rank), str(world),
+                               str(port), str(work)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(world)]
+    deadline = time.monotonic() + timeout_s
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        lines = out.strip().splitlines()
+        print(f"mesh ranks ({world}): rank {rank} exit {p.returncode}; its output{'' if rank == 0 else chr(39) + 's last lines'}:\n  "
+              + "\n  ".join(lines if rank == 0 else lines[-4:]))
+    check(len(outs) == world and all(p.returncode == 0 for p in procs), f"all {world} mesh ranks ran to their end")
+    return [json.loads((work / f"rank{rank}.json").read_text()) for rank in range(world)]
+
+
+def untied_equal(ids: np.ndarray, vals: np.ndarray, want_ids: np.ndarray, want_vals: np.ndarray,
+                 rtol: float) -> tuple[bool, int]:
+    """(values within ``rtol`` and ids equal wherever a wanted value is
+    not within ``rtol`` of a neighbour, the count of such near-ties)."""
+    if ids.shape != want_ids.shape or not np.allclose(vals, want_vals, rtol=rtol, atol=0.0):
+        return False, 0
+    near = np.abs(np.diff(want_vals, axis=1)) <= rtol * np.abs(want_vals[:, 1:])
+    tied = np.zeros(want_vals.shape, bool)
+    tied[:, 1:] |= near
+    tied[:, :-1] |= near
+    return bool(np.array_equal(ids[~tied], want_ids[~tied])), int(tied.sum())
+
+
+def mesh_col_step(mesh, out: dict) -> None:
+    """(M1, in a rank) ``dcn_multihost`` at Criteo's shape with
+    ``table_sharding="col"`` on the (1, 2) mesh: 8 steps of 8192 from the
+    single-device init, counted (launches, collectives); each of the 8 col
+    steps taken from the single-device run's state at that step, its
+    logical state against the single-device step's (rank 0: the gate), and
+    the free run's 8 steps against the single-device run's (reported); host
+    median and busy share.
+
+    Why each step from the single-device state: the col update's statistic
+    sums a row's squares in two halves (one a rank) where the kernel sums
+    all 32 in its own order, so the two runs part by an ulp; over steps an
+    ulp can move a ReLU input across 0 for one example, whose 26 rows then
+    take a different gradient, and where a row's accumulator is tiny (the
+    reference's initial accumulator is 0) rowwise Adagrad's normalised
+    update turns that into a difference of up to the learning rate."""
+    cfg = sharded_config()
+    vocabs = tuple(cfg.data.categorical_vocab_sizes)
+    model = build_model(cfg.model, DataSpec.ctr(vocabs, cfg.data.num_dense_features))
+    k = cfg.train.steps_per_dispatch
+    dense, cat, label = synthetic_ctr(k * BATCH, cfg.data.num_dense_features, vocabs, seed=SEED + 5)
+    batches = [{"dense": to_device(dense[i * BATCH:(i + 1) * BATCH]), "cat": to_device(cat[i * BATCH:(i + 1) * BATCH]),
+                "label": to_device(label[i * BATCH:(i + 1) * BATCH])} for i in range(k)]
+    mesh_cfg = dataclasses.replace(cfg.mesh, table_sharding="col", table_axis_size=mesh.shape["table"],
+                                   a2a_dtype="float32")
+    builder = ShardedTrainStepBuilder(model, cfg.train.loss, cfg.optim, mesh, mesh_cfg)
+    start = builder.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+    blocks = {tuple(t.shape) for t in start["tables"].values()}
+    state, losses, overflow = copy_state(start), [], 0
+    reset_launches()
+    mesh.calls = 0
+    for b in batches:
+        state, metrics = builder.step(state, b)
+        losses.append(metrics["loss"])
+        overflow = overflow + metrics["lookup_overflow"]
+    torch.cuda.synchronize()
+    out["m1"] = {"launches": read_launches(), "collectives": mesh.calls, "steps": k, "blocks": sorted(blocks),
+                 "overflow": int(overflow), "losses": torch.stack(losses).tolist(),
+                 "kinds": sorted({type(p).__name__ for p in builder.plans.values()})}
+    logical = builder.logical_state(state)
+    run_state = {"s": copy_state(start)}
+
+    def step():
+        run_state["s"], _ = builder.step(run_state["s"], batches[0])
+
+    median = medians_in_turns({"col": step})["col"]
+    out["m1"]["host_median_ms"] = median
+    out["m1"]["busy_share"] = profile(step, f"col-sharded train step (rank {mesh.rank})", median)
+    def parts(state):
+        return [("tables", state["tables"]), ("accumulators", {n: s["acc"] for n, s in state["sparse_opt"].items()}),
+                ("dense", dict(enumerate(tree_leaves(state["dense"]))))]
+
+    def compare(got, want, into):
+        for (what, a), (_, b) in zip(parts(got), parts(want)):
+            r = into.setdefault(what, {"max_abs_err": 0.0, "close": True, "rows_past": 0})
+            r["max_abs_err"] = max(r["max_abs_err"], max(max_err(a[n], b[n]) for n in b))
+            r["close"] = r["close"] and all(torch.allclose(a[n], b[n], rtol=SHARDED_RTOL, atol=SHARDED_ATOL) for n in b)
+            if what == "tables":
+                r["rows_past"] = sum(int((~torch.isclose(a[n], b[n], rtol=SHARDED_RTOL, atol=SHARDED_ATOL))
+                                         .any(dim=1).sum()) for n in b)
+
+    # The single-device run (every rank makes it: the col steps start from
+    # its states), each col step from its state at that step.
+    single = TrainStepBuilder(model, cfg.train.loss, cfg.optim)
+    want = single.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+    stepwise, want_losses = {}, []
+    for b in batches:
+        got, metrics = builder.step(convert.shard_state(want, mesh, builder.plans), b)
+        got_losses = metrics["loss"]
+        got = builder.logical_state(got)
+        want, metrics = single.step(copy_state(want), b)
+        want_losses.append(metrics["loss"])
+        if mesh.rank == 0:
+            compare(got, want, stepwise)
+            stepwise["losses_close"] = (stepwise.get("losses_close", True)
+                                        and bool(torch.allclose(got_losses, metrics["loss"], rtol=SHARDED_RTOL)))
+        del got
+    torch.cuda.synchronize()
+    if mesh.rank == 0:
+        free = {}
+        compare(logical, want, free)
+        free["losses_close"] = bool(torch.allclose(torch.stack(losses), torch.stack(want_losses), rtol=SHARDED_RTOL))
+        out["m1"]["stepwise"], out["m1"]["free_run"] = stepwise, free
+    mesh.barrier()
+
+
+def mesh_config1(out: dict) -> None:
+    """(M2, in a rank) ``trainer.run(mf_bpr_ml100k())`` whole on the (2, 1)
+    mesh, its eval through ``ShardedRetrievalEvaluator``; then
+    ``Recommender.from_trainer`` on the live state against the single-card
+    ``recommend`` of its logical tables (rank 0)."""
+    cfg = zoo_configs.mf_bpr_ml100k()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer, history = run(cfg, quiet=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    evaluator = trainer._retrieval_eval
+    users = np.arange(0, cfg.data.num_users, 7, dtype=np.int32)
+    reset_launches()
+    ids, vals = Recommender.from_trainer(trainer).recommend(users, 20)
+    serve_launches = read_launches()
+    params = trainer.params
+    out["m2"] = {"history": history, "launches": launches, "steps": trainer.global_step, "seconds": seconds,
+                 "eval_batches": -(-len(evaluator.users_with_test) // evaluator.user_batch),
+                 "evaluator": type(evaluator).__name__, "collectives": trainer.mesh.calls,
+                 "serve_launches": serve_launches}
+    if trainer.mesh.rank == 0:
+        want_ids, want_vals = Recommender(trainer.model, params, dataset=trainer.dataset).recommend(users, 20)
+        same, near = untied_equal(ids, vals, want_ids, want_vals, MESH_VALUE_RTOL)
+        out["m2"]["serve_same"], out["m2"]["serve_near_ties"] = same, near
+    trainer.mesh.barrier()
+
+
+def mesh_topk(mesh, out: dict) -> None:
+    """(M3, in a rank) ``recommend`` for 1024 users, k=100, over MF's
+    1 000 000 items at d=64 (build_topk_bench's shape) on the (2, 1) mesh
+    from the live sharded state, the path ``from_trainer`` takes; rank 0
+    holds it against the single-card call on the logical tables and times
+    both; each rank times its ``torch.topk`` of [1024, 500000], in turns."""
+    model = MF(DataSpec.interaction(MF_ROWS, MF_ROWS), MF_DIM)
+    builder = ShardedTrainStepBuilder(model, "bpr", OptimConfig(learning_rate=0.05), mesh,
+                                      zoo_configs.mf_bpr_ml100k().mesh)
+    state = builder.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+    rec = Recommender(model, None, mesh=mesh, state=state, builder=builder)
+    users = np.random.default_rng(SEED + 5).integers(0, MF_ROWS, TOPK_USERS).astype(np.int32)
+    reset_launches()
+    ids, vals = rec.recommend(users, TOPK_K)
+    launches = read_launches()
+    median, p99 = latency(lambda: rec.recommend(users, TOPK_K), calls=11)
+    tables = builder.unpadded_tables(state)
+    items = state["tables"]["item_emb"]
+    u = torch.index_select(tables["user_emb"], 0, to_device(users).long())
+    block = torch.matmul(u, items.T) + state["tables"]["item_bias"][:, 0][None, :]
+    topk = {}
+    for r in range(mesh.size):  # one rank at a time on the shared card
+        if mesh.rank == r:
+            topk[r] = device_ms(lambda: torch.topk(block, TOPK_K), 1)
+        mesh.barrier()
+    out["m3"] = {"launches": launches, "median_ms": median, "p99_ms": p99, "block": list(block.shape),
+                 "topk_ms": topk[mesh.rank]}
+    del block
+    if mesh.rank == 0:
+        single = Recommender(model, {"tables": tables, "dense": {}})
+        want_ids, want_vals = single.recommend(users, TOPK_K)
+        same, near = untied_equal(ids, vals, want_ids, want_vals, MESH_VALUE_RTOL)
+        out["m3"].update(same=same, near_ties=near, shape=list(ids.shape), finite=bool(np.isfinite(vals).all()))
+        out["m3"]["single_median_ms"], out["m3"]["single_p99_ms"] = latency(
+            lambda: single.recommend(users, TOPK_K), calls=11)
+        del single
+    del tables
+    mesh.barrier()
+
+
+def mesh_col_mf(work: Path, out: dict) -> None:
+    """(M4, in a rank) MF at config 1's shape under col sharding on the
+    (2, 2) mesh for 2 epochs, a checkpoint an epoch; the live mesh's
+    ``recommend`` of every 7th user, k=20."""
+    cfg = mesh_col_mf_config(work)
+    reset_launches()
+    trainer, history = run(cfg, quiet=True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    users = np.arange(0, cfg.data.num_users, 7, dtype=np.int32)
+    ids, vals = Recommender.from_trainer(trainer).recommend(users, 20)
+    out["m4"] = {"history": history, "launches": launches, "steps": trainer.global_step,
+                 "mesh": dict(trainer.mesh.shape), "ids": ids.tolist(), "vals": vals.tolist(),
+                 "kinds": sorted({type(p).__name__ for p in trainer.builder.plans.values()})}
+
+
+def mesh_col_mf_config(work: Path, table_axis: int = 2):
+    cfg = zoo_configs.mf_bpr_ml100k()
+    return dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, epochs=2, checkpoint_dir=str(work / "mf_col"),
+                                       checkpoint_every_epochs=1),
+        mesh=dataclasses.replace(cfg.mesh, table_axis_size=table_axis,
+                                 table_sharding="col" if table_axis > 1 else "row"))
+
+
+def mesh_rank(rank: int, world: int, port: int, work: str) -> int:
+    """One rank of phase M (``chip_smoke.py --mesh-rank R WORLD PORT DIR``),
+    sharing the card over gloo: on 2 ranks M1 on a (1, 2) mesh, then M2 and
+    M3 on (2, 1); on 4 ranks M4 on (2, 2). Its results go to
+    ``DIR/rank<R>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo", device=DEVICE)
+    work = Path(work)
+    out = {"rank": rank}
+    try:
+        if world == 2:
+            mesh_col_step(make_mesh(-1, 2, device=DEVICE), out)
+            mesh_config1(out)
+            mesh_topk(make_mesh(-1, 1, device=DEVICE), out)
+        else:
+            mesh_col_mf(work, out)
+        with open(work / f"rank{rank}.json", "w") as f:
+            json.dump(out, f, default=float)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mesh_two(card: str, paths: dict) -> None:
+    """(M1-M3) on 2 ranks sharing the card over gloo (a process each)."""
+    t_phase = time.perf_counter()
+    res = mesh_ranks(2, DATA_DIR / "mesh2", MESH_RANK_TIMEOUT_S)
+    m1 = [r["m1"] for r in res]
+    k = m1[0]["steps"]
+    print(f"col (M1): dcn_multihost at Criteo's shape, table_sharding=col on a (1, 2) mesh over gloo sharing the "
+          f"card ({card}): {m1[0]['kinds']} plans, blocks {m1[0]['blocks']} a rank; {k} steps of {BATCH}; "
+          f"losses {[round(x, 6) for x in m1[0]['losses']]}; ids dropped {m1[0]['overflow']}")
+    for run_name, what_run in (("stepwise", "each col step from the single-device run's state"),
+                               ("free_run", "the free 8-step run against the single-device run")):
+        for what, r in m1[0][run_name].items():
+            if what == "losses_close":
+                print(f"col (M1) {what_run}, losses within rtol {SHARDED_RTOL}: {r}")
+                continue
+            print(f"col (M1) {what_run}, {what}: max_abs_err {r['max_abs_err']:.3e} (rtol {SHARDED_RTOL}, atol "
+                  f"{SHARDED_ATOL}): {r['close']}" + (f"; rows past it {r['rows_past']}" if what == "tables" else ""))
+    for what, r in m1[0]["stepwise"].items():
+        check(r if what == "losses_close" else r["close"], f"each col step's {what} match the single-device step's")
+    check(m1[0]["free_run"]["losses_close"], "the free col run's losses match the single-device run's")
+    check(m1[0]["overflow"] == 0, "no id dropped under col")
+    for rank, r in enumerate(m1):
+        lnch = {n: c for n, c in r["launches"].items() if c}
+        print(f"col (M1) rank {rank}: launches {lnch}, collectives {r['collectives']} "
+              f"({r['collectives'] / k:.1f} a step), host median {r['host_median_ms']:.3f} ms a step (in turns "
+              f"with the other rank's), device busy {100 * (r['busy_share'] or 0):.1f}%")
+        check(lnch == {"gather_rows_multi": k, "cross_v1_fwd": k, "cross_v1_bwd": k},
+              "each col rank: one gather launch a step for the 26 column blocks, both v1 kernels, no Adagrad kernel")
+    paths["train_col"] = {n: sum(r["launches"][n] for r in m1) for n in WRAPPERS}
+
+    m2 = [r["m2"] for r in res]
+    rec = m2[0]["history"][-1]
+    print(f"config 1 on a (2, 1) mesh (M2): trainer.run(mf_bpr_ml100k()) over gloo sharing the card ({card}): "
+          f"{m2[0]['steps']} steps a rank in {[round(r['seconds'], 1) for r in m2]} s, eval by {m2[0]['evaluator']} "
+          f"({m2[0]['eval_batches']} user batches an eval), collectives {m2[0]['collectives']}; last record {rec}")
+    check(m2[0]["evaluator"] == "ShardedRetrievalEvaluator", "config 1's eval on the mesh is the sharded evaluator")
+    def metrics(history):
+        return [{k: v for k, v in x.items() if k != "examples_per_s"} for x in history]
+
+    check(all(metrics(r["history"]) == metrics(m2[0]["history"]) for r in m2), "both ranks report the same history")
+    for name, (lo, hi) in CONFIG1_BAND.items():
+        print(f"config 1 band on the mesh: {name} {rec[name]:.6f} in [{lo}, {hi}]")
+        check(lo <= rec[name] <= hi, f"config 1's {name} on the mesh lies in its band")
+    evals = sum(1 for r in m2[0]["history"] if "recall@20" in r)
+    for r in m2:
+        lnch = r["launches"]
+        print(f"config 1 (M2) rank: launches {{{', '.join(f'{n}: {c}' for n, c in lnch.items() if c)}}}")
+        check(lnch["fused_rowwise_adagrad_multi"] == r["steps"]
+              and lnch["gather_rows_multi"] == r["steps"] + evals * r["eval_batches"],
+              "each rank: the owner's gather and Adagrad launch a step, one user gather an eval batch")
+    print(f"config 1 (M2): Recommender.from_trainer on the live mesh, k=20 for every 7th user, against the "
+          f"single-card recommend of its logical tables: {m2[0]['serve_same']} ({m2[0]['serve_near_ties']} near-tied "
+          f"places); launches {({n: c for n, c in m2[0]['serve_launches'].items() if c})}")
+    check(m2[0]["serve_same"], "from_trainer's mesh recommend is the single-card recommend")
+    paths["trainer_mesh_mf"] = {n: sum(r["launches"][n] for r in m2) for n in WRAPPERS}
+
+    m3 = [r["m3"] for r in res]
+    print(f"sharded recommend (M3): {TOPK_USERS} users, k={TOPK_K} over {MF_ROWS} items (d={MF_DIM}) on a (2, 1) "
+          f"mesh, blocks of {m3[0]['block']} scores a rank: ids equal to the single-card call's where untied, values "
+          f"within {MESH_VALUE_RTOL}: {m3[0]['same']} ({m3[0]['near_ties']} near-tied places); launches a call "
+          f"{({n: c for n, c in m3[0]['launches'].items() if c})}")
+    print(f"sharded recommend (M3) latency (host clock, median and p99 over 10 calls): mesh {m3[0]['median_ms']:.3f} "
+          f"/ {m3[0]['p99_ms']:.3f} ms, single card {m3[0]['single_median_ms']:.3f} / {m3[0]['single_p99_ms']:.3f} ms "
+          f"({card}; two ranks on one card, the merge's gather through host copies: no scaling figure)")
+    print("sharded recommend (M3): torch.topk k=100 of each rank's [1024, 500000] block [device time, CUDA graph]: "
+          + ", ".join(f"rank {i} {r['topk_ms']:.4f} ms" for i, r in enumerate(m3)))
+    check(m3[0]["shape"] == [TOPK_USERS, TOPK_K] and m3[0]["finite"], "the mesh recommend's [users, k] is finite")
+    check(m3[0]["same"], "the mesh recommend is the single-card recommend")
+    check(all(r["launches"]["gather_rows_multi"] == 1 and sum(r["launches"].values()) == 1 for r in m3),
+          "the mesh recommend: one gather launch a rank (the users' rows), and no other")
+    paths["serve_mesh_mf"] = {n: sum(r["launches"][n] for r in m3) for n in WRAPPERS}
+    print(f"phase M1-M3 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_mesh_four(card: str, paths: dict) -> None:
+    """(M4) MF under col sharding on a (2, 2) mesh of 4 ranks sharing the
+    card, 2 epochs; its checkpoint served on one card by ``from_checkpoint``
+    gives the live mesh's top-k."""
+    t_phase = time.perf_counter()
+    work = DATA_DIR / "mesh4"
+    res = mesh_ranks(4, work, MESH_RANK_TIMEOUT_S)
+    m4 = res[0]["m4"]
+    print(f"col MF (M4): mf_bpr_ml100k, table_sharding=col on a {m4['mesh']} mesh of 4 ranks over gloo sharing "
+          f"the card ({card}), {m4['kinds']} plans: {m4['steps']} steps a rank; last record {m4['history'][-1]}")
+    check(m4["mesh"] == {"data": 2, "table": 2}, "M4 ran on a (2, 2) mesh")
+    check(all(r["m4"]["ids"] == m4["ids"] for r in res), "every rank's live recommend is the same")
+    check(checkpoint.latest_step(str(work / "mf_col")) == 2, "a checkpoint an epoch")
+    rec = Recommender.from_checkpoint(mesh_col_mf_config(work, table_axis=1))
+    users = np.arange(0, rec.dataset.num_users, 7, dtype=np.int32)
+    ids, vals = rec.recommend(users, 20)
+    same, near = untied_equal(np.asarray(m4["ids"]), np.asarray(m4["vals"], np.float32), ids, vals, MESH_VALUE_RTOL)
+    print(f"col MF (M4): from_checkpoint on one card, k=20 for every 7th user, against the live (2, 2) mesh's "
+          f"recommend: {same} ({near} near-tied places)")
+    check(same, "the (2, 2) checkpoint served on one card gives the live mesh's top-k")
+    for rank, r in enumerate(res):
+        lnch = r["m4"]["launches"]
+        print(f"col MF (M4) rank {rank}: launches {{{', '.join(f'{n}: {c}' for n, c in lnch.items() if c)}}}")
+        # Two gathers a step (the col tables' blocks, the replicated [V, 1]
+        # bias), one a user batch of the eval; the bias's one-table Adagrad
+        # launch a step, and no Adagrad kernel on the col tables.
+        check(lnch["fused_rowwise_adagrad_multi"] == 0 and lnch["fused_rowwise_adagrad"] == r["m4"]["steps"]
+              and lnch["gather_rows_multi"] > 2 * r["m4"]["steps"],
+              "each col rank: the col blocks' and the bias's gathers a step, the bias's Adagrad launch a step, "
+              "none on the col tables")
+    paths["trainer_col_mf"] = {n: sum(r["m4"]["launches"][n] for r in res) for n in WRAPPERS}
+    print(f"phase M4 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -3316,6 +3702,11 @@ def main() -> int:
         phase_sharded_serve(card, paths, phase_sharded_trainer(card, paths))
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+    try:
+        phase_mesh_two(card, paths)
+        phase_mesh_four(card, paths)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
     for r in records:
         if r["name"] == GROUPED:  # the Adagrad kernel's launches on the packed paths
             by_path = {path: paths[path]["fused_rowwise_adagrad_multi"] for path in GROUPED_PATHS}
@@ -3340,4 +3731,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:  # one of phase L2's ranks
         sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one of phase M's ranks
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -84,23 +84,24 @@ def test_cli_lists_and_refuses_configs():
     assert bad.returncode != 0 and "unknown config 'nope'" in bad.stderr
     tail = _cli("--config", "sasrec_ml1m")
     assert tail.returncode != 0 and "ROADMAP Queue 1 item 12" in tail.stderr
-    # Under the JAX_* variables a process joins a group; column sharding
-    # (a table axis) stays refused by its item.
+    # Under the JAX_* variables a process joins a group; a table axis of 2
+    # needs 2 ranks a data index, and one process is refused by that rule.
     col = _cli("--config", "dcn_multihost", "--device", "cpu", "mesh.table_axis_size=2",
                env={"JAX_COORDINATOR": f"127.0.0.1:{_free_port()}", "JAX_NUM_PROCESSES": "1",
                     "JAX_PROCESS_ID": "0"})
-    assert col.returncode != 0 and "ROADMAP Queue 1 item 11" in col.stderr
+    assert col.returncode != 0 and "needs a multiple of as many ranks" in col.stderr
 
 
-def test_cli_starts_ranks_from_the_jax_variables(tmp_path):
+def _two_cli_ranks(tmp_path, *mesh):
     """Two processes started with the reference's JAX_COORDINATOR,
     JAX_NUM_PROCESSES and JAX_PROCESS_ID join one gloo group, train a tiny
-    dcn_multihost on the mesh path and print the same last record."""
+    dcn_multihost on the mesh path with the ``mesh`` overrides and print
+    the same last record -> the process count of its checkpoint."""
     coordinator = f"127.0.0.1:{_free_port()}"
     args = ["--config", "dcn_multihost", "--device", "cpu", "train.epochs=1",
             "train.batch_size=256", "train.steps_per_dispatch=2", "data.num_examples=3000",
             "data.categorical_vocab_sizes=(50,)", "model.mlp_dims=(16,)", "model.embed_dim=4",
-            f"train.checkpoint_dir={tmp_path}", "train.checkpoint_every_epochs=1"]
+            f"train.checkpoint_dir={tmp_path}", "train.checkpoint_every_epochs=1", *mesh]
     env = {k: v for k, v in os.environ.items() if k != "JAX_COORDINATOR"}
     procs = [subprocess.Popen(
         [sys.executable, "-m", "tfrec_tpu_torch.cli", *args], cwd=ROOT, text=True,
@@ -120,7 +121,18 @@ def test_cli_starts_ranks_from_the_jax_variables(tmp_path):
         rec.pop("examples_per_s")
     assert recs[0] == recs[1] and recs[0]["epoch"] == 0 and np.isfinite(recs[0]["auc"])
     tree = json.loads((tmp_path / "step_0000000001" / "tree.json").read_text())
-    assert tree["process_count"] == 2
+    return tree["process_count"]
+
+
+def test_cli_starts_ranks_from_the_jax_variables(tmp_path):
+    """A (2, 1) mesh of row-sharded tables: each rank writes its blocks."""
+    assert _two_cli_ranks(tmp_path) == 2
+
+
+def test_cli_starts_col_ranks_from_the_dotted_overrides(tmp_path):
+    """A (1, 2) mesh of column-sharded tables through the dotted
+    overrides: rank 0 writes the logical state."""
+    assert _two_cli_ranks(tmp_path, "mesh.table_axis_size=2", "mesh.table_sharding=col") == 1
 
 
 def test_cli_trains_dcn_criteo_from_a_criteo_file(tmp_path):

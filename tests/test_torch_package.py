@@ -34,7 +34,8 @@ def test_port_imports_with_jax_blocked():
             "tfrec_tpu_torch.data.criteo_native", "tfrec_tpu_torch.data.movielens",
             "tfrec_tpu_torch.data.uirt_native", "tfrec_tpu_torch.utils.checkpoint",
             "tfrec_tpu_torch.cli", "tfrec_tpu_torch.parallel.mesh",
-            "tfrec_tpu_torch.parallel.embedding", "tfrec_tpu_torch.parallel.step"} <= set(modules)
+            "tfrec_tpu_torch.parallel.embedding", "tfrec_tpu_torch.parallel.step",
+            "tfrec_tpu_torch.parallel.topk", "tfrec_tpu_torch.parallel.eval"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

@@ -40,7 +40,7 @@ from tfrec_tpu_torch.convert import train_state_from_jax
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.ops.embedding import dedup_ids_sorted
 from tfrec_tpu_torch.parallel import embedding
-from tfrec_tpu_torch.parallel.mesh import Mesh, make_mesh
+from tfrec_tpu_torch.parallel.mesh import Mesh
 from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
 from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state
 from torch_dist_worker import _np, _tensors, run_ranks
@@ -123,15 +123,10 @@ def _cpu_mesh(size=1, rank=0):
 
 
 @pytest.mark.parametrize("what,build", [
-    ("col", lambda m: ShardedTrainStepBuilder(
-        _ctr_model(), "logloss", OptimConfig(), m, MeshConfig(table_sharding="col"))),
     ("fsdp", lambda m: ShardedTrainStepBuilder(
         _ctr_model(), "logloss", OptimConfig(), m, MeshConfig(dense_sharding="fsdp"))),
     ("lane-packed", lambda m: ShardedTrainStepBuilder(
         _ctr_model(lane_pack=True), "logloss", OptimConfig(), m, MeshConfig())),
-    ("table axis", lambda m: make_mesh(2, 2, device="cpu")),
-    ("Recommender", lambda m: __import__("tfrec_tpu_torch.serve", fromlist=["Recommender"]).Recommender(
-        _ctr_model(), {"tables": {}, "dense": {}}, mesh=m, device="cpu")),
 ])
 def test_the_remainder_of_item_11_is_refused_by_name(what, build):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):

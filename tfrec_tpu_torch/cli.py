@@ -14,7 +14,9 @@ Multi-process start-up takes the reference's variables: with
 ``JAX_PROCESS_ID`` set, each process joins one ``torch.distributed`` group
 (``parallel.mesh.init_distributed``; ``--backend``: NCCL on a card a rank,
 gloo on the CPU, ``gloo`` by name for ranks that share one card) and the
-trainer takes the mesh path. Every rank prints the last record.
+trainer takes the mesh path: D x T ranks for ``mesh.table_axis_size=T``
+(with ``mesh.table_sharding=col`` for column-sharded tables). Every rank
+prints the last record.
 """
 
 from __future__ import annotations

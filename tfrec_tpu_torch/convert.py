@@ -45,12 +45,12 @@ under ``P = "dense_opt/"``, or ``"dense_opt/1/"`` with weight decay:
 
 Every ``.count`` is an int32 scalar holding the port's one update count.
 
-A row-sharded state (``parallel/step.ShardedTrainStepBuilder``) holds on
-each rank its block of every table and of its optimizer state.
-``shard_state`` turns a global (unpadded, logical) train state, the port's
-or one read from JAX by ``train_state_from_jax``, into a rank's padded,
-permuted blocks; ``RowShardedTable.unshard_rows`` (a collective) gives a
-table or a per-row leaf back whole.
+A sharded state (``parallel/step.ShardedTrainStepBuilder``) holds on each
+rank its block of every table and of its optimizer state: rows of a
+row-sharded table, columns of a column-sharded one. ``shard_state`` turns a
+global (unpadded, logical) train state, the port's or one read from JAX by
+``train_state_from_jax``, into a rank's blocks (padded and permuted rows,
+or columns); the plan's ``unshard`` (a collective) gives a leaf back whole.
 """
 
 from __future__ import annotations
@@ -310,11 +310,12 @@ def train_state_from_flat(flat: Mapping[str, np.ndarray], model, template: Dict[
 
 
 def shard_state(state: Dict[str, Any], mesh, plans) -> Dict[str, Any]:
-    """A global logical train state -> this rank's (``mesh.rank``) state on
-    ``mesh.device``: each row-sharded table (``plans[name]`` a
-    ``RowShardedTable``; None replicates) and its per-row optimizer state
-    padded with zero rows, permuted and cut to the rank's block; the rest
-    copied."""
+    """A global logical train state -> this rank's state on
+    ``mesh.device``: each sharded table (``plans[name]`` a
+    ``RowShardedTable`` or ``ColShardedTable``; None replicates) and its
+    optimizer state cut to the rank's block by the plan (``plan.shard``:
+    rows padded with zero rows, permuted and cut, or columns cut, a rowwise
+    leaf of a col table replicated); the rest copied."""
     device = mesh.device
 
     def move(tree):
@@ -330,9 +331,7 @@ def shard_state(state: Dict[str, Any], mesh, plans) -> Dict[str, Any]:
         if plan is None:
             tables[name], sparse[name] = move(table), move(state["sparse_opt"][name])
             continue
-        per_row = table.shape[0]
-        tables[name] = plan.shard_rows(table.to(device))
-        sparse[name] = {k: (plan.shard_rows(v.to(device)) if v.dim() and v.shape[0] == per_row else move(v))
-                        for k, v in state["sparse_opt"][name].items()}
+        tables[name] = plan.shard(table.to(device))
+        sparse[name] = {k: plan.shard(v.to(device)) for k, v in state["sparse_opt"][name].items()}
     return {"step": move(state["step"]), "tables": tables, "dense": move(state["dense"]),
             "sparse_opt": sparse, "dense_opt": move(state["dense_opt"])}

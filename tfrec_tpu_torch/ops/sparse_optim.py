@@ -28,8 +28,18 @@ needs to know which groups a batch touched, which a zero gradient does not
 say, so its ``apply`` takes each id's lane group (``slots``) and carries a
 one-hot touch channel through the duplicate combine.
 
-Not ported: column-sharded row statistics (``stat_axis``, ROADMAP Queue 1
-item 11), and the reference's XLA lowering switches
+On a column-sharded table (``parallel/embedding.col_update``) a rank holds
+D/T of each row's columns, so the rowwise statistic is the sum of g^2 over
+its columns, summed over the table axis and divided by the full width (the
+reference's ``_row_stat`` with ``stat_axis`` and ``full_dim``;
+``parallel/embedding.col_update`` computes it), and ``apply_deduped(...,
+stat=)`` takes it in place of the local mean. The reference runs that update through XLA, not
+its Pallas kernel, and so does the port: Adagrad with a ``stat`` runs the
+plain rowwise rule (``fused_rowwise_adagrad_multi`` takes the mean over its
+own row and cannot take a shard's partial sum). Lane-grouped state on such
+a table is refused, as in the reference. SGD has no statistic.
+
+Not ported: the reference's XLA lowering switches
 (``TFREC_SCATTER_HINT_MAX_ELEMS``, ``TFREC_PACKED_SCATTER``), which chose
 between TPU scatter lowerings and have no counterpart here.
 """
@@ -50,9 +60,10 @@ State = Dict[str, torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class SparseOptimizer:
     """init(table, lane_groups=1) -> state; apply(table, state, ids, grads,
-    lr, slots=None) -> (table, state); ``apply_deduped`` is ``apply`` after
-    the duplicate combine
-    (uids and summed grads from ``combine_duplicate_ids``);
+    lr, slots=None, stat=None) -> (table, state); ``apply_deduped`` is
+    ``apply`` after the duplicate combine (uids and summed grads from
+    ``combine_duplicate_ids``; ``stat``, where given, each slot's rowwise
+    statistic, that of a column-sharded row);
     ``apply_deduped_many(tables, states, uids, grads, lr) -> (tables,
     states)`` is ``apply_deduped`` over lists of tables, one lr for all."""
 
@@ -98,6 +109,12 @@ def _row_stat(g: torch.Tensor, lane_groups: int = 1) -> torch.Tensor:
     return (g * g).sum(dim=-1) / g.shape[-1]
 
 
+def _no_grouped_stat(state: State, stat) -> None:
+    if stat is not None and any(v.dim() == 2 and k != "m" for k, v in state.items()):
+        raise ValueError("lane-packed tables do not support column sharding (the feature split "
+                         "would cut across lane groups)")
+
+
 def _stat_shape(table: torch.Tensor, lane_groups: int) -> Tuple[int, ...]:
     return (table.shape[0],) if lane_groups <= 1 else (table.shape[0], lane_groups)
 
@@ -106,11 +123,11 @@ def _sgd_init(table: torch.Tensor, lane_groups: int = 1) -> State:
     return {}
 
 
-def _sgd_apply_deduped(table, state, uids, g, lr):
+def _sgd_apply_deduped(table, state, uids, g, lr, stat=None):
     return scatter_add_rows(table, uids, -lr * g), state
 
 
-def _sgd_apply(table, state, ids, grads, lr, slots=None):
+def _sgd_apply(table, state, ids, grads, lr, slots=None, stat=None):
     uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0])
     return _sgd_apply_deduped(table, state, uids, g, lr)
 
@@ -124,8 +141,26 @@ def _adagrad_init_fn(initial_accumulator: float):
 
 
 def _adagrad_apply_fn(eps: float):
-    def apply_deduped(table, state, uids, g, lr):
-        table, acc = fused_rowwise_adagrad(table, state["acc"], uids, g, lr, eps)
+    def apply_deduped(table, state, uids, g, lr, stat=None):
+        if stat is None:
+            table, acc = fused_rowwise_adagrad(table, state["acc"], uids, g, lr, eps)
+            return table, {"acc": acc}
+        # The reference's XLA rule with a column-sharded statistic. The
+        # combine puts the real ids first: the slots past them repeat the
+        # last real slot, so every write to a row carries one value and
+        # nothing waits on the host for their count (with no real id, row
+        # V - 1 is written unchanged).
+        _no_grouped_stat(state, stat)
+        valid = (uids >= 0) & (uids < table.shape[0])
+        last = (valid.sum() - 1).clamp(min=0)
+        src = torch.where(valid, torch.arange(uids.shape[0], device=uids.device), last)
+        rows = uids[src].clamp(0, table.shape[0] - 1).long()
+        ok = valid[src]
+        acc = state["acc"]
+        acc_rows = acc[rows] + torch.where(ok, stat[src], 0.0)
+        scale = lr / (acc_rows.sqrt() + eps)
+        table[rows] = table[rows] + torch.where(ok[:, None], -scale[:, None] * g[src], 0.0)
+        acc[rows] = acc_rows
         return table, {"acc": acc}
 
     def apply_deduped_many(tables, states, uids, grads, lr):
@@ -133,9 +168,9 @@ def _adagrad_apply_fn(eps: float):
             tables, [s["acc"] for s in states], uids, grads, lr, eps)
         return tables, [{"acc": a} for a in accs]
 
-    def apply(table, state, ids, grads, lr, slots=None):
+    def apply(table, state, ids, grads, lr, slots=None, stat=None):
         uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0])
-        return apply_deduped(table, state, uids, g, lr)
+        return apply_deduped(table, state, uids, g, lr, stat)
 
     return apply, apply_deduped, apply_deduped_many
 
@@ -153,15 +188,20 @@ def _adam_init(table: torch.Tensor, lane_groups: int = 1) -> State:
 
 
 def _adam_apply_fn(b1: float, b2: float, eps: float):
-    def apply_deduped(table, state, uids, g, lr):
+    def apply_deduped(table, state, uids, g, lr, stat=None):
+        _no_grouped_stat(state, stat)
         if state["v"].dim() == 2:
             raise ValueError(
                 "lane-packed rowwise_adam needs each id's lane group: call apply(..., slots=...) "
                 "(the step passes them from model.lane_slot_widths)")
-        rows, g = _real(table, uids, g)
+        # The statistic of every slot, then the real ones (a row's
+        # statistic does not depend on the others).
+        stat = _row_stat(g) if stat is None else stat
+        valid = (uids >= 0) & (uids < table.shape[0])
+        rows, g, stat = uids[valid].long(), g[valid], stat[valid]
         t_rows = state["t"][rows] + 1
         m_rows = b1 * state["m"][rows] + (1.0 - b1) * g
-        v_rows = b2 * state["v"][rows] + (1.0 - b2) * _row_stat(g)
+        v_rows = b2 * state["v"][rows] + (1.0 - b2) * stat
         tf = t_rows.to(torch.float32)
         m_hat = m_rows / (1.0 - b1**tf)[:, None]
         v_hat = v_rows / (1.0 - b2**tf)
@@ -201,8 +241,9 @@ def _adam_apply_fn(b1: float, b2: float, eps: float):
         state["t"][rows] = t_rows
         return table, state
 
-    def apply(table, state, ids, grads, lr, slots=None):
+    def apply(table, state, ids, grads, lr, slots=None, stat=None):
         if state["v"].dim() == 2:
+            _no_grouped_stat(state, stat)
             groups = state["v"].shape[1]
             if slots is None:
                 raise ValueError(
@@ -216,7 +257,7 @@ def _adam_apply_fn(b1: float, b2: float, eps: float):
             return apply_grouped_deduped(table, state, uids, cg[:, :-groups].contiguous(),
                                          cg[:, -groups:] > 0, lr)
         uids, g = combine_duplicate_ids(ids, grads, sentinel=table.shape[0])
-        return apply_deduped(table, state, uids, g, lr)
+        return apply_deduped(table, state, uids, g, lr, stat)
 
     return apply, apply_deduped
 

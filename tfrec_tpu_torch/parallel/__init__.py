@@ -1,2 +1,3 @@
-"""Row-sharded embedding tables over ``torch.distributed``: the
-counterpart of ``tfrec_tpu/parallel/`` (``mesh``, ``embedding``, ``step``)."""
+"""Row- and column-sharded embedding tables and retrieval on a mesh over
+``torch.distributed``: the counterpart of ``tfrec_tpu/parallel/``
+(``mesh``, ``embedding``, ``step``, ``topk``, ``eval``)."""

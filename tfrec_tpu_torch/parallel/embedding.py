@@ -1,8 +1,10 @@
-"""Row-sharded embedding tables: the all-to-all id exchange and the
-gradient combine, the counterpart of ``tfrec_tpu/parallel/embedding.py``.
+"""Sharded embedding tables, the counterpart of
+``tfrec_tpu/parallel/embedding.py``: row-sharded tables with the all-to-all
+id exchange and gradient combine, and column-sharded ones.
 
-Every rank owns a contiguous block of ``V_pad / N`` rows of each table
-(``pad_vocab``). A lookup, on each rank:
+Row sharding (``RowShardedTable``, the mesh's ``data`` axis of N ranks):
+every data index owns a contiguous block of ``V_pad / N`` rows of each
+table (``pad_vocab``). A lookup, on each rank:
 
   1. dedups its local ids (``dedup_ids_sorted``) and buckets the distinct ones by
      owning rank into an [N, C] send buffer (``bucket_by_dest``; a static
@@ -42,9 +44,30 @@ and never counted. ``exchange_lookup`` returns the count summed over ranks. With
 ``(i % N) * rps + i // N``, so a frequency-sorted vocab's head spreads over
 the ranks.
 
-Lane-packed sharded tables (the reference's lane-sliced wire,
-``_lookup_grouped`` / ``local_update_grouped``) and ``ColShardedTable`` are
-not ported yet: ROADMAP Queue 1 item 11.
+Column sharding (``ColShardedTable``, the mesh's ``table`` axis of T
+ranks): every table index holds all V rows of D/T of the columns, as one
+[V, D/T] tensor, replicated over ``data``. ``col_lookup`` gathers every col
+table's block in one ``gather_rows_multi`` launch (ids >= V clamp, as bag
+padding; negative ids read zeros and are counted, summed over ``data``),
+then one ``all_gather`` over ``table`` rebuilds the [b, D] rows of them all.
+``col_update`` is the reference's signature discipline for every table: it
+dedups the local ids, slices this rank's D/T gradient columns before their
+segment sum, packs the distinct ids into one destination's capacity
+(``capacity_for(b, 1, factor)``, overflow counted), all-gathers ids and
+rows over ``data`` (one call each for all tables), combines them and
+applies the rowwise optimizer with the column statistic (each row's sum of
+g^2 over its columns, summed over ``table`` in one ``all_sum`` for all
+tables, over the full width D: the reference's ``_row_stat`` with
+``stat_axis``); tables of one shape go through each part as one batch, as
+in the row exchange. The reference runs that update through XLA, not its
+Pallas kernel, and so does the port (``apply_deduped(..., stat=)``): this
+is the reference's route, not a fallback.
+
+``shard`` and ``unshard`` of either plan map a logical [V, ...] leaf (a
+table or its optimizer state) to this rank's block and back (a
+collective). Lane-packed sharded tables (the reference's lane-sliced wire,
+``_lookup_grouped`` / ``local_update_grouped``) are not ported yet: ROADMAP
+Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -170,7 +193,7 @@ class RowShardedTable:
     @property
     def base(self) -> int:
         """This rank's first (physical) row."""
-        return self.mesh.rank * self.rows_per_shard
+        return self.mesh.data_index * self.rows_per_shard
 
     # ---- the row permutation (mesh.row_permute) ----
 
@@ -207,6 +230,22 @@ class RowShardedTable:
         every rank calls it)."""
         physical = self.mesh.all_gather(block)
         return physical.index_select(0, self.perm_rows(block.device))[: self.vocab]
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a logical leaf: ``shard_rows`` of a [V, ...]
+        leaf, a copy of any other."""
+        return self.shard_rows(x) if x.dim() and x.shape[0] == self.vocab else x.clone()
+
+    def unshard(self, block: torch.Tensor) -> torch.Tensor:
+        """The logical leaf of a block (a collective)."""
+        return self.unshard_rows(block) if self.is_block(block) else block
+
+    def is_block(self, leaf: torch.Tensor) -> bool:
+        """Whether a leaf of this table's state is a block of rows."""
+        return bool(leaf.dim()) and leaf.shape[0] == self.rows_per_shard
+
+    def logical_shape(self, block_shape) -> tuple:
+        return (self.vocab,) + tuple(block_shape[1:])
 
 
 class _Group(NamedTuple):
@@ -363,6 +402,136 @@ def exchange_update(mesh: Mesh, plans: Sequence[RowShardedTable], tables, states
             uids[i], combined[i] = u[j], c[j]
     new_tables, new_states = sparse_opt.apply_deduped_many(list(tables), list(states), uids, combined, lr)
     return new_tables, new_states, overflow
+
+
+class ColShardedTable:
+    """The plan of one column-sharded table on a mesh's ``table`` axis:
+    this rank holds columns [t * D/T, (t + 1) * D/T) of all V rows. The
+    vocab is not padded."""
+
+    def __init__(self, mesh: Mesh, vocab: int, dim: int, *, capacity_factor: float = 2.0):
+        t = mesh.shape["table"]
+        if dim % t:
+            raise ValueError(f"a column-sharded table's dim {dim} must divide by the table axis {t}")
+        self.mesh = mesh
+        self.vocab = vocab
+        self.dim = dim
+        self.dim_local = dim // t
+        self.capacity_factor = capacity_factor
+
+    @property
+    def col0(self) -> int:
+        """This rank's first column."""
+        return self.mesh.table_index * self.dim_local
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a logical [V, D] leaf (the table, Adam's
+        m); a rowwise [V] leaf is replicated (copied)."""
+        if x.dim() == 2:
+            return x[:, self.col0:self.col0 + self.dim_local].clone(memory_format=torch.contiguous_format)
+        return x.clone()
+
+    def unshard(self, block: torch.Tensor) -> torch.Tensor:
+        """The logical leaf of a block (a collective over ``table``)."""
+        return self.mesh.all_gather(block, "table", dim=1) if block.dim() == 2 else block
+
+    def is_block(self, leaf: torch.Tensor) -> bool:
+        return leaf.dim() == 2
+
+    def logical_shape(self, block_shape) -> tuple:
+        return (self.vocab, self.dim) if len(block_shape) == 2 else tuple(block_shape)
+
+
+def _all_gather_parts(mesh: Mesh, parts: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
+    """Every part of every rank on ``axis``, in one ``all_gather`` -> [n,
+    *p.shape] a part (n the axis' size, in its order)."""
+    n = mesh.shape[axis]
+    flat = mesh.all_gather(torch.cat([p.reshape(1, -1) for p in parts], dim=1), axis)
+    return [x.reshape((n,) + tuple(p.shape))
+            for p, x in zip(parts, torch.split(flat, [p.numel() for p in parts], dim=1))]
+
+
+def _table_all_gather(mesh: Mesh, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """[b_f, d_f] column blocks -> [b_f, T * d_f] full rows, every block of
+    every table in one ``all_gather`` over ``table`` (rank t's columns at
+    [t * d_f, (t + 1) * d_f), the reference's tiled gather on axis 1)."""
+    return [x.permute(1, 0, 2).reshape(p.shape[0], -1)
+            for p, x in zip(parts, _all_gather_parts(mesh, parts, "table"))]
+
+
+def col_lookup(mesh: Mesh, plans: Sequence[ColShardedTable], tables, ids):
+    """The lookup of many column-sharded tables -> (rows [b_f, D_f] per
+    table, the count of negative ids summed over tables and ``data``). One
+    gather launch for every block, one ``all_gather`` over ``table``."""
+    local = gather_many(list(tables), list(ids))  # ids past V clamp, as bag padding
+    neg = [i < 0 for i in ids]
+    local = [torch.where(n[:, None], 0.0, r) for n, r in zip(neg, local)]
+    overflow = torch.stack([n.sum() for n in neg]).sum()
+    return _table_all_gather(mesh, local), mesh.all_sum(overflow)
+
+
+def col_update(mesh: Mesh, plans: Sequence[ColShardedTable], tables, states, ids, grads,
+               sparse_opt, lr):
+    """The update of many column-sharded tables from the local ids [b_f]
+    and full-width gradient rows [b_f, D_f] -> (tables, states, the ids
+    dropped over capacity and the negative ids of this rank, summed over
+    tables; the reference's builder discards it). Every data rank's ids
+    and column slices are gathered, so the replicas over ``data`` apply the
+    same update. Tables whose ids share a length, rows a width and plans a
+    capacity go through each part as one [F, ...] batch (one sort,
+    segmented sum and bucketing, and one receive combine, for the group),
+    each table's arithmetic bit for bit its own; one ``all_gather`` of ids
+    and one of rows over ``data``, one ``all_sum`` of the statistics over
+    ``table``, for all."""
+    keys: Dict[tuple, List[int]] = {}
+    for i, (plan, lids) in enumerate(zip(plans, ids)):
+        keys.setdefault((lids.shape[0], plan.dim, plan.capacity_factor), []).append(i)
+    groups, send_ids, send_rows, overflow = [], [], [], []
+    for (b, _, factor), members in keys.items():
+        group = [plans[i] for i in members]
+        f, p0 = len(members), group[0]
+        dl = p0.dim_local
+        vocab = torch.tensor([[p.vocab] for p in group], device=ids[members[0]].device)
+        uids, inv, order = dedup_ids_sorted(torch.stack([ids[i] for i in members]), vocab)
+        # This rank's columns before the sum by id: T-fold less work. Each
+        # table's segments apart (bit for bit a sum a table).
+        g_cols = torch.stack([grads[i][:, p0.col0:p0.col0 + dl] for i in members])
+        seg = inv.gather(1, order) + torch.arange(f, device=inv.device)[:, None] * b
+        combined = _segment_sums(seg.reshape(-1), g_cols.gather(
+            1, order[:, :, None].expand(-1, -1, dl)).reshape(-1, dl)).view(f, b, dl)
+        cap = capacity_for(b, 1, factor)
+        sids, pos, ovf = bucket_by_dest(uids, 1, vocab, cap, vocab, ids_sorted=True)
+        pos = pos.reshape(f, cap)
+        rows = combined.gather(1, pos.clamp(max=b - 1)[:, :, None].expand(-1, -1, dl))
+        groups.append((members, group))
+        send_ids.append(sids.reshape(f, cap))
+        send_rows.append(torch.where((pos < b)[:, :, None], rows, 0.0))
+        overflow.append(ovf)
+    recv = zip(_data_all_gather(mesh, send_ids), _data_all_gather(mesh, send_rows))
+    combined = []
+    for (members, group), (all_ids, all_rows) in zip(groups, recv):
+        # Every data rank's rows of a table, one batched combine for the group.
+        combined.append(combine_duplicate_ids_grouped(all_ids, all_rows, [p.vocab for p in group]))
+    stats = [None] * len(groups)
+    if sparse_opt.name != "sgd":
+        sumsq = [(g * g).sum(dim=-1) for _, g in combined]
+        total = mesh.all_sum(torch.cat([s.reshape(-1) for s in sumsq]), "table")
+        stats = [t.view(s.shape) / group[0].dim for t, s, (_, group) in
+                 zip(torch.split(total, [s.numel() for s in sumsq]), sumsq, groups)]
+    new_tables, new_states = list(tables), list(states)
+    for (members, _), (uids, g), stat in zip(groups, combined, stats):
+        for j, i in enumerate(members):
+            new_tables[i], new_states[i] = sparse_opt.apply_deduped(
+                tables[i], states[i], uids[j], g[j], lr, stat=None if stat is None else stat[j])
+    return new_tables, new_states, torch.stack(overflow).sum()
+
+
+def _data_all_gather(mesh: Mesh, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each part [F, c, ...] of every data rank, in one ``all_gather`` over
+    ``data`` -> [F, N * c, ...] a part: row f holds table f's slots of
+    rank 0, then of rank 1, and so on."""
+    return [x.transpose(0, 1).reshape((p.shape[0], -1) + tuple(p.shape[2:]))
+            for p, x in zip(parts, _all_gather_parts(mesh, parts, "data"))]
 
 
 def wire_dtype(a2a_dtype: str) -> torch.dtype | None:

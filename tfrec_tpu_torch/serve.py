@@ -26,9 +26,22 @@ its dataset) from the config and restores the latest checkpoint, saved by
 the port or by the JAX package in any table layout, into the config's
 layout (per field under ``model.lane_pack=None``).
 
+On a mesh (``from_trainer`` of a trainer on N ranks, or ``mesh=``,
+``state=`` and ``builder=``) it serves the live sharded state in its
+training layout, nothing re-replicated for ``recommend``: every rank calls
+each method with the same request (a collective) and gets the whole
+answer. ``recommend`` of a dot-product scorer gathers the users' rows
+(``parallel/eval.gather_rows``: ``sharded_row_gather`` for a row-sharded
+table), applies the model's query transform and runs
+``parallel/topk.sharded_topk_dot`` against each rank's block of the item
+table (``table_rows``). ``predict`` and ``predict_ctr`` gather each table's
+rows by its plan the same way; ``score_catalog`` and ``recommend`` of a
+scorer without a dot decomposition take the logical tables, gathered once.
+A row-permuted state (``mesh.row_permute``, CTR models only) is served from
+its logical tables, as in the reference.
+
 Refused by naming the ROADMAP Queue 1 item: int8 serving
-(``quantize=True``, item 13) and a mesh or a live sharded train state
-(item 11).
+(``quantize=True``, item 13).
 """
 
 from __future__ import annotations
@@ -40,6 +53,8 @@ import torch
 
 from tfrec_tpu_torch.eval.retrieval import TOPK_METHODS, padded_positives, topk_scores
 from tfrec_tpu_torch.ops.embedding import gather_many
+from tfrec_tpu_torch.parallel.eval import gather_rows, table_rows
+from tfrec_tpu_torch.parallel.topk import sharded_topk_dot
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -53,23 +68,32 @@ def _to_device(tree: Any, device: torch.device) -> Any:
 class Recommender:
     def __init__(self, model, params, dataset=None, mesh=None, quantize: bool = False,
                  state=None, topk_method: str = "approx", recall_target: float = 0.99,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", builder=None):
         """``params``: the tree ``{"tables": ..., "dense": ...}`` of tensors
         (``model.init`` or ``convert.params_from_jax``); it is moved to
         ``device`` once. ``dataset`` (``data.dataset.Dataset``) gives the
         catalog size and the train items ``recommend`` excludes. The
         default device is the card: without CUDA this raises rather than
-        serve on the CPU; pass ``device="cpu"`` for that."""
+        serve on the CPU; pass ``device="cpu"`` for that. On a mesh,
+        ``state`` is a live sharded train state, laid out by ``builder``
+        (``parallel.step.ShardedTrainStepBuilder``) on ``mesh``, its
+        device's; ``params`` is then unused (None)."""
         if quantize:
             raise NotImplementedError(
                 "Recommender(quantize=True) (int8 item tables, ops/quantize.py) is not ported "
                 "yet: ROADMAP Queue 1 item 13")
-        if mesh is not None or state is not None:
-            raise NotImplementedError(
-                "serving from a mesh or a live sharded train state is not ported yet: ROADMAP "
-                "Queue 1 item 11; the port serves on one device")
         if topk_method not in TOPK_METHODS:
             raise ValueError(f"unknown topk method {topk_method!r}")
+        self.mesh, self.state, self.builder = mesh, state, builder
+        self._logical = None
+        if mesh is not None or state is not None:
+            if mesh is None or state is None or builder is None or builder.mesh is not mesh:
+                raise ValueError("serving a live sharded state takes mesh=, state= and the builder= "
+                                 "that lays the state out on that mesh")
+            device = mesh.device
+            if any(getattr(p, "permute", False) for p in builder.plans.values()):
+                # Physical rows: serve the logical tables (CTR models only).
+                self._logical = builder.unpadded_tables(state)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -77,7 +101,7 @@ class Recommender:
                 "not available; pass device='cpu' to serve on the CPU"
             )
         self.model = model
-        self.params = _to_device(params, self.device)
+        self.params = _to_device(params, self.device) if params is not None else None
         self.dataset = dataset
         self.topk_method = topk_method
         self.recall_target = recall_target
@@ -113,17 +137,37 @@ class Recommender:
     @classmethod
     def from_trainer(cls, trainer) -> "Recommender":
         """Serve a trainer's model and params, with its dataset, on its
-        device."""
+        device; a trainer on a mesh, from its live sharded state."""
+        if getattr(trainer, "mesh", None) is not None:
+            return cls(trainer.model, None, dataset=trainer.dataset, mesh=trainer.mesh,
+                       state=trainer.state, builder=trainer.builder)
         return cls(trainer.model, trainer.params, dataset=trainer.dataset, device=trainer.device)
+
+    def _sharded(self) -> bool:
+        return self.state is not None and self._logical is None
+
+    def _params(self):
+        """The params tree: on a mesh the logical tables, gathered once (a
+        collective)."""
+        if self.state is None:
+            return self.params
+        if self._logical is None:
+            self._logical = self.builder.unpadded_tables(self.state)
+        return {"tables": self._logical, "dense": self.state["dense"]}
 
     def _ids(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
 
     def _forward(self, batch) -> torch.Tensor:
-        tables = self.params["tables"]
         ids = self.model.lookup_ids(batch)
+        if self._sharded():
+            tables = self.state["tables"]
+            gathered = {k: gather_rows(self.builder, tables, k, v) for k, v in ids.items()}
+            return self.model(self.state["dense"], gathered, batch)
+        params = self._params()
+        tables = params["tables"]
         gathered = dict(zip(ids, gather_many([tables[k] for k in ids], list(ids.values()))))
-        return self.model(self.params["dense"], gathered, batch)
+        return self.model(params["dense"], gathered, batch)
 
     # ---- pointwise scoring ----
 
@@ -155,7 +199,7 @@ class Recommender:
     @torch.inference_mode()
     def score_catalog(self, user_ids) -> np.ndarray:
         """[B, num_items] scores of every item for each user."""
-        scores = self.model.score_all(self.params, self._ids(user_ids))
+        scores = self.model.score_all(self._params(), self._ids(user_ids))
         return scores[:, : self._num_items()].cpu().numpy()
 
     def _train_exclusions(self, user_ids: np.ndarray):
@@ -178,7 +222,24 @@ class Recommender:
         ``exclude_train`` and a dataset is given. The [B, V] score matrix is
         built once, as in the reference."""
         exc_p, exc_c = self._train_exclusions(user_ids) if exclude_train else (None, None)
-        scores = self.model.score_all(self.params, self._ids(user_ids))[:, : self._num_items()]
+        spec = self.model.dot_decomposition()
+        if self._sharded() and spec is not None:
+            return self._recommend_sharded(spec, user_ids, k, exc_p, exc_c)
+        scores = self.model.score_all(self._params(), self._ids(user_ids))[:, : self._num_items()]
         vals, ids = topk_scores(scores, k, exc_p, exc_c, method=self.topk_method,
                                 recall_target=self.recall_target)
+        return ids.cpu().numpy(), vals.cpu().numpy()
+
+    def _recommend_sharded(self, spec, user_ids, k: int, exc_p, exc_c):
+        """``recommend`` of a dot-product scorer on the live sharded state:
+        the users' rows, the query transform, the sharded top-k."""
+        tables = self.state["tables"]
+        users = self._ids(user_ids)
+        q = spec.user_vecs(self.state["dense"], gather_rows(self.builder, tables, spec.user_table, users))
+        items, _ = table_rows(self.builder, tables, spec.item_table)
+        bias = (table_rows(self.builder, tables, spec.bias_table)[0][:, 0]
+                if spec.bias_table is not None else None)
+        vals, ids = sharded_topk_dot(self.mesh, q, items, k, self._num_items(), item_bias=bias,
+                                     exclude_padded=exc_p, exclude_counts=exc_c,
+                                     method=self.topk_method, recall_target=self.recall_target)
         return ids.cpu().numpy(), vals.cpu().numpy()

@@ -48,28 +48,41 @@ kernels' plain versions); without CUDA the default raises. What the port
 does not take yet it refuses by naming the ROADMAP Queue 1 item, never
 passing it over: models other than mf, fm, gmf, mlp, neumf, dcn and dcnv2,
 user histories, sequences and the social graph (item 12), step profiles
-(item 10), column-sharded, FSDP and lane-packed sharded tables and the
-sharded retrieval evals (item 11), and ``train.matmul_precision`` other
-than "default" (item 5).
+(item 10), FSDP and lane-packed sharded tables (item 11), and
+``train.matmul_precision`` other than "default" (item 5).
 
-On N ranks (a ``torch.distributed`` process group, ``parallel.mesh.
+On D x T ranks (a ``torch.distributed`` process group, ``parallel.mesh.
 init_distributed``; the CLI starts one from the reference's ``JAX_*``
 variables), the reference's rule picks the mesh path: ``mesh.data_axis_size
-!= 0`` and a world size above 1 (or a table axis above 1, refused);
-``mesh.data_axis_size=0`` on more than one rank is refused. Then
-the step is ``parallel.step.ShardedTrainStepBuilder`` (row-sharded tables,
-replicated dense params), each rank samples its B / N rows of every global
-batch with the seed ``seed * N + rank`` (a stream takes its round-robin
-stripe) and an epoch is the sampler's batches over N; the step's loss and
-overflow are global, and an epoch that dropped ids over capacity logs a
-``lookup_overflow`` event with its drop rate. CTR data only: the eval
-forwards each rank's contiguous block of every held-out batch through the
-exchange and all-gathers the logits, so AUC and logloss are the same on
-every rank (``eval_lookup_overflow`` where the eval dropped ids). Rank 0
-alone writes the metric stream; every rank writes its blocks of a
-checkpoint, and a checkpoint of any world size (the port's or JAX's)
-resumes at any other through the global state (``convert.shard_state``),
-under the reference's row-permute guards.
+!= 0`` and a world size above 1 or a table axis above 1 (which needs as
+many ranks); ``mesh.data_axis_size=0`` on more than one rank is refused.
+Then the step is ``parallel.step.ShardedTrainStepBuilder`` on the ``data``
+x ``table`` mesh (row- or column-sharded or replicated tables, replicated
+dense params). The batch splits over ``data`` only: each rank samples its
+B / D rows of every global batch with the seed ``seed * D + d``, d its data
+index, so the ranks that share a d (the table axis' replicas) draw the same
+rows (a stream takes its data index's round-robin stripe, the evals split
+their rows the same way), and an epoch is the sampler's batches over D.
+The reference seeds each process by its process index and cuts B over the
+process count, which under T > 1 would hand the replicas of one data index
+different rows (ROADMAP Queue 3); the port follows the mesh's axes. The
+step's loss and overflow are global, and an epoch that dropped ids over
+capacity logs a ``lookup_overflow`` event with its drop rate. The evals:
+CTR data forwards each data index's contiguous block of every held-out
+batch through the builder's lookup and all-gathers the logits over
+``data``, so AUC and logloss are the same on every rank
+(``eval_lookup_overflow`` where the eval dropped ids), and so does the AUC
+over interaction data (its rows padded to a multiple of D by repeating its
+first rows, as the reference pads); the full-catalog eval of a dot-product
+scorer runs ``parallel/eval.ShardedRetrievalEvaluator`` on the live state,
+and the sampled eval (and the full-catalog eval of a scorer without a dot
+decomposition) runs on ``Trainer.params``, the logical tables gathered
+from every rank. Rank 0 alone writes the metric stream. On a one-axis
+row-sharded mesh every rank writes its blocks of a checkpoint; any other
+mesh saves the logical state, gathered over both axes, which rank 0 writes.
+A checkpoint of any mesh shape (the port's or JAX's) resumes at any other
+through the global state (``convert.shard_state``), under the reference's
+row-permute guards.
 
 ``train.host_dedup`` sorts each train batch's ids on the host, in the
 prefetch worker, for the step's duplicate combine (``host_dedup_sorts``).
@@ -105,6 +118,8 @@ from tfrec_tpu_torch.eval.metrics import logloss as logloss_metric
 from tfrec_tpu_torch.eval.retrieval import RetrievalEvaluator
 from tfrec_tpu_torch.eval.sampled import SampledEvaluator
 from tfrec_tpu_torch.models import BUILT, NOT_PORTED, DataSpec, build_model
+from tfrec_tpu_torch.parallel.embedding import ColShardedTable
+from tfrec_tpu_torch.parallel.eval import ShardedRetrievalEvaluator
 from tfrec_tpu_torch.parallel.mesh import make_mesh, world_size
 from tfrec_tpu_torch.train.losses import IN_BATCH_LOSSES, MULTI_NEG_LOSSES, PAIRWISE_LOSSES
 from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, host_dedup_sorts
@@ -150,10 +165,6 @@ def _refuse_unported(c: Config) -> None:
         raise NotImplementedError(
             f"train.matmul_precision={t.matmul_precision!r} is not ported yet: ROADMAP Queue 1 "
             "item 5; the port runs f32 matmuls with TF32 off")
-    if c.mesh.table_axis_size > 1:
-        raise NotImplementedError(
-            f"a table axis of {c.mesh.table_axis_size} (column-sharded tables) is not ported "
-            "yet: ROADMAP Queue 1 item 11; the port row-shards over the data axis")
 
 
 class Trainer:
@@ -175,7 +186,7 @@ class Trainer:
         # The reference's rule: the mesh path where the data axis is not
         # forced off and there is more than one rank.
         self.mesh = None
-        if world_size() > 1:
+        if world_size() > 1 or c.mesh.table_axis_size > 1:
             if c.mesh.data_axis_size == 0:
                 # Every rank would train alone as the lead, each writing the
                 # stream and the checkpoints into one directory.
@@ -183,6 +194,11 @@ class Trainer:
                     f"mesh.data_axis_size=0 (the single-device path) on {world_size()} ranks: "
                     "start one process for a single-device run, or let the ranks share the "
                     "data axis (mesh.data_axis_size=-1)")
+            if world_size() % c.mesh.table_axis_size:
+                raise ValueError(
+                    f"mesh.table_axis_size={c.mesh.table_axis_size} needs a multiple of as many "
+                    f"ranks, but the process group has {world_size()}: start data x table ranks "
+                    "(JAX_NUM_PROCESSES under the CLI)")
             self.mesh = make_mesh(c.mesh.data_axis_size, c.mesh.table_axis_size, device)
             self.device = self.mesh.device
             n_data = self.mesh.size
@@ -194,8 +210,9 @@ class Trainer:
             raise ValueError(
                 "mesh.row_permute requires the sharded (mesh) path; this run resolved to the "
                 "single-device builder — drop the flag or run on a mesh")
-        self.rank, self.num_ranks = (self.mesh.rank, self.mesh.size) if self.mesh else (0, 1)
-        lead = self.rank == 0  # the rank that writes the metric stream
+        # The batch's split: this rank's data index and the data axis' size.
+        self.rank, self.num_ranks = (self.mesh.data_index, self.mesh.size) if self.mesh else (0, 1)
+        lead = self.mesh is None or self.mesh.rank == 0  # the rank that writes the metric stream
         self.logger = MetricLogger(
             c.run_name, out_dir=c.train.checkpoint_dir if log_metrics and lead else None,
             quiet=quiet or not lead)
@@ -206,11 +223,6 @@ class Trainer:
         self.is_ctr_model = c.model.name.lower() in CTR_MODELS
         self.dataset = self.ctr_arrays = self.stream = None
         self.user_side = self.item_side = None
-        if self.mesh is not None and c.data.source not in CTR_SOURCES:
-            raise NotImplementedError(
-                f"data.source={c.data.source!r} on a mesh (the sharded retrieval, sampled and "
-                "sampled-AUC evals, ShardedRetrievalEvaluator) is not ported yet: ROADMAP Queue 1 "
-                "item 11; the mesh path trains CTR data (synthetic_ctr, criteo)")
         if c.data.source in INTERACTION_SOURCES:
             self.dataset = build_dataset(c.data)
             nu, ni = self.dataset.num_users, self.dataset.num_items
@@ -326,7 +338,7 @@ class Trainer:
         return convert.flat_from_state(self.state, o.dense_optimizer, o.weight_decay)
 
     def _row_keys(self) -> Dict[str, object]:
-        """On a mesh, each row-sharded leaf's flat key -> its table's plan."""
+        """On a mesh, each sharded leaf's flat key -> its table's plan."""
         if self.mesh is None:
             return {}
         out = {}
@@ -335,9 +347,16 @@ class Trainer:
                 continue
             out[f"tables/{name}"] = plan
             for leaf, v in self.state["sparse_opt"][name].items():
-                if v.dim() and v.shape[0] == plan.rows_per_shard:
+                if plan.is_block(v):
                     out[f"sparse_opt/{name}/{leaf}"] = plan
         return out
+
+    def _saves_blocks(self) -> bool:
+        """Whether a checkpoint is every rank's blocks (a one-axis mesh of
+        row-sharded or replicated tables, the reference's multi-process
+        layout), not the logical state that rank 0 writes."""
+        return (self.mesh is not None and self.mesh.shape["table"] == 1
+                and not any(isinstance(p, ColShardedTable) for p in self.builder.plans.values()))
 
     def _block_spans(self, flat: Dict[str, np.ndarray]) -> Dict[str, dict]:
         """The reference's ``blocks.p<i>.json`` of this rank's ``flat``:
@@ -364,12 +383,19 @@ class Trainer:
         meta = {"row_permute": self._row_permute_active()}
         if meta["row_permute"]:
             meta["row_permute_shards"] = self.mesh.size
-        flat = self.checkpoint_state()
-        if self.mesh is None:
-            checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch, flat, meta=meta)
-        else:
+        if self._saves_blocks():
+            flat = self.checkpoint_state()
             checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch, flat, meta=meta,
                                        mesh=self.mesh, spans=self._block_spans(flat))
+        elif self.mesh is None:
+            checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch, self.checkpoint_state(), meta=meta)
+        else:  # the logical state, gathered over both axes; rank 0 writes it
+            o = c.optim
+            flat = convert.flat_from_state(self.builder.logical_state(self.state), o.dense_optimizer,
+                                           o.weight_decay)
+            if self.mesh.rank == 0:
+                checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch, flat, meta=meta)
+            self.mesh.barrier()  # published before any rank goes on
 
     def restore(self, ckpt_dir: str, step: int | None = None, params_only: bool = False):
         """The checkpoint at ``step`` (default: the latest) of ``ckpt_dir``,
@@ -385,7 +411,9 @@ class Trainer:
         permuted = self._row_permute_active()
         rows = self._row_keys()
         for key, plan in rows.items():  # the global shapes: padded where permuted
-            template[key] = ((plan.vocab_padded if permuted else plan.vocab),) + template[key][1:]
+            template[key] = plan.logical_shape(template[key])
+            if permuted:
+                template[key] = (plan.vocab_padded,) + template[key][1:]
         if params_only:
             template = {k: v for k, v in template.items() if k.startswith(("tables/", "dense/"))}
         missing = set(template) - keys
@@ -405,7 +433,7 @@ class Trainer:
         if params_only:
             params = convert.params_from_flat(flat, self.model, self.state["dense"])
             if self.mesh is not None:
-                params["tables"] = {n: (self.builder.plans[n].shard_rows(t)
+                params["tables"] = {n: (self.builder.plans[n].shard(t)
                                         if self.builder.plans.get(n) is not None else t)
                                     for n, t in params["tables"].items()}
             return copy_state(params, self.device)
@@ -450,7 +478,7 @@ class Trainer:
             else:
                 copied.append(name)
         if self.mesh is not None:
-            tables = {n: (self.builder.plans[n].shard_rows(t) if self.builder.plans.get(n) is not None
+            tables = {n: (self.builder.plans[n].shard(t) if self.builder.plans.get(n) is not None
                           else t) for n, t in tables.items()}
         self.state = {**self.state, "tables": tables}
         self.logger.log({"event": "warm_start", "from": ckpt_dir,
@@ -590,11 +618,10 @@ class Trainer:
 
     @property
     def params(self):
+        """``{"tables", "dense"}``; on a mesh the logical tables, gathered
+        from every rank (a collective: every rank reads it)."""
         if self.mesh is not None:
-            raise NotImplementedError(
-                "the params of a live sharded state (serving from a mesh) are not ported yet: "
-                "ROADMAP Queue 1 item 11; save a checkpoint and serve it with "
-                "Recommender.from_checkpoint")
+            return {"tables": self.builder.unpadded_tables(self.state), "dense": self.state["dense"]}
         return {"tables": self.state["tables"], "dense": self.state["dense"]}
 
     # ---- evaluation ----
@@ -618,6 +645,13 @@ class Trainer:
                     num_candidates=c.train.eval_num_candidates, seed=c.train.seed + 13,
                     user_batch=c.train.eval_user_batch, device=self.device)
             out.update(self._retrieval_eval(self.params))
+        elif self.mesh is not None and self.model.dot_decomposition() is not None:
+            # The distributed top-k on the live sharded tables.
+            if self._retrieval_eval is None:
+                self._retrieval_eval = ShardedRetrievalEvaluator(
+                    self.builder, self.model, self.dataset, ks=tuple(c.train.eval_topk),
+                    user_batch=c.train.eval_user_batch)
+            out.update(self._retrieval_eval(self.state))
         else:
             if self._retrieval_eval is None:
                 self._retrieval_eval = RetrievalEvaluator(
@@ -635,7 +669,9 @@ class Trainer:
     def _eval_interaction_auc(self, num_neg: int = 50) -> Dict[str, float]:
         """AUC of held-out positives against ``num_neg`` uniform negatives a
         positive, in one forward of ~20 000 rows (the reference's draws from
-        seed + 7)."""
+        seed + 7). On a mesh the rows are padded to a multiple of the data
+        axis by repeating the first ones (trimmed before the AUC), each data
+        index forwards its contiguous block, and the logits are gathered."""
         rng = np.random.default_rng(self.config.train.seed + 7)
         test = self.dataset.test
         n = min(len(test), max(20_000 // (1 + num_neg), 1))
@@ -643,11 +679,20 @@ class Trainer:
         neg_items = rng.integers(0, self.dataset.num_items, size=(n, num_neg)).astype(np.int32)
         items = np.concatenate([test.items[:n, None], neg_items], axis=1).reshape(-1)
         labels = np.tile(np.concatenate([[1.0], np.zeros(num_neg)]).astype(np.float32), n)
+        batch = {"user": users.astype(np.int32), "item": items, "label": labels}
+        real = len(labels)
+        pad = (-real) % self.num_ranks
+        if pad:
+            batch = {k: np.concatenate([v, v[:pad]]) for k, v in batch.items()}
+        rows = (real + pad) // self.num_ranks
+        lo = self.rank * rows
         batch = self._to_device_batch(self._host_batch(
-            {"user": users.astype(np.int32), "item": items, "label": labels}, train=False))
+            {k: v[lo:lo + rows] for k, v in batch.items()}, train=False))
         with torch.no_grad():
             logits = self._forward(batch)
-            return {"auc": float(auc_metric(logits, batch["label"]))}
+            if self.mesh is not None:
+                logits = self.mesh.all_gather(logits)
+            return {"auc": float(auc_metric(logits[:real], torch.from_numpy(labels).to(self.device)))}
 
     def _forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The eval forward (the reference's ``_forward_fn``): the builder's
@@ -752,16 +797,18 @@ class Trainer:
             return True
         return False
 
-    def _log_overflow(self, epoch: int, dropped: int, n_examples: int) -> None:
+    def _log_overflow(self, epoch: int, dropped: int, n_examples: int, batch) -> None:
         """An epoch that dropped ids over the exchange's capacity says so in
         the stream: the count and its rate over the ids the epoch looked up
-        in its row-sharded tables."""
+        in its sharded tables (``batch``: one of its device batches, or K
+        stacked)."""
         if not dropped:
             return
-        dense, cat, label = self.ctr_arrays["test"]
-        one = self._to_device_batch({"dense": dense[:1], "cat": cat[:1], "label": label[:1]})
-        per_example = sum(v.numel() for k, v in self.model.lookup_ids(one).items()
-                          if self.builder.plans.get(k) is not None)
+        if max(self.config.train.steps_per_dispatch, 1) > 1:
+            batch = {k: v[0] for k, v in batch.items()}
+        rows = next(iter(batch.values())).shape[0]
+        per_example = sum(v.numel() for k, v in self.model.lookup_ids(batch).items()
+                          if self.builder.plans.get(k) is not None) / rows
         self.logger.log({"event": "lookup_overflow", "epoch": epoch, "dropped_ids": dropped,
                          "drop_rate": dropped / max(per_example * n_examples, 1)})
 
@@ -863,7 +910,7 @@ class Trainer:
                 "loss": last_loss,
                 "examples_per_s": n_examples / max(dt, 1e-9),
             }
-            self._log_overflow(epoch, int(dropped), n_examples)
+            self._log_overflow(epoch, int(dropped), n_examples, dev_batch)
             if self._post_epoch(epoch, rec, history):
                 break
         return history
