@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-5 (config 5's row- and column-sharded tables and retrieval on a mesh), data files, checkpoints and the CLI, and every table layout and duplicate combine of the step, on one NVIDIA GPU.
+"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-5 (config 5's row- and column-sharded tables and retrieval on a mesh), data files, checkpoints and the CLI, every table layout and duplicate combine of the step, and the rest of the CTR and the sequential zoo, on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
@@ -204,9 +204,28 @@ non-zero if any phase fails:
     rank's ``torch.topk`` of [1024, 500000]. (M4) MF under col sharding on
     a (2, 2) mesh of 4 ranks, 2 epochs: its checkpoint served on one card
     by ``from_checkpoint`` gives the live mesh's top-k.
+30. (N) the rest of the CTR zoo and the sequential zoo: (N1) DeepFM, Wide &
+    Deep, NFM and DLRM at dcn_criteo's Criteo shape (DeepFM, W&D and NFM
+    with 26 linear tables beside the fields: 52 tables), each serving 4
+    batches of 8192 through ``predict_ctr`` (one gather launch a batch,
+    against the plain versions and the CPU) and training 8 steps of 8192
+    Zipf(1.2) ids (one gather and one Adagrad launch a step, the held loss
+    falling; one step bit for bit on repeat and against the CPU at
+    STEP_RTOL / STEP_ATOL, the linear tables' update held apart from its
+    input); the gather and Adagrad kernels at the 52 tables; host medians,
+    busy shares, kernels a step; ``trainer.run(dcn_criteo())`` as DLRM and
+    as DeepFM at phase 10's proxy size (AUC above 0.5, no band exists).
+    (N2) ``trainer.run`` of sasrec_ml1m and caser_ml1m whole (their bands)
+    and gru4rec_ml1m for 1 of its 60 epochs (a falling loss), each saving a
+    checkpoint; one gather launch a step and one an eval batch; serving
+    ``predict`` and ``recommend`` from the trainer and from the checkpoint,
+    bit for bit; 2 first steps at dropout 0 against the CPU; the gather at
+    each step's shape (51 072 ids of [3706, 64] for SASRec and GRU4Rec);
+    examples/s, host medians, busy shares, kernels and copies a step.
 
-No earlier path is cut in depth for time (PERF.md gives a whole run's
-time on an H100). The last lines are the kernels' JSON record (the v2
+No earlier path is cut in depth for time; phase N runs gru4rec_ml1m for 1
+of its 60 epochs (SEQ_EPOCHS; PERF.md gives a whole run's time on an
+H100, and GRU4Rec's). The last lines are the kernels' JSON record (the v2
 records carry the general route's shapes as ``general_route``, the gather
 and Adagrad records their times at MF's shape as ``mf_bench`` and at
 FM's and NeuMF's as ``fm`` and ``neumf``, and ``launches_by_path`` the
@@ -225,7 +244,11 @@ Adagrad launches of phase K's packed paths; phase L adds ``train_sharded``
 summed) to ``launches_by_path``, and its shapes to the gather and Adagrad
 records as ``sharded``; phase M adds ``train_col`` (M1), ``trainer_mesh_mf``
 (M2), ``serve_mesh_mf`` (M3's first call) and ``trainer_col_mf`` (M4),
-every rank's launches summed) and ``{"ok": true, ...}``.
+every rank's launches summed; phase N adds ``serve_<model>``,
+``train_<model>`` and ``trainer_<model>`` for its models, and its shapes to
+the gather record as ``deepfm_52``, ``sasrec_ml1m``, ``caser_ml1m`` and
+``gru4rec_ml1m`` and to the Adagrad record as ``deepfm_52``) and
+``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -411,6 +434,23 @@ SHARDED_SERVE_AUC_ATOL = 1e-3
 # its time limit.
 MESH_VALUE_RTOL = 1e-5
 MESH_RANK_TIMEOUT_S = 420
+# Phase N: the rest of the CTR zoo at Criteo's shape (its steps against the
+# CPU as phase 6 holds DCN's, at tests/test_torch_layouts.py's step
+# tolerance), and the sequential zoo on the card, in the bands of
+# tests/test_golden.py:149-150 and :184-186. GRU4Rec runs SEQ_EPOCHS' 1 of
+# its 60 epochs, held to a falling loss and to the CPU instead of its band:
+# its 199-step loop takes ~165 ms a step (8930 kernels and copies), and the
+# whole run, 564 s on the H100 (PERF.md), would take the script past its
+# time limit. Their first steps at dropout 0 against the CPU: the same sums
+# in other orders through rowwise and dense Adam, at the same tolerance.
+CTR_ZOO = ("deepfm", "widedeep", "nfm", "dlrm")
+SEQ_BANDS = {"sasrec_ml1m": {"recall@20": (0.045, 0.067), "ndcg@20": (0.019, 0.029)},
+             "caser_ml1m": {"recall@20": (0.028, 0.050)},
+             "gru4rec_ml1m": {"recall@20": (0.040, 0.060)}}
+SEQ_EPOCHS = {"gru4rec_ml1m": 1}
+SEQ_CPU_STEPS = 2
+SEQ_SERVE_K = 20
+STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
 
 # The kernels of the main paths. The gather and Adagrad kernels run there
 # as one launch over every table (the ``_multi`` wrappers); their one-table
@@ -1348,25 +1388,42 @@ def step_routes(builder, per_table, start, batch, num_tables: int) -> None:
 
 
 def relu_inputs(builder, state, batch) -> list:
-    """The inputs of the deep tower's ReLUs, [B, width] a layer, on the CPU."""
+    """The inputs of the forward's ReLUs (``torch.relu``, which every model
+    of the port calls: DCN's and DeepFM's towers, DLRM's bottom and top
+    MLPs), [B, width] a call, on the CPU."""
+    bsz = batch["cat"].shape[0]
+    out = []
+    relu = torch.relu
+
+    def recorded(x):
+        out.append(x.detach().reshape(bsz, -1).cpu())
+        return relu(x)
+
     with torch.no_grad():
         gathered, _ = builder.lookup(state["tables"], builder.model.lookup_ids(batch))
-        h = builder.model.flat_input(gathered, batch)
-        out = []
-        for w, b in state["dense"]["mlp"]:
-            pre = h @ w + b
-            out.append(pre.cpu())
-            h = torch.relu(pre)
-        return out
+        torch.relu = recorded
+        try:
+            builder.model(state["dense"], gathered, batch)
+        finally:
+            torch.relu = relu
+    return out
 
 
-def check_step(builder, start, batch, loss: str) -> None:
+def check_step(builder, start, batch, loss: str, step_tol: tuple | None = None) -> None:
     """One step from ``start`` repeats bit for bit on the card, and matches
     the same step on the CPU (the kernels' plain versions): the loss, the
     gradients of the dense leaves and of the gathered rows, and the tables
     and accumulators after the update, apart from the rows of examples
     whose ReLU flipped (see GRAD_TOL). Adam's first update is not compared:
-    its size is lr whatever the gradient, so a near-zero gradient flips it."""
+    its size is lr whatever the gradient, so a near-zero gradient flips it.
+    ``step_tol`` (rtol, atol) holds the tables and accumulators element by
+    element instead (phase N). A [V, 1] linear table's first normalised
+    update, lr * g / sqrt(g^2 + eps), turns the rounding of a row's
+    cancelling gradient sum into up to lr / sqrt(eps) = 200 times as much,
+    so there the update is held apart from its input: the combined
+    gradients against the CPU's (GRAD_TOL), and the card's update of the
+    CPU's combined gradients against the CPU's update (``step_tol``); the
+    whole step's rows past ``step_tol`` are counted and reported."""
     one, m_one = builder.step(copy_state(start), batch)
     two, m_two = builder.step(copy_state(start), batch)
     torch.cuda.synchronize()
@@ -1395,7 +1452,8 @@ def check_step(builder, start, batch, loss: str) -> None:
     errs["dense grads"] = max(max_err(a, e) for a, e in dense_pairs)
     errs["row grads"] = max(max_err(a, e) for a, e in row_pairs)
     table_ok, acc_ok, flipped_rows, flipped_err = True, True, 0, 0.0
-    errs["tables"] = errs["acc (relative)"] = 0.0
+    errs["tables"] = errs["acc (relative)"] = errs["linear tables"] = 0.0
+    lin_ok, lin_past, lr = True, 0, cpu.sparse_schedule(cpu_start["step"])
     for name, field_ids in ids.items():
         vocab = after_c["tables"][name].shape[0]
         t_g, t_c = one["tables"][name].cpu(), after_c["tables"][name]
@@ -1410,25 +1468,49 @@ def check_step(builder, start, batch, loss: str) -> None:
         flipped_rows += int((by_flip & touched).sum())
         if (by_flip & touched).any():
             flipped_err = max(flipped_err, max_err(t_g[by_flip], t_c[by_flip]))
-        errs["tables"] = max(errs["tables"], max_err(t_g[clean], t_c[clean]))
+        kind = "linear tables" if t_c.shape[1] == 1 else "tables"
+        errs[kind] = max(errs[kind], max_err(t_g[clean], t_c[clean]))
         rel = ((a_g[clean & touched] - a_c[clean & touched]).abs()
                / a_c[clean & touched].clamp_min(1e-30))
         errs["acc (relative)"] = max(errs["acc (relative)"], rel.max().item() if rel.numel() else 0.0)
-        table_ok &= within(t_g[clean], t_c[clean], TABLE_TOL, TABLE_TOL)
-        acc_ok &= bool((rel <= ACC_RTOL).all()) and torch.equal(a_g[~touched], a_c[~touched])
+        if step_tol is None:
+            table_ok &= within(t_g[clean], t_c[clean], TABLE_TOL, TABLE_TOL)
+            acc_ok &= bool((rel <= ACC_RTOL).all()) and torch.equal(a_g[~touched], a_c[~touched])
+            continue
+        rtol, atol = step_tol
+        acc_ok &= torch.allclose(a_g[clean], a_c[clean], rtol=rtol, atol=atol)
+        if kind == "tables":
+            table_ok &= torch.allclose(t_g[clean], t_c[clean], rtol=rtol, atol=atol)
+            continue
+        uids_c, g_c = combine_duplicate_ids(field_ids, rows_c[name], sentinel=vocab)
+        uids_g, g_g = combine_duplicate_ids(field_ids, rows_g[name].cpu(), sentinel=vocab)
+        slots = ~by_flip[uids_c.clamp(0, vocab - 1).long()]
+        errs["linear combined grads"] = max(errs.get("linear combined grads", 0.0), max_err(g_g[slots], g_c[slots]))
+        same, _ = builder.sparse_opt.apply_deduped(
+            start["tables"][name].clone(), copy_state(start["sparse_opt"][name]), uids_c.to(DEVICE),
+            g_c.to(DEVICE), lr)
+        errs["linear update of the CPU's grads"] = max(errs.get("linear update of the CPU's grads", 0.0),
+                                                       max_err(same.cpu()[clean], t_c[clean]))
+        lin_ok &= (torch.equal(uids_c, uids_g) and within(g_g[slots], g_c[slots], GRAD_TOL, GRAD_TOL)
+                   and torch.allclose(same.cpu()[clean], t_c[clean], rtol=rtol, atol=atol))
+        lin_past += int(((t_g - t_c).abs() > atol + rtol * t_c.abs())[clean].sum())
     print(f"one step: repeats bit for bit on the card; against the CPU ({time.perf_counter() - t0:.1f} s): "
           f"{n_flipped} of {flipped.shape[0]} examples have a ReLU input on the other side of 0 "
           f"(within {FLIP_TOL}x the input error of 0: {flip_ok}), their {flipped_rows} table rows differ "
           f"by up to {flipped_err:.3e}; elsewhere max_abs_err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f" (loss rtol {LOSS_RTOL}; grads rtol {GRAD_TOL} atol {GRAD_TOL} x max|ref|; tables rtol "
-          f"{TABLE_TOL} atol {TABLE_TOL} x max|ref|; acc rtol {ACC_RTOL})")
+          + f" (loss rtol {LOSS_RTOL}; grads rtol {GRAD_TOL} atol {GRAD_TOL} x max|ref|; "
+          + (f"tables rtol {TABLE_TOL} atol {TABLE_TOL} x max|ref|; acc rtol {ACC_RTOL})" if step_tol is None
+             else f"tables and acc rtol {step_tol[0]} atol {step_tol[1]}; linear tables after the whole "
+                  f"step: {lin_past} rows past it)"))
     check(flip_ok and n_flipped <= MAX_FLIPPED * flipped.shape[0],
           "ReLU flips between card and CPU are few and within rounding of 0")
     check(errs["loss"] <= LOSS_RTOL * abs(loss_c.item()), "card loss matches the CPU's")
     check(all(within(a, e, GRAD_TOL, GRAD_TOL) for a, e in dense_pairs), "card dense grads match the CPU's")
     check(all(within(a, e, GRAD_TOL, GRAD_TOL) for a, e in row_pairs), "card row grads match the CPU's")
     check(table_ok, "card tables match the CPU's (rows of flipped examples aside)")
+    check(lin_ok, "card linear tables' combined gradients match the CPU's, and the card's update of the CPU's "
+                  "gradients the CPU's update")
     check(acc_ok, "card accumulators match the CPU's (rows of flipped examples aside)")
 
 
@@ -2079,26 +2161,25 @@ def phase_config2(card: str, paths: dict):
     print(f"config 2 host input a batch of {cfg.train.batch_size} (host clock over one epoch of {n} batches): "
           f"sampler {(t1 - t0) * 1e3 / n:.3f} ms, _host_batch (side-field gathers, the 6-field cat) "
           f"{(t2 - t1) * 1e3 / n:.3f} ms")
-    step_profile(trainer, trainer._to_device_batch(host[0]), "config 2 (FM) step")
+    step_profile(trainer.builder, trainer.state, trainer._to_device_batch(host[0]), "config 2 (FM) step")
     return trainer
 
 
-def step_profile(trainer, batch, what: str) -> float:
-    """The trainer's step on ``batch`` (on the card): its median over 10
-    steps (host clock, ended by a synchronize) and a profile of one step
-    with its device-busy share. Returns the median."""
-    holder = {"state": trainer.state}
+def step_profile(builder, state, batch, what: str) -> tuple:
+    """The step on ``batch`` from a copy of ``state`` (on the card): its
+    median over 10 steps (host clock, ended by a synchronize) and a profile
+    of one step with its device-busy share, kernels and copies. Returns
+    (median ms, busy share)."""
+    holder = {"state": copy_state(state)}
 
     def run_step():
-        holder["state"], _ = trainer.builder.step(holder["state"], batch)
+        holder["state"], _ = builder.step(holder["state"], batch)
 
     median = medians_in_turns({what: run_step})[what]
     rows = next(iter(batch.values())).shape[0]
     print(f"{what}, batch {rows} (host clock, batch on the card), median over 10 steps {median:.3f} ms "
           f"({rows / median * 1e3:.1f} examples/s)")
-    profile(run_step, what, median)
-    trainer.state = holder["state"]
-    return median
+    return median, profile(run_step, what, median)
 
 
 def phase_config3(card: str, paths: dict):
@@ -2141,7 +2222,7 @@ def phase_config3(card: str, paths: dict):
         check(lo <= rec[name] <= hi, f"config 3's {name} lies in its band")
 
     batch = trainer._to_device_batch(next(trainer.sampler.epoch(0)))
-    step_profile(trainer, batch, "config 3 (NeuMF) step")
+    step_profile(trainer.builder, trainer.state, batch, "config 3 (NeuMF) step")
     # Rowwise Adam (plain PyTorch: the reference has no Pallas site for it)
     # on the step's gradients, apart from the combine before it.
     builder, state = trainer.builder, copy_state(trainer.state)
@@ -3646,6 +3727,281 @@ def phase_mesh_four(card: str, paths: dict) -> None:
     print(f"phase M4 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase N: the rest of the CTR zoo and the sequential zoo ----
+
+def phase_ctr_zoo(card: str, paths: dict) -> dict:
+    """(N1) DeepFM, Wide & Deep, NFM and DLRM at Criteo's shape: each
+    served (4 batches of 8192 through ``predict_ctr``: one gather launch a
+    batch for all tables, and no other kernel; the logits finite, within
+    LOGIT_TOL of the plain versions on the card and of the CPU) and trained
+    (8 ``multi_step`` steps of 8192 Zipf(1.2) ids: one gather and one
+    Adagrad launch a step; the held loss falls; one step bit for bit on
+    repeat and against the CPU as phase 6 holds DCN's, ReLU flips found);
+    serving latency, the step's host median, busy share and kernels a step;
+    the gather and Adagrad kernels at DeepFM's 52 tables (26 fields and 26
+    linear tables: Wide & Deep's and NFM's shape too). Then
+    ``trainer.run(dcn_criteo())`` as DLRM and as DeepFM at phase 10's proxy
+    size: their AUC and logloss (no band exists: the AUC lies above 0.5).
+    Returns the kernels' records."""
+    t_phase = time.perf_counter()
+    records = {"gather_rows_multi": {}, "fused_rowwise_adagrad_multi": {}}
+    rng = np.random.default_rng(SEED + 16)
+    for name in CTR_ZOO:
+        t_model = time.perf_counter()
+        base = configs()["v1"]  # dcn_criteo at Criteo's shape; its tower is their MLP, DLRM's top
+        cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, name=name))
+        vocabs, nd = tuple(cfg.data.categorical_vocab_sizes), cfg.data.num_dense_features
+        model = build_model(cfg.model, DataSpec.ctr(vocabs, nd))
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+        rec = Recommender(model, params)
+        requests = make_requests(rng, vocabs, nd)
+        reset_launches()
+        logits = [rec.predict_ctr(dense, cat) for dense, cat in requests]
+        torch.cuda.synchronize()
+        paths[f"serve_{name}"] = launches = read_launches()
+        n_tables = len(model.table_specs())
+        check_launches(launches, {"gather_rows_multi": NUM_BATCHES},
+                       f"{name} serving ran one gather launch a batch for its {n_tables} tables, and no other")
+        err = 0.0
+        for (dense, cat), got in zip(requests, logits):
+            check(got.shape == (BATCH,) and bool(np.isfinite(got).all()), f"{name} logits are finite [{BATCH}]")
+            batch = {"dense": to_device(dense), "cat": to_device(cat)}
+            want = plain_forward(model, params, batch)
+            got_t = to_device(got)
+            check(within(got_t, want, LOGIT_TOL, LOGIT_TOL), f"{name} logits match the plain versions on the card")
+            err = max(err, max_err(got_t, want))
+        cpu = Recommender(model, copy_state(params, "cpu"), device="cpu")
+        n_small = 256
+        want_cpu = torch.from_numpy(cpu.predict_ctr(requests[0][0][:n_small], requests[0][1][:n_small]))
+        cpu_err = max_err(torch.from_numpy(logits[0][:n_small]), want_cpu)
+        check(within(torch.from_numpy(logits[0][:n_small]), want_cpu, LOGIT_TOL, LOGIT_TOL),
+              f"{name} card logits match the CPU's on a small input")
+        lat = medians_in_turns({"predict_ctr": lambda: rec.predict_ctr(*requests[0])})["predict_ctr"]
+        print(f"{name} serving (N1): {len(vocabs)} fields x {vocabs[0]} rows, {n_tables} tables, "
+              f"{NUM_BATCHES} batches of {BATCH}, launches {launches}; max_abs_err vs plain on the card "
+              f"{err:.3e}, vs CPU ({n_small} rows) {cpu_err:.3e} (rtol {LOGIT_TOL}, atol {LOGIT_TOL} x "
+              f"max|ref|); predict_ctr median {lat:.3f} ms (host clock, request copy and logits included; {card})")
+        profile(lambda: rec.predict_ctr(*requests[0]), f"{name} predict_ctr", lat)
+        del rec, cpu, requests, logits
+
+        builder = TrainStepBuilder(model, cfg.train.loss, cfg.optim)
+        state = builder.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+        k = cfg.train.steps_per_dispatch
+        dense, cat, label = synthetic_ctr((k + 1) * BATCH, nd, vocabs, seed=SEED + 1)
+        n = k * BATCH
+        batches = {"dense": to_device(dense[:n].reshape(k, BATCH, -1)),
+                   "cat": to_device(cat[:n].reshape(k, BATCH, -1)),
+                   "label": to_device(label[:n].reshape(k, BATCH))}
+        held = {"dense": to_device(dense[n:]), "cat": to_device(cat[n:]), "label": to_device(label[n:])}
+        start = copy_state(state)
+        before = held_loss(builder, state, held)
+        reset_launches()
+        state, metrics = builder.multi_step(state, batches)
+        torch.cuda.synchronize()
+        paths[f"train_{name}"] = launches = read_launches()
+        after = held_loss(builder, state, held)
+        print(f"{name} training (N1): multi_step K={k} x {BATCH}, launches {launches}; loss mean "
+              f"{metrics['loss_mean'].item():.6f}, held batch {before:.6f} -> {after:.6f}")
+        check_launches(launches, {"gather_rows_multi": k, "fused_rowwise_adagrad_multi": k},
+                       f"{name} training ran one gather and one Adagrad launch a step, and no other")
+        check(bool(np.isfinite([metrics["loss_mean"].item(), after]).all()) and after < before,
+              f"{name}'s loss is finite and falls on the held batch")
+        batch = {key: v[0] for key, v in batches.items()}
+        check_step(builder, start, batch, cfg.train.loss, step_tol=(STEP_RTOL, STEP_ATOL))
+        if name == "deepfm":
+            sparse_kernel_checks(builder, start, batch, f"deepfm_{n_tables}", records)
+        step_profile(builder, state, batch, f"{name} step (N1)")
+        del builder, state, start, batches, held, params, model
+        print(f"{name} (N1) took {time.perf_counter() - t_model:.1f} s")
+
+    for name in ("dlrm", "deepfm"):
+        proxy = trainer_configs()["proxy"]
+        cfg = dataclasses.replace(proxy, model=dataclasses.replace(proxy.model, name=name))
+        trainer, history, train_counts, evals, run_s = run_counted(cfg)
+        steps = trainer.global_step
+        eval_batches = -(-len(trainer.ctr_arrays["test"][2]) // trainer_mod.EVAL_BATCH)
+        paths[f"trainer_{name}"] = whole_run_launches(train_counts, evals)
+        rec = history[-1]
+        print(f"{name} trainer (N1, run, dcn_criteo() as {name}: {cfg.data.num_examples} synthetic_ctr "
+              f"examples, 1 epoch, {steps} steps): auc {rec['auc']:.6f} logloss {rec['logloss']:.6f} "
+              f"examples_per_s {rec['examples_per_s']:.1f} ({card}); run() took {run_s:.1f} s; launches in "
+              f"training {train_counts}, in the eval pass {evals[0][1]}")
+        check(all(np.isfinite(v) for v in rec.values()) and rec["auc"] > 0.5,
+              f"the {name} trainer's history is finite and its AUC above 0.5")
+        check_launches(train_counts, {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps},
+                       f"the {name} trainer ran one gather and one Adagrad launch a step, and no other")
+        check_launches(evals[0][1], {"gather_rows_multi": eval_batches},
+                       f"the {name} eval pass ran one gather launch a batch, and no other")
+        del trainer
+    print(f"phase N1 took {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def seq_config(name: str):
+    """The zoo config ``name`` with a checkpoint after its last epoch, under
+    DATA_DIR, and its epochs cut where SEQ_EPOCHS says."""
+    cfg = zoo_configs.ZOO[name]()
+    epochs = SEQ_EPOCHS.get(name, cfg.train.epochs)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=epochs, eval_every_epochs=min(cfg.train.eval_every_epochs, epochs),
+        checkpoint_dir=str(DATA_DIR / name), checkpoint_every_epochs=epochs))
+
+
+def seq_card_vs_cpu(cfg) -> None:
+    """The config's first SEQ_CPU_STEPS steps at dropout 0 on the card and on
+    the CPU (the plain versions) from one initial state: each loss, and the
+    tables, rowwise Adam's leaves and the dense params after them, within
+    STEP_RTOL and STEP_ATOL."""
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0),
+                              train=dataclasses.replace(cfg.train, checkpoint_dir=None))
+    t0 = time.perf_counter()
+    card = Trainer(cfg, quiet=True)
+    cpu = Trainer(cfg, quiet=True, device="cpu")
+    cpu.state = copy_state(card.state, "cpu")
+    host = [b for _, b in zip(range(SEQ_CPU_STEPS), card.sampler.epoch(0))]
+    losses = {"card": [], "cpu": []}
+    for b in host:
+        for name, t in (("card", card), ("cpu", cpu)):
+            t.state, m = t.builder.step(t.state, t._to_device_batch(b))
+            losses[name].append(m["loss"].item())
+    pairs = {"tables": (card.state["tables"], cpu.state["tables"]),
+             "rowwise Adam": (card.state["sparse_opt"], cpu.state["sparse_opt"]),
+             "dense": (card.state["dense"], cpu.state["dense"])}
+    errs, ok = {}, True
+    for what, (got, want) in pairs.items():
+        leaves = list(zip(tree_leaves(got), tree_leaves(want)))
+        errs[what] = max((max_err(a.cpu().double(), e.double()) for a, e in leaves), default=0.0)
+        ok &= all(torch.allclose(a.cpu().double(), e.double(), rtol=STEP_RTOL, atol=STEP_ATOL) for a, e in leaves)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+    print(f"{cfg.run_name} card against the CPU ({time.perf_counter() - t0:.1f} s), {len(host)} steps at "
+          f"dropout 0 from one state: losses card {losses['card']}, cpu {losses['cpu']} (max relative error "
+          f"{rel:.3e}); max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (rtol {STEP_RTOL}, atol {STEP_ATOL})")
+    check(rel <= STEP_RTOL, f"{cfg.run_name}'s losses on the card match the CPU's")
+    check(ok, f"{cfg.run_name}'s tables, rowwise Adam state and dense params on the card match the CPU's")
+
+
+def seq_serving(card: str, paths: dict, trainer, cfg, short: str) -> None:
+    """``predict`` of SERVE_USERS (user, item) pairs and ``recommend(users,
+    k=20)`` from the trainer and from its checkpoint: bit for bit the same,
+    one gather launch a call; latencies."""
+    rng = np.random.default_rng(SEED + 17)
+    users = rng.choice(trainer.dataset.num_users, SERVE_USERS, replace=False).astype(np.int32)
+    items = rng.integers(0, trainer.dataset.num_items, SERVE_USERS).astype(np.int32)
+    live = Recommender.from_trainer(trainer)
+    t0 = time.perf_counter()
+    cold = Recommender.from_checkpoint(cfg)
+    cold_s = time.perf_counter() - t0
+    reset_launches()
+    got = live.predict(users, items)
+    torch.cuda.synchronize()
+    paths[f"serve_{short}"] = launches = read_launches()
+    reset_launches()
+    top_ids, top_vals = live.recommend(users, SEQ_SERVE_K)
+    torch.cuda.synchronize()
+    rec_launches = read_launches()
+    cold_ids, cold_vals = cold.recommend(users, SEQ_SERVE_K)
+    same = (np.array_equal(cold.predict(users, items), got) and np.array_equal(cold_ids, top_ids)
+            and np.array_equal(cold_vals, top_vals))
+    p_ms, p_99 = latency(lambda: live.predict(users, items))
+    r_ms, r_99 = latency(lambda: live.recommend(users, SEQ_SERVE_K))
+    print(f"{cfg.run_name} serving: predict of {SERVE_USERS} pairs, launches {launches}; recommend "
+          f"k={SEQ_SERVE_K} for {SERVE_USERS} users over {trainer.dataset.num_items} items, launches "
+          f"{rec_launches}; from_checkpoint ({cold_s:.2f} s cold start) bit for bit from_trainer's: {same}; "
+          f"latency (host clock; {card}) predict median {p_ms:.3f} ms p99 {p_99:.3f} ms, recommend median "
+          f"{r_ms:.3f} ms p99 {r_99:.3f} ms")
+    check(bool(np.isfinite(got).all()) and got.shape == (SERVE_USERS,), f"{short} predict is finite")
+    check(same, f"{short} from_checkpoint serves predict and recommend bit for bit as from_trainer")
+    check_launches(launches, {"gather_rows_multi": 1}, f"{short} predict ran one gather launch, and no other")
+    check_launches(rec_launches, {"gather_rows_multi": 1}, f"{short} recommend ran one gather launch, and no other")
+
+
+def seq_gather_record(trainer, batch, label: str) -> dict:
+    """The gather at a sequential step's shape: one launch, bit for bit its
+    plain version and on repeat; its times."""
+    ids = trainer.model.lookup_ids(batch)
+    tables, field_ids = [trainer.state["tables"][n] for n in ids], list(ids.values())
+    got, launches = launches_of(gather_rows_multi, lambda: gather_rows_multi(tables, field_ids))
+    again = gather_rows_multi(tables, field_ids)
+    want = gather_rows_multi_ref(tables, field_ids)
+    torch.cuda.synchronize()
+    ok = (launches == 1 and all(torch.equal(g, w) for g, w in zip(got, want))
+          and all(torch.equal(g, a) for g, a in zip(got, again)))
+    print(f"gather_rows_multi at {label} {[(tuple(t.shape), i.shape[0]) for t, i in zip(tables, field_ids)]}: "
+          f"one launch, bit for bit its plain version and on repeat: {ok}")
+    check(ok, f"gather_rows_multi at {label}: one launch, bit for bit its plain version and on repeat")
+    return gather_times(tables, field_ids, label)
+
+
+def phase_sequential(card: str, paths: dict) -> dict:
+    """(N2) ``trainer.run`` of sasrec_ml1m, caser_ml1m and gru4rec_ml1m on
+    the card (the synthetic_implicit stand-in at ML-1M's shape, 60 epochs
+    of 47 steps of 128, rowwise Adam, the full-catalog eval every 20;
+    gru4rec_ml1m SEQ_EPOCHS' 1 epoch, the eval after it): the bands of
+    tests/test_golden.py:149-150 and :186, a falling loss; one gather launch
+    a step (item and user rows), one a batch of users in each eval pass;
+    examples/s, the step's host median, busy share and kernels a step;
+    serving from the trainer and from its checkpoint, bit for bit; the
+    first steps at dropout 0 against the CPU; the gather at each step's
+    shape. Returns the gather's records."""
+    t_phase = time.perf_counter()
+    records = {}
+    for name, band in SEQ_BANDS.items():
+        t_model = time.perf_counter()
+        short = name.split("_")[0]
+        cfg = seq_config(name)
+        # The loss at the initial state (the trainer's seeded init) over a
+        # held set of batches, to hold the trained state's against.
+        fresh = Trainer(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, checkpoint_dir=None)),
+                        quiet=True)
+        held = [fresh._to_device_batch(b) for _, b in zip(range(4), fresh.sampler.epoch(cfg.train.epochs))]
+        before = statistics.mean(held_loss(fresh.builder, fresh.state, b) for b in held)
+        del fresh
+        trainer, history, train_counts, evals, run_s = run_counted(cfg)
+        steps = trainer.global_step
+        evaluator = trainer._retrieval_eval
+        eval_batches = -(-len(evaluator.users_with_test) // evaluator.user_batch)
+        paths[f"trainer_{short}"] = whole_run_launches(train_counts, evals)
+        rec = history[-1]
+        rates = [r["examples_per_s"] for r in history]
+        print(f"{name} (N2, run: synthetic_implicit {trainer.dataset.num_users} x {trainer.dataset.num_items}, "
+              f"{len(trainer.dataset.train)} train interactions, {trainer.sampler.num_batches()} steps of "
+              f"{cfg.train.batch_size} an epoch, {cfg.train.epochs} epochs): {steps} steps; final record {rec}; "
+              f"losses {[round(r['loss'], 6) for r in history[:: max(len(history) // 6, 1)]]}; launches in "
+              f"training {train_counts}, in each eval pass ({eval_batches} batches of {evaluator.user_batch} "
+              f"users) {evals[0][1]}; run() took {run_s:.1f} s")
+        print(f"{name}: examples_per_s median over the epochs {statistics.median(rates):.1f} (min "
+              f"{min(rates):.1f}, max {max(rates):.1f}; host clock over each epoch; {card}); eval passes "
+              f"(host clock): " + ", ".join(f"{ms:.3f} ms" for ms, _ in evals))
+        check(len(evals) == cfg.train.epochs // cfg.train.eval_every_epochs, f"{name}'s eval cadence")
+        check(all(np.isfinite(v) for r in history for v in r.values()), f"{name}'s history is finite")
+        after = statistics.mean(held_loss(trainer.builder, trainer.state, b) for b in held)
+        print(f"{name}: the loss over 4 held batches (an epoch the run did not draw) {before:.6f} -> {after:.6f}")
+        check(after < before, f"{name}'s held loss falls")
+        check_launches(train_counts, {"gather_rows_multi": steps},
+                       f"{name} ran one gather launch a step, and no other")
+        for _, counts in evals:
+            check_launches(counts, {"gather_rows_multi": eval_batches},
+                           f"each {name} eval pass ran one gather a batch of users, and no other")
+        for metric, (lo, hi) in band.items():
+            if name in SEQ_EPOCHS:
+                print(f"{name}: {metric} {rec[metric]:.6f} after {cfg.train.epochs} of "
+                      f"{zoo_configs.ZOO[name]().train.epochs} epochs; its band [{lo}, {hi}] is for the whole run")
+                continue
+            print(f"{name} band: {metric} {rec[metric]:.6f} in [{lo}, {hi}]")
+            check(lo <= rec[metric] <= hi, f"{name}'s {metric} lies in its band")
+        seq_serving(card, paths, trainer, cfg, short)
+        batch = trainer._to_device_batch(next(trainer.sampler.epoch(0)))
+        records[name] = seq_gather_record(trainer, batch, name)
+        median, busy = step_profile(trainer.builder, trainer.state, batch, f"{name} step (N2)")
+        records[name].update({"step_ms": median, "step_device_busy": busy})
+        del trainer
+        seq_card_vs_cpu(cfg)
+        print(f"{name} (N2) took {time.perf_counter() - t_model:.1f} s")
+    print(f"phase N2 took {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -3707,6 +4063,11 @@ def main() -> int:
         phase_mesh_four(card, paths)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+    zoo_records = phase_ctr_zoo(card, paths)
+    try:
+        zoo_records["gather_rows_multi"].update(phase_sequential(card, paths))
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
     for r in records:
         if r["name"] == GROUPED:  # the Adagrad kernel's launches on the packed paths
             by_path = {path: paths[path]["fused_rowwise_adagrad_multi"] for path in GROUPED_PATHS}
@@ -3721,6 +4082,7 @@ def main() -> int:
         r.update(shapes.get(r["name"], {}))  # FM's 12 tables, NeuMF's 4
         r.update(layouts.get(r["name"], {}))  # phase K's packed and stacked shapes
         r.update(sharded_records.get(r["name"], {}))  # phase L's owner gather and update
+        r.update(zoo_records.get(r["name"], {}))  # phase N's 52 tables and sequential steps
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

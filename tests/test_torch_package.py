@@ -92,3 +92,11 @@ def test_mf_bpr_ml100k_copy_matches_the_reference(path):
 def test_config2_and_config3_copies_match_the_reference(name, path):
     ours, ref = getattr(zoo, name)(path), getattr(jax_zoo, name)(path)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("path", [None, "ml-1m/ratings.dat"])
+@pytest.mark.parametrize("name", ["sasrec_ml1m", "gru4rec_ml1m", "caser_ml1m"])
+def test_sequential_zoo_copies_match_the_reference(name, path):
+    ours, ref = getattr(zoo, name)(path), getattr(jax_zoo, name)(path)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert zoo.ZOO[name] is getattr(zoo, name) and name not in zoo.NOT_PORTED

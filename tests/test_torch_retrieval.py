@@ -278,7 +278,7 @@ def test_build_model_builds_mf_and_refuses_by_item():
         ("item_bias", (NUM_ITEMS, 1), "zeros")]
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     assert not params["tables"]["item_bias"].any() and params["dense"] == {}
-    for name, item in (("deepfm", 12), ("ease", 12), ("sasrec", 12), ("lightgcn", 12)):
+    for name, item in (("fism", 12), ("ease", 12), ("multvae", 12), ("lightgcn", 12)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
             build_model(ModelConfig(name=name), spec)
     with pytest.raises(ValueError, match="CTR models"):

@@ -11,28 +11,31 @@ Ported so far (serving, training and evaluating ``zoo_configs.dcn_criteo``,
 as DCN-v1 and as low-rank DCN-v2; retrieval, ``zoo_configs.mf_bpr_ml100k``,
 MF + BPR trained, ranked over the full catalog and served as top-k; FM over
 multi-field interaction data, ``fm_ctr_ml1m``; NeuMF with the
-sampled-candidate eval, ``neumf_ml20m``; and config 5's row-sharded tables
-on N ranks, ``dcn_multihost``):
+sampled-candidate eval, ``neumf_ml20m``; config 5's row-sharded tables
+on N ranks, ``dcn_multihost``; and the rest of the CTR zoo and the
+sequential zoo, ``sasrec_ml1m``, ``gru4rec_ml1m`` and ``caser_ml1m``):
 
 - ``configs`` (with ``with_overrides``), ``zoo_configs.mf_bpr_ml100k``,
-  ``fm_ctr_ml1m``, ``neumf_ml20m``, ``dcn_criteo`` and ``dcn_multihost``
-  (``ZOO``), and ``cli`` (``python -m tfrec_tpu_torch.cli``; N ranks from
-  the reference's ``JAX_*`` variables);
+  ``fm_ctr_ml1m``, ``neumf_ml20m``, ``dcn_criteo``, ``dcn_multihost``,
+  ``sasrec_ml1m``, ``gru4rec_ml1m`` and ``caser_ml1m`` (``ZOO``), and
+  ``cli`` (``python -m tfrec_tpu_torch.cli``; N ranks from the reference's
+  ``JAX_*`` variables);
 - ``data``: ``dataset`` (MovieLens' files or ``synthetic_implicit``, split
   by ratio, leave one out or given train and test files), ``synthetic``,
   ``criteo`` and ``movielens`` (Criteo's TSV and MovieLens' rating and
   ML-1M side-feature files, through the native parsers of ``csrc/``,
   ``criteo_native`` and ``uirt_native``, or the Python ones), the
-  pairwise, pointwise and CTR samplers;
+  pairwise, pointwise, CTR and sequence samplers (``build_sequences``);
 - ``ops.embedding`` (table specs, seeded init, clip-semantics gather, the
   duplicate-id combine per table, batched, flat, or from the host's sorts)
   and ``ops.sparse_optim`` (with lane-grouped state);
 - ``kernels``: the row gather, the DCN-v1 and low-rank DCN-v2 cross stacks
   (forward and backward) and the fused rowwise-Adagrad update (lane-grouped
   rows too);
-- ``models``: ``MF``, ``GMF``, ``MLP``, ``NeuMF``, and ``FM`` and ``DCN``
-  (v1, v2 full-rank, v2 low-rank) over per-field, lane-packed or stacked
-  tables;
+- ``models``: ``MF``, ``GMF``, ``MLP``, ``NeuMF``; ``FM``, ``DCN`` (v1, v2
+  full-rank, v2 low-rank), ``DeepFM``, ``WideDeep``, ``NFM`` and ``DLRM``
+  over per-field, lane-packed or stacked tables; and the sequential
+  ``SASRec``, ``GRU4Rec``, ``Caser`` and ``FPMC`` (``seq_base``);
 - ``convert``: JAX params of the retrieval models and of any CTR table
   layout (FM's linear tables too), JAX train states in any layout, and the
   port's state as the JAX package's checkpoint keys and back;
@@ -42,7 +45,7 @@ on N ranks, ``dcn_multihost``):
 - ``serve.Recommender`` (``predict``, ``predict_ctr``, ``score_catalog``,
   ``recommend``), ``train.step.TrainStepBuilder`` (with device negatives,
   the batched duplicate combine and the host's dedup sorts),
-  ``train.losses`` (pairwise and pointwise);
+  ``train.losses`` (pairwise, pointwise and the sequential ``sasrec``);
 - ``parallel``: ``mesh`` (process groups: NCCL, gloo, gloo over CUDA
   tensors for ranks sharing a card; the collectives), ``embedding``
   (row-sharded tables: the all-to-all lookup and gradient combine) and

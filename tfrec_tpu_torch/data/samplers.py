@@ -1,7 +1,8 @@
 """Mini-batch generators of the port: copies of ``tfrec_tpu.data.samplers``'
 ``PairwiseSampler``, ``PointwiseSampler`` (with the negative sampling under
 them: ``_TrainPairIndex``, ``popularity_cdf``, ``_draw_items``,
-``_sample_negatives``) and ``CTRBatcher``.
+``_sample_negatives``), ``CTRBatcher``, and the sequential models'
+``build_sequences`` and ``SequenceSampler``.
 
 The port imports nothing of the JAX package, so it keeps its own copies.
 Every sampler draws from ``np.random.default_rng((seed, epoch))`` exactly
@@ -9,8 +10,8 @@ as its original does, so a test holds the batches of the two equal, array
 for array. Batches have static shapes; the remainder is dropped. Negatives
 are drawn in vectorised numpy: membership in the train pairs is one
 ``searchsorted`` a rejection round against a sorted key array. The
-history-carrying variants (``with_history``, FISM; ``build_history``,
-``build_sequences`` and their samplers) are ROADMAP Queue 1 item 12.
+unordered-history variants (``with_history``, FISM; ``build_history`` and
+``UserHistorySampler``) are ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -226,3 +227,66 @@ class CTRBatcher:
                 "cat": self.cat[idx],
                 "label": self.label[idx],
             }
+
+
+def build_sequences(dataset: Dataset, max_len: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Each user's time-ordered train sequence, for the sequential models:
+    ([U, L] int32 item ids, oldest first, the tail padded with the sentinel
+    ``num_items``; [U] int32 lengths). A user with more than L interactions
+    keeps the most recent L. Equal times (or none, times == 0) are ordered
+    by a jitter drawn from ``default_rng((seed, 0x5E9))``, as the
+    leave-one-out split orders them."""
+    rng = np.random.default_rng((seed, 0x5E9))
+    tr = dataset.train
+    nu = dataset.num_users
+    if len(tr.items) == 0:
+        return np.full((nu, max_len), dataset.num_items, np.int32), np.zeros(nu, np.int32)
+    jitter = rng.random(len(tr.items))
+    order = np.lexsort((jitter, tr.times, tr.users))
+    users = tr.users[order]
+    items = tr.items[order]
+    starts = np.searchsorted(users, np.arange(nu))
+    ends = np.searchsorted(users, np.arange(nu) + 1)
+    counts = ends - starts
+    lens = np.minimum(counts, max_len).astype(np.int32)
+    # The most recent L: the window [end - len, end) of each user's run.
+    cols = np.arange(max_len)[None, :]
+    valid = cols < lens[:, None]
+    first = ends[:, None] - lens[:, None]
+    flat_idx = np.minimum(np.maximum(first + cols, 0), len(items) - 1)
+    seq = np.where(valid, items[flat_idx], dataset.num_items).astype(np.int32)
+    return seq, lens
+
+
+class SequenceSampler:
+    """{user, seq [B, L], seq_len, seq_negs [B, L-1]} batches for next-item
+    training: the time-ordered sequences of the users with at least 2 train
+    interactions, shuffled every epoch, with a fresh uniform negative a
+    predicted position every epoch (no exclusion of positives, the
+    large-catalog approximation), all from ``default_rng((seed, epoch,
+    0x5E9))``.
+
+    ``seed`` drives the shuffle and the negatives (a rank's own on N ranks);
+    ``order_seed`` the tie-breaking of the time order, which must be the
+    run's seed so that every rank, and the eval's attached sequences, agree
+    on each user's sequence."""
+
+    def __init__(self, dataset: Dataset, batch_size: int, max_len: int, seed: int = 0,
+                 order_seed: int | None = None):
+        self.batch_size = batch_size
+        self.seed = seed
+        self.num_items = dataset.num_items
+        self.seq, self.lens = build_sequences(dataset, max_len, seed if order_seed is None else order_seed)
+        self.active = np.flatnonzero(self.lens >= 2).astype(np.int32)
+
+    def num_batches(self) -> int:
+        return len(self.active) // self.batch_size
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng((self.seed, epoch, 0x5E9))
+        users = self.active[rng.permutation(len(self.active))]
+        l = self.seq.shape[1]
+        for start in range(0, len(users) - self.batch_size + 1, self.batch_size):
+            u = users[start : start + self.batch_size]
+            negs = rng.integers(0, self.num_items, (len(u), l - 1)).astype(np.int32)
+            yield {"user": u, "seq": self.seq[u], "seq_len": self.lens[u], "seq_negs": negs}

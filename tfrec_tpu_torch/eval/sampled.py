@@ -7,10 +7,10 @@ every model through the pointwise forward (each user repeated over its 1+N
 candidates), so MLP and NeuMF never build [B, V] scores.
 
 ``build_candidates`` is the reference's host numpy, copied as it is, so its
-candidates are the reference's array for array under the same seed. The
-reference's per-user fast path (``score_user_items``, the sequential
-family) is not ported with it: no ported model has one (ROADMAP Queue 1
-item 12).
+candidates are the reference's array for array under the same seed. A
+model with ``score_user_items`` (the sequential family) takes the
+reference's per-user path instead: each user's history is encoded once and
+dotted with its 1+N candidates.
 """
 
 from __future__ import annotations
@@ -76,8 +76,9 @@ class SampledEvaluator:
     """HR@k and NDCG@k over fixed sampled candidates.
 
     The candidates are drawn once and kept on the device. A batch of
-    ``user_batch`` test cases is scored through the model's pointwise
-    forward, its rows gathered through ``ops.embedding.gather_many`` (one
+    ``user_batch`` test cases is scored through the model's
+    ``score_user_items`` where it has one, else its pointwise forward, the
+    rows gathered through ``ops.embedding.gather_many`` (one
     launch of the gather kernel a batch on a card, ids clipped as the
     reference's ``jnp.take(mode="clip")``); the last batch is padded with
     user 0 and its padding cut before the metrics. A case's rank is the
@@ -110,6 +111,9 @@ class SampledEvaluator:
     def _rank_batch(self, params, users: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
         """Ranks [B] of the positives (column 0) of ``cands`` [B, 1+N]."""
         b, width = cands.shape
+        if hasattr(self.model, "score_user_items"):
+            scores = self.model.score_user_items(params, users, cands)
+            return (scores[:, 1:] > scores[:, :1]).sum(dim=1)
         flat_users = users.repeat_interleave(width)
         batch = {"user": flat_users, "item": cands.reshape(-1),
                  "label": torch.zeros(flat_users.shape[0], dtype=torch.float32, device=users.device)}

@@ -1,5 +1,7 @@
 """Model registry of the port: ``mf``, ``fm``, ``gmf``, ``mlp``, ``neumf``,
-``dcn`` and ``dcnv2`` so far.
+the rest of the reference's CTR models (``dcn``, ``dcnv2``, ``deepfm``,
+``nfm``, ``widedeep``, ``dlrm``) and its sequential models (``sasrec``,
+``gru4rec``, ``caser``, ``fpmc``) so far.
 
 The reference's other models are refused by naming the ROADMAP Queue 1
 item that ports them, item 12."""
@@ -8,21 +10,29 @@ from __future__ import annotations
 
 from tfrec_tpu_torch.configs import ModelConfig
 from tfrec_tpu_torch.models.base import DataSpec, RecModel
+from tfrec_tpu_torch.models.caser import Caser
 from tfrec_tpu_torch.models.ctr_base import CTRBase
 from tfrec_tpu_torch.models.dcn import DCN
+from tfrec_tpu_torch.models.deepfm import DeepFM
+from tfrec_tpu_torch.models.dlrm import DLRM
 from tfrec_tpu_torch.models.fm import FM
+from tfrec_tpu_torch.models.fpmc import FPMC
+from tfrec_tpu_torch.models.gru4rec import GRU4Rec
 from tfrec_tpu_torch.models.mf import MF
 from tfrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
+from tfrec_tpu_torch.models.nfm import NFM
+from tfrec_tpu_torch.models.sasrec import SASRec
+from tfrec_tpu_torch.models.widedeep import WideDeep
 
-__all__ = ["DataSpec", "RecModel", "DCN", "FM", "GMF", "MF", "MLP", "NeuMF", "build_model"]
-BUILT = "mf, fm, gmf, mlp, neumf, dcn, dcnv2"
+__all__ = ["DataSpec", "RecModel", "Caser", "DCN", "DeepFM", "DLRM", "FM", "FPMC", "GMF", "GRU4Rec",
+           "MF", "MLP", "NeuMF", "NFM", "SASRec", "WideDeep", "build_model"]
+BUILT = "mf, fm, gmf, mlp, neumf, dcn, dcnv2, deepfm, nfm, widedeep, dlrm, sasrec, gru4rec, caser, fpmc"
 
 # The reference's models that the port does not build yet, by the ROADMAP
 # Queue 1 item that ports them.
 NOT_PORTED = dict.fromkeys(
-    ("pop", "sbpr", "apr", "irgan", "wrmf", "ease", "lightgcn", "ngcf", "convncf", "deepfm", "nfm",
-     "widedeep", "dlrm", "fism", "multvae", "multdae", "nais", "cdae", "fpmc", "sasrec", "gru4rec",
-     "caser"), 12)
+    ("pop", "sbpr", "apr", "irgan", "wrmf", "ease", "lightgcn", "ngcf", "convncf", "fism", "multvae",
+     "multdae", "nais", "cdae"), 12)
 
 
 def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
@@ -76,6 +86,26 @@ def _build(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
         return MLP(data_spec, cfg.mlp_embed_dim or cfg.embed_dim, cfg.mlp_dims, dropout=cfg.dropout)
     if name == "neumf":
         return NeuMF(data_spec, cfg.gmf_dim, cfg.mlp_embed_dim, cfg.mlp_dims, dropout=cfg.dropout)
+    if name == "deepfm":
+        return DeepFM(data_spec, cfg.embed_dim, cfg.mlp_dims, dropout=cfg.dropout)
+    if name == "nfm":
+        return NFM(data_spec, cfg.embed_dim, cfg.mlp_dims, dropout=cfg.dropout)
+    if name == "widedeep":
+        return WideDeep(data_spec, cfg.embed_dim, cfg.mlp_dims, dropout=cfg.dropout,
+                        field_dims=cfg.field_dims or None)
+    if name == "dlrm":
+        return DLRM(data_spec, cfg.embed_dim, top_dims=cfg.mlp_dims, dropout=cfg.dropout)
+    if name == "fpmc":
+        return FPMC(data_spec, cfg.embed_dim, max_history=cfg.max_history)
+    if name == "sasrec":
+        return SASRec(data_spec, cfg.embed_dim, num_blocks=cfg.sasrec_blocks, num_heads=cfg.sasrec_heads,
+                      dropout=cfg.dropout, max_history=cfg.max_history)
+    if name == "gru4rec":
+        return GRU4Rec(data_spec, cfg.embed_dim, hidden_dim=cfg.gru_hidden, num_layers=cfg.gru_layers,
+                       dropout=cfg.dropout, max_history=cfg.max_history)
+    if name == "caser":
+        return Caser(data_spec, cfg.embed_dim, h_filters=cfg.caser_h_filters, heights=cfg.caser_heights,
+                     v_filters=cfg.caser_v_filters, dropout=cfg.dropout, max_history=cfg.max_history)
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet: ROADMAP Queue 1 item {NOT_PORTED[name]}; "

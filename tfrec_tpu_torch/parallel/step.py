@@ -72,7 +72,14 @@ from tfrec_tpu_torch.parallel.embedding import (
     wire_dtype,
 )
 from tfrec_tpu_torch.parallel.mesh import Mesh
-from tfrec_tpu_torch.train.step import State, TrainStepBuilder, _unflatten, apply_updates, tree_leaves
+from tfrec_tpu_torch.train.step import (
+    State,
+    TrainStepBuilder,
+    _unflatten,
+    apply_updates,
+    batch_size_of,
+    tree_leaves,
+)
 
 
 class ShardedTrainStepBuilder(TrainStepBuilder):
@@ -237,7 +244,7 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
         local batch, the dense params' over the global batch."""
         loss = self.loss_fn(logits, batch)
         if self.l2_reg > 0:
-            b = logits.shape[0]
+            b = batch_size_of(logits)
             rows = sum((v * v).sum() for v in gathered.values())
             dense = sum((p * p).sum() for p in dense_leaves)
             loss = loss + self.l2_reg * (rows / b + dense / (b * self.mesh.size))

@@ -4,7 +4,8 @@ Pairwise losses take the model's pairwise output: s_pos - s_neg [B], or a
 [B, 1+K] score matrix whose column 0 is the positive; pointwise losses take
 logits [B] and the batch's labels. Each is a mean over the batch, in the
 reference's numerically stable form. Ported: ``bpr``, ``hinge``,
-``sampled_softmax``, ``in_batch_softmax``, ``logloss`` and ``mse``.
+``sampled_softmax``, ``in_batch_softmax``, ``logloss``, ``mse`` and the
+sequential models' ``sasrec``.
 ``make_loss`` refuses, by name, the reference's model-specific objectives
 (ROADMAP Queue 1 item 12) rather than train with another one.
 """
@@ -73,6 +74,18 @@ def mse(logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.mean((logits - batch["label"]) ** 2)
 
 
+def sasrec(out: Dict[str, torch.Tensor], batch: Dict) -> torch.Tensor:
+    """The sequential models' per-position next-item BCE: the positive
+    target against one sampled negative at every valid position. ``out``
+    is their training forward's {"pos", "neg", "mask"} [B, L-1]; the mean
+    runs over the valid positions."""
+    mask = out["mask"].to(out["pos"].dtype)
+    pos, neg = out["pos"], out["neg"]
+    # softplus as the reference's logaddexp(x, 0), with no linear cut-off.
+    per_pos = torch.logaddexp(-pos, torch.zeros_like(pos)) + torch.logaddexp(neg, torch.zeros_like(neg))
+    return (per_pos * mask).sum() / mask.sum().clamp_min(1.0)
+
+
 _LOSSES: Dict[str, Callable] = {
     "bpr": bpr,
     "hinge": hinge,
@@ -80,10 +93,11 @@ _LOSSES: Dict[str, Callable] = {
     "mse": mse,
     "sampled_softmax": sampled_softmax,
     "in_batch_softmax": in_batch_softmax,
+    "sasrec": sasrec,
 }
 # The reference's model-specific objectives, refused by name until their
 # models are ported.
-_NOT_PORTED = ("multvae", "cdae", "sasrec", "sbpr", "apr", "irgan")
+_NOT_PORTED = ("multvae", "cdae", "sbpr", "apr", "irgan")
 
 
 def make_loss(name: str) -> Callable[[torch.Tensor, Dict], torch.Tensor]:

@@ -100,6 +100,16 @@ def tree_leaves(tree: Any) -> list:
     return out
 
 
+def batch_size_of(logits) -> int:
+    """The batch size of a forward's output: its leading dim, or for a dict
+    output (the sequential models' {"pos", "neg", "mask"}) that of the
+    leaf under the first sorted key, as the reference reads its first
+    pytree leaf."""
+    if isinstance(logits, dict):
+        return batch_size_of(logits[sorted(logits)[0]])
+    return logits.shape[0]
+
+
 def _unflatten(template: Any, leaves) -> Any:
     it = iter(leaves)
     return tree_map(lambda _: next(it), template)
@@ -449,12 +459,12 @@ class TrainStepBuilder:
 
     def objective(self, logits, batch, gathered, dense_leaves) -> torch.Tensor:
         """The loss, plus ``l2_reg`` times the squares of the gathered rows
-        and dense params over the batch size."""
+        and dense params over the batch size (``batch_size_of``)."""
         loss = self.loss_fn(logits, batch)
         if self.l2_reg > 0:
             reg = sum((v * v).sum() for v in gathered.values())
             reg = reg + sum((p * p).sum() for p in dense_leaves)
-            loss = loss + self.l2_reg * reg / logits.shape[0]
+            loss = loss + self.l2_reg * reg / batch_size_of(logits)
         return loss
 
     def step(self, state: State, batch: Dict[str, torch.Tensor]) -> Tuple[State, Dict]:

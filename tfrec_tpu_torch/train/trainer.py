@@ -20,7 +20,14 @@ metric stream (``MetricLogger``), with the reference's records.
   ``train.eval_protocol="sampled"`` each held-out item against sampled
   negatives (``eval.sampled.SampledEvaluator``: HR and NDCG at k), plus an
   AUC over sampled negatives under logloss;
-- interaction data with a CTR model (fm, dcn, dcnv2): pointwise samples
+- interaction data with a sequential model (sasrec, gru4rec, caser, fpmc):
+  each user's time-ordered train sequence is attached to the model
+  (``data.samplers.build_sequences``, max_history - 1 positions), the loss
+  becomes ``sasrec`` (the ``loss_coerced`` event says so) and
+  ``SequenceSampler`` feeds it; the evals encode the attached sequences
+  (``score_all``, and ``score_user_items`` in the sampled eval);
+- interaction data with a CTR model (fm, dcn, dcnv2, deepfm, nfm, widedeep,
+  dlrm): pointwise samples
   become multi-field batches, cat = [user, item, user side fields..., item
   side fields...] (``_host_batch``; ``data.synthetic_side_features`` draws
   the side fields); the eval adds the AUC over sampled negatives and, where
@@ -46,8 +53,8 @@ first (the model's ``warm_start_aliases``, then the same name).
 The device is the card unless the caller passes ``device="cpu"`` (the
 kernels' plain versions); without CUDA the default raises. What the port
 does not take yet it refuses by naming the ROADMAP Queue 1 item, never
-passing it over: models other than mf, fm, gmf, mlp, neumf, dcn and dcnv2,
-user histories, sequences and the social graph (item 12), step profiles
+passing it over: the models of ``models.NOT_PORTED``, unordered user
+histories and the social graph (item 12), step profiles
 (item 10), FSDP and lane-packed sharded tables (item 11), and
 ``train.matmul_precision`` other than "default" (item 5).
 
@@ -110,6 +117,8 @@ from tfrec_tpu_torch.data.samplers import (
     CTRBatcher,
     PairwiseSampler,
     PointwiseSampler,
+    SequenceSampler,
+    build_sequences,
     popularity_cdf,
 )
 from tfrec_tpu_torch.data.synthetic import synthetic_ctr
@@ -290,6 +299,20 @@ class Trainer:
             self.logger.log({"event": "loss_coerced", "from": loss, "to": "logloss",
                              "reason": "CTR models train pointwise"})
             loss = "logloss"
+        self.needs_history = bool(getattr(self.model, "needs_history", lambda: False)())
+        if self.needs_history:
+            # The sequential models (the ported ones with a history) encode
+            # each user's time-ordered train sequence in the eval. It holds
+            # max_history - 1 positions, the receptive field training has:
+            # training encodes seq[:, :-1], so position-indexed params at
+            # index L-1 (pos_emb, the vertical filters' last lag) never
+            # receive a gradient and must not be read at scoring time.
+            self.model.attach_history(*build_sequences(
+                self.dataset, max(c.model.max_history - 1, 1), seed=c.train.seed))
+            if loss != "sasrec":
+                self.logger.log({"event": "loss_coerced", "from": loss, "to": "sasrec",
+                                 "reason": f"{c.model.name} trains on its own reconstruction objective"})
+                loss = "sasrec"
         self.loss_name = loss
         if self.mesh is not None:
             from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
@@ -537,10 +560,11 @@ class Trainer:
 
     def _make_sampler(self):
         """The batches of the loss: CTRBatcher for CTR data; for interaction
-        data PairwiseSampler under the pairwise losses (K negatives a row
-        for sampled softmax, none for in-batch losses and device
-        negatives), else PointwiseSampler; uniform or popularity^beta
-        negatives, with the reference's refusals."""
+        data SequenceSampler under ``sasrec`` (the sequential models),
+        PairwiseSampler under the pairwise losses (K negatives a row for
+        sampled softmax, none for in-batch losses and device negatives),
+        else PointwiseSampler; uniform or popularity^beta negatives, with
+        the reference's refusals."""
         c = self.config
         # On N ranks each samples its B / N rows with its own seed.
         bs = c.train.batch_size // self.num_ranks
@@ -554,6 +578,14 @@ class Trainer:
                 return self.stream
             dense, cat, label = self.ctr_arrays["train"]
             return CTRBatcher(dense, cat, label, bs, seed=seed)
+        if self.loss_name == "sasrec":
+            if c.train.neg_sampling != "uniform":
+                raise ValueError(
+                    f"train.neg_sampling={c.train.neg_sampling!r} applies to the pairwise/pointwise "
+                    "interaction samplers, not the 'sasrec' data path")
+            # The time order's ties break by the run's seed on every rank.
+            return SequenceSampler(self.dataset, bs, c.model.max_history, seed,
+                                   order_seed=c.train.seed)
         neg_cdf = None
         if c.train.neg_sampling == "popularity":
             if self._use_device_negs(self.loss_name):

@@ -1,7 +1,8 @@
 """Milestone configs ported so far: ``mf_bpr_ml100k`` (config 1),
 ``fm_ctr_ml1m`` (config 2), ``neumf_ml20m`` (config 3), ``dcn_criteo``
 (config 4) and ``dcn_multihost`` (config 5, row-sharded tables on N
-ranks).
+ranks), and the sequential zoo: ``sasrec_ml1m``, ``gru4rec_ml1m`` and
+``caser_ml1m``.
 
 Copies of ``tfrec_tpu.zoo_configs``' constructors; a test holds each equal
 to its original.
@@ -148,6 +149,52 @@ def dcn_multihost(path: str | None = None) -> Config:
     )
 
 
+def _sequential_ml1m(run_name: str, path: str | None, model: ModelConfig) -> Config:
+    """The sequential zoo's protocol at ML-1M's shape: leave one out,
+    time-ordered sequences, per-position BCE, Adam and rowwise Adam, batch
+    128, 60 epochs, the full-catalog eval every 20 at ks (10, 20). Without
+    a ``path``, the seeded ``synthetic_implicit`` stand-in (6040 users,
+    3706 items, 96 interactions a user)."""
+    return Config(
+        run_name=run_name,
+        data=DataConfig(
+            source="movielens" if path else "synthetic_implicit",
+            path=path,
+            splitter="leave_one_out",
+            binarize_threshold=1.0 if path else 0.0,
+            num_users=6040, num_items=3706, interactions_per_user=96,
+        ),
+        model=model,
+        optim=OptimConfig(learning_rate=0.001, dense_optimizer="adam",
+                          sparse_optimizer="rowwise_adam"),
+        train=TrainConfig(batch_size=128, epochs=60, loss="sasrec", eval_every_epochs=20,
+                          eval_topk=(10, 20)),
+    )
+
+
+def sasrec_ml1m(path: str | None = None) -> Config:
+    """SASRec next-item prediction on ML-1M's shape (the paper's protocol):
+    2 blocks, 1 head, d=64, 200 positions, dropout 0.2."""
+    return _sequential_ml1m("sasrec_ml1m", path, ModelConfig(
+        name="sasrec", embed_dim=64, max_history=200, sasrec_blocks=2, sasrec_heads=1, dropout=0.2))
+
+
+def gru4rec_ml1m(path: str | None = None) -> Config:
+    """GRU4Rec on sasrec_ml1m's protocol and shape: one GRU layer of 128
+    over d=64, 200 positions, dropout 0.1."""
+    return _sequential_ml1m("gru4rec_ml1m", path, ModelConfig(
+        name="gru4rec", embed_dim=64, max_history=200, gru_hidden=128, gru_layers=1, dropout=0.1))
+
+
+def caser_ml1m(path: str | None = None) -> Config:
+    """Caser (causal convolution windows and the user embedding) on
+    sasrec_ml1m's protocol and shape, over 64 positions: 16 horizontal
+    filters of heights 2, 3 and 4, 4 vertical ones, dropout 0.3."""
+    return _sequential_ml1m("caser_ml1m", path, ModelConfig(
+        name="caser", embed_dim=64, max_history=64, caser_h_filters=16, caser_heights=(2, 3, 4),
+        caser_v_filters=4, dropout=0.3))
+
+
 # The zoo configs the port builds, by name (the CLI's --config).
 ZOO = {
     "mf_bpr_ml100k": mf_bpr_ml100k,
@@ -155,11 +202,14 @@ ZOO = {
     "neumf_ml20m": neumf_ml20m,
     "dcn_criteo": dcn_criteo,
     "dcn_multihost": dcn_multihost,
+    "sasrec_ml1m": sasrec_ml1m,
+    "gru4rec_ml1m": gru4rec_ml1m,
+    "caser_ml1m": caser_ml1m,
 }
 # The reference's other zoo configs, by the ROADMAP Queue 1 item that ports
 # them: the long tail (item 12).
 NOT_PORTED = {
     **{name: 12 for name in ("fism_ml100k", "multvae_ml100k", "nais_ml100k", "cdae_ml100k",
-                             "sasrec_ml1m", "gru4rec_ml1m", "caser_ml1m", "sbpr_ml100k",
-                             "apr_ml100k", "irgan_ml100k", "wrmf_ml100k", "ease_ml100k")},
+                             "sbpr_ml100k", "apr_ml100k", "irgan_ml100k", "wrmf_ml100k",
+                             "ease_ml100k")},
 }
