@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-5 (config 5's row- and column-sharded tables and retrieval on a mesh), data files, checkpoints and the CLI, every table layout and duplicate combine of the step, and the rest of the CTR and the sequential zoo, on one NVIDIA GPU.
+"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-5 (config 5's row- and column-sharded tables and retrieval on a mesh), data files, checkpoints and the CLI, every table layout and duplicate combine of the step, the rest of the CTR and the sequential zoo, and the history and graph zoos, on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
@@ -138,10 +138,11 @@ non-zero if any phase fails:
 25. (I) MovieLens files: ML-1M's ratings.dat, users.dat and movies.dat
     from the seed at 6040 users x 3706 items (~1M ratings); the native UIRT
     parser against the Python loop; ``fm_ctr_ml1m(path)`` with the side
-    files for 2 epochs (one gather and one Adagrad launch a step, its AUC);
+    files for 1 epoch (one gather and one Adagrad launch a step, its AUC);
     NeuMF warm started from a 1-epoch GMF checkpoint (``init_from``);
 26. (J) ``python -m tfrec_tpu_torch.cli --config dcn_criteo --data_path
-    <F's file>`` as a process of its own, its last line parsed;
+    <F's file>`` as a process of its own on the file's first 100 000 lines,
+    its last line parsed;
 27. (K) the table layouts and duplicate combines: ``dcn_criteo`` at
     Criteo's shape (26 x 100 000, d=32, B=8192, Zipf(1.2) ids), 8
     ``multi_step`` steps from one state in each mode (per field, the 26
@@ -156,9 +157,10 @@ non-zero if any phase fails:
     kernels at the packed and stacked shapes, bit for bit their plain
     versions and on repeat, beside their bounds, plain versions and
     ``index_select``. Then ``trainer.run(fm_ctr_ml1m())`` with
-    ``model.lane_pack=True`` whole (3 packs of 2 fields and ``linpack_0``,
-    G = 2 and 6): config 2's band, one gather and one Adagrad launch a
-    step, the kernels at its shapes; its checkpoint
+    ``model.lane_pack=True`` for 2 of its 20 epochs (3 packs of 2 fields and
+    ``linpack_0``, G = 2 and 6): each epoch's loss bit for bit phase 17's
+    per-field run's, one gather and one Adagrad launch a step, the kernels
+    at its shapes; its checkpoint
     resumed under ``lane_pack=None`` (the saved layout taken) bit for bit,
     and served by ``from_checkpoint`` packed and per field;
 28. (L) config 5, the row-sharded tables: (L1) ``ShardedTrainStepBuilder``
@@ -222,11 +224,30 @@ non-zero if any phase fails:
     bit for bit; 2 first steps at dropout 0 against the CPU; the gather at
     each step's shape (51 072 ids of [3706, 64] for SASRec and GRU4Rec);
     examples/s, host medians, busy shares, kernels and copies a step.
+31. (O) the history zoo and the graph zoo: (O1) ``trainer.run`` of
+    fism_ml100k, nais_ml100k, multvae_ml100k and cdae_ml100k whole and of
+    Mult-DAE (multvae_ml100k, ``model.name=multdae``) on the stand-in at
+    ML-100K's shape (943 x 1682), each saving a checkpoint: recall@20 in
+    the range of the JAX package's own runs at QUALITY_BANDS.json's seeds
+    (JAX_RECALL20; no band exists), one gather and one Adagrad launch a
+    step and one gather a batch of eval users; ``predict`` and
+    ``recommend`` for 256 users from the trainer and from the checkpoint
+    bit for bit; one step at dropout 0 against the CPU; the gather and
+    Adagrad kernels at FISM's step (65 536 history ids of [1682, 64], pads
+    among them) and Mult-VAE's (16 384 of [1682, 256]) against their plain
+    versions, with their times. (O2) lightgcn and ngcf (d=64, 3 layers) on
+    mf_bpr_ml100k()'s data and protocol: no kernel launched (the embeddings
+    are dense params), the propagation and a step bit for bit on repeat,
+    one step against the CPU, serving from the checkpoint.
 
-No earlier path is cut in depth for time; phase N runs gru4rec_ml1m for 1
-of its 60 epochs (SEQ_EPOCHS; PERF.md gives a whole run's time on an
-H100, and GRU4Rec's). The last lines are the kernels' JSON record (the v2
-records carry the general route's shapes as ``general_route``, the gather
+So that the whole script stays inside its time limit with phase O, three
+earlier paths are cut in depth, each keeping its checks: phase K's
+lane-packed config 2 runs 2 of its 20 epochs (FM_PACKED_EPOCHS: its losses
+are held bit for bit to phase 17's per-field run, which PR 13 showed it to
+be), phase I's FM over the files 1 epoch (FM_FILES_EPOCHS) and phase J's
+CLI 100 000 lines (CLI_LINES). Phase N runs gru4rec_ml1m for 1 of its 60
+epochs (SEQ_EPOCHS; PERF.md gives its whole run's time on an H100).
+The last lines are the kernels' JSON record (the v2 records carry the general route's shapes as ``general_route``, the gather
 and Adagrad records their times at MF's shape as ``mf_bench`` and at
 FM's and NeuMF's as ``fm`` and ``neumf``, and ``launches_by_path`` the
 trainers', MF's and configs 2 and 3's paths: ``trainer_mf`` phase 12,
@@ -247,8 +268,10 @@ records as ``sharded``; phase M adds ``train_col`` (M1), ``trainer_mesh_mf``
 every rank's launches summed; phase N adds ``serve_<model>``,
 ``train_<model>`` and ``trainer_<model>`` for its models, and its shapes to
 the gather record as ``deepfm_52``, ``sasrec_ml1m``, ``caser_ml1m`` and
-``gru4rec_ml1m`` and to the Adagrad record as ``deepfm_52``) and
-``{"ok": true, ...}``.
+``gru4rec_ml1m`` and to the Adagrad record as ``deepfm_52``; phase O adds
+``trainer_<model>`` and ``serve_<model>`` for its seven models, and its
+steps' shapes to the gather and Adagrad records as ``fism_step`` and
+``multvae_step``) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -407,7 +430,12 @@ CRITEO_MALFORMED_EVERY = 10_007
 # first lines only; the streamed runs read it all through the native parser.
 CRITEO_MATERIALIZED_LINES = 200_000
 CRITEO_CARD_VS_CPU_LINES = 100_000  # 8 steps of 8192 and the held-out 5%
-CLI_OVERRIDES = ["train.epochs=1", f"data.num_examples={CRITEO_MATERIALIZED_LINES}"]
+# The CLI's process reads the file's first CLI_LINES lines, one dispatch of
+# dcn_criteo's 8 steps of 8192 and the held-out 5% (phase F trains on more):
+# it checks the process and its last line, not the model.
+CLI_LINES = CRITEO_CARD_VS_CPU_LINES
+CLI_OVERRIDES = ["train.epochs=1", f"data.num_examples={CLI_LINES}"]
+FM_FILES_EPOCHS = 1  # phase I's FM over ML-1M's files
 STREAM_EVAL_EXAMPLES = 100_000  # the streamed run's held-out first lines
 ML1M_USERS, ML1M_ITEMS, ML1M_PER_USER = 6040, 3706, 165
 # Phase L, config 5 (row-sharded tables): the sharded step at world 1 over
@@ -451,6 +479,37 @@ SEQ_EPOCHS = {"gru4rec_ml1m": 1}
 SEQ_CPU_STEPS = 2
 SEQ_SERVE_K = 20
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
+# Phase K's config 2 lane-packed run: its first FM_PACKED_EPOCHS of config
+# 2's 20 epochs, each loss bit for bit phase 17's per-field run's (the init
+# is layout-invariant and every layout's step the per-field step's, PR 13).
+FM_PACKED_EPOCHS = 2
+# Phase O: the history zoo (its four zoo configs whole, and Mult-DAE as
+# multvae_ml100k with model.name=multdae) and the graph zoo (lightgcn and
+# ngcf, d=64, 3 layers, on mf_bpr_ml100k's data and protocol). No band
+# exists for them (QUALITY_BANDS.json predates them), so recall@20 is held
+# to the JAX package's own run() of each on the CPU at QUALITY_BANDS.json's
+# seeds (train.seed 42, 143, 244; the card runs the configs' seed, 42):
+#   python benchmarks/quality_bands.py --configs fism_ml100k,nais_ml100k --out F
+#   python benchmarks/quality_bands.py --configs multvae_ml100k,cdae_ml100k --out F
+#   python benchmarks/quality_bands.py --configs multvae_ml100k --override model.name=multdae --out F
+#   python benchmarks/quality_bands.py --configs mf_bpr_ml100k --override model.name=lightgcn --out F
+#   python benchmarks/quality_bands.py --configs mf_bpr_ml100k --override model.name=ngcf --out F
+# The card's value must lie in [min - 5% of the mean, max + 5% of the mean]
+# of them and above 3x the random ranking's 20/1682.
+JAX_RECALL20 = {
+    "fism": (0.1142629864107134, 0.1127606914758935, 0.11390950596345191),
+    "nais": (0.04551078153187498, 0.060091906615304794, 0.04498055934400346),
+    "multvae": (0.1251325617413, 0.12407211028632026, 0.12142099479602478),
+    "cdae": (0.11744432459454016, 0.11709084819255679, 0.11550017202140671),
+    "multdae": (0.09756097156447797, 0.09208200845081252, 0.09022622598949445),
+    "lightgcn": (0.1147048420263879, 0.11337928731519875, 0.1142629864107134),
+    "ngcf": (0.10410038208784506, 0.10560268511322118, 0.10162601693437562),
+}
+RECALL20_MARGIN = 0.05
+RANDOM_RECALL20 = 20 / 1682
+HISTORY_ZOO = ("fism", "nais", "multvae", "cdae")
+GRAPH_ZOO = ("lightgcn", "ngcf")
+ZOO_SERVE_USERS = 256
 
 # The kernels of the main paths. The gather and Adagrad kernels run there
 # as one launch over every table (the ``_multi`` wrappers); their one-table
@@ -558,6 +617,19 @@ def dispatch_ms(fn, calls: int, reps: int = 7) -> float:
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gather_bound_ms(tables, field_ids) -> tuple[float, str]:
+    """The gather's bound by bytes: each table's distinct rows that its ids
+    reach (clamped into the table, as the kernel reads them) read once, each
+    gathered row written once and each id read once. Where ids repeat (a
+    history's items, Zipf ids), a row read again comes from L2, not HBM."""
+    nbytes = 0
+    for t, i in zip(tables, field_ids):
+        row = t.shape[1] * t.element_size()
+        distinct = torch.unique(i.clamp(0, t.shape[0] - 1)).numel()
+        nbytes += distinct * row + i.numel() * (row + i.element_size())
+    return bound_ms(nbytes, 0)
 
 
 def tensor_core_bound_ms(nbytes: float, tf32_ops: float, f32_ops: float) -> tuple[float, str]:
@@ -1205,7 +1277,7 @@ def phase_times(model, rec, requests, errs) -> list:
     g_host = dispatch_ms(lambda: gather_rows_multi(field_tables, field_ids), 1)
     g_host_one = dispatch_ms(lambda: [gather_rows(t, i) for t, i in pairs], 1)
     g_host_lib = dispatch_ms(lambda: [torch.index_select(t, 0, i) for t, i in clamped], 1)
-    g_bound, g_by = bound_ms(sum(i.shape[0] * (t.shape[1] * 4 * 2 + 4) for t, i in pairs), 0)
+    g_bound, g_by = gather_bound_ms(field_tables, field_ids)
 
     gathered = dict(zip(ids, gather_rows_multi(field_tables, field_ids)))
     x0s = [model.flat_input(gathered, batch)]
@@ -1989,7 +2061,7 @@ def gather_times(tables, field_ids, what: str) -> dict:
     g_plain = device_ms(lambda: gather_rows_multi_ref(tables, field_ids), 1)
     in_range = [i.clamp(0, t.shape[0] - 1) for t, i in zip(tables, field_ids)]  # index_select raises past them
     g_lib = device_ms(lambda: [torch.index_select(t, 0, i) for t, i in zip(tables, in_range)], 1)
-    g_bound, g_by = bound_ms(sum(i.shape[0] * (t.shape[1] * 4 * 2 + 4) for t, i in zip(tables, field_ids)), 0)
+    g_bound, g_by = gather_bound_ms(tables, field_ids)
     shapes = [(tuple(t.shape), i.shape[0]) for t, i in zip(tables, field_ids)]
     print(f"gather_rows_multi at {what} {shapes} [device time, CUDA graph]: one launch {g_ms:.4f} ms; "
           f"plain {g_plain:.4f} ms; {len(tables)} index_select {g_lib:.4f} ms; bound {g_bound:.4f} ms ({g_by})")
@@ -2122,7 +2194,7 @@ def phase_config2(card: str, paths: dict):
     gather and one Adagrad launch a step for the 12 tables, one gather an
     eval pass; examples_per_s, each eval pass's time, the host's input
     time a batch, and a step's median and device-busy share. Returns the
-    trainer."""
+    trainer and its history."""
     cfg = zoo_configs.fm_ctr_ml1m()
     trainer, history, train_counts, evals, run_s = run_counted(cfg)
     steps = trainer.global_step
@@ -2162,7 +2234,7 @@ def phase_config2(card: str, paths: dict):
           f"sampler {(t1 - t0) * 1e3 / n:.3f} ms, _host_batch (side-field gathers, the 6-field cat) "
           f"{(t2 - t1) * 1e3 / n:.3f} ms")
     step_profile(trainer.builder, trainer.state, trainer._to_device_batch(host[0]), "config 2 (FM) step")
-    return trainer
+    return trainer, history
 
 
 def step_profile(builder, state, batch, what: str) -> tuple:
@@ -2725,8 +2797,8 @@ def write_ml1m_files(root: Path, seed: int) -> dict:
 
 def phase_movielens_files(card: str, paths: dict) -> None:
     """(I) ML-1M's files from the seed; the native UIRT parser against the
-    Python loop; ``fm_ctr_ml1m(path)`` with ML-1M's side-feature files for 2
-    epochs on the card (one gather and one Adagrad launch a step); NeuMF
+    Python loop; ``fm_ctr_ml1m(path)`` with ML-1M's side-feature files for
+    FM_FILES_EPOCHS epoch on the card (one gather and one Adagrad launch a step); NeuMF
     warm started from a 1-epoch GMF checkpoint (``init_from``)."""
     t_phase = time.perf_counter()
     files = write_ml1m_files(DATA_DIR / "ml-1m", SEED)
@@ -2746,13 +2818,13 @@ def phase_movielens_files(card: str, paths: dict) -> None:
     cfg = dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, user_features_path=files["users"],
                                       item_features_path=files["movies"]),
-        train=dataclasses.replace(cfg.train, epochs=2, eval_every_epochs=2))
+        train=dataclasses.replace(cfg.train, epochs=FM_FILES_EPOCHS, eval_every_epochs=FM_FILES_EPOCHS))
     trainer, history, train_counts, evals, run_s = run_counted(cfg)
     steps = trainer.global_step
     paths["trainer_fm_files"] = whole_run_launches(train_counts, evals)
     print(f"movielens files (I), fm_ctr_ml1m(path) with users.dat and movies.dat: field vocabs "
           f"{trainer.data_spec.field_vocabs}, {len(trainer.dataset.train)} train interactions, {steps} "
-          f"steps over 2 epochs; history {history}; auc {history[-1]['auc']:.6f}; launches in training "
+          f"steps over {FM_FILES_EPOCHS} epoch; history {history}; auc {history[-1]['auc']:.6f}; launches in training "
           f"{train_counts}, in the eval pass {evals[0][1]}; run() took {run_s:.1f} s ({card})")
     check(len(trainer.data_spec.field_vocabs) == 6 and all(np.isfinite(v) for r in history
                                                            for v in r.values()),
@@ -2981,21 +3053,25 @@ def phase_layouts(card: str, paths: dict) -> dict:
     return records
 
 
-def phase_fm_packed(card: str, paths: dict, records: dict) -> dict:
-    """(K) ``trainer.run(fm_ctr_ml1m())`` with ``model.lane_pack=True``,
-    whole on the card: 3 packs of 2 fields ([6040, 128], [21, 128], [7, 128],
-    G = 2) and ``linpack_0`` [6040, 6] (G = 6); config 2's band; one gather
-    and one Adagrad launch a step; the kernels at its
-    shapes; its checkpoint saved after the last epoch, resumed under AUTO
-    (the saved layout taken) bit for bit, and served by ``from_checkpoint``
-    bit for bit ``from_trainer``. Returns the record of the Adagrad kernel on lane-grouped tables."""
+def phase_fm_packed(card: str, paths: dict, records: dict, per_field: list) -> dict:
+    """(K) ``trainer.run(fm_ctr_ml1m())`` with ``model.lane_pack=True`` on
+    the card for its first FM_PACKED_EPOCHS epochs: 3 packs of 2 fields
+    ([6040, 128], [21, 128], [7, 128], G = 2) and ``linpack_0`` [6040, 6]
+    (G = 6); each epoch's loss bit for bit the per-field run's
+    (``per_field``, phase 17's history: the same seed's init is
+    layout-invariant and the packed step is the per-field step); one gather
+    and one Adagrad launch a step; the kernels at its shapes; its
+    checkpoint saved after the last epoch, resumed under AUTO (the saved
+    layout taken) bit for bit, and served by ``from_checkpoint`` bit for
+    bit ``from_trainer``. Returns the record of the Adagrad kernel on
+    lane-grouped tables."""
     t_phase = time.perf_counter()
     base = zoo_configs.fm_ctr_ml1m()
     ckpt = DATA_DIR / "fm_packed"
     cfg = dataclasses.replace(
         base, model=dataclasses.replace(base.model, lane_pack=True),
-        train=dataclasses.replace(base.train, checkpoint_dir=str(ckpt),
-                                  checkpoint_every_epochs=base.train.epochs))
+        train=dataclasses.replace(base.train, epochs=FM_PACKED_EPOCHS, checkpoint_dir=str(ckpt),
+                                  checkpoint_every_epochs=FM_PACKED_EPOCHS))
     trainer, history, train_counts, evals, run_s = run_counted(cfg)
     steps = trainer.global_step
     paths["trainer_fm_packed"] = whole_run_launches(train_counts, evals)
@@ -3008,9 +3084,10 @@ def phase_fm_packed(card: str, paths: dict, records: dict) -> dict:
     check(list(tables) == ["pack_0", "pack_1", "pack_2", "linpack_0"], "config 2 packs as the reference does")
     check_launches(train_counts, {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps},
                    "config 2 packed: one gather and one Adagrad launch a step, and no other")
-    lo, hi = CONFIG2_AUC_BAND
-    print(f"config 2 lane-packed band: auc {rec['auc']:.6f} in [{lo}, {hi}]")
-    check(lo <= rec["auc"] <= hi, "config 2 lane-packed holds its band")
+    packed, want = [r["loss"] for r in history], [r["loss"] for r in per_field[:FM_PACKED_EPOCHS]]
+    print(f"config 2 lane-packed: its {FM_PACKED_EPOCHS} epochs' losses {packed}, the per-field run's (phase 17) "
+          f"{want}: bit for bit {packed == want}; auc after them {rec['auc']:.6f}")
+    check(packed == want, "config 2 lane-packed trains bit for bit the per-field run's epochs")
 
     batch = trainer._to_device_batch(trainer._host_batch(next(trainer.sampler.epoch(0)), train=False))
     sparse_kernel_checks(trainer.builder, trainer.state, batch, "fm_packed", records)
@@ -3018,7 +3095,7 @@ def phase_fm_packed(card: str, paths: dict, records: dict) -> dict:
     auto = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, lane_pack=None),
                                train=dataclasses.replace(cfg.train, resume=True))
     resumed = Trainer(auto, quiet=True, log_metrics=False)
-    same = resumed.model.lane_pack and resumed.start_epoch == base.train.epochs and states_equal(
+    same = resumed.model.lane_pack and resumed.start_epoch == FM_PACKED_EPOCHS and states_equal(
         resumed.state, trainer.state)
     one, _ = trainer.builder.step(copy_state(trainer.state), batch)
     two, _ = resumed.builder.step(copy_state(resumed.state), batch)
@@ -3881,13 +3958,19 @@ def seq_card_vs_cpu(cfg) -> None:
     check(ok, f"{cfg.run_name}'s tables, rowwise Adam state and dense params on the card match the CPU's")
 
 
-def seq_serving(card: str, paths: dict, trainer, cfg, short: str) -> None:
-    """``predict`` of SERVE_USERS (user, item) pairs and ``recommend(users,
-    k=20)`` from the trainer and from its checkpoint: bit for bit the same,
-    one gather launch a call; latencies."""
+def zoo_serving(card: str, paths: dict, trainer, cfg, short: str, num_users: int = SERVE_USERS,
+                k: int = SEQ_SERVE_K, want: dict | None = None) -> None:
+    """``predict`` of ``num_users`` (user, item) pairs and ``recommend(users,
+    k)`` for as many users, from the trainer and from its checkpoint (which
+    re-attaches the sequences, histories or graph from the config's data):
+    bit for bit the same; ``predict`` at ``score_catalog``'s entries (for
+    FISM where the item is not in the user's history: its forward leaves
+    the item out, its ``score_all`` does not); launches (``want``, by
+    default one gather a call); latencies."""
+    want = {"gather_rows_multi": 1} if want is None else want
     rng = np.random.default_rng(SEED + 17)
-    users = rng.choice(trainer.dataset.num_users, SERVE_USERS, replace=False).astype(np.int32)
-    items = rng.integers(0, trainer.dataset.num_items, SERVE_USERS).astype(np.int32)
+    users = rng.choice(trainer.dataset.num_users, num_users, replace=False).astype(np.int32)
+    items = rng.integers(0, trainer.dataset.num_items, num_users).astype(np.int32)
     live = Recommender.from_trainer(trainer)
     t0 = time.perf_counter()
     cold = Recommender.from_checkpoint(cfg)
@@ -3897,23 +3980,28 @@ def seq_serving(card: str, paths: dict, trainer, cfg, short: str) -> None:
     torch.cuda.synchronize()
     paths[f"serve_{short}"] = launches = read_launches()
     reset_launches()
-    top_ids, top_vals = live.recommend(users, SEQ_SERVE_K)
+    top_ids, top_vals = live.recommend(users, k)
     torch.cuda.synchronize()
     rec_launches = read_launches()
-    cold_ids, cold_vals = cold.recommend(users, SEQ_SERVE_K)
+    cold_ids, cold_vals = cold.recommend(users, k)
     same = (np.array_equal(cold.predict(users, items), got) and np.array_equal(cold_ids, top_ids)
             and np.array_equal(cold_vals, top_vals))
+    scores = live.score_catalog(users)[np.arange(num_users), items]
+    rows = (~(trainer.model._hist[users] == items[:, None]).any(axis=1) if short == "fism"
+            else np.ones(num_users, bool))
+    at_items = np.allclose(got[rows], scores[rows], rtol=RTOL, atol=ATOL_REL)
     p_ms, p_99 = latency(lambda: live.predict(users, items))
-    r_ms, r_99 = latency(lambda: live.recommend(users, SEQ_SERVE_K))
-    print(f"{cfg.run_name} serving: predict of {SERVE_USERS} pairs, launches {launches}; recommend "
-          f"k={SEQ_SERVE_K} for {SERVE_USERS} users over {trainer.dataset.num_items} items, launches "
-          f"{rec_launches}; from_checkpoint ({cold_s:.2f} s cold start) bit for bit from_trainer's: {same}; "
-          f"latency (host clock; {card}) predict median {p_ms:.3f} ms p99 {p_99:.3f} ms, recommend median "
-          f"{r_ms:.3f} ms p99 {r_99:.3f} ms")
-    check(bool(np.isfinite(got).all()) and got.shape == (SERVE_USERS,), f"{short} predict is finite")
+    r_ms, r_99 = latency(lambda: live.recommend(users, k))
+    print(f"{cfg.run_name} serving: predict of {num_users} pairs, launches {launches}; recommend k={k} for "
+          f"{num_users} users over {trainer.dataset.num_items} items, launches {rec_launches}; from_checkpoint "
+          f"({cold_s:.2f} s cold start) bit for bit from_trainer's: {same}; predict is score_catalog's entry: "
+          f"{at_items}; latency (host clock; {card}) predict median {p_ms:.3f} ms p99 {p_99:.3f} ms, recommend "
+          f"median {r_ms:.3f} ms p99 {r_99:.3f} ms")
+    check(bool(np.isfinite(got).all()) and got.shape == (num_users,), f"{short} predict is finite")
+    check(at_items, f"{short} predict gives score_catalog's entries")
     check(same, f"{short} from_checkpoint serves predict and recommend bit for bit as from_trainer")
-    check_launches(launches, {"gather_rows_multi": 1}, f"{short} predict ran one gather launch, and no other")
-    check_launches(rec_launches, {"gather_rows_multi": 1}, f"{short} recommend ran one gather launch, and no other")
+    check_launches(launches, want, f"{short} predict ran {want or 'no kernel'}, and no other")
+    check_launches(rec_launches, want, f"{short} recommend ran {want or 'no kernel'}, and no other")
 
 
 def seq_gather_record(trainer, batch, label: str) -> dict:
@@ -3990,7 +4078,7 @@ def phase_sequential(card: str, paths: dict) -> dict:
                 continue
             print(f"{name} band: {metric} {rec[metric]:.6f} in [{lo}, {hi}]")
             check(lo <= rec[metric] <= hi, f"{name}'s {metric} lies in its band")
-        seq_serving(card, paths, trainer, cfg, short)
+        zoo_serving(card, paths, trainer, cfg, short)
         batch = trainer._to_device_batch(next(trainer.sampler.epoch(0)))
         records[name] = seq_gather_record(trainer, batch, name)
         median, busy = step_profile(trainer.builder, trainer.state, batch, f"{name} step (N2)")
@@ -3999,6 +4087,187 @@ def phase_sequential(card: str, paths: dict) -> dict:
         seq_card_vs_cpu(cfg)
         print(f"{name} (N2) took {time.perf_counter() - t_model:.1f} s")
     print(f"phase N2 took {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def zoo_o_configs() -> dict:
+    """Phase O's configurations by short name, each saving a checkpoint
+    after its last epoch under DATA_DIR: the four history zoo configs,
+    Mult-DAE (multvae_ml100k with model.name=multdae) and the graph models
+    on mf_bpr_ml100k()."""
+    cfgs = {short: zoo_configs.ZOO[f"{short}_ml100k"]() for short in HISTORY_ZOO}
+    vae = cfgs["multvae"]
+    cfgs["multdae"] = vae.replace(run_name="multdae_ml100k", model=dataclasses.replace(vae.model, name="multdae"))
+    base = zoo_configs.mf_bpr_ml100k()
+    for short in GRAPH_ZOO:
+        cfgs[short] = base.replace(run_name=f"{short}_ml100k", model=dataclasses.replace(base.model, name=short))
+    return {short: cfg.replace(train=dataclasses.replace(
+        cfg.train, checkpoint_dir=str(DATA_DIR / short), checkpoint_every_epochs=cfg.train.epochs))
+        for short, cfg in cfgs.items()}
+
+
+def recall_gate(short: str, value: float) -> None:
+    """recall@20 within the JAX package's runs' range widened by
+    RECALL20_MARGIN of their mean, and above 3x the random ranking's."""
+    ref = JAX_RECALL20[short]
+    mean = statistics.mean(ref)
+    lo, hi = min(ref) - RECALL20_MARGIN * mean, max(ref) + RECALL20_MARGIN * mean
+    print(f"{short}: recall@20 {value:.6f} in [{lo:.6f}, {hi:.6f}] (the JAX package's run() on the CPU at "
+          f"seeds 42, 143, 244: {', '.join(f'{v:.6f}' for v in ref)}; min - {RECALL20_MARGIN} x mean, max + "
+          f"{RECALL20_MARGIN} x mean), above 3 x 20/1682 = {3 * RANDOM_RECALL20:.6f}")
+    check(lo <= value <= hi and value >= 3 * RANDOM_RECALL20,
+          f"{short}'s recall@20 lies in the JAX package's range and above 3x random")
+
+
+def no_noise(trainer) -> None:
+    """Mult-VAE's reparameterisation eps set to 0 (a card-against-CPU
+    comparison: the two devices' generators draw other numbers)."""
+    if hasattr(trainer.model, "noise"):
+        trainer.model.noise = lambda mu, generator: torch.zeros_like(mu)
+
+
+def zoo_card_vs_cpu(cfg) -> None:
+    """One step at dropout 0 (Mult-VAE's eps 0) on the card and on the CPU
+    (the plain versions) from one initial state: the loss within LOSS_RTOL,
+    the dense and gathered-row gradients within GRAD_TOL of the largest;
+    after the step every table row, accumulator, dense param and dense
+    optimizer leaf within STEP_RTOL / STEP_ATOL, except where the CPU's
+    gradient lies within GRAD_TOL of 0 (a table row's combined gradient,
+    a dense element): Adagrad's and Adam's first normalised updates are lr
+    whatever the gradient's size, so there they turn rounding into up to
+    lr. Those are counted."""
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0),
+                              train=dataclasses.replace(cfg.train, checkpoint_dir=None))
+    t0 = time.perf_counter()
+    card, cpu = Trainer(cfg, quiet=True), Trainer(cfg, quiet=True, device="cpu")
+    cpu.state = copy_state(card.state, "cpu")
+    no_noise(card)
+    no_noise(cpu)
+    host = next(card.sampler.epoch(0))
+    b_card, b_cpu = card._to_device_batch(host), cpu._to_device_batch(host)
+    loss_g, dense_g, rows_g, ids = card.builder.loss_and_grads(card.state, b_card)
+    loss_c, dense_c, rows_c, ids_c = cpu.builder.loss_and_grads(cpu.state, b_cpu)
+    after_g, _ = card.builder.step(copy_state(card.state), b_card)
+    after_c, _ = cpu.builder.step(copy_state(cpu.state), b_cpu)
+    torch.cuda.synchronize()
+    errs = {"loss (relative)": abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())}
+    dense_pairs = [(a.cpu(), e) for a, e in zip(tree_leaves(dense_g), tree_leaves(dense_c))]
+    row_pairs = [(rows_g[n].cpu(), rows_c[n]) for n in rows_c]
+    errs["dense grads"] = max((max_err(a, e) for a, e in dense_pairs), default=0.0)
+    errs["row grads"] = max((max_err(a, e) for a, e in row_pairs), default=0.0)
+    ok, near_zero = True, 0
+    errs["tables"] = errs["acc"] = errs["dense"] = 0.0
+
+    def close(got, want, keep):
+        nonlocal ok
+        ok &= torch.allclose(got[keep].double(), want[keep].double(), rtol=STEP_RTOL, atol=STEP_ATOL)
+        return max_err(got[keep].double(), want[keep].double())
+
+    for name, table_ids in ids_c.items():
+        vocab = after_c["tables"][name].shape[0]
+        uids, g = combine_duplicate_ids(table_ids, rows_c[name], sentinel=vocab)
+        real = uids < vocab
+        row_max = torch.zeros(vocab)
+        row_max[uids[real].long()] = g[real].abs().amax(dim=1)
+        keep = ~((row_max > 0) & (row_max <= GRAD_TOL * max(row_max.max().item(), 1e-30)))
+        near_zero += int((~keep).sum())
+        errs["tables"] = max(errs["tables"], close(after_g["tables"][name].cpu(), after_c["tables"][name], keep))
+        for leaf, v in after_c["sparse_opt"][name].items():
+            errs["acc"] = max(errs["acc"], close(after_g["sparse_opt"][name][leaf].cpu(), v, keep))
+    for (got, want), (_, grad) in zip(zip(tree_leaves(after_g["dense"]), tree_leaves(after_c["dense"])),
+                                      dense_pairs):
+        keep = grad.abs() > GRAD_TOL * max(grad.abs().max().item(), 1e-30)
+        near_zero += int((~keep).sum())
+        errs["dense"] = max(errs["dense"], close(got.cpu(), want, keep))
+    opt = [(a, e) for a, e in zip(tree_leaves(after_g["dense_opt"]), tree_leaves(after_c["dense_opt"]))
+           if isinstance(a, torch.Tensor)]
+    errs["dense optimizer"] = max((max_err(a.cpu().double(), e.double()) for a, e in opt), default=0.0)
+    ok &= all(torch.allclose(a.cpu().double(), e.double(), rtol=STEP_RTOL, atol=STEP_ATOL) for a, e in opt)
+    print(f"{cfg.run_name} card against the CPU ({time.perf_counter() - t0:.1f} s), one step at dropout 0 from "
+          f"one state: loss card {loss_g.item():.9g}, cpu {loss_c.item():.9g}; max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; {near_zero} table rows and dense elements whose CPU gradient lies within {GRAD_TOL} of 0 set "
+          f"apart (loss rtol {LOSS_RTOL}; grads {GRAD_TOL} x max|ref|; after the step rtol {STEP_RTOL}, atol "
+          f"{STEP_ATOL})")
+    check(errs["loss (relative)"] <= LOSS_RTOL, f"{cfg.run_name}'s loss on the card matches the CPU's")
+    check(all(within(a, e, GRAD_TOL, GRAD_TOL) for a, e in dense_pairs + row_pairs),
+          f"{cfg.run_name}'s gradients on the card match the CPU's")
+    check(ok, f"{cfg.run_name}'s state after a step on the card matches the CPU's")
+
+
+def graph_repeats(trainer, short: str) -> None:
+    """The propagation twice on the card, and a step twice from one state:
+    bit for bit (sorted sums, no float atomics)."""
+    dense = trainer.state["dense"]
+    one, two = trainer.model.propagate(dense), trainer.model.propagate(dense)
+    batch = trainer._to_device_batch(next(trainer.sampler.epoch(0)))
+    s_one, _ = trainer.builder.step(copy_state(trainer.state), batch)
+    s_two, _ = trainer.builder.step(copy_state(trainer.state), batch)
+    torch.cuda.synchronize()
+    prop = all(torch.equal(a, b) for a, b in zip(one, two))
+    step = states_equal(s_one, s_two)
+    u_side, _ = trainer.model.graph(dense["user_emb"].device)
+    print(f"{short}: the propagation over {int(u_side.lengths.sum())} edges x {trainer.model.num_layers} layers "
+          f"(users {tuple(one[0].shape)}, items {tuple(one[1].shape)}) repeats bit for bit: {prop}; a step "
+          f"repeats bit for bit: {step}")
+    check(prop and step, f"{short}'s propagation and step repeat bit for bit on the card")
+
+
+def phase_zoo_history_graph(card: str, paths: dict) -> dict:
+    """(O) the history zoo and the graph zoo on the card: ``trainer.run`` of
+    fism_ml100k, nais_ml100k, multvae_ml100k and cdae_ml100k whole, Mult-DAE
+    (O1), lightgcn and ngcf on mf_bpr_ml100k() (O2), each saving a
+    checkpoint: recall@20 in the JAX package's range; launches (a history
+    model one gather and one Adagrad launch a step and one gather a batch
+    of eval users, a graph model none); serving from the trainer and from
+    the checkpoint bit for bit; one step at dropout 0 against the CPU; a
+    graph model's propagation and step bit for bit on repeat; the gather
+    and Adagrad kernels at FISM's and Mult-VAE's steps (their records);
+    examples/s, step medians, busy shares. Returns the kernels' records."""
+    t_phase = time.perf_counter()
+    records = {"gather_rows_multi": {}, "fused_rowwise_adagrad_multi": {}}
+    for short, cfg in zoo_o_configs().items():
+        t_model = time.perf_counter()
+        graph = short in GRAPH_ZOO
+        trainer, history, train_counts, evals, run_s = run_counted(cfg)
+        steps = trainer.global_step
+        evaluator = trainer._retrieval_eval
+        eval_batches = -(-len(evaluator.users_with_test) // evaluator.user_batch)
+        paths[f"trainer_{short}"] = whole_run_launches(train_counts, evals)
+        rec = history[-1]
+        rates = [r["examples_per_s"] for r in history]
+        specs = [(s.name, s.shape) for s in trainer.model.table_specs()]
+        print(f"{cfg.run_name} (O, run: synthetic_implicit {trainer.dataset.num_users} x "
+              f"{trainer.dataset.num_items}, {len(trainer.dataset.train)} train interactions, loss "
+              f"{trainer.loss_name}, {trainer.sampler.num_batches()} steps of {cfg.train.batch_size} an epoch, "
+              f"{cfg.train.epochs} epochs, tables {specs}): {steps} steps; final record {rec}; launches in "
+              f"training {train_counts}, in each eval pass ({eval_batches} batches of {evaluator.user_batch} "
+              f"users) {evals[0][1]}; run() took {run_s:.1f} s")
+        print(f"{cfg.run_name}: examples_per_s median over the epochs {statistics.median(rates):.1f} (min "
+              f"{min(rates):.1f}, max {max(rates):.1f}; host clock over each epoch; {card}); eval passes "
+              f"(host clock): " + ", ".join(f"{ms:.3f} ms" for ms, _ in evals))
+        check(len(evals) == cfg.train.epochs // cfg.train.eval_every_epochs, f"{short}'s eval cadence")
+        check(all(np.isfinite(v) for r in history for v in r.values()), f"{short}'s history is finite")
+        trained = {} if graph else {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps}
+        check_launches(train_counts, trained, f"{short} ran {trained or 'no kernel'} in training, and no other")
+        for _, counts in evals:
+            want = {} if graph else {"gather_rows_multi": eval_batches}
+            check_launches(counts, want, f"each {short} eval pass ran {want or 'no kernel'}, and no other")
+        recall_gate(short, rec["recall@20"])
+        zoo_serving(card, paths, trainer, cfg, short, num_users=ZOO_SERVE_USERS, want={} if graph else None)
+        batch = trainer._to_device_batch(next(trainer.sampler.epoch(0)))
+        if graph:
+            graph_repeats(trainer, short)
+        if short in ("fism", "multvae"):
+            sparse_kernel_checks(trainer.builder, trainer.state, batch, f"{short}_step", records)
+            median, busy = step_profile(trainer.builder, trainer.state, batch, f"{short} step (O)")
+            records["gather_rows_multi"][f"{short}_step"].update({"step_ms": median, "step_device_busy": busy})
+        elif short in ("nais", "lightgcn"):
+            step_profile(trainer.builder, trainer.state, batch, f"{short} step (O)")
+        del trainer
+        zoo_card_vs_cpu(cfg)
+        print(f"{short} (O) took {time.perf_counter() - t_model:.1f} s")
+    print(f"phase O took {time.perf_counter() - t_phase:.1f} s")
     return records
 
 
@@ -4032,7 +4301,7 @@ def main() -> int:
     phase_mf_topk(card, paths, model, state)
     del model, state
     phase_config4_band(card)
-    fm_trainer = phase_config2(card, paths)
+    fm_trainer, fm_history = phase_config2(card, paths)
     neumf_trainer = phase_config3(card, paths)
     phase_configs_card_vs_cpu()
     shapes = phase_new_shapes(fm_trainer, neumf_trainer)
@@ -4050,7 +4319,7 @@ def main() -> int:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     try:
         layouts = phase_layouts(card, paths)
-        records.append(phase_fm_packed(card, paths, layouts))
+        records.append(phase_fm_packed(card, paths, layouts, fm_history))
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     sharded_records = phase_sharded_step(card, paths)
@@ -4068,6 +4337,10 @@ def main() -> int:
         zoo_records["gather_rows_multi"].update(phase_sequential(card, paths))
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+    try:
+        history_graph = phase_zoo_history_graph(card, paths)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
     for r in records:
         if r["name"] == GROUPED:  # the Adagrad kernel's launches on the packed paths
             by_path = {path: paths[path]["fused_rowwise_adagrad_multi"] for path in GROUPED_PATHS}
@@ -4083,6 +4356,7 @@ def main() -> int:
         r.update(layouts.get(r["name"], {}))  # phase K's packed and stacked shapes
         r.update(sharded_records.get(r["name"], {}))  # phase L's owner gather and update
         r.update(zoo_records.get(r["name"], {}))  # phase N's 52 tables and sequential steps
+        r.update(history_graph.get(r["name"], {}))  # phase O's FISM and Mult-VAE steps
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

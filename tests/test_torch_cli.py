@@ -80,10 +80,10 @@ def test_cli_lists_and_refuses_configs():
     assert out.returncode == 0
     assert out.stdout.split() == list(zoo_configs.ZOO) == \
         ["mf_bpr_ml100k", "fm_ctr_ml1m", "neumf_ml20m", "dcn_criteo", "dcn_multihost", "sasrec_ml1m",
-         "gru4rec_ml1m", "caser_ml1m"]
+         "gru4rec_ml1m", "caser_ml1m", "fism_ml100k", "nais_ml100k", "multvae_ml100k", "cdae_ml100k"]
     bad = _cli("--config", "nope")
     assert bad.returncode != 0 and "unknown config 'nope'" in bad.stderr
-    tail = _cli("--config", "fism_ml100k")
+    tail = _cli("--config", "wrmf_ml100k")
     assert tail.returncode != 0 and "ROADMAP Queue 1 item 12" in tail.stderr
     # Under the JAX_* variables a process joins a group; a table axis of 2
     # needs 2 ranks a data index, and one process is refused by that rule.

@@ -694,3 +694,63 @@ def test_mf_train_step_and_recommend_on_the_card_match_the_cpu(device):
     cpu_ids, cpu_vals = cpu_rec.recommend(np.arange(64), 20)
     np.testing.assert_allclose(vals, cpu_vals, rtol=1e-5, atol=1e-5)
     assert (ids == cpu_ids).mean() > 0.95  # products summed in other orders may swap near-ties
+
+
+def test_lightgcn_propagation_and_step_repeat_bit_for_bit(device):
+    """LightGCN at ML-100K's shape (943 x 1682, 64 items a user, d=64, 3
+    layers): the propagation's sorted sums repeat bit for bit, forward and
+    backward (no float atomics), and match the CPU's to rounding."""
+    rng = np.random.default_rng(3)
+    nu, ni = 943, 1682
+    users = np.repeat(np.arange(nu), 64).astype(np.int32)
+    items = rng.integers(0, ni, len(users)).astype(np.int32)
+    model = build_model(ModelConfig(name="lightgcn", embed_dim=64), DataSpec.interaction(nu, ni))
+    model.attach_graph(users, items)
+    builder = TrainStepBuilder(model, "bpr", OptimConfig(learning_rate=0.1, dense_optimizer="adagrad"),
+                               l2_reg=0.03, device=device)
+    state = builder.init_state(torch.Generator(device=device).manual_seed(0))
+    first = model.propagate(state["dense"])
+    again = model.propagate(state["dense"])
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    cpu = model.propagate({k: v.cpu() for k, v in state["dense"].items()})
+    for a, b in zip(first, cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    batch = {k: torch.from_numpy(rng.integers(0, n, 2048).astype(np.int32)).to(device)
+             for k, n in (("user", nu), ("pos", ni), ("neg", ni))}
+    one, _ = builder.step(copy_state(state), batch)
+    two, _ = builder.step(copy_state(state), batch)
+    assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(tree_leaves(one), tree_leaves(two)))
+
+
+def test_fism_step_adagrad_launch_is_bitwise_the_plain_version(device):
+    """The Adagrad kernel at a FISM step's shape (item_p: 1024 x 64 history
+    slots of [1682, 64], sentinel pads among them; item_q and item_bias:
+    2048 item slots) from the step's own combined gradients: one launch,
+    bit for bit its plain version."""
+    rng = np.random.default_rng(4)
+    nu, ni, h, b = 943, 1682, 64, 1024
+    model = build_model(ModelConfig(name="fism", embed_dim=64, max_history=h), DataSpec.interaction(nu, ni))
+    builder = TrainStepBuilder(model, "bpr", OptimConfig(learning_rate=0.05, dense_optimizer="adagrad"),
+                               l2_reg=0.01, device=device)
+    state = builder.init_state(torch.Generator(device=device).manual_seed(0))
+    hist = rng.integers(0, ni, (b, h)).astype(np.int32)
+    hist[np.arange(h)[None, :] >= rng.integers(1, h + 1, b)[:, None]] = ni
+    batch = {"user": rng.integers(0, nu, b), "hist": hist, "pos": rng.integers(0, ni, b),
+             "neg": rng.integers(0, ni, b)}
+    batch = {k: torch.from_numpy(np.asarray(v, np.int32)).to(device) for k, v in batch.items()}
+    _, _, row_grads, ids = builder.loss_and_grads(state, batch)
+    assert ids["item_p"].shape == (b * h,) and bool((ids["item_p"] == ni).any())
+    uids, grads = zip(*(combine_duplicate_ids(ids[n], row_grads[n], sentinel=ni) for n in ids))
+    tables = [state["tables"][n] for n in ids]
+    accs = [state["sparse_opt"][n]["acc"] for n in ids]
+    before = fused_rowwise_adagrad_multi.launches
+    got_t, got_a = fused_rowwise_adagrad_multi([t.clone() for t in tables], [a.clone() for a in accs],
+                                               list(uids), list(grads), 0.05, 1e-8)
+    want_t, want_a = fused_rowwise_adagrad_multi_ref([t.clone() for t in tables], [a.clone() for a in accs],
+                                                     list(uids), list(grads), 0.05, 1e-8)
+    torch.cuda.synchronize()
+    assert fused_rowwise_adagrad_multi.launches == before + 1
+    assert all(torch.equal(a, e) for a, e in zip(got_t + got_a, want_t + want_a))
+    # The sentinel slots were dropped: the last row moves only through real ids.
+    assert (uids[0] < ni).sum() < b * h

@@ -153,8 +153,15 @@ def test_samplers_match_the_reference(case):
 
 
 def test_pairwise_sampler_refuses_histories():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        samplers.PairwiseSampler(_datasets()[0], 64, with_history=5)
+    """Refused until the history models were ported; now each batch carries
+    its users' histories exactly as the reference's does."""
+    port, ref = _datasets()
+    ours = samplers.PairwiseSampler(port, 64, with_history=5)
+    want = next(jax_samplers.PairwiseSampler(ref, 64, with_history=5).epoch(0))
+    got = next(ours.epoch(0))
+    assert got.keys() == want.keys() >= {"hist", "hist_len"}
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 # ---- the model and the losses ----
@@ -278,7 +285,7 @@ def test_build_model_builds_mf_and_refuses_by_item():
         ("item_bias", (NUM_ITEMS, 1), "zeros")]
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     assert not params["tables"]["item_bias"].any() and params["dense"] == {}
-    for name, item in (("fism", 12), ("ease", 12), ("multvae", 12), ("lightgcn", 12)):
+    for name, item in (("sbpr", 12), ("ease", 12), ("irgan", 12), ("wrmf", 12)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
             build_model(ModelConfig(name=name), spec)
     with pytest.raises(ValueError, match="CTR models"):

@@ -201,9 +201,9 @@ def test_config1_stand_in_and_its_small_run():
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    ({"model": {"name": "nais"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
-    ({"model": {"name": "fism"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
-    ({"train": {"loss": "multvae"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
+    ({"model": {"name": "ease"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
+    ({"model": {"name": "sbpr"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
+    ({"train": {"loss": "sbpr"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
     ({"data": {"social_degree": 4}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
     ({"train": {"device_negatives": True, "neg_sampling": "popularity"}}, ValueError,
      "device_negatives"),

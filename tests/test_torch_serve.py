@@ -145,7 +145,7 @@ def test_build_model_guards():
         with pytest.raises(ValueError, match="equal per-field"):
             build_model(ModelConfig(name="dcn", field_dims=(8, 8, 8, 16), **kw), spec)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        build_model(ModelConfig(name="fism"), spec)
+        build_model(ModelConfig(name="ease"), spec)
     with pytest.raises(ValueError, match="interaction DataSpec"):
         build_model(ModelConfig(name="mf"), spec)
     # AUTO lane packing builds per-field tables in the port.

@@ -438,7 +438,7 @@ def test_logloss_matches_jax_and_unported_losses_are_refused():
     got = losses.make_loss("logloss")(torch.from_numpy(logits), {"label": torch.from_numpy(labels)})
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
     with pytest.raises(NotImplementedError, match="item 12"):
-        losses.make_loss("multvae")
+        losses.make_loss("sbpr")
     with pytest.raises(ValueError, match="unknown loss"):
         losses.make_loss("nope")
 

@@ -5,7 +5,9 @@
 params)``) and returns the same tree of CPU float32 tensors. A retrieval
 model's tables (MF: ``user_emb``, ``item_emb``, ``item_bias`` [V, 1]; GMF
 and MLP: ``user_emb``, ``item_emb``; NeuMF: ``user_gmf``, ``item_gmf``,
-``user_mlp``, ``item_mlp``) are carried by name. A CTR model's tables come
+``user_mlp``, ``item_mlp``; FISM and NAIS: ``item_p``, ``item_q``,
+``item_bias``; Mult-VAE: ``enc1``; CDAE: ``enc1``, ``user_node``; the graph
+models none, their embeddings being dense params) are carried by name. A CTR model's tables come
 in any of the three table layouts (``models/ctr_base.py``), and arrive in
 the port model's own: as they are where the two layouts agree, else
 through the per-field tables (``CTRBase.split_fields`` / ``join_fields``):

@@ -20,6 +20,7 @@ does, so its arrays are the reference's bit for bit on any host.
 
 from __future__ import annotations
 
+import functools
 from typing import Iterator, Sequence, Tuple
 
 import numpy as np
@@ -63,10 +64,12 @@ def _best_parser(path, batch_size, vocab_sizes, max_examples):
     return "python", iter_criteo_batches(path, batch_size, vocab_sizes, max_examples)
 
 
+@functools.lru_cache(maxsize=1 << 18)
 def _hash_token(token: str, vocab: int, field: int) -> int:
     """FNV-1a over ``f"{field}:{token}"``, mod ``vocab``: identical tokens in
     different fields do not collide systematically. The reference's
-    arithmetic in Python ints (the same 64-bit wraparound)."""
+    arithmetic in Python ints (the same 64-bit wraparound); memoized, since
+    a log's tokens repeat."""
     h = _FNV_OFFSET
     for b in f"{field}:{token}".encode():
         h = ((h ^ b) * _FNV_PRIME) & _MASK64
@@ -82,14 +85,22 @@ def iter_criteo_batches(
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield (dense [B, 13] f32, cat [B, 26] i32, label [B] f32) batches,
     skipping lines without 40 fields. The final partial batch is dropped
-    (static shapes), or with ``drop_remainder=False`` yielded trimmed."""
+    (static shapes), or with ``drop_remainder=False`` yielded trimmed.
+    A batch's dense ints are read as float64 and take log1p together, the
+    reference's float64 log1p of each rounded to float32."""
     if isinstance(vocab_sizes, int):
         vocab_sizes = [vocab_sizes] * NUM_CATEGORICAL
     if len(vocab_sizes) != NUM_CATEGORICAL:
         raise ValueError(f"criteo needs {NUM_CATEGORICAL} vocab sizes, got {len(vocab_sizes)}")
-    dense = np.zeros((batch_size, NUM_DENSE), dtype=np.float32)
+    raw = np.zeros((batch_size, NUM_DENSE), dtype=np.float64)
     cat = np.zeros((batch_size, NUM_CATEGORICAL), dtype=np.int32)
     label = np.zeros(batch_size, dtype=np.float32)
+    fields = list(enumerate(vocab_sizes))
+
+    def batch(n: int):
+        dense = np.log1p(np.where(raw[:n] < 0.0, 0.0, raw[:n])).astype(np.float32)  # max(x, 0.0)
+        return dense, cat[:n].copy(), label[:n].copy()
+
     fill = 0
     seen = 0
     with open(path, "r") as f:
@@ -101,19 +112,15 @@ def iter_criteo_batches(
                 continue
             seen += 1
             label[fill] = float(parts[0])
-            for d in range(NUM_DENSE):
-                v = parts[1 + d]
-                x = float(v) if v else 0.0
-                dense[fill, d] = np.log1p(max(x, 0.0))
-            for c in range(NUM_CATEGORICAL):
-                tok = parts[1 + NUM_DENSE + c]
-                cat[fill, c] = _hash_token(tok, vocab_sizes[c], c) if tok else 0
+            raw[fill] = [float(v) if v else 0.0 for v in parts[1 : 1 + NUM_DENSE]]
+            cat[fill] = [_hash_token(tok, vocab, c) if tok else 0
+                         for (c, vocab), tok in zip(fields, parts[1 + NUM_DENSE :])]
             fill += 1
             if fill == batch_size:
-                yield dense.copy(), cat.copy(), label.copy()
+                yield batch(fill)
                 fill = 0
     if fill and not drop_remainder:
-        yield dense[:fill].copy(), cat[:fill].copy(), label[:fill].copy()
+        yield batch(fill)
 
 
 class CriteoStreamBatcher:

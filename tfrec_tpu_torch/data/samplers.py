@@ -1,7 +1,8 @@
 """Mini-batch generators of the port: copies of ``tfrec_tpu.data.samplers``'
 ``PairwiseSampler``, ``PointwiseSampler`` (with the negative sampling under
 them: ``_TrainPairIndex``, ``popularity_cdf``, ``_draw_items``,
-``_sample_negatives``), ``CTRBatcher``, and the sequential models'
+``_sample_negatives``), ``CTRBatcher``, the history models'
+``build_history`` and ``UserHistorySampler``, and the sequential models'
 ``build_sequences`` and ``SequenceSampler``.
 
 The port imports nothing of the JAX package, so it keeps its own copies.
@@ -9,9 +10,7 @@ Every sampler draws from ``np.random.default_rng((seed, epoch))`` exactly
 as its original does, so a test holds the batches of the two equal, array
 for array. Batches have static shapes; the remainder is dropped. Negatives
 are drawn in vectorised numpy: membership in the train pairs is one
-``searchsorted`` a rejection round against a sorted key array. The
-unordered-history variants (``with_history``, FISM; ``build_history`` and
-``UserHistorySampler``) are ROADMAP Queue 1 item 12.
+``searchsorted`` a rejection round against a sorted key array.
 """
 
 from __future__ import annotations
@@ -91,6 +90,54 @@ def _fixed_batches(batch_size: int,
         yield {k: v[start : start + batch_size] for k, v in columns.items()}
 
 
+def build_history(dataset: Dataset, max_len: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Each user's train items, unordered, for the history models: ([U, H]
+    int32 item ids padded with the sentinel ``num_items``, [U] int32
+    lengths, at most H). A user with more than H items keeps H of them drawn
+    without replacement from ``default_rng((seed, 0x415))``, in user order,
+    as the reference draws them (its sources need not carry times)."""
+    rng = np.random.default_rng((seed, 0x415))
+    u_sorted = np.argsort(dataset.train.users, kind="stable")
+    users = dataset.train.users[u_sorted]
+    items = dataset.train.items[u_sorted]
+    nu = dataset.num_users
+    if len(items) == 0:
+        return np.full((nu, max_len), dataset.num_items, np.int32), np.zeros(nu, np.int32)
+    starts = np.searchsorted(users, np.arange(nu))
+    counts = np.searchsorted(users, np.arange(nu) + 1) - starts
+    lens = np.minimum(counts, max_len).astype(np.int32)
+    cols = np.arange(max_len)[None, :]
+    valid = cols < lens[:, None]
+    flat_idx = np.minimum(starts[:, None] + cols, len(items) - 1)
+    hist = np.where(valid, items[flat_idx], dataset.num_items).astype(np.int32)
+    for u in np.flatnonzero(counts > max_len):  # the few users past H
+        hist[u] = rng.choice(items[starts[u] : starts[u] + counts[u]], size=max_len, replace=False)
+    return hist, lens
+
+
+class UserHistorySampler:
+    """{user, hist [B, H], hist_len} batches, a row for every user with a
+    train item, shuffled every epoch from ``default_rng((seed, epoch))``:
+    the autoencoders' input, whose history is also the reconstruction
+    target."""
+
+    def __init__(self, dataset: Dataset, batch_size: int, max_len: int, seed: int = 0):
+        self.batch_size = batch_size
+        self.seed = seed
+        self.hist, self.lens = build_history(dataset, max_len, seed)
+        self.active = np.flatnonzero(self.lens > 0).astype(np.int32)
+
+    def num_batches(self) -> int:
+        return len(self.active) // self.batch_size
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng((self.seed, epoch))
+        users = self.active[rng.permutation(len(self.active))]
+        for start in range(0, len(users) - self.batch_size + 1, self.batch_size):
+            u = users[start : start + self.batch_size]
+            yield {"user": u, "hist": self.hist[u], "hist_len": self.lens[u]}
+
+
 class PairwiseSampler:
     """(user, pos, neg) batches for pairwise losses (BPR, hinge), with fresh
     negatives and a fresh shuffle every epoch from (seed, epoch).
@@ -98,8 +145,9 @@ class PairwiseSampler:
     ``multi_neg=True`` gives {"user", "pos", "negs" [B, num_negatives]}
     (sampled softmax); ``no_negatives=True`` gives {"user", "pos"} (in-batch
     losses, and negatives drawn on the device); the default gives one
-    (pos, neg) row a negative. ``with_history`` (FISM) is ROADMAP Queue 1
-    item 12.
+    (pos, neg) row a negative. ``with_history=H`` adds each row's user's
+    train history, "hist" [B, H] sentinel-padded and "hist_len" [B]
+    (``build_history`` from ``seed``), for the item-similarity models.
     """
 
     def __init__(
@@ -113,10 +161,6 @@ class PairwiseSampler:
         with_history: int = 0,
         neg_cdf: "np.ndarray | None" = None,
     ):
-        if with_history:
-            raise NotImplementedError(
-                "PairwiseSampler(with_history=...) (user histories for FISM) is not ported yet: "
-                "ROADMAP Queue 1 item 12")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_negatives = num_negatives
@@ -125,6 +169,18 @@ class PairwiseSampler:
         self.no_negatives = no_negatives
         self.neg_cdf = neg_cdf
         self.index = _TrainPairIndex(dataset)
+        self.hist = self.lens = None
+        if with_history:
+            self.hist, self.lens = build_history(dataset, with_history, seed)
+
+    def _batches(self, columns: Dict[str, np.ndarray]) -> Iterator[Dict[str, np.ndarray]]:
+        """``_fixed_batches`` of the columns, each with its users' histories
+        where the sampler carries them."""
+        for batch in _fixed_batches(self.batch_size, columns):
+            if self.hist is not None:
+                u = batch["user"]
+                batch = {**batch, "hist": self.hist[u], "hist_len": self.lens[u]}
+            yield batch
 
     def num_batches(self) -> int:
         n = len(self.dataset.train)
@@ -137,8 +193,7 @@ class PairwiseSampler:
         train = self.dataset.train
         if self.no_negatives:
             perm = rng.permutation(len(train))
-            yield from _fixed_batches(self.batch_size,
-                                      {"user": train.users[perm], "pos": train.items[perm]})
+            yield from self._batches({"user": train.users[perm], "pos": train.items[perm]})
             return
         if self.multi_neg:
             users, pos = train.users, train.items
@@ -146,15 +201,13 @@ class PairwiseSampler:
             negs = _sample_negatives(rng, self.index, flat_users, self.dataset.num_items,
                                      cdf=self.neg_cdf).reshape(-1, self.num_negatives)
             perm = rng.permutation(len(users))
-            yield from _fixed_batches(self.batch_size,
-                                      {"user": users[perm], "pos": pos[perm], "negs": negs[perm]})
+            yield from self._batches({"user": users[perm], "pos": pos[perm], "negs": negs[perm]})
             return
         users = np.repeat(train.users, self.num_negatives)
         pos = np.repeat(train.items, self.num_negatives)
         negs = _sample_negatives(rng, self.index, users, self.dataset.num_items, cdf=self.neg_cdf)
         perm = rng.permutation(len(users))
-        yield from _fixed_batches(self.batch_size,
-                                  {"user": users[perm], "pos": pos[perm], "neg": negs[perm]})
+        yield from self._batches({"user": users[perm], "pos": pos[perm], "neg": negs[perm]})
 
 
 class PointwiseSampler:

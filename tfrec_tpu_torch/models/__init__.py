@@ -1,7 +1,9 @@
 """Model registry of the port: ``mf``, ``fm``, ``gmf``, ``mlp``, ``neumf``,
 the rest of the reference's CTR models (``dcn``, ``dcnv2``, ``deepfm``,
-``nfm``, ``widedeep``, ``dlrm``) and its sequential models (``sasrec``,
-``gru4rec``, ``caser``, ``fpmc``) so far.
+``nfm``, ``widedeep``, ``dlrm``), its sequential models (``sasrec``,
+``gru4rec``, ``caser``, ``fpmc``), its history models (``fism``, ``nais``,
+``multvae``, ``multdae``, ``cdae``) and its graph models (``lightgcn``,
+``ngcf``) so far.
 
 The reference's other models are refused by naming the ROADMAP Queue 1
 item that ports them, item 12."""
@@ -11,28 +13,35 @@ from __future__ import annotations
 from tfrec_tpu_torch.configs import ModelConfig
 from tfrec_tpu_torch.models.base import DataSpec, RecModel
 from tfrec_tpu_torch.models.caser import Caser
+from tfrec_tpu_torch.models.cdae import CDAE
 from tfrec_tpu_torch.models.ctr_base import CTRBase
 from tfrec_tpu_torch.models.dcn import DCN
 from tfrec_tpu_torch.models.deepfm import DeepFM
 from tfrec_tpu_torch.models.dlrm import DLRM
+from tfrec_tpu_torch.models.fism import FISM
 from tfrec_tpu_torch.models.fm import FM
 from tfrec_tpu_torch.models.fpmc import FPMC
 from tfrec_tpu_torch.models.gru4rec import GRU4Rec
+from tfrec_tpu_torch.models.lightgcn import LightGCN
 from tfrec_tpu_torch.models.mf import MF
+from tfrec_tpu_torch.models.multvae import MultVAE
+from tfrec_tpu_torch.models.nais import NAIS
 from tfrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
 from tfrec_tpu_torch.models.nfm import NFM
+from tfrec_tpu_torch.models.ngcf import NGCF
 from tfrec_tpu_torch.models.sasrec import SASRec
 from tfrec_tpu_torch.models.widedeep import WideDeep
 
-__all__ = ["DataSpec", "RecModel", "Caser", "DCN", "DeepFM", "DLRM", "FM", "FPMC", "GMF", "GRU4Rec",
-           "MF", "MLP", "NeuMF", "NFM", "SASRec", "WideDeep", "build_model"]
-BUILT = "mf, fm, gmf, mlp, neumf, dcn, dcnv2, deepfm, nfm, widedeep, dlrm, sasrec, gru4rec, caser, fpmc"
+__all__ = ["DataSpec", "RecModel", "Caser", "CDAE", "DCN", "DeepFM", "DLRM", "FISM", "FM", "FPMC", "GMF",
+           "GRU4Rec", "LightGCN", "MF", "MLP", "MultVAE", "NAIS", "NeuMF", "NFM", "NGCF", "SASRec",
+           "WideDeep", "build_model"]
+BUILT = ("mf, fm, gmf, mlp, neumf, dcn, dcnv2, deepfm, nfm, widedeep, dlrm, sasrec, gru4rec, caser, fpmc, "
+         "fism, nais, multvae, multdae, cdae, lightgcn, ngcf")
 
 # The reference's models that the port does not build yet, by the ROADMAP
 # Queue 1 item that ports them.
 NOT_PORTED = dict.fromkeys(
-    ("pop", "sbpr", "apr", "irgan", "wrmf", "ease", "lightgcn", "ngcf", "convncf", "fism", "multvae",
-     "multdae", "nais", "cdae"), 12)
+    ("pop", "sbpr", "apr", "irgan", "wrmf", "ease", "convncf"), 12)
 
 
 def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
@@ -106,6 +115,20 @@ def _build(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
     if name == "caser":
         return Caser(data_spec, cfg.embed_dim, h_filters=cfg.caser_h_filters, heights=cfg.caser_heights,
                      v_filters=cfg.caser_v_filters, dropout=cfg.dropout, max_history=cfg.max_history)
+    if name == "fism":
+        return FISM(data_spec, cfg.embed_dim, alpha=cfg.fism_alpha, max_history=cfg.max_history)
+    if name == "nais":
+        return NAIS(data_spec, cfg.embed_dim, attention_dim=cfg.nais_attention_dim, beta=cfg.nais_beta,
+                    max_history=cfg.max_history)
+    if name in ("multvae", "multdae"):
+        return MultVAE(data_spec, hidden_dim=cfg.vae_hidden, latent_dim=cfg.vae_latent, beta=cfg.vae_beta,
+                       dropout=cfg.dropout, max_history=cfg.max_history, variational=(name == "multvae"))
+    if name == "cdae":
+        return CDAE(data_spec, hidden_dim=cfg.vae_hidden, dropout=cfg.dropout, max_history=cfg.max_history)
+    if name == "lightgcn":
+        return LightGCN(data_spec, cfg.embed_dim, num_layers=cfg.lightgcn_layers)
+    if name == "ngcf":
+        return NGCF(data_spec, cfg.embed_dim, num_layers=cfg.lightgcn_layers, dropout=cfg.dropout)
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet: ROADMAP Queue 1 item {NOT_PORTED[name]}; "

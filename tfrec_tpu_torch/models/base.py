@@ -64,6 +64,17 @@ class DataSpec:
         )
 
 
+def copy_once(cache: Dict[str, object], device, make: Callable):
+    """``make(device)``, made once a device and kept in ``cache``; made
+    outside ``torch.inference_mode``, so training may use a copy that
+    serving made."""
+    key = str(device)
+    if key not in cache:
+        with torch.inference_mode(False):
+            cache[key] = make(device)
+    return cache[key]
+
+
 @dataclasses.dataclass(frozen=True)
 class DotRetrieval:
     """Dot-product decomposition of a retrieval scorer: ``score_all(params,
@@ -110,6 +121,11 @@ class RecModel(nn.Module, abc.ABC):
             "tables": init_tables(generator, self.table_specs(), device),
             "dense": self.init_dense(generator, device),
         }
+
+    def draws_noise(self) -> bool:
+        """Whether the training forward draws from the step's generator
+        (dropout; Mult-VAE's reparameterisation too)."""
+        return getattr(self, "dropout", 0.0) > 0.0
 
     def warm_start_aliases(self) -> Dict[str, str]:
         """Target table -> source table for warm starts across models

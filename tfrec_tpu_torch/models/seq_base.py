@@ -27,10 +27,10 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-import numpy as np
 import torch
 
-from tfrec_tpu_torch.models.base import DataSpec, RecModel
+from tfrec_tpu_torch.models.base import DataSpec
+from tfrec_tpu_torch.models.history_base import HistoryRecModel
 from tfrec_tpu_torch.ops.embedding import TableSpec, gather_many
 
 
@@ -56,7 +56,7 @@ def make_dropout(generator: torch.Generator | None, rate: float) -> Callable:
     return drop
 
 
-class SequentialRecModel(RecModel):
+class SequentialRecModel(HistoryRecModel):
     """Next-item models over time-ordered sequences.
 
     Subclasses set ``uses_user`` and ``user_dim`` if they carry a user
@@ -77,8 +77,6 @@ class SequentialRecModel(RecModel):
         self.data_spec = data_spec
         self.embed_dim = embed_dim
         self.max_history = max_history
-        self._hist = self._hist_len = None
-        self._hist_on = {}  # device -> (hist, hist_len) tensors
 
     # ---- protocol ----
 
@@ -87,30 +85,6 @@ class SequentialRecModel(RecModel):
         if self.uses_user:
             specs += (TableSpec("user_emb", self.data_spec.num_users, self.user_dim),)
         return specs
-
-    def needs_history(self) -> bool:
-        return True
-
-    def attach_history(self, hist, hist_len) -> None:
-        """Each user's ordered train sequence [U, L] (sentinel-padded) and
-        its length [U], int32 arrays; the eval and pointwise scoring read
-        them."""
-        self._hist = np.asarray(hist, np.int32)
-        self._hist_len = np.asarray(hist_len, np.int32)
-        self._hist_on = {}
-
-    def _history(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The attached (sequences, lengths) on ``device``, copied once."""
-        if self._hist is None:
-            raise ValueError(
-                f"{type(self).__name__} scoring needs attach_history(seq, seq_len) (the trainer "
-                "does this from the time-ordered train split)")
-        key = str(device)
-        if key not in self._hist_on:
-            with torch.inference_mode(False):  # usable by training when serving made them
-                self._hist_on[key] = (torch.from_numpy(self._hist).to(device),
-                                      torch.from_numpy(self._hist_len).to(device))
-        return self._hist_on[key]
 
     def lookup_ids(self, batch) -> Dict[str, torch.Tensor]:
         """Training: the sequence's ids then its negatives' into

@@ -12,21 +12,27 @@ and its params on one device and serves:
 Each copies the request to the device, gathers one row per id through
 ``ops.embedding`` (one launch of the CUDA gather kernel for every table on
 a card), runs the model and returns numpy. ``predict`` serves the
-retrieval models (MF, GMF, MLP, NeuMF) and the sequential ones (SASRec,
+retrieval models (MF, GMF, MLP, NeuMF), the sequential ones (SASRec,
 GRU4Rec, Caser, FPMC: each user's attached sequence is encoded and its last
-hidden state dotted with the items' rows), ``predict_ctr`` the CTR models
+hidden state dotted with the items' rows), the history models (FISM, NAIS,
+Mult-VAE, Mult-DAE, CDAE: each user's attached train history read for the
+request; the autoencoders' reconstruction at the items) and the graph
+models (LightGCN, NGCF: the embeddings propagated over the attached graph,
+no table gathered), ``predict_ctr`` the CTR models
 (FM, DCN, DeepFM, NFM, Wide & Deep, DLRM), in the model's own table layout
 (per field, lane-packed or stacked). The catalog is scored by the model's
 ``score_all``: one ``torch.matmul`` for MF, GMF and 2-field FM, item chunks
 through the towers for MLP and NeuMF, the sequence encoder then one
-``torch.matmul`` for the sequential models (FM with side fields has none
-and raises); the
+``torch.matmul`` for the sequential models, the history for FISM and the
+autoencoders, the catalog attended in chunks for NAIS, the propagation for
+the graph models (FM with side fields has none and raises); the
 top-k is ``torch.topk`` (``eval.retrieval``; "approx" is exact here, as on
 the reference's CPU). Ids out of range clamp, as the reference's
 ``jnp.take(mode="clip")`` does in ``predict``.
 
 ``from_checkpoint(config)`` serves from disk: it rebuilds the model (and
-its dataset, and a sequential model's attached sequences) from the config
+its dataset, and the sequences, histories or graph the model attaches) from
+the config
 and restores the latest checkpoint, saved by
 the port or by the JAX package in any table layout, into the config's
 layout (per field under ``model.lane_pack=None``).

@@ -4,8 +4,9 @@ Pairwise losses take the model's pairwise output: s_pos - s_neg [B], or a
 [B, 1+K] score matrix whose column 0 is the positive; pointwise losses take
 logits [B] and the batch's labels. Each is a mean over the batch, in the
 reference's numerically stable form. Ported: ``bpr``, ``hinge``,
-``sampled_softmax``, ``in_batch_softmax``, ``logloss``, ``mse`` and the
-sequential models' ``sasrec``.
+``sampled_softmax``, ``in_batch_softmax``, ``logloss``, ``mse``, the
+sequential models' ``sasrec`` and the autoencoders' ``multvae`` and
+``cdae``.
 ``make_loss`` refuses, by name, the reference's model-specific objectives
 (ROADMAP Queue 1 item 12) rather than train with another one.
 """
@@ -86,6 +87,35 @@ def sasrec(out: Dict[str, torch.Tensor], batch: Dict) -> torch.Tensor:
     return (per_pos * mask).sum() / mask.sum().clamp_min(1.0)
 
 
+def multvae(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mult-VAE's ELBO: the multinomial NLL of each user's history under
+    the softmax of the reconstruction, plus the KL term the model scaled by
+    its beta. ``out`` is {"logits" [B, V], "kl" [B]}; the target is the
+    sentinel-padded batch["hist"] [B, H] (a repeated id counts each time,
+    as in the reference)."""
+    logits, kl = out["logits"], out["kl"]
+    logp = torch.log_softmax(logits, dim=-1)
+    hist = batch["hist"]
+    v = logits.shape[-1]
+    picked = torch.gather(logp, 1, hist.clamp_max(v - 1).long())
+    nll = -torch.where(hist < v, picked, 0.0).sum(dim=1)
+    return torch.mean(nll + kl)
+
+
+def cdae(logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """CDAE's reconstruction: the binary cross-entropy of the full-catalog
+    logits [B, V] against each user's multi-hot history, softplus(x) - t*x
+    summed over the items and averaged over the batch. The target is set
+    with an idempotent scatter (``amax``), so a repeated history id counts
+    once, as the reference's ``.at[].max`` does; pads set nothing."""
+    v = logits.shape[-1]
+    hist = batch["hist"]
+    target = torch.zeros_like(logits).scatter_reduce_(
+        1, hist.clamp_max(v - 1).long(), (hist < v).to(logits.dtype), reduce="amax")
+    per_elem = torch.logaddexp(logits, torch.zeros_like(logits)) - target * logits
+    return torch.mean(per_elem.sum(dim=-1))
+
+
 _LOSSES: Dict[str, Callable] = {
     "bpr": bpr,
     "hinge": hinge,
@@ -94,10 +124,12 @@ _LOSSES: Dict[str, Callable] = {
     "sampled_softmax": sampled_softmax,
     "in_batch_softmax": in_batch_softmax,
     "sasrec": sasrec,
+    "multvae": multvae,
+    "cdae": cdae,
 }
 # The reference's model-specific objectives, refused by name until their
 # models are ported.
-_NOT_PORTED = ("multvae", "cdae", "sbpr", "apr", "irgan")
+_NOT_PORTED = ("sbpr", "apr", "irgan")
 
 
 def make_loss(name: str) -> Callable[[torch.Tensor, Dict], torch.Tensor]:

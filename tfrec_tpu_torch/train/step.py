@@ -31,6 +31,10 @@ one batched sort (``combine_duplicate_ids_grouped``), and per table for a
 table alone in its shape, or where a batch carries ``_sort_<table>`` keys
 (train.host_dedup, ``host_dedup_sorts``) from the host's stable argsorts.
 Both are bit for bit the per-table combine of the reference's default.
+Sentinel ids (a history's padding, ``vocab``) are gathered clamped to the
+last row, count in the ``l2_reg`` term as the reference's do, and land in
+the combine's sentinel tail, which no update touches. A model with no
+tables (the graph models) looks nothing up and updates no table.
 Lane-packed tables (``TableSpec.lane_groups`` > 1) keep [V, G] optimizer
 state: grouped Adagrad goes to the same kernel launch as the others, and
 grouped rowwise Adam through the per-table seam with each id's lane group.
@@ -323,7 +327,10 @@ class TrainStepBuilder:
     def lookup(self, tables: Dict[str, torch.Tensor], ids: Dict[str, torch.Tensor]):
         """(gathered rows per table, aux metrics): the local gather, every
         table in one launch (the counterpart of the reference's
-        ``pallas_lookup``); the rows of all tables share one allocation."""
+        ``pallas_lookup``); the rows of all tables share one allocation. A
+        model with no tables (the graph models) launches nothing."""
+        if not ids:
+            return {}, {}
         rows = gather_many([tables[name] for name in ids], list(ids.values()))
         return dict(zip(ids, rows)), {}
 
@@ -415,8 +422,8 @@ class TrainStepBuilder:
     def _generator(self, step: int) -> torch.Generator | None:
         """The step's generator (from the seed and the step, as the
         reference folds the step into its rng), for the device negatives
-        and then dropout; None where the step draws neither."""
-        if getattr(self.model, "dropout", 0.0) <= 0.0 and not self.device_negatives:
+        and then the model's noise; None where the step draws neither."""
+        if not self.model.draws_noise() and not self.device_negatives:
             return None
         return torch.Generator(device=self.device).manual_seed(
             (self.seed * 1_000_003 + step) % (1 << 63))

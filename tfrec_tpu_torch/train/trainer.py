@@ -7,7 +7,7 @@ kernels, and for DCN the cross-stack kernels), fixed-shape batches copied
 to the device ahead of the step (``prefetch``), the epoch loop with K steps
 a dispatch (``multi_step``), the eval cadence, early stopping and the JSONL
 metric stream (``MetricLogger``), with the reference's records.
-``run(config)`` builds one and trains it. Three data paths:
+``run(config)`` builds one and trains it. The data paths:
 
 - interaction data (``synthetic_implicit``) with a retrieval model (mf,
   gmf, mlp, neumf): ``build_dataset`` splits it; ``PairwiseSampler`` feeds
@@ -26,6 +26,15 @@ metric stream (``MetricLogger``), with the reference's records.
   becomes ``sasrec`` (the ``loss_coerced`` event says so) and
   ``SequenceSampler`` feeds it; the evals encode the attached sequences
   (``score_all``, and ``score_user_items`` in the sampled eval);
+- interaction data with a history model: each user's unordered train items
+  are attached (``data.samplers.build_history``, max_history of them);
+  fism and nais train pairwise (the loss coerced to bpr unless it is bpr
+  or hinge) on pairs that carry their users' histories, the autoencoders
+  (multvae, multdae, cdae) on ``UserHistorySampler``'s batches under their
+  own loss (``multvae``, ``cdae``); the eval scores the catalog from the
+  attached histories;
+- interaction data with a graph model (lightgcn, ngcf): the train split's
+  graph is attached (``attach_graph``) and the pairwise samplers feed it;
 - interaction data with a CTR model (fm, dcn, dcnv2, deepfm, nfm, widedeep,
   dlrm): pointwise samples
   become multi-field batches, cat = [user, item, user side fields..., item
@@ -53,8 +62,8 @@ first (the model's ``warm_start_aliases``, then the same name).
 The device is the card unless the caller passes ``device="cpu"`` (the
 kernels' plain versions); without CUDA the default raises. What the port
 does not take yet it refuses by naming the ROADMAP Queue 1 item, never
-passing it over: the models of ``models.NOT_PORTED``, unordered user
-histories and the social graph (item 12), step profiles
+passing it over: the models of ``models.NOT_PORTED`` and the social graph
+(item 12), step profiles
 (item 10), FSDP and lane-packed sharded tables (item 11), and
 ``train.matmul_precision`` other than "default" (item 5).
 
@@ -118,6 +127,8 @@ from tfrec_tpu_torch.data.samplers import (
     PairwiseSampler,
     PointwiseSampler,
     SequenceSampler,
+    UserHistorySampler,
+    build_history,
     build_sequences,
     popularity_cdf,
 )
@@ -299,20 +310,34 @@ class Trainer:
             self.logger.log({"event": "loss_coerced", "from": loss, "to": "logloss",
                              "reason": "CTR models train pointwise"})
             loss = "logloss"
+        if getattr(self.model, "needs_graph", lambda: False)():
+            # The graph models propagate over the train split's graph.
+            self.model.attach_graph(self.dataset.train.users, self.dataset.train.items)
         self.needs_history = bool(getattr(self.model, "needs_history", lambda: False)())
         if self.needs_history:
-            # The sequential models (the ported ones with a history) encode
-            # each user's time-ordered train sequence in the eval. It holds
-            # max_history - 1 positions, the receptive field training has:
-            # training encodes seq[:, :-1], so position-indexed params at
-            # index L-1 (pos_emb, the vertical filters' last lag) never
-            # receive a gradient and must not be read at scoring time.
-            self.model.attach_history(*build_sequences(
-                self.dataset, max(c.model.max_history - 1, 1), seed=c.train.seed))
-            if loss != "sasrec":
-                self.logger.log({"event": "loss_coerced", "from": loss, "to": "sasrec",
+            if getattr(self.model, "ordered_history", False):
+                # The sequential models encode each user's time-ordered train
+                # sequence in the eval. It holds max_history - 1 positions,
+                # the receptive field training has: training encodes
+                # seq[:, :-1], so position-indexed params at index L-1
+                # (pos_emb, the vertical filters' last lag) never receive a
+                # gradient and must not be read at scoring time.
+                hist = build_sequences(self.dataset, max(c.model.max_history - 1, 1), seed=c.train.seed)
+            else:
+                hist = build_history(self.dataset, c.model.max_history, seed=c.train.seed)
+            self.model.attach_history(*hist)
+            # The autoencoders and the sequential models train on their own
+            # objective; the item-similarity models (fism, nais) pairwise.
+            want = {"multvae": "multvae", "multdae": "multvae", "cdae": "cdae", "sasrec": "sasrec",
+                    "gru4rec": "sasrec", "caser": "sasrec", "fpmc": "sasrec"}.get(c.model.name.lower())
+            if want and loss != want:
+                self.logger.log({"event": "loss_coerced", "from": loss, "to": want,
                                  "reason": f"{c.model.name} trains on its own reconstruction objective"})
-                loss = "sasrec"
+                loss = want
+            elif want is None and loss not in ("bpr", "hinge"):
+                self.logger.log({"event": "loss_coerced", "from": loss, "to": "bpr",
+                                 "reason": "item-similarity models train single-negative pairwise"})
+                loss = "bpr"
         self.loss_name = loss
         if self.mesh is not None:
             from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
@@ -561,10 +586,12 @@ class Trainer:
     def _make_sampler(self):
         """The batches of the loss: CTRBatcher for CTR data; for interaction
         data SequenceSampler under ``sasrec`` (the sequential models),
-        PairwiseSampler under the pairwise losses (K negatives a row for
-        sampled softmax, none for in-batch losses and device negatives),
-        else PointwiseSampler; uniform or popularity^beta negatives, with
-        the reference's refusals."""
+        UserHistorySampler under ``multvae`` and ``cdae`` (the
+        autoencoders), PairwiseSampler under the pairwise losses (K
+        negatives a row for sampled softmax, none for in-batch losses and
+        device negatives; each row's user history for FISM and NAIS), else
+        PointwiseSampler; uniform or popularity^beta negatives, with the
+        reference's refusals."""
         c = self.config
         # On N ranks each samples its B / N rows with its own seed.
         bs = c.train.batch_size // self.num_ranks
@@ -586,6 +613,8 @@ class Trainer:
             # The time order's ties break by the run's seed on every rank.
             return SequenceSampler(self.dataset, bs, c.model.max_history, seed,
                                    order_seed=c.train.seed)
+        if self.loss_name in ("multvae", "cdae"):
+            return UserHistorySampler(self.dataset, bs, c.model.max_history, seed)
         neg_cdf = None
         if c.train.neg_sampling == "popularity":
             if self._use_device_negs(self.loss_name):
@@ -607,6 +636,7 @@ class Trainer:
                 multi_neg=self.loss_name in MULTI_NEG_LOSSES,
                 no_negatives=(self.loss_name in IN_BATCH_LOSSES
                               or self._use_device_negs(self.loss_name)),
+                with_history=c.model.max_history if self.needs_history else 0,
                 neg_cdf=neg_cdf)
         return PointwiseSampler(self.dataset, bs, max(c.train.num_negatives, 1), seed,
                                 neg_cdf=neg_cdf)

@@ -1,14 +1,17 @@
 """Milestone configs ported so far: ``mf_bpr_ml100k`` (config 1),
 ``fm_ctr_ml1m`` (config 2), ``neumf_ml20m`` (config 3), ``dcn_criteo``
 (config 4) and ``dcn_multihost`` (config 5, row-sharded tables on N
-ranks), and the sequential zoo: ``sasrec_ml1m``, ``gru4rec_ml1m`` and
-``caser_ml1m``.
+ranks), the sequential zoo: ``sasrec_ml1m``, ``gru4rec_ml1m`` and
+``caser_ml1m``, and the history zoo: ``fism_ml100k``, ``nais_ml100k``,
+``multvae_ml100k`` and ``cdae_ml100k``.
 
 Copies of ``tfrec_tpu.zoo_configs``' constructors; a test holds each equal
 to its original.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from tfrec_tpu_torch.configs import (
     Config,
@@ -195,6 +198,68 @@ def caser_ml1m(path: str | None = None) -> Config:
         caser_v_filters=4, dropout=0.3))
 
 
+def fism_ml100k(path: str | None = None) -> Config:
+    """FISM item-based retrieval on ML-100K's protocol and shape (pairwise
+    BPR over history-conditioned scores, 64 history items a user)."""
+    return Config(
+        run_name="fism_ml100k",
+        data=DataConfig(
+            source="movielens" if path else "synthetic_implicit",
+            path=path,
+            splitter="ratio",
+            test_fraction=0.2,
+            binarize_threshold=1.0 if path else 0.0,
+            num_users=943, num_items=1682, interactions_per_user=64,
+        ),
+        model=ModelConfig(name="fism", embed_dim=64, l2_reg=0.01, max_history=64, fism_alpha=0.5),
+        optim=OptimConfig(learning_rate=0.05, dense_optimizer="adagrad", sparse_optimizer="rowwise_adagrad"),
+        train=TrainConfig(batch_size=1024, epochs=40, loss="bpr", eval_every_epochs=10,
+                          eval_topk=(10, 20, 50)),
+    )
+
+
+def multvae_ml100k(path: str | None = None) -> Config:
+    """Mult-VAE^PR on ML-100K's protocol and shape (a batch of users' whole
+    histories, up to 128 items, under the ELBO)."""
+    return Config(
+        run_name="multvae_ml100k",
+        data=DataConfig(
+            source="movielens" if path else "synthetic_implicit",
+            path=path,
+            splitter="ratio",
+            test_fraction=0.2,
+            binarize_threshold=1.0 if path else 0.0,
+            num_users=943, num_items=1682, interactions_per_user=64,
+        ),
+        model=ModelConfig(name="multvae", vae_hidden=256, vae_latent=64, vae_beta=0.2, dropout=0.5,
+                          max_history=128),
+        optim=OptimConfig(learning_rate=0.001, dense_optimizer="adam"),
+        train=TrainConfig(batch_size=128, epochs=80, loss="multvae", eval_every_epochs=20,
+                          eval_topk=(10, 20, 50)),
+    )
+
+
+def nais_ml100k(path: str | None = None) -> Config:
+    """NAIS on fism_ml100k's protocol and shape (FISM with a target-aware
+    attention pool over the history)."""
+    return fism_ml100k(path).replace(
+        run_name="nais_ml100k",
+        model=ModelConfig(name="nais", embed_dim=64, l2_reg=0.01, max_history=64, nais_attention_dim=16,
+                          nais_beta=0.5),
+        optim=OptimConfig(learning_rate=0.02, dense_optimizer="adagrad", sparse_optimizer="rowwise_adagrad"),
+    )
+
+
+def cdae_ml100k(path: str | None = None) -> Config:
+    """CDAE on multvae_ml100k's protocol and shape (the full-catalog BCE)."""
+    cfg = multvae_ml100k(path)
+    return cfg.replace(
+        run_name="cdae_ml100k",
+        model=ModelConfig(name="cdae", vae_hidden=256, dropout=0.2, max_history=128),
+        train=dataclasses.replace(cfg.train, loss="cdae"),
+    )
+
+
 # The zoo configs the port builds, by name (the CLI's --config).
 ZOO = {
     "mf_bpr_ml100k": mf_bpr_ml100k,
@@ -205,11 +270,14 @@ ZOO = {
     "sasrec_ml1m": sasrec_ml1m,
     "gru4rec_ml1m": gru4rec_ml1m,
     "caser_ml1m": caser_ml1m,
+    "fism_ml100k": fism_ml100k,
+    "nais_ml100k": nais_ml100k,
+    "multvae_ml100k": multvae_ml100k,
+    "cdae_ml100k": cdae_ml100k,
 }
 # The reference's other zoo configs, by the ROADMAP Queue 1 item that ports
 # them: the long tail (item 12).
 NOT_PORTED = {
-    **{name: 12 for name in ("fism_ml100k", "multvae_ml100k", "nais_ml100k", "cdae_ml100k",
-                             "sbpr_ml100k", "apr_ml100k", "irgan_ml100k", "wrmf_ml100k",
+    **{name: 12 for name in ("sbpr_ml100k", "apr_ml100k", "irgan_ml100k", "wrmf_ml100k",
                              "ease_ml100k")},
 }
