@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-5 (config 5's row- and column-sharded tables and retrieval on a mesh), data files, checkpoints and the CLI, every table layout and duplicate combine of the step, the rest of the CTR and the sequential zoo, and the history and graph zoos, on one NVIDIA GPU.
+"""Drive tfrec_tpu_torch's serving, training and retrieval slices, configs 1-5 (config 5's row- and column-sharded tables and retrieval on a mesh), data files, checkpoints and the CLI, every table layout and duplicate combine of the step, the rest of the CTR and the sequential zoo, the history and graph zoos, and the long tail (SBPR, APR, IRGAN, Pop, ConvNCF, WRMF, EASE) and the native evaluator, on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc (it builds the kernels from kernels/csrc/), and exits
@@ -221,7 +221,7 @@ non-zero if any phase fails:
     and gru4rec_ml1m for 1 of its 60 epochs (a falling loss), each saving a
     checkpoint; one gather launch a step and one an eval batch; serving
     ``predict`` and ``recommend`` from the trainer and from the checkpoint,
-    bit for bit; 2 first steps at dropout 0 against the CPU; the gather at
+    bit for bit; the first step at dropout 0 against the CPU; the gather at
     each step's shape (51 072 ids of [3706, 64] for SASRec and GRU4Rec);
     examples/s, host medians, busy shares, kernels and copies a step.
 31. (O) the history zoo and the graph zoo: (O1) ``trainer.run`` of
@@ -239,6 +239,25 @@ non-zero if any phase fails:
     mf_bpr_ml100k()'s data and protocol: no kernel launched (the embeddings
     are dense params), the propagation and a step bit for bit on repeat,
     one step against the CPU, serving from the checkpoint.
+32. (P) the long tail, each saving a checkpoint: (P1) ``trainer.run`` of
+    sbpr_ml100k (the taste-overlap trust graph, SBPRSampler's triples),
+    apr_ml100k and irgan_ml100k whole at ML-100K's shape: recall@20 in
+    IRGAN's band of tests/test_golden.py:164-165 and, for SBPR and APR, in
+    the range of QUALITY_BANDS.json's three seeds widened by 5% of their
+    mean; one gather and one Adagrad launch a step (IRGAN's six tables, a
+    pool of 16 items a row), one gather a batch of eval users; the first
+    step against the CPU (IRGAN's Gumbel draw one host draw on both
+    devices); the gather and Adagrad kernels at IRGAN's and SBPR's steps.
+    (P2) wrmf_ml100k whole (15 ALS sweeps, its exact objective falling at
+    each) and ease_ml100k (one Cholesky solve): their bands of
+    tests/test_golden.py:166-170; no launch in training; one sweep and the
+    solve against the CPU; the gather at EASE's ``predict`` ([1682, 1682]
+    rows, the kernel's float route). (P3) Pop and ConvNCF (d=64, 32
+    channels, CONVNCF_EPOCHS epochs, no l2) on mf_bpr_ml100k()'s data and
+    protocol: recall@20 in the JAX package's range (JAX_RECALL20); Pop's
+    catalog gathers nothing. (P4) ``evaluate_dot_native`` over WRMF's
+    tables against the device evaluator. Each model served from the trainer
+    and from its checkpoint, bit for bit.
 
 So that the whole script stays inside its time limit with phase O, three
 earlier paths are cut in depth, each keeping its checks: phase K's
@@ -246,7 +265,12 @@ lane-packed config 2 runs 2 of its 20 epochs (FM_PACKED_EPOCHS: its losses
 are held bit for bit to phase 17's per-field run, which PR 13 showed it to
 be), phase I's FM over the files 1 epoch (FM_FILES_EPOCHS) and phase J's
 CLI 100 000 lines (CLI_LINES). Phase N runs gru4rec_ml1m for 1 of its 60
-epochs (SEQ_EPOCHS; PERF.md gives its whole run's time on an H100).
+epochs (SEQ_EPOCHS; PERF.md gives its whole run's time on an H100). With
+phase P, two more measurements are cut, their checks whole: the zoo phases'
+serving latencies take 10 calls, not 50 (ZOO_LATENCY_CALLS; ConvNCF's
+`recommend` takes ~0.24 s a call), and phase N's sequential models meet the
+CPU for their first step, not their first 2 (SEQ_CPU_STEPS; GRU4Rec's
+199-step loop on the CPU).
 The last lines are the kernels' JSON record (the v2 records carry the general route's shapes as ``general_route``, the gather
 and Adagrad records their times at MF's shape as ``mf_bench`` and at
 FM's and NeuMF's as ``fm`` and ``neumf``, and ``launches_by_path`` the
@@ -271,7 +295,10 @@ the gather record as ``deepfm_52``, ``sasrec_ml1m``, ``caser_ml1m`` and
 ``gru4rec_ml1m`` and to the Adagrad record as ``deepfm_52``; phase O adds
 ``trainer_<model>`` and ``serve_<model>`` for its seven models, and its
 steps' shapes to the gather and Adagrad records as ``fism_step`` and
-``multvae_step``) and ``{"ok": true, ...}``.
+``multvae_step``; phase P adds ``trainer_<model>`` and ``serve_<model>``
+for its seven models, its steps' shapes to the gather and Adagrad records
+as ``irgan_step`` and ``sbpr_step``, and EASE's predict to the gather
+record as ``ease_predict``) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -325,6 +352,7 @@ from tfrec_tpu_torch.kernels.gather_cuda import (
     gather_rows_ref,
 )
 from tfrec_tpu_torch.configs import OptimConfig
+from tfrec_tpu_torch.eval.native import evaluate_dot_native
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.models.mf import MF
 from tfrec_tpu_torch.ops import sparse_optim
@@ -476,7 +504,7 @@ SEQ_BANDS = {"sasrec_ml1m": {"recall@20": (0.045, 0.067), "ndcg@20": (0.019, 0.0
              "caser_ml1m": {"recall@20": (0.028, 0.050)},
              "gru4rec_ml1m": {"recall@20": (0.040, 0.060)}}
 SEQ_EPOCHS = {"gru4rec_ml1m": 1}
-SEQ_CPU_STEPS = 2
+SEQ_CPU_STEPS = 1  # the first step: GRU4Rec's 199-step loop is slow on the CPU
 SEQ_SERVE_K = 20
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
 # Phase K's config 2 lane-packed run: its first FM_PACKED_EPOCHS of config
@@ -505,11 +533,41 @@ JAX_RECALL20 = {
     "lightgcn": (0.1147048420263879, 0.11337928731519875, 0.1142629864107134),
     "ngcf": (0.10410038208784506, 0.10560268511322118, 0.10162601693437562),
 }
+# Phase P's: SBPR's and APR's are QUALITY_BANDS.json's (the same runs); Pop's
+# and ConvNCF's from
+#   python benchmarks/quality_bands.py --configs mf_bpr_ml100k --override model.name=pop --out F
+#   python benchmarks/quality_bands.py --configs mf_bpr_ml100k --override model.name=convncf \
+#     --override model.l2_reg=0.0 --override train.epochs=5 --override train.eval_every_epochs=5 \
+#     --override train.eval_user_batch=64 --out F
+JAX_RECALL20.update({
+    "sbpr": (0.11337928326992064, 0.11117002541793872, 0.11267231833011955),
+    "apr": (0.11408625023236077, 0.11452810180275716, 0.11329091012414667),
+    "pop": (0.11479321517216186, 0.1143513575338483, 0.11479321112688375),
+    "convncf": (0.11152350384256114, 0.11567691780729486, 0.10949098469723068),
+})
 RECALL20_MARGIN = 0.05
 RANDOM_RECALL20 = 20 / 1682
 HISTORY_ZOO = ("fism", "nais", "multvae", "cdae")
 GRAPH_ZOO = ("lightgcn", "ngcf")
 ZOO_SERVE_USERS = 256
+ZOO_LATENCY_CALLS = 11  # the zoo phases' serving latency: a warm-up and 10 timed calls
+
+# Phase P, the long tail. Golden bands of tests/test_golden.py:164-170
+# (recall@20); SBPR's, APR's, Pop's and ConvNCF's recall@20 are held to
+# JAX_RECALL20 (SBPR's and APR's runs are QUALITY_BANDS.json's).
+TAIL_BANDS = {"irgan": (0.070, 0.087), "wrmf": (0.063, 0.072), "ease": (0.105, 0.116)}
+TAIL_SGD = ("sbpr", "apr", "irgan")
+TAIL_CLOSED = ("wrmf", "ease")
+TAIL_BASELINES = ("pop", "convncf")
+# ConvNCF on config 1's protocol but without its l2 of 0.03, under which the
+# conv stack collapses to a constant score (loss ln 2, every item tied:
+# recall@20 0.0087, in the JAX package too); without it recall@20 peaks
+# near epoch 5 and then falls as it overfits (tools/convncf_sweep.py).
+CONVNCF_EPOCHS = 5  # of mf_bpr_ml100k's 60, its eval after the last
+CONVNCF_EVAL_USERS = 64  # a batch of the eval: [64 * 128, 32, 32, 32] f32 for the first map
+ALS_RTOL, ALS_ATOL, ALS_OBJ_RTOL = 1e-4, 1e-6, 1e-5  # tests/test_torch_closed_form.py
+EASE_RTOL, EASE_ATOL = 1e-4, 1e-6
+NATIVE_RTOL, NATIVE_ATOL = 1e-5, 1e-6  # tests/test_native_eval.py:39-68
 
 # The kernels of the main paths. The gather and Adagrad kernels run there
 # as one launch over every table (the ``_multi`` wrappers); their one-table
@@ -3959,15 +4017,17 @@ def seq_card_vs_cpu(cfg) -> None:
 
 
 def zoo_serving(card: str, paths: dict, trainer, cfg, short: str, num_users: int = SERVE_USERS,
-                k: int = SEQ_SERVE_K, want: dict | None = None) -> None:
+                k: int = SEQ_SERVE_K, want: dict | None = None, want_recommend: dict | None = None) -> None:
     """``predict`` of ``num_users`` (user, item) pairs and ``recommend(users,
     k)`` for as many users, from the trainer and from its checkpoint (which
     re-attaches the sequences, histories or graph from the config's data):
     bit for bit the same; ``predict`` at ``score_catalog``'s entries (for
     FISM where the item is not in the user's history: its forward leaves
     the item out, its ``score_all`` does not); launches (``want``, by
-    default one gather a call); latencies."""
+    default one gather a call; ``want_recommend`` for ``recommend``, by
+    default ``want``); latencies."""
     want = {"gather_rows_multi": 1} if want is None else want
+    want_recommend = want if want_recommend is None else want_recommend
     rng = np.random.default_rng(SEED + 17)
     users = rng.choice(trainer.dataset.num_users, num_users, replace=False).astype(np.int32)
     items = rng.integers(0, trainer.dataset.num_items, num_users).astype(np.int32)
@@ -3990,18 +4050,20 @@ def zoo_serving(card: str, paths: dict, trainer, cfg, short: str, num_users: int
     rows = (~(trainer.model._hist[users] == items[:, None]).any(axis=1) if short == "fism"
             else np.ones(num_users, bool))
     at_items = np.allclose(got[rows], scores[rows], rtol=RTOL, atol=ATOL_REL)
-    p_ms, p_99 = latency(lambda: live.predict(users, items))
-    r_ms, r_99 = latency(lambda: live.recommend(users, k))
+    p_ms, p_99 = latency(lambda: live.predict(users, items), ZOO_LATENCY_CALLS)
+    r_ms, r_99 = latency(lambda: live.recommend(users, k), ZOO_LATENCY_CALLS)
     print(f"{cfg.run_name} serving: predict of {num_users} pairs, launches {launches}; recommend k={k} for "
           f"{num_users} users over {trainer.dataset.num_items} items, launches {rec_launches}; from_checkpoint "
           f"({cold_s:.2f} s cold start) bit for bit from_trainer's: {same}; predict is score_catalog's entry: "
-          f"{at_items}; latency (host clock; {card}) predict median {p_ms:.3f} ms p99 {p_99:.3f} ms, recommend "
+          f"{at_items}; latency (host clock over {ZOO_LATENCY_CALLS - 1} calls; {card}) predict median {p_ms:.3f} "
+          f"ms p99 {p_99:.3f} ms, recommend "
           f"median {r_ms:.3f} ms p99 {r_99:.3f} ms")
     check(bool(np.isfinite(got).all()) and got.shape == (num_users,), f"{short} predict is finite")
     check(at_items, f"{short} predict gives score_catalog's entries")
     check(same, f"{short} from_checkpoint serves predict and recommend bit for bit as from_trainer")
     check_launches(launches, want, f"{short} predict ran {want or 'no kernel'}, and no other")
-    check_launches(rec_launches, want, f"{short} recommend ran {want or 'no kernel'}, and no other")
+    check_launches(rec_launches, want_recommend,
+                   f"{short} recommend ran {want_recommend or 'no kernel'}, and no other")
 
 
 def seq_gather_record(trainer, batch, label: str) -> dict:
@@ -4120,14 +4182,21 @@ def recall_gate(short: str, value: float) -> None:
 
 
 def no_noise(trainer) -> None:
-    """Mult-VAE's reparameterisation eps set to 0 (a card-against-CPU
-    comparison: the two devices' generators draw other numbers)."""
+    """Mult-VAE's reparameterisation eps set to 0, and IRGAN's Gumbel noise
+    one draw made on the host from SEED, the same on both devices (a
+    card-against-CPU comparison: the two devices' generators draw other
+    numbers)."""
     if hasattr(trainer.model, "noise"):
         trainer.model.noise = lambda mu, generator: torch.zeros_like(mu)
+    if hasattr(trainer.model, "gumbel"):
+        gumbel = trainer.model.gumbel
+        trainer.model.gumbel = lambda shape, generator, device: gumbel(
+            shape, torch.Generator().manual_seed(SEED), "cpu").to(device)
 
 
-def zoo_card_vs_cpu(cfg) -> None:
-    """One step at dropout 0 (Mult-VAE's eps 0) on the card and on the CPU
+def zoo_card_vs_cpu(cfg, rel_apart: float | None = None) -> None:
+    """One step at dropout 0 (Mult-VAE's eps 0, IRGAN's Gumbel draw one
+    host draw) on the card and on the CPU
     (the plain versions) from one initial state: the loss within LOSS_RTOL,
     the dense and gathered-row gradients within GRAD_TOL of the largest;
     after the step every table row, accumulator, dense param and dense
@@ -4135,7 +4204,15 @@ def zoo_card_vs_cpu(cfg) -> None:
     gradient lies within GRAD_TOL of 0 (a table row's combined gradient,
     a dense element): Adagrad's and Adam's first normalised updates are lr
     whatever the gradient's size, so there they turn rounding into up to
-    lr. Those are counted."""
+    lr. Those are counted. With ``rel_apart``, a table row whose combined
+    gradient on the card differs from the CPU's by more than that share of
+    the row's own largest entry, and a dense element by more than that
+    share of itself, are set apart too (their normalised update moves by
+    up to lr times that share): IRGAN's REINFORCE rows span many orders of
+    magnitude, far below the largest row but above GRAD_TOL of it, and
+    ConvNCF's first step from its init (a score near 0, the outer
+    products' ~1/64 entries) sums cancelling terms in another order in
+    cuDNN's backward than on the CPU."""
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0),
                               train=dataclasses.replace(cfg.train, checkpoint_dir=None))
     t0 = time.perf_counter()
@@ -4170,13 +4247,19 @@ def zoo_card_vs_cpu(cfg) -> None:
         row_max = torch.zeros(vocab)
         row_max[uids[real].long()] = g[real].abs().amax(dim=1)
         keep = ~((row_max > 0) & (row_max <= GRAD_TOL * max(row_max.max().item(), 1e-30)))
+        if rel_apart is not None:
+            _, g_card = combine_duplicate_ids(ids[name], rows_g[name], sentinel=vocab)
+            rel = (g_card.cpu() - g)[real].abs().amax(dim=1) / g[real].abs().amax(dim=1).clamp_min(1e-30)
+            keep[uids[real][rel > rel_apart].long()] = False
         near_zero += int((~keep).sum())
         errs["tables"] = max(errs["tables"], close(after_g["tables"][name].cpu(), after_c["tables"][name], keep))
         for leaf, v in after_c["sparse_opt"][name].items():
             errs["acc"] = max(errs["acc"], close(after_g["sparse_opt"][name][leaf].cpu(), v, keep))
-    for (got, want), (_, grad) in zip(zip(tree_leaves(after_g["dense"]), tree_leaves(after_c["dense"])),
-                                      dense_pairs):
+    for (got, want), (grad_g, grad) in zip(zip(tree_leaves(after_g["dense"]), tree_leaves(after_c["dense"])),
+                                           dense_pairs):
         keep = grad.abs() > GRAD_TOL * max(grad.abs().max().item(), 1e-30)
+        if rel_apart is not None:
+            keep &= (grad_g - grad).abs() <= rel_apart * grad.abs()
         near_zero += int((~keep).sum())
         errs["dense"] = max(errs["dense"], close(got.cpu(), want, keep))
     opt = [(a, e) for a, e in zip(tree_leaves(after_g["dense_opt"]), tree_leaves(after_c["dense_opt"]))
@@ -4271,6 +4354,171 @@ def phase_zoo_history_graph(card: str, paths: dict) -> dict:
     return records
 
 
+def zoo_p_configs() -> dict:
+    """Phase P's configurations by short name, each saving a checkpoint
+    after its last epoch under DATA_DIR: sbpr_ml100k, apr_ml100k,
+    irgan_ml100k, wrmf_ml100k and ease_ml100k whole, and Pop and ConvNCF
+    (d=64, 32 channels) on mf_bpr_ml100k()'s data and protocol, ConvNCF for
+    CONVNCF_EPOCHS epochs and without l2 (CONVNCF_EPOCHS' note)."""
+    cfgs = {short: zoo_configs.ZOO[f"{short}_ml100k"]() for short in TAIL_SGD + TAIL_CLOSED}
+    base = zoo_configs.mf_bpr_ml100k()
+    for short in TAIL_BASELINES:
+        cfgs[short] = base.replace(run_name=f"{short}_ml100k", model=dataclasses.replace(base.model, name=short))
+    conv = cfgs["convncf"]
+    cfgs["convncf"] = conv.replace(model=dataclasses.replace(conv.model, l2_reg=0.0), train=dataclasses.replace(
+        conv.train, epochs=CONVNCF_EPOCHS, eval_every_epochs=CONVNCF_EPOCHS,
+        eval_user_batch=CONVNCF_EVAL_USERS))
+    return {short: cfg.replace(train=dataclasses.replace(
+        cfg.train, checkpoint_dir=str(DATA_DIR / short), checkpoint_every_epochs=cfg.train.epochs))
+        for short, cfg in cfgs.items()}
+
+
+def ease_predict_record(trainer) -> dict:
+    """The gather at EASE's ``predict``: ``ease_bt`` [V, V] (rows of 6728
+    bytes, not a multiple of 16: the kernel's float route) at a request's
+    ZOO_SERVE_USERS item ids, one launch, bit for bit its plain version and
+    on repeat; its times."""
+    bt = trainer.state["tables"]["ease_bt"]
+    rng = np.random.default_rng(SEED + 19)
+    ids = torch.from_numpy(rng.integers(0, bt.shape[0], ZOO_SERVE_USERS).astype(np.int32)).to(bt.device)
+    got, launches = launches_of(gather_rows_multi, lambda: gather_rows_multi([bt], [ids]))
+    again = gather_rows_multi([bt], [ids])
+    want = gather_rows_multi_ref([bt], [ids])
+    torch.cuda.synchronize()
+    ok = launches == 1 and torch.equal(got[0], want[0]) and torch.equal(got[0], again[0])
+    print(f"gather_rows_multi at ease_predict {tuple(bt.shape)} x {ids.shape[0]} ids: one launch, bit for bit its "
+          f"plain version and on repeat: {ok}")
+    check(ok, "gather_rows_multi at EASE's predict: one launch, bit for bit its plain version and on repeat")
+    return {**gather_times([bt], [ids], "ease_predict"), "max_abs_err": max_err(got[0], want[0])}
+
+
+def closed_form_card_vs_cpu(cfg) -> None:
+    """One ALS sweep (WRMF) or EASE's solve on the card and on the CPU from
+    one state: the solved tables within ALS_RTOL / ALS_ATOL (EASE_RTOL /
+    EASE_ATOL), the objective within ALS_OBJ_RTOL (EASE_RTOL); EASE's
+    diagonal exactly 0 on the card."""
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, checkpoint_dir=None))
+    t0 = time.perf_counter()
+    card, cpu = Trainer(cfg, quiet=True), Trainer(cfg, quiet=True, device="cpu")
+    cpu.solver.load(card.solver.tables())
+    loss_g, loss_c = card.solver.epoch()["loss"], cpu.solver.epoch()["loss"]
+    rtol, atol, obj_rtol = ((ALS_RTOL, ALS_ATOL, ALS_OBJ_RTOL) if cfg.model.name == "wrmf"
+                            else (EASE_RTOL, EASE_ATOL, EASE_RTOL))
+    ok, errs = True, {}
+    for name, want in cpu.solver.tables().items():
+        got = card.solver.tables()[name].cpu()
+        ok &= torch.allclose(got, want, rtol=rtol, atol=atol)
+        errs[name] = max_err(got, want)
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    zero_diag = True
+    if cfg.model.name == "ease":
+        zero_diag = bool((torch.diagonal(card.solver.tables()["ease_bt"]) == 0).all())
+    print(f"{cfg.run_name} card against the CPU ({time.perf_counter() - t0:.1f} s), one "
+          f"{'sweep' if cfg.model.name == 'wrmf' else 'solve'} from one state: objective card {loss_g:.9g}, cpu "
+          f"{loss_c:.9g} (relative {rel:.3e}); max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (rtol {rtol}, atol {atol}); the diagonal exactly 0: {zero_diag}")
+    check(ok and rel <= obj_rtol and zero_diag, f"{cfg.run_name}'s solve on the card matches the CPU's")
+
+
+def native_eval_check(trainer) -> None:
+    """(P4) ``evaluate_dot_native`` over WRMF's solved tables (copied to the
+    host) against the port's device evaluator on the card, metric for
+    metric within NATIVE_RTOL / NATIVE_ATOL; both timed on the host clock."""
+    t0 = time.perf_counter()
+    device = trainer.evaluate()
+    device_s = time.perf_counter() - t0
+    t = trainer.state["tables"]
+    ds = trainer.dataset
+    t0 = time.perf_counter()
+    native = evaluate_dot_native(t["user_emb"], t["item_emb"], None, ds.train_csr, ds.test_csr,
+                                 trainer.config.train.eval_topk)
+    native_s = time.perf_counter() - t0
+    errs = {k: abs(v - device[k]) for k, v in native.items()}
+    ok = all(abs(v - device[k]) <= NATIVE_ATOL + NATIVE_RTOL * abs(device[k]) for k, v in native.items())
+    print(f"native evaluator (P4) on wrmf's tables {tuple(t['user_emb'].shape)} x {tuple(t['item_emb'].shape)}: "
+          f"{len(native)} metrics, largest difference from the device evaluator {max(errs.values()):.3e} "
+          f"({max(errs, key=errs.get)}; rtol {NATIVE_RTOL}, atol {NATIVE_ATOL}); recall@20 native "
+          f"{native['recall@20']:.6f}, device {device['recall@20']:.6f}; host clock: native {native_s * 1e3:.1f} ms "
+          f"({os.cpu_count()} host cores), device evaluator {device_s * 1e3:.1f} ms")
+    check(ok and set(native) <= set(device), "the native evaluator's metrics are the device evaluator's")
+
+
+def phase_long_tail(card: str, paths: dict) -> dict:
+    """(P) the long tail on the card: ``trainer.run`` of sbpr_ml100k,
+    apr_ml100k and irgan_ml100k (P1), wrmf_ml100k and ease_ml100k (P2) whole,
+    and Pop and ConvNCF on mf_bpr_ml100k()'s data and protocol (P3), each
+    saving a checkpoint: recall@20 in its band; launches (an SGD model one
+    gather and one Adagrad launch a step, a closed-form one none in
+    training; one gather a batch of eval users, none for Pop's bias row);
+    WRMF's objective falling at every sweep; serving from the trainer and
+    from the checkpoint bit for bit; the first step (SBPR, APR, IRGAN with
+    one Gumbel draw on both devices, Pop, ConvNCF), one ALS sweep and
+    EASE's solve against the CPU; the gather and Adagrad kernels at SBPR's
+    and IRGAN's steps and the gather at EASE's predict; (P4) the native
+    evaluator on WRMF's tables. Returns the kernels' records."""
+    t_phase = time.perf_counter()
+    records = {"gather_rows_multi": {}, "fused_rowwise_adagrad_multi": {}}
+    for short, cfg in zoo_p_configs().items():
+        t_model = time.perf_counter()
+        closed = short in TAIL_CLOSED
+        trainer, history, train_counts, evals, run_s = run_counted(cfg)
+        steps = trainer.global_step
+        evaluator = trainer._retrieval_eval
+        eval_batches = -(-len(evaluator.users_with_test) // evaluator.user_batch)
+        paths[f"trainer_{short}"] = whole_run_launches(train_counts, evals)
+        rec = history[-1]
+        rates = [r["examples_per_s"] for r in history]
+        specs = [(n, tuple(t.shape)) for n, t in trainer.state["tables"].items()]
+        feed = ("closed form, an epoch a solver sweep" if closed else
+                f"{trainer.sampler.num_batches()} steps of {cfg.train.batch_size} an epoch")
+        print(f"{cfg.run_name} (P, run: synthetic_implicit {trainer.dataset.num_users} x {trainer.dataset.num_items}, "
+              f"{len(trainer.dataset.train)} train interactions, loss {trainer.loss_name}, {feed}, "
+              f"{cfg.train.epochs} epochs, tables {specs}): {steps} steps; final record {rec}; losses "
+              f"{[round(r['loss'], 6) for r in history]}; launches in training {train_counts}, in each eval pass "
+              f"({eval_batches} batches of {evaluator.user_batch} users) {evals[0][1]}; run() took {run_s:.1f} s")
+        print(f"{cfg.run_name}: examples_per_s median over the epochs {statistics.median(rates):.1f} (min "
+              f"{min(rates):.1f}, max {max(rates):.1f}; host clock over each epoch{', train interactions re-solved' if closed else ''}; "
+              f"{card}); eval passes (host clock): " + ", ".join(f"{ms:.3f} ms" for ms, _ in evals))
+        check(len(evals) == cfg.train.epochs // cfg.train.eval_every_epochs, f"{short}'s eval cadence")
+        check(all(np.isfinite(v) for r in history for v in r.values()), f"{short}'s history is finite")
+        trained = {} if closed else {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps}
+        check_launches(train_counts, trained, f"{short} ran {trained or 'no kernel'} in training, and no other")
+        want_eval = {} if short == "pop" else {"gather_rows_multi": eval_batches}
+        for _, counts in evals:
+            check_launches(counts, want_eval, f"each {short} eval pass ran {want_eval or 'no kernel'}, and no other")
+        if short in TAIL_BANDS:
+            lo, hi = TAIL_BANDS[short]
+            print(f"{cfg.run_name} band: recall@20 {rec['recall@20']:.6f} in [{lo}, {hi}] (tests/test_golden.py)")
+            check(lo <= rec["recall@20"] <= hi, f"{short}'s recall@20 lies in its band")
+        else:
+            recall_gate(short, rec["recall@20"])
+        if short == "wrmf":
+            falls = all(b["loss"] < a["loss"] for a, b in zip(history, history[1:]))
+            print(f"wrmf: the exact objective falls at every sweep: {falls}")
+            check(falls, "wrmf's objective falls at every sweep")
+            native_eval_check(trainer)
+        zoo_serving(card, paths, trainer, cfg, short, num_users=ZOO_SERVE_USERS,
+                    want_recommend={} if short == "pop" else None)
+        if short == "ease":
+            records["gather_rows_multi"]["ease_predict"] = ease_predict_record(trainer)
+        if short in ("sbpr", "irgan"):
+            batch = trainer._to_device_batch(next(trainer.sampler.epoch(0)))
+            sparse_kernel_checks(trainer.builder, trainer.state, batch, f"{short}_step", records)
+            median, busy = step_profile(trainer.builder, trainer.state, batch, f"{short} step (P)")
+            records["gather_rows_multi"][f"{short}_step"].update({"step_ms": median, "step_device_busy": busy})
+        elif short in ("apr", "convncf"):
+            step_profile(trainer.builder, trainer.state, trainer._to_device_batch(next(trainer.sampler.epoch(0))),
+                         f"{short} step (P)")
+        del trainer
+        if closed:
+            closed_form_card_vs_cpu(cfg)
+        else:
+            zoo_card_vs_cpu(cfg, rel_apart=STEP_RTOL if short in ("irgan", "convncf") else None)
+        print(f"{short} (P) took {time.perf_counter() - t_model:.1f} s")
+    print(f"phase P took {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -4341,6 +4589,10 @@ def main() -> int:
         history_graph = phase_zoo_history_graph(card, paths)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+    try:
+        long_tail = phase_long_tail(card, paths)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
     for r in records:
         if r["name"] == GROUPED:  # the Adagrad kernel's launches on the packed paths
             by_path = {path: paths[path]["fused_rowwise_adagrad_multi"] for path in GROUPED_PATHS}
@@ -4357,6 +4609,7 @@ def main() -> int:
         r.update(sharded_records.get(r["name"], {}))  # phase L's owner gather and update
         r.update(zoo_records.get(r["name"], {}))  # phase N's 52 tables and sequential steps
         r.update(history_graph.get(r["name"], {}))  # phase O's FISM and Mult-VAE steps
+        r.update(long_tail.get(r["name"], {}))  # phase P's SBPR and IRGAN steps, EASE's predict
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

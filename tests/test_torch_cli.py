@@ -80,11 +80,16 @@ def test_cli_lists_and_refuses_configs():
     assert out.returncode == 0
     assert out.stdout.split() == list(zoo_configs.ZOO) == \
         ["mf_bpr_ml100k", "fm_ctr_ml1m", "neumf_ml20m", "dcn_criteo", "dcn_multihost", "sasrec_ml1m",
-         "gru4rec_ml1m", "caser_ml1m", "fism_ml100k", "nais_ml100k", "multvae_ml100k", "cdae_ml100k"]
+         "gru4rec_ml1m", "caser_ml1m", "fism_ml100k", "nais_ml100k", "multvae_ml100k", "cdae_ml100k",
+         "sbpr_ml100k", "apr_ml100k", "irgan_ml100k", "wrmf_ml100k", "ease_ml100k"]
     bad = _cli("--config", "nope")
     assert bad.returncode != 0 and "unknown config 'nope'" in bad.stderr
-    tail = _cli("--config", "wrmf_ml100k")
-    assert tail.returncode != 0 and "ROADMAP Queue 1 item 12" in tail.stderr
+    # The long tail's configs run (wrmf_ml100k's ALS sweeps at a small size).
+    tail = _cli("--config", "wrmf_ml100k", "--device", "cpu", "data.num_users=60", "data.num_items=80",
+                "data.interactions_per_user=8", "train.epochs=2", "train.eval_every_epochs=2")
+    assert tail.returncode == 0, tail.stderr
+    last = json.loads(tail.stdout.strip().splitlines()[-1])
+    assert last["epoch"] == 1 and np.isfinite(last["loss"]) and "recall@20" in last
     # Under the JAX_* variables a process joins a group; a table axis of 2
     # needs 2 ranks a data index, and one process is refused by that rule.
     col = _cli("--config", "dcn_multihost", "--device", "cpu", "mesh.table_axis_size=2",

@@ -201,10 +201,12 @@ def test_config1_stand_in_and_its_small_run():
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    ({"model": {"name": "ease"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
-    ({"model": {"name": "sbpr"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
-    ({"train": {"loss": "sbpr"}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
-    ({"data": {"social_degree": 4}}, NotImplementedError, "ROADMAP Queue 1 item 12"),
+    ({"model": {"name": "ease"}, "train": {"neg_sampling": "popularity"}}, ValueError,
+     "no effect on closed-form"),
+    ({"model": {"name": "sbpr"}}, ValueError, "SBPR needs a social graph"),
+    ({"train": {"loss": "sbpr"}}, ValueError, "SBPR needs a social graph"),
+    ({"data": {"social_degree": 4}, "model": {"name": "sbpr"}, "train": {"neg_sampling": "popularity"}},
+     ValueError, "not the 'sbpr' data path"),
     ({"train": {"device_negatives": True, "neg_sampling": "popularity"}}, ValueError,
      "device_negatives"),
     ({"train": {"loss": "in_batch_softmax", "neg_sampling": "popularity"}}, ValueError, "in-batch"),

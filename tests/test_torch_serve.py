@@ -144,7 +144,7 @@ def test_build_model_guards():
         assert [s.name for s in build_model(ModelConfig(name="dcn", embed_dim=8, **kw), spec).table_specs()] == names
         with pytest.raises(ValueError, match="equal per-field"):
             build_model(ModelConfig(name="dcn", field_dims=(8, 8, 8, 16), **kw), spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    with pytest.raises(ValueError, match="EASE needs an interaction DataSpec"):
         build_model(ModelConfig(name="ease"), spec)
     with pytest.raises(ValueError, match="interaction DataSpec"):
         build_model(ModelConfig(name="mf"), spec)

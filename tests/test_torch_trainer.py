@@ -254,7 +254,7 @@ def test_trainer_logs_an_empty_epoch_and_a_dispatch_past_the_step_cap():
 
 
 @pytest.mark.parametrize("section,override,match", [
-    ("model", {"name": "irgan"}, "item 12"),
+    ("train", {"profile_steps": (0, 1)}, "item 10"),
     ("train", {"profile_steps": (1, 2)}, "item 10"),
     ("train", {"matmul_precision": "bfloat16"}, "item 5"),
     ("train", {"matmul_precision": "highest"}, "item 5"),

@@ -1,6 +1,6 @@
 """Rank processes for the port's sharded tests (tests/test_torch_parallel.py,
 tests/test_torch_sharded_trainer.py, tests/test_torch_colshard.py,
-tests/test_torch_mesh_retrieval.py): ``run_ranks`` starts N processes of
+tests/test_torch_mesh_retrieval.py, tests/test_torch_closed_form.py): ``run_ranks`` starts N processes of
 this file on the CPU, joined in one gloo group, each running one job (a
 function below) on a pickled spec, and returns rank 0's pickled result. A
 job gets the mesh of the spec's ``table_axis`` (default 1) over the N
@@ -347,8 +347,33 @@ def job_retrieval(spec, mesh):
     return out
 
 
+def job_als(spec, mesh):
+    """WRMF's ALS with its solves split over the data axis: one sweep from
+    the spec's state -> {"x", "y", "loss"}; then, for ``spec["trainer"]``,
+    a closed-form ``Trainer`` run -> its history, the checkpoint steps its
+    directory holds and the solved tables."""
+    from tfrec_tpu_torch.configs import DataConfig
+    from tfrec_tpu_torch.data.dataset import build_dataset
+    from tfrec_tpu_torch.train.als import ALSTrainer
+    from tfrec_tpu_torch.train.trainer import Trainer
+    from tfrec_tpu_torch.utils import checkpoint
+
+    als = ALSTrainer(build_dataset(DataConfig(**spec["data"])), mesh=mesh, **spec["als"])
+    als.load(_tensors(spec["state"]))
+    loss = als.epoch()["loss"]
+    out = {"x": _np(als.x), "y": _np(als.y), "loss": loss}
+    if "trainer" in spec:
+        trainer = Trainer(spec["trainer"], quiet=True, device="cpu")
+        history = trainer.train()
+        mesh.barrier()
+        out["trainer"] = {"history": history, "solver_mesh": dict(trainer.solver_mesh.shape),
+                          "steps": checkpoint._steps(spec["trainer"].train.checkpoint_dir),
+                          "tables": _np(trainer.state["tables"])}
+    return out
+
+
 JOBS = {"parallel": job_parallel, "trainer": job_trainer, "colshard": job_colshard,
-        "retrieval": job_retrieval}
+        "retrieval": job_retrieval, "als": job_als}
 
 
 def main(job, rank, world, port, spec_path, out_path) -> None:

@@ -65,15 +65,12 @@ def main(argv=None) -> int:
                         help="dotted config overrides, e.g. train.batch_size=4096 model.embed_dim=128")
     args = parser.parse_args(argv)
 
-    from tfrec_tpu_torch.zoo_configs import NOT_PORTED, ZOO
+    from tfrec_tpu_torch.zoo_configs import ZOO
 
     if args.list_configs:
         for name in ZOO:
             print(name)
         return 0
-    if args.config in NOT_PORTED:
-        raise SystemExit(f"config {args.config!r} is not ported yet: ROADMAP Queue 1 item "
-                         f"{NOT_PORTED[args.config]}; options: {sorted(ZOO)}")
     if args.config not in ZOO:
         raise SystemExit(f"unknown config {args.config!r}; options: {sorted(ZOO)}")
     from tfrec_tpu_torch.configs import with_overrides

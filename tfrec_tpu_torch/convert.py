@@ -6,8 +6,11 @@ params)``) and returns the same tree of CPU float32 tensors. A retrieval
 model's tables (MF: ``user_emb``, ``item_emb``, ``item_bias`` [V, 1]; GMF
 and MLP: ``user_emb``, ``item_emb``; NeuMF: ``user_gmf``, ``item_gmf``,
 ``user_mlp``, ``item_mlp``; FISM and NAIS: ``item_p``, ``item_q``,
-``item_bias``; Mult-VAE: ``enc1``; CDAE: ``enc1``, ``user_node``; the graph
-models none, their embeddings being dense params) are carried by name. A CTR model's tables come
+``item_bias``; Mult-VAE: ``enc1``; CDAE: ``enc1``, ``user_node``; SBPR and
+APR: MF's; IRGAN: ``user_g``, ``item_g``, ``user_d``, ``item_d``, ``bias_g``,
+``bias_d``; Pop: ``item_bias``; ConvNCF: ``user_emb``, ``item_emb``; the
+graph models none, their embeddings being dense params) are carried by
+name. A CTR model's tables come
 in any of the three table layouts (``models/ctr_base.py``), and arrive in
 the port model's own: as they are where the two layouts agree, else
 through the per-field tables (``CTRBase.split_fields`` / ``join_fields``):
@@ -20,7 +23,14 @@ through the per-field tables (``CTRBase.split_fields`` / ``join_fields``):
 - one stacked table ``fields`` [sum V_f, d] (and ``lin`` [sum V_f, 1]),
   split at the vocab offsets.
 
-Dense weights keep their layout (MLP weights are ``[in, out]`` in both).
+Dense weights keep their layout (MLP weights are ``[in, out]`` in both),
+except where a model says otherwise: ConvNCF's convolution kernels ``k{l}``
+are HWIO in the reference and OIHW in the port, moved by the model's
+``dense_from_jax`` / ``dense_to_jax`` on the way in and out (the dense
+optimizer's moments with them). The closed-form models' solved tables
+(WRMF's ``user_emb``/``item_emb``, EASE's ``ease_bt``/``ease_x``) are
+carried by name; their states are ``{"step", "tables", "dense": {}}``, with
+no optimizer state, as the reference saves them.
 
 ``train_state_from_jax`` takes a whole JAX train state as numpy (the
 ``TrainStepBuilder.init_state`` tree after ``jax.tree.map(np.asarray,
@@ -63,6 +73,7 @@ import numpy as np
 import torch
 
 from tfrec_tpu_torch.models.ctr_base import CTRBase
+from tfrec_tpu_torch.train.step import tree_map
 
 
 def _tensor(a) -> torch.Tensor:
@@ -108,8 +119,29 @@ def _ctr_tables(tables: Dict[str, Any], model: CTRBase) -> Dict[str, torch.Tenso
     return model.join_fields(model.split_fields(tensors, layout=src), zeros)
 
 
+def _table_names(model) -> list:
+    """The model's table names: its specs', or a closed-form model's solved
+    tables (``solved_tables``)."""
+    solved = getattr(model, "solved_tables", None)
+    return list(solved()) if solved is not None else [spec.name for spec in model.table_specs()]
+
+
+def _dense_in(model, tree):
+    """A dense tree of numpy arrays in the reference's layout -> the
+    model's own (ConvNCF's kernels)."""
+    fn = getattr(model, "dense_from_jax", None)
+    return tree if fn is None else fn(tree)
+
+
+def _dense_out(model, tree):
+    """A dense tree of numpy arrays in the model's layout -> the
+    reference's."""
+    fn = getattr(model, "dense_to_jax", None)
+    return tree if fn is None else fn(tree)
+
+
 def _named_tables(tables: Dict[str, Any], model) -> Dict[str, np.ndarray]:
-    names = [spec.name for spec in model.table_specs()]
+    names = _table_names(model)
     if set(tables) != set(names):
         raise ValueError(f"unrecognised table layout {sorted(tables)}: the model has {names}")
     return {name: np.asarray(tables[name]) for name in names}
@@ -128,8 +160,8 @@ def params_from_jax(np_params: Dict[str, Any], model) -> Dict[str, Any]:
                 f"the model needs {spec.shape}"
             )
     return {
-        "tables": {spec.name: tables[spec.name].contiguous() for spec in model.table_specs()},
-        "dense": _tree(np_params["dense"]),
+        "tables": {name: tables[name].contiguous() for name in _table_names(model)},
+        "dense": _tree(_dense_in(model, np_params["dense"])),
     }
 
 
@@ -175,18 +207,23 @@ def train_state_from_jax(np_state: Dict[str, Any], model) -> Dict[str, Any]:
     per-table ``sparse_opt`` states (rowwise Adagrad's
     ``acc``, rowwise Adam's ``m``/``v``/``t``, SGD's none) and the optax
     ``dense_opt``: Adam's ``mu``/``nu``/``count``, Adagrad's
-    ``sum_of_squares`` and the schedule's ``count``, or SGD's ``count``.
+    ``sum_of_squares`` and the schedule's ``count``, or SGD's ``count``. A
+    closed-form model's state is its step and solved tables.
     """
     params = params_from_jax({"tables": np_state["tables"], "dense": np_state["dense"]}, model)
+    if "dense_opt" not in np_state:
+        return {"step": int(np.asarray(np_state["step"])), "tables": params["tables"], "dense": {}}
     sparse_opt = _sparse_opt(np_state["sparse_opt"], model)
     opt = np_state["dense_opt"]
     adam = _optax_state(opt, "mu")
     rss = _optax_state(opt, "sum_of_squares")
     counter = _optax_state(opt, "count")
     if adam is not None:
-        dense_opt = {"count": int(adam.count), "mu": _tree(adam.mu), "nu": _tree(adam.nu)}
+        dense_opt = {"count": int(adam.count), "mu": _tree(_dense_in(model, adam.mu)),
+                     "nu": _tree(_dense_in(model, adam.nu))}
     elif rss is not None:
-        dense_opt = {"count": int(counter.count), "sum_of_squares": _tree(rss.sum_of_squares)}
+        dense_opt = {"count": int(counter.count),
+                     "sum_of_squares": _tree(_dense_in(model, rss.sum_of_squares))}
     elif counter is not None:
         dense_opt = {"count": int(counter.count)}
     else:
@@ -220,14 +257,13 @@ def _flat_tree(prefix: str, tree: Any, out: Dict[str, np.ndarray], leaf: Callabl
         out[prefix] = leaf(tree)
 
 
-def _unflat_like(template: Any, flat: Mapping[str, np.ndarray], prefix: str) -> Any:
-    """The tree of ``template``'s structure read from ``flat`` (CPU float32
-    tensors)."""
+def _unflat_np(template: Any, flat: Mapping[str, np.ndarray], prefix: str) -> Any:
+    """The tree of ``template``'s structure read from ``flat`` (numpy)."""
     if isinstance(template, dict):
-        return {k: _unflat_like(v, flat, f"{prefix}/{k}") for k, v in template.items()}
+        return {k: _unflat_np(v, flat, f"{prefix}/{k}") for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        return type(template)(_unflat_like(v, flat, f"{prefix}/{i}") for i, v in enumerate(template))
-    return _tensor(flat[prefix])
+        return type(template)(_unflat_np(v, flat, f"{prefix}/{i}") for i, v in enumerate(template))
+    return flat[prefix]
 
 
 def _dense_opt_prefix(weight_decay: float) -> str:
@@ -235,23 +271,31 @@ def _dense_opt_prefix(weight_decay: float) -> str:
 
 
 def flat_from_state(state: Dict[str, Any], dense_optimizer: str, weight_decay: float = 0.0,
-                    leaf: Callable = _to_numpy) -> Dict[str, np.ndarray]:
+                    leaf: Callable = _to_numpy, model=None) -> Dict[str, np.ndarray]:
     """The port's train state as the flat keys and dtypes the JAX package
     saves for the same model and optimizer (``dense_optimizer`` and
     ``weight_decay`` of ``OptimConfig``). ``leaf`` maps each tensor (by
-    default to a numpy copy on the host)."""
-    count = np.asarray(state["dense_opt"]["count"], np.int32)
+    default to a numpy copy on the host); ``model`` gives the dense trees
+    the reference's layout where the two differ (ConvNCF). A closed-form
+    state (no optimizer state) is its step and tables."""
     out: Dict[str, np.ndarray] = {"step": np.asarray(state["step"], np.int32)}
     _flat_tree("tables", state["tables"], out, leaf)
-    _flat_tree("dense", state["dense"], out, leaf)
+
+    def dense_tree(prefix: str, tree) -> None:
+        _flat_tree(prefix, _dense_out(model, tree_map(leaf, tree)), out, lambda a: a)
+
+    dense_tree("dense", state["dense"])
+    if "dense_opt" not in state:
+        return out
+    count = np.asarray(state["dense_opt"]["count"], np.int32)
     _flat_tree("sparse_opt", state["sparse_opt"], out, leaf)
     p = _dense_opt_prefix(weight_decay)
     if dense_optimizer == "adam":
         out[f"{p}0/.count"] = count
-        _flat_tree(f"{p}0/.mu", state["dense_opt"]["mu"], out, leaf)
-        _flat_tree(f"{p}0/.nu", state["dense_opt"]["nu"], out, leaf)
+        dense_tree(f"{p}0/.mu", state["dense_opt"]["mu"])
+        dense_tree(f"{p}0/.nu", state["dense_opt"]["nu"])
     elif dense_optimizer == "adagrad":
-        _flat_tree(f"{p}0/.sum_of_squares", state["dense_opt"]["sum_of_squares"], out, leaf)
+        dense_tree(f"{p}0/.sum_of_squares", state["dense_opt"]["sum_of_squares"])
     elif dense_optimizer != "sgd":
         raise ValueError(f"unknown dense optimizer {dense_optimizer!r}")
     out[f"{p}1/.count"] = count
@@ -267,7 +311,7 @@ def params_from_flat(flat: Mapping[str, np.ndarray], model, dense_template: Any)
     as the port's params; the dense tree takes ``dense_template``'s
     structure (the model's own ``init``)."""
     return params_from_jax({"tables": _tables_from_flat(flat),
-                            "dense": _unflat_like(dense_template, flat, "dense")}, model)
+                            "dense": _unflat_np(dense_template, flat, "dense")}, model)
 
 
 def train_state_from_flat(flat: Mapping[str, np.ndarray], model, template: Dict[str, Any]
@@ -281,6 +325,8 @@ def train_state_from_flat(flat: Mapping[str, np.ndarray], model, template: Dict[
     ``count`` (``flat_from_state``'s keys, with or without weight decay).
     The sparse state is read in the model's table layout."""
     params = params_from_flat(flat, model, template["dense"])
+    if "dense_opt" not in template:  # a closed-form state
+        return {"step": int(np.asarray(flat["step"])), "tables": params["tables"], "dense": {}}
     sparse: Dict[str, Dict[str, np.ndarray]] = {}
     for key, v in flat.items():
         if key.startswith("sparse_opt/"):
@@ -298,7 +344,7 @@ def train_state_from_flat(flat: Mapping[str, np.ndarray], model, template: Dict[
     dense_opt = {"count": int(flat[count_key])}
     for leaf in ("mu", "nu", "sum_of_squares"):
         if leaf in opt_t:  # the template's own optimizer, even over an empty dense tree
-            dense_opt[leaf] = _unflat_like(opt_t[leaf], flat, f"{p}0/.{leaf}")
+            dense_opt[leaf] = _tree(_dense_in(model, _unflat_np(opt_t[leaf], flat, f"{p}0/.{leaf}")))
     return {
         "step": int(np.asarray(flat["step"])),
         "tables": params["tables"],

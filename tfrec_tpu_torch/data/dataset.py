@@ -9,9 +9,12 @@ holds the two equal array for array.
 ``build_dataset`` reads MovieLens' rating files (``source="movielens"``,
 ``data/movielens.py``; split by ratio, leave one out, or "given" train and
 test files densified together, ``split_given``) or generates
-``synthetic_implicit`` data. The social graph of SBPR
-(``social_path``/``social_degree``) is refused by naming its ROADMAP Queue
-1 item, 12.
+``synthetic_implicit`` data. SBPR's user-user trust graph rides on the
+dataset as ``Dataset.social``: read from a "u v" edge file over dense user
+ids (``data.social_path``, ``load_social_edges``) or synthesized from the
+train split's taste overlap (``data.social_degree``,
+``build_social_overlap``), a symmetric boolean ``scipy.sparse`` CSR with a
+zero diagonal, as in the reference.
 """
 
 from __future__ import annotations
@@ -51,6 +54,9 @@ class Dataset:
     test: Interactions
     num_users: int
     num_items: int
+    # The user-user trust graph of SBPR: boolean CSR [U, U], symmetric, zero
+    # diagonal; None when the config names no graph.
+    social: sp.csr_matrix | None = None
 
     @property
     def train_csr(self) -> sp.csr_matrix:
@@ -166,19 +172,62 @@ def split_given(train_raw, test_raw) -> Dataset:
                    num_users=nu, num_items=ni)
 
 
+def load_social_edges(path: str, num_users: int) -> sp.csr_matrix:
+    """Whitespace "u v" edge lines over dense user ids -> the symmetric
+    boolean CSR [U, U] with a zero diagonal. Ids out of range are a config
+    error, reported with their count (dropping trust edges quietly would
+    bias the sampler)."""
+    raw = np.loadtxt(path, dtype=np.int64, ndmin=2)
+    if raw.shape[1] < 2:
+        raise ValueError(f"social file {path!r} needs 'u v' columns")
+    u, v = raw[:, 0], raw[:, 1]
+    bad = (u < 0) | (u >= num_users) | (v < 0) | (v >= num_users)
+    if bad.any():
+        raise ValueError(
+            f"social file {path!r}: {int(bad.sum())}/{len(u)} edges "
+            f"reference user ids outside [0, {num_users})"
+        )
+    m = sp.csr_matrix((np.ones(len(u), np.bool_), (u.astype(np.int32), v.astype(np.int32))),
+                      shape=(num_users, num_users))
+    return _symmetric(m)
+
+
+def _symmetric(m: sp.csr_matrix) -> sp.csr_matrix:
+    m = (m + m.T).astype(np.bool_).tocsr()
+    m.setdiag(False)
+    m.eliminate_zeros()
+    return m
+
+
+def build_social_overlap(ds: Dataset, degree: int, seed: int = 0) -> sp.csr_matrix:
+    """A trust graph with taste signal: each user's ``degree`` friends are
+    the users sharing the most train items (co-interaction counts, ties
+    broken by a jitter from ``default_rng((seed, 0x50C1A1))``, below one
+    count), symmetrized. Built from the train split only; the [U, U]
+    co-count matrix is dense, meant for the stand-in's scales."""
+    rng = np.random.default_rng((seed, 0x50C1A1))
+    b = (ds.train_csr > 0).astype(np.float32)
+    co = (b @ b.T).toarray()
+    np.fill_diagonal(co, -1.0)
+    co += rng.random(co.shape) * 0.5
+    k = min(degree, ds.num_users - 1)
+    friends = np.argpartition(-co, k - 1, axis=1)[:, :k]
+    rows = np.repeat(np.arange(ds.num_users), k)
+    m = sp.csr_matrix((np.ones(rows.size, np.bool_), (rows, friends.reshape(-1))),
+                      shape=(ds.num_users, ds.num_users))
+    return _symmetric(m)
+
+
 def build_dataset(cfg: DataConfig) -> Dataset:
-    """Config-driven entry: load or generate the interactions, then split."""
-    if cfg.social_path or cfg.social_degree > 0:
-        raise NotImplementedError(
-            "data.social_path / data.social_degree (the SBPR trust graph) is not ported yet: "
-            "ROADMAP Queue 1 item 12")
+    """Config-driven entry: load or generate the interactions, split them,
+    then attach the trust graph the config names."""
     if cfg.source == "movielens":
         from tfrec_tpu_torch.data.movielens import load_uirt, load_uirt_raw
 
         if cfg.splitter == "given":
             if not cfg.test_path:
                 raise ValueError("splitter='given' requires data.test_path")
-            return split_given(load_uirt_raw(cfg.path), load_uirt_raw(cfg.test_path))
+            return _attach_social(split_given(load_uirt_raw(cfg.path), load_uirt_raw(cfg.test_path)), cfg)
         inter = load_uirt(cfg.path)
     elif cfg.source == "synthetic_implicit":
         from tfrec_tpu_torch.data.synthetic import synthetic_implicit
@@ -199,7 +248,26 @@ def build_dataset(cfg: DataConfig) -> Dataset:
                              times=inter.times[keep], num_users=nu, num_items=ni)
     inter = filter_min_interactions(inter, cfg.min_interactions)
     if cfg.splitter == "ratio":
-        return split_ratio(inter, cfg.test_fraction, cfg.seed)
-    if cfg.splitter == "leave_one_out":
-        return split_leave_one_out(inter, cfg.seed)
-    raise ValueError(f"unknown splitter {cfg.splitter!r}")
+        ds = split_ratio(inter, cfg.test_fraction, cfg.seed)
+    elif cfg.splitter == "leave_one_out":
+        ds = split_leave_one_out(inter, cfg.seed)
+    else:
+        raise ValueError(f"unknown splitter {cfg.splitter!r}")
+    return _attach_social(ds, cfg)
+
+
+def _attach_social(ds: Dataset, cfg: DataConfig) -> Dataset:
+    if cfg.social_path:
+        if cfg.min_interactions > 1 or cfg.binarize_threshold > 0:
+            # Both re-densify the user ids after filtering, so the edge
+            # file's ids would point at other users, past the range check.
+            raise ValueError(
+                "data.social_path cannot be combined with min_interactions > 1 or "
+                "binarize_threshold > 0: those re-densify user ids, scrambling the edge file's "
+                "id space. Pre-filter the ratings and re-export the edges, or use social_degree "
+                "synthesis."
+            )
+        ds.social = load_social_edges(cfg.social_path, ds.num_users)
+    elif cfg.social_degree > 0:
+        ds.social = build_social_overlap(ds, cfg.social_degree, cfg.seed)
+    return ds

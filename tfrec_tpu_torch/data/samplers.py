@@ -2,8 +2,8 @@
 ``PairwiseSampler``, ``PointwiseSampler`` (with the negative sampling under
 them: ``_TrainPairIndex``, ``popularity_cdf``, ``_draw_items``,
 ``_sample_negatives``), ``CTRBatcher``, the history models'
-``build_history`` and ``UserHistorySampler``, and the sequential models'
-``build_sequences`` and ``SequenceSampler``.
+``build_history`` and ``UserHistorySampler``, the sequential models'
+``build_sequences`` and ``SequenceSampler``, and SBPR's ``SBPRSampler``.
 
 The port imports nothing of the JAX package, so it keeps its own copies.
 Every sampler draws from ``np.random.default_rng((seed, epoch))`` exactly
@@ -343,3 +343,95 @@ class SequenceSampler:
             u = users[start : start + self.batch_size]
             negs = rng.integers(0, self.num_items, (len(u), l - 1)).astype(np.int32)
             yield {"user": u, "seq": self.seq[u], "seq_len": self.lens[u], "seq_negs": negs}
+
+
+class SBPRSampler:
+    """{user, pos, soc, neg, suk, has_social} batches for social BPR: for
+    each train (u, pos), one social item (consumed by at least one of u's
+    friends, not by u) with ``suk``, the number of friends who consumed it,
+    and one negative outside both u's train items and the social set. Users
+    without social candidates train plain BPR triples (has_social = 0; soc
+    and suk are dummies the loss masks).
+
+    The candidates are padded [U, S] arrays built once from social @ train;
+    a user with more than ``max_social`` keeps a seeded subsample of S,
+    while the negatives still exclude the whole set (a truncated one would
+    let them collide with the user's social feedback). Membership is one
+    ``searchsorted`` against sorted keys, as ``_TrainPairIndex``'s."""
+
+    def __init__(self, dataset: Dataset, batch_size: int, seed: int = 0, max_social: int = 512):
+        if dataset.social is None:
+            raise ValueError(
+                "SBPR needs a social graph: set data.social_degree > 0 "
+                "(synthetic taste-overlap friends) or data.social_path"
+            )
+        self.batch_size = batch_size
+        self.seed = seed
+        self.users = dataset.train.users
+        self.items = dataset.train.items
+        self.num_items = dataset.num_items
+        self.index = _TrainPairIndex(dataset)
+        rng = np.random.default_rng((seed, 0x5B92))
+
+        own = (dataset.train_csr > 0).astype(np.float32)
+        cnt = (dataset.social.astype(np.float32) @ own).tocsr()  # friend counts
+        cnt = (cnt - cnt.multiply(own > 0)).tocsr()  # drop the user's own train items
+        cnt.eliminate_zeros()
+        coo = cnt.tocoo()
+        self._soc_keys = np.sort(coo.row.astype(np.int64) * self.num_items + coo.col)
+
+        nu, s = dataset.num_users, max_social
+        starts, counts = cnt.indptr[:-1], np.diff(cnt.indptr)
+        self.sp_lens = np.minimum(counts, s).astype(np.int32)
+        cols = np.arange(s)[None, :]
+        valid = cols < self.sp_lens[:, None]
+        flat = np.minimum(starts[:, None] + cols, max(cnt.nnz - 1, 0))
+        if cnt.nnz == 0:
+            self.sp_items = np.full((nu, s), self.num_items, np.int32)
+            self.sp_counts = np.zeros((nu, s), np.float32)
+        else:
+            self.sp_items = np.where(valid, cnt.indices[flat], self.num_items).astype(np.int32)
+            self.sp_counts = np.where(valid, cnt.data[flat], 0.0).astype(np.float32)
+        for u in np.flatnonzero(counts > s):
+            pick = rng.choice(counts[u], size=s, replace=False)
+            self.sp_items[u] = cnt.indices[starts[u] + pick]
+            self.sp_counts[u] = cnt.data[starts[u] + pick]
+
+    def _in_social(self, users: np.ndarray, items: np.ndarray) -> np.ndarray:
+        if len(self._soc_keys) == 0:
+            return np.zeros(len(users), bool)
+        q = users.astype(np.int64) * self.num_items + items.astype(np.int64)
+        idx = np.minimum(np.searchsorted(self._soc_keys, q), len(self._soc_keys) - 1)
+        return self._soc_keys[idx] == q
+
+    def num_batches(self) -> int:
+        return len(self.users) // self.batch_size
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng((self.seed, epoch, 0x5B92))
+        order = rng.permutation(len(self.users))
+        bs = self.batch_size
+        for start in range(0, len(order) - bs + 1, bs):
+            idx = order[start : start + bs]
+            u = self.users[idx]
+            pos = self.items[idx]
+            lens = self.sp_lens[u]
+            has = lens > 0
+            j = rng.integers(0, np.maximum(lens, 1))
+            soc = np.where(has, self.sp_items[u, j], 0).astype(np.int32)
+            suk = np.where(has, self.sp_counts[u, j], 0.0).astype(np.float32)
+            negs = rng.integers(0, self.num_items, size=bs, dtype=np.int64)
+            bad = self.index.contains(u, negs) | self._in_social(u, negs)
+            for _ in range(64):
+                if not bad.any():
+                    break
+                negs[bad] = rng.integers(0, self.num_items, size=int(bad.sum()), dtype=np.int64)
+                bad = self.index.contains(u, negs) | self._in_social(u, negs)
+            yield {
+                "user": u.astype(np.int32),
+                "pos": pos.astype(np.int32),
+                "soc": soc,
+                "neg": negs.astype(np.int32),
+                "suk": suk,
+                "has_social": has.astype(np.float32),
+            }

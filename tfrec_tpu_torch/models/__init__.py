@@ -1,27 +1,29 @@
-"""Model registry of the port: ``mf``, ``fm``, ``gmf``, ``mlp``, ``neumf``,
-the rest of the reference's CTR models (``dcn``, ``dcnv2``, ``deepfm``,
-``nfm``, ``widedeep``, ``dlrm``), its sequential models (``sasrec``,
-``gru4rec``, ``caser``, ``fpmc``), its history models (``fism``, ``nais``,
-``multvae``, ``multdae``, ``cdae``) and its graph models (``lightgcn``,
-``ngcf``) so far.
-
-The reference's other models are refused by naming the ROADMAP Queue 1
-item that ports them, item 12."""
+"""Model registry of the port, every model the reference builds: ``mf``,
+``pop``, ``fm``, ``gmf``, ``mlp``, ``neumf``, ``convncf``, the CTR models
+(``dcn``, ``dcnv2``, ``deepfm``, ``nfm``, ``widedeep``, ``dlrm``), the
+sequential models (``sasrec``, ``gru4rec``, ``caser``, ``fpmc``), the history
+models (``fism``, ``nais``, ``multvae``, ``multdae``, ``cdae``), the graph
+models (``lightgcn``, ``ngcf``), the social and adversarial ones (``sbpr``,
+``apr``, ``irgan``) and the closed-form ones (``wrmf``, ``ease``)."""
 
 from __future__ import annotations
 
 from tfrec_tpu_torch.configs import ModelConfig
+from tfrec_tpu_torch.models.apr import APR
 from tfrec_tpu_torch.models.base import DataSpec, RecModel
 from tfrec_tpu_torch.models.caser import Caser
 from tfrec_tpu_torch.models.cdae import CDAE
+from tfrec_tpu_torch.models.convncf import ConvNCF
 from tfrec_tpu_torch.models.ctr_base import CTRBase
 from tfrec_tpu_torch.models.dcn import DCN
 from tfrec_tpu_torch.models.deepfm import DeepFM
 from tfrec_tpu_torch.models.dlrm import DLRM
+from tfrec_tpu_torch.models.ease import EASE
 from tfrec_tpu_torch.models.fism import FISM
 from tfrec_tpu_torch.models.fm import FM
 from tfrec_tpu_torch.models.fpmc import FPMC
 from tfrec_tpu_torch.models.gru4rec import GRU4Rec
+from tfrec_tpu_torch.models.irgan import IRGAN
 from tfrec_tpu_torch.models.lightgcn import LightGCN
 from tfrec_tpu_torch.models.mf import MF
 from tfrec_tpu_torch.models.multvae import MultVAE
@@ -29,19 +31,21 @@ from tfrec_tpu_torch.models.nais import NAIS
 from tfrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
 from tfrec_tpu_torch.models.nfm import NFM
 from tfrec_tpu_torch.models.ngcf import NGCF
+from tfrec_tpu_torch.models.pop import Pop
 from tfrec_tpu_torch.models.sasrec import SASRec
+from tfrec_tpu_torch.models.sbpr import SBPR
 from tfrec_tpu_torch.models.widedeep import WideDeep
+from tfrec_tpu_torch.models.wrmf import WRMF
 
-__all__ = ["DataSpec", "RecModel", "Caser", "CDAE", "DCN", "DeepFM", "DLRM", "FISM", "FM", "FPMC", "GMF",
-           "GRU4Rec", "LightGCN", "MF", "MLP", "MultVAE", "NAIS", "NeuMF", "NFM", "NGCF", "SASRec",
-           "WideDeep", "build_model"]
-BUILT = ("mf, fm, gmf, mlp, neumf, dcn, dcnv2, deepfm, nfm, widedeep, dlrm, sasrec, gru4rec, caser, fpmc, "
-         "fism, nais, multvae, multdae, cdae, lightgcn, ngcf")
+__all__ = ["DataSpec", "RecModel", "APR", "Caser", "CDAE", "ConvNCF", "DCN", "DeepFM", "DLRM", "EASE", "FISM",
+           "FM", "FPMC", "GMF", "GRU4Rec", "IRGAN", "LightGCN", "MF", "MLP", "MultVAE", "NAIS", "NeuMF", "NFM",
+           "NGCF", "Pop", "SASRec", "SBPR", "WideDeep", "WRMF", "build_model"]
+BUILT = ("mf, pop, fm, gmf, mlp, neumf, convncf, dcn, dcnv2, deepfm, nfm, widedeep, dlrm, sasrec, gru4rec, "
+         "caser, fpmc, fism, nais, multvae, multdae, cdae, lightgcn, ngcf, sbpr, apr, irgan, wrmf, ease")
 
 # The reference's models that the port does not build yet, by the ROADMAP
-# Queue 1 item that ports them.
-NOT_PORTED = dict.fromkeys(
-    ("pop", "sbpr", "apr", "irgan", "wrmf", "ease", "convncf"), 12)
+# Queue 1 item that ports them: none.
+NOT_PORTED: dict = {}
 
 
 def build_model(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
@@ -70,6 +74,20 @@ def _build(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
     name = cfg.name.lower()
     if name == "mf":
         return MF(data_spec, cfg.embed_dim)
+    if name == "pop":
+        return Pop(data_spec)
+    if name == "sbpr":
+        return SBPR(data_spec, cfg.embed_dim)
+    if name == "apr":
+        return APR(data_spec, cfg.embed_dim, eps=cfg.apr_eps, adv_lambda=cfg.apr_lambda)
+    if name == "irgan":
+        return IRGAN(data_spec, cfg.embed_dim, temperature=cfg.irgan_temperature)
+    if name == "wrmf":
+        return WRMF(data_spec, cfg.embed_dim, alpha=cfg.wrmf_alpha, reg=cfg.wrmf_reg)
+    if name == "ease":
+        return EASE(data_spec, reg=cfg.ease_reg)
+    if name == "convncf":
+        return ConvNCF(data_spec, cfg.embed_dim, channels=cfg.convncf_channels, dropout=cfg.dropout)
     if name in ("dcn", "dcnv2"):
         if name == "dcn" and cfg.cross_rank > 0:
             raise ValueError(
@@ -129,9 +147,4 @@ def _build(cfg: ModelConfig, data_spec: DataSpec) -> RecModel:
         return LightGCN(data_spec, cfg.embed_dim, num_layers=cfg.lightgcn_layers)
     if name == "ngcf":
         return NGCF(data_spec, cfg.embed_dim, num_layers=cfg.lightgcn_layers, dropout=cfg.dropout)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet: ROADMAP Queue 1 item {NOT_PORTED[name]}; "
-            f"tfrec_tpu_torch builds: {BUILT}"
-        )
     raise ValueError(f"unknown model {cfg.name!r}; tfrec_tpu_torch builds: {BUILT}")

@@ -18,14 +18,19 @@ hidden state dotted with the items' rows), the history models (FISM, NAIS,
 Mult-VAE, Mult-DAE, CDAE: each user's attached train history read for the
 request; the autoencoders' reconstruction at the items) and the graph
 models (LightGCN, NGCF: the embeddings propagated over the attached graph,
-no table gathered), ``predict_ctr`` the CTR models
+no table gathered), SBPR, APR, IRGAN (its generator), Pop, ConvNCF, WRMF
+and EASE (the rows of its transposed solution dotted with each user's train
+row, ``pointwise_batch_extras``), ``predict_ctr`` the CTR models
 (FM, DCN, DeepFM, NFM, Wide & Deep, DLRM), in the model's own table layout
 (per field, lane-packed or stacked). The catalog is scored by the model's
-``score_all``: one ``torch.matmul`` for MF, GMF and 2-field FM, item chunks
+``score_all``: one ``torch.matmul`` for MF (and SBPR, APR, IRGAN's
+generator, WRMF), GMF and 2-field FM, item chunks
 through the towers for MLP and NeuMF, the sequence encoder then one
 ``torch.matmul`` for the sequential models, the history for FISM and the
 autoencoders, the catalog attended in chunks for NAIS, the propagation for
-the graph models (FM with side fields has none and raises); the
+the graph models, Pop's bias row, ConvNCF's item chunks through its
+convolutions, EASE's train rows times its solution (FM with side fields
+has none and raises); the
 top-k is ``torch.topk`` (``eval.retrieval``; "approx" is exact here, as on
 the reference's CPU). Ids out of range clamp, as the reference's
 ``jnp.take(mode="clip")`` does in ``predict``.

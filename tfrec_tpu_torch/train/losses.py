@@ -3,12 +3,12 @@
 Pairwise losses take the model's pairwise output: s_pos - s_neg [B], or a
 [B, 1+K] score matrix whose column 0 is the positive; pointwise losses take
 logits [B] and the batch's labels. Each is a mean over the batch, in the
-reference's numerically stable form. Ported: ``bpr``, ``hinge``,
+reference's numerically stable form (softplus as ``logaddexp(x, 0)``).
+Every objective of the reference is ported: ``bpr``, ``hinge``,
 ``sampled_softmax``, ``in_batch_softmax``, ``logloss``, ``mse``, the
-sequential models' ``sasrec`` and the autoencoders' ``multvae`` and
-``cdae``.
-``make_loss`` refuses, by name, the reference's model-specific objectives
-(ROADMAP Queue 1 item 12) rather than train with another one.
+sequential models' ``sasrec``, the autoencoders' ``multvae`` and ``cdae``,
+and the model-specific ``apr``, ``sbpr`` and ``irgan``, whose inputs are
+their models' dict outputs.
 """
 
 from __future__ import annotations
@@ -116,6 +116,41 @@ def cdae(logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.mean(per_elem.sum(dim=-1))
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def apr(out: Dict[str, torch.Tensor], batch: Dict) -> torch.Tensor:
+    """Adversarial personalized ranking: the clean BPR term plus
+    ``adv_weight`` times the BPR term of the perturbed rows. ``out`` is
+    APR's training forward, {"diff" [B], "diff_adv" [B], "adv_weight"}."""
+    return torch.mean(_softplus(-out["diff"]) + out["adv_weight"] * _softplus(-out["diff_adv"]))
+
+
+def sbpr(out: Dict[str, torch.Tensor], batch: Dict) -> torch.Tensor:
+    """Social BPR: x_pos >= x_soc >= x_neg as two BPR terms, the pos-soc gap
+    divided by 1 + suk; rows without social candidates (has == 0) train
+    plain BPR. ``out`` is SBPR's forward, {"pos", "soc", "neg", "suk",
+    "has"}, all [B]."""
+    has = out["has"].to(out["pos"].dtype)
+    d_ps = (out["pos"] - out["soc"]) / (1.0 + out["suk"])
+    d_sn = out["soc"] - out["neg"]
+    social = _softplus(-d_ps) + _softplus(-d_sn)
+    plain = _softplus(-(out["pos"] - out["neg"]))
+    return torch.mean(has * social + (1.0 - has) * plain)
+
+
+def irgan(out: Dict[str, torch.Tensor], batch: Dict) -> torch.Tensor:
+    """IRGAN's minimax step: the discriminator's BCE (the true positive up,
+    the generator's pick down) plus the generator's REINFORCE term with the
+    batch mean of the reward as its baseline. ``out`` is IRGAN's training
+    forward, {"d_pos", "d_sel", "logp", "reward"} [B], the reward already
+    detached; the two players' gradients never meet."""
+    d_loss = _softplus(-out["d_pos"]) + _softplus(out["d_sel"])
+    advantage = out["reward"] - torch.mean(out["reward"])
+    return torch.mean(d_loss) + torch.mean(-(advantage * out["logp"]))
+
+
 _LOSSES: Dict[str, Callable] = {
     "bpr": bpr,
     "hinge": hinge,
@@ -126,18 +161,13 @@ _LOSSES: Dict[str, Callable] = {
     "sasrec": sasrec,
     "multvae": multvae,
     "cdae": cdae,
+    "sbpr": sbpr,
+    "apr": apr,
+    "irgan": irgan,
 }
-# The reference's model-specific objectives, refused by name until their
-# models are ported.
-_NOT_PORTED = ("sbpr", "apr", "irgan")
 
 
 def make_loss(name: str) -> Callable[[torch.Tensor, Dict], torch.Tensor]:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"loss {name!r} is not ported yet (ROADMAP Queue 1 item 12, with its model); "
-            f"ported: {sorted(_LOSSES)}"
-        )
     if name not in _LOSSES:
         raise ValueError(f"unknown loss {name!r}; options: {sorted(_LOSSES)}")
     return _LOSSES[name]

@@ -35,6 +35,20 @@ metric stream (``MetricLogger``), with the reference's records.
   attached histories;
 - interaction data with a graph model (lightgcn, ngcf): the train split's
   graph is attached (``attach_graph``) and the pairwise samplers feed it;
+- interaction data with the social and adversarial models: sbpr trains its
+  own loss on ``SBPRSampler``'s triples with a social column (the dataset
+  carries the trust graph, ``data.social_degree`` or ``data.social_path``),
+  apr its adversarial BPR on pairwise triples, irgan its minimax objective
+  on pools of ``train.num_negatives`` items (each loss coerced to the
+  model's, the ``loss_coerced`` event saying so); pop and convncf train as
+  the retrieval models do;
+- interaction data with a closed-form model (wrmf, ease): no sampler and no
+  step; the model's ``make_solver`` (ALS sweeps, the EASE solve) runs an
+  epoch a sweep and logs its exact objective as the loss, coerced to
+  ``wrmf`` or ``ease``; its checkpoints are the solved tables, and a
+  resume loads them into the solver. On N ranks the ALS solves split over
+  the data axis (``train/als.py``) and rank 0 writes the stream and the
+  checkpoints;
 - interaction data with a CTR model (fm, dcn, dcnv2, deepfm, nfm, widedeep,
   dlrm): pointwise samples
   become multi-field batches, cat = [user, item, user side fields..., item
@@ -62,9 +76,9 @@ first (the model's ``warm_start_aliases``, then the same name).
 The device is the card unless the caller passes ``device="cpu"`` (the
 kernels' plain versions); without CUDA the default raises. What the port
 does not take yet it refuses by naming the ROADMAP Queue 1 item, never
-passing it over: the models of ``models.NOT_PORTED`` and the social graph
-(item 12), step profiles
-(item 10), FSDP and lane-packed sharded tables (item 11), and
+passing it over: step profiles (item 10), FSDP and lane-packed sharded
+tables (item 11), irgan on the mesh path (item 11: its REINFORCE baseline
+and its Gumbel draw are the global batch's), and
 ``train.matmul_precision`` other than "default" (item 5).
 
 On D x T ranks (a ``torch.distributed`` process group, ``parallel.mesh.
@@ -126,6 +140,7 @@ from tfrec_tpu_torch.data.samplers import (
     CTRBatcher,
     PairwiseSampler,
     PointwiseSampler,
+    SBPRSampler,
     SequenceSampler,
     UserHistorySampler,
     build_history,
@@ -137,7 +152,7 @@ from tfrec_tpu_torch.eval.metrics import auc as auc_metric
 from tfrec_tpu_torch.eval.metrics import logloss as logloss_metric
 from tfrec_tpu_torch.eval.retrieval import RetrievalEvaluator
 from tfrec_tpu_torch.eval.sampled import SampledEvaluator
-from tfrec_tpu_torch.models import BUILT, NOT_PORTED, DataSpec, build_model
+from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.parallel.embedding import ColShardedTable
 from tfrec_tpu_torch.parallel.eval import ShardedRetrievalEvaluator
 from tfrec_tpu_torch.parallel.mesh import make_mesh, world_size
@@ -170,13 +185,8 @@ def _criteo_vocabs(sizes) -> tuple:
 def _refuse_unported(c: Config) -> None:
     """Raise on every setting the port does not take yet, naming the
     ROADMAP Queue 1 item that ports it."""
-    source, name = c.data.source, c.model.name.lower()
-    if source not in INTERACTION_SOURCES + CTR_SOURCES:
-        raise ValueError(f"unknown data source {source!r}")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {c.model.name!r} is not ported yet: ROADMAP Queue 1 item {NOT_PORTED[name]}; "
-            f"the port trains {BUILT}")
+    if c.data.source not in INTERACTION_SOURCES + CTR_SOURCES:
+        raise ValueError(f"unknown data source {c.data.source!r}")
     t = c.train
     if t.profile_steps is not None:
         raise NotImplementedError(
@@ -221,21 +231,12 @@ class Trainer:
                     "(JAX_NUM_PROCESSES under the CLI)")
             self.mesh = make_mesh(c.mesh.data_axis_size, c.mesh.table_axis_size, device)
             self.device = self.mesh.device
-            n_data = self.mesh.size
-            if c.train.batch_size % n_data != 0:
-                raise ValueError(
-                    f"train.batch_size={c.train.batch_size} must be divisible by the data mesh "
-                    f"axis ({n_data} ranks); use e.g. {(c.train.batch_size // n_data + 1) * n_data}")
-        elif c.mesh.row_permute:
-            raise ValueError(
-                "mesh.row_permute requires the sharded (mesh) path; this run resolved to the "
-                "single-device builder — drop the flag or run on a mesh")
         # The batch's split: this rank's data index and the data axis' size.
         self.rank, self.num_ranks = (self.mesh.data_index, self.mesh.size) if self.mesh else (0, 1)
-        lead = self.mesh is None or self.mesh.rank == 0  # the rank that writes the metric stream
+        self.lead = self.mesh is None or self.mesh.rank == 0  # the rank that writes the stream
         self.logger = MetricLogger(
-            c.run_name, out_dir=c.train.checkpoint_dir if log_metrics and lead else None,
-            quiet=quiet or not lead)
+            c.run_name, out_dir=c.train.checkpoint_dir if log_metrics and self.lead else None,
+            quiet=quiet or not self.lead)
         # The full run config as the stream's first record.
         self.logger.log({"event": "run_config", "config": dataclasses.asdict(c)})
 
@@ -338,21 +339,31 @@ class Trainer:
                 self.logger.log({"event": "loss_coerced", "from": loss, "to": "bpr",
                                  "reason": "item-similarity models train single-negative pairwise"})
                 loss = "bpr"
+        own = {"sbpr": ("sbpr", "sbpr trains on social triples"),
+               "apr": ("apr", "apr trains on the adversarial objective"),
+               "irgan": ("irgan", "irgan trains on the minimax objective")}.get(c.model.name.lower())
+        if own and loss != own[0]:
+            self.logger.log({"event": "loss_coerced", "from": loss, "to": own[0], "reason": own[1]})
+            loss = own[0]
+        # The closed-form models (WRMF's ALS sweeps, EASE's solve) train
+        # without the step: no sampler, no builder.
+        self.solver = None
+        make_solver = getattr(self.model, "make_solver", None)
+        if make_solver is not None:
+            if c.train.neg_sampling != "uniform":
+                raise ValueError(
+                    f"train.neg_sampling={c.train.neg_sampling!r} has no effect on closed-form models "
+                    f"({c.model.name})")
+            want = self.model.solver_loss_name
+            if loss != want:
+                self.logger.log({"event": "loss_coerced", "from": loss, "to": want,
+                                 "reason": f"{c.model.name} trains closed-form (solver sweeps, not SGD)"})
+            loss = want
         self.loss_name = loss
-        if self.mesh is not None:
-            from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
-
-            self.builder = ShardedTrainStepBuilder(
-                self.model, loss, c.optim, self.mesh, c.mesh, l2_reg=c.model.l2_reg,
-                seed=c.train.seed, device_negatives=self._use_device_negs(loss),
-                num_items=getattr(self.dataset, "num_items", 0))
+        if make_solver is not None:
+            self._init_solver(make_solver)
         else:
-            self.builder = TrainStepBuilder(
-                self.model, loss, c.optim, l2_reg=c.model.l2_reg, seed=c.train.seed,
-                device=self.device, device_negatives=self._use_device_negs(loss),
-                num_items=getattr(self.dataset, "num_items", 0))
-        self.state = self.builder.init_state(
-            torch.Generator(device=self.device).manual_seed(c.train.seed))
+            self._init_builder(loss)
         self.start_epoch = 0
         if c.train.resume and c.train.checkpoint_dir:
             step = checkpoint.latest_step(c.train.checkpoint_dir)
@@ -368,13 +379,63 @@ class Trainer:
                     "event": "warm_start_skipped",
                     "reason": "resume restored this run's checkpoint (resume wins over init_from)",
                 })
-        self.sampler = self._make_sampler()
+        self.sampler = None if self.solver is not None else self._make_sampler()
         self._sort_pool = None  # the host dedup sorts' threads, made at their first batch
         self.global_step = 0
         self._es_best = None  # early-stopping monitor state
         self._es_stall = 0
         self._retrieval_eval = None  # built at the first eval
         self._eval_overflow = 0  # the eval exchange's dropped ids (a mesh's)
+
+    def _init_builder(self, loss: str) -> None:
+        """The SGD path: the step builder (on a mesh the sharded one) and
+        its initial state."""
+        c = self.config
+        if self.mesh is not None:
+            n_data = self.mesh.size
+            if c.train.batch_size % n_data != 0:
+                raise ValueError(
+                    f"train.batch_size={c.train.batch_size} must be divisible by the data mesh "
+                    f"axis ({n_data} ranks); use e.g. {(c.train.batch_size // n_data + 1) * n_data}")
+            if loss == "irgan":
+                raise NotImplementedError(
+                    "irgan on the mesh path is not ported yet: ROADMAP Queue 1 item 11 (its REINFORCE "
+                    "baseline and its Gumbel draw are the global batch's); train it on one rank")
+        elif c.mesh.row_permute:
+            raise ValueError(
+                "mesh.row_permute requires the sharded (mesh) path; this run resolved to the "
+                "single-device builder — drop the flag or run on a mesh")
+        if self.mesh is not None:
+            from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
+
+            self.builder = ShardedTrainStepBuilder(
+                self.model, loss, c.optim, self.mesh, c.mesh, l2_reg=c.model.l2_reg,
+                seed=c.train.seed, device_negatives=self._use_device_negs(loss),
+                num_items=getattr(self.dataset, "num_items", 0))
+        else:
+            self.builder = TrainStepBuilder(
+                self.model, loss, c.optim, l2_reg=c.model.l2_reg, seed=c.train.seed,
+                device=self.device, device_negatives=self._use_device_negs(loss),
+                num_items=getattr(self.dataset, "num_items", 0))
+        self.state = self.builder.init_state(
+            torch.Generator(device=self.device).manual_seed(c.train.seed))
+
+    def _init_solver(self, make_solver) -> None:
+        """The closed-form path: the solver (on a mesh of N ranks its data
+        axis for the ALS solves; the trainer itself then runs as on one
+        device, every rank holding the whole tables) and its state
+        ``{"step", "tables", "dense": {}}``; a resume goes through
+        ``solver.load`` (``restore``)."""
+        c = self.config
+        if c.mesh.row_permute:
+            raise ValueError("mesh.row_permute applies to sharded-table SGD runs; closed-form solvers "
+                             "keep replicated tables")
+        self.solver_mesh, self.mesh = self.mesh, None
+        self.rank, self.num_ranks = 0, 1
+        self.builder = None
+        self.solver = make_solver(self.dataset, batch=min(c.train.batch_size, 4096), seed=c.train.seed,
+                                  mesh=self.solver_mesh, device=self.device)
+        self.state = {"step": 0, "tables": dict(self.solver.tables()), "dense": {}}
 
     # ---- checkpoints ----
 
@@ -383,7 +444,7 @@ class Trainer:
         same model and optimizer (``convert.flat_from_state``); on a mesh,
         this rank's blocks."""
         o = self.config.optim
-        return convert.flat_from_state(self.state, o.dense_optimizer, o.weight_decay)
+        return convert.flat_from_state(self.state, o.dense_optimizer, o.weight_decay, model=self.model)
 
     def _row_keys(self) -> Dict[str, object]:
         """On a mesh, each sharded leaf's flat key -> its table's plan."""
@@ -431,7 +492,12 @@ class Trainer:
         meta = {"row_permute": self._row_permute_active()}
         if meta["row_permute"]:
             meta["row_permute_shards"] = self.mesh.size
-        if self._saves_blocks():
+        if self.solver is not None:  # the solved tables, whole on every rank: the lead writes them
+            if self.lead:
+                checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch, self.checkpoint_state(), meta=meta)
+            if self.solver_mesh is not None:
+                self.solver_mesh.barrier()
+        elif self._saves_blocks():
             flat = self.checkpoint_state()
             checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch, flat, meta=meta,
                                        mesh=self.mesh, spans=self._block_spans(flat))
@@ -440,7 +506,7 @@ class Trainer:
         else:  # the logical state, gathered over both axes; rank 0 writes it
             o = c.optim
             flat = convert.flat_from_state(self.builder.logical_state(self.state), o.dense_optimizer,
-                                           o.weight_decay)
+                                           o.weight_decay, model=self.model)
             if self.mesh.rank == 0:
                 checkpoint.save_checkpoint(c.train.checkpoint_dir, epoch, flat, meta=meta)
             self.mesh.barrier()  # published before any rank goes on
@@ -455,7 +521,7 @@ class Trainer:
         keys = set(checkpoint.read_tree(ckpt_dir, step).get("keys", []))
         template = {k: np.shape(v) for k, v in convert.flat_from_state(
             self.state, self.config.optim.dense_optimizer, self.config.optim.weight_decay,
-            leaf=lambda t: np.broadcast_to(np.float32(0), t.shape)).items()}
+            leaf=lambda t: np.broadcast_to(np.float32(0), t.shape), model=self.model).items()}
         permuted = self._row_permute_active()
         rows = self._row_keys()
         for key, plan in rows.items():  # the global shapes: padded where permuted
@@ -478,6 +544,10 @@ class Trainer:
             for key, plan in rows.items():
                 if key in flat:
                     flat[key] = flat[key][plan.perm_rows().numpy()][: plan.vocab]
+        if self.solver is not None:  # the solver takes the tables (EASE re-attaches its matrix)
+            self.solver.load(convert.params_from_flat(flat, self.model, {})["tables"])
+            params = {"tables": dict(self.solver.tables()), "dense": {}}
+            return params if params_only else {"step": int(flat["step"]), **params}
         if params_only:
             params = convert.params_from_flat(flat, self.model, self.state["dense"])
             if self.mesh is not None:
@@ -529,6 +599,8 @@ class Trainer:
             tables = {n: (self.builder.plans[n].shard(t) if self.builder.plans.get(n) is not None
                           else t) for n, t in tables.items()}
         self.state = {**self.state, "tables": tables}
+        if self.solver is not None:
+            self.solver.load(tables)
         self.logger.log({"event": "warm_start", "from": ckpt_dir,
                          "copied": sorted(copied, key=str), "skipped": skipped})
         if not copied:
@@ -605,14 +677,16 @@ class Trainer:
                 return self.stream
             dense, cat, label = self.ctr_arrays["train"]
             return CTRBatcher(dense, cat, label, bs, seed=seed)
+        if c.train.neg_sampling != "uniform" and self.loss_name in ("sasrec", "sbpr", "multvae", "cdae"):
+            raise ValueError(
+                f"train.neg_sampling={c.train.neg_sampling!r} applies to the pairwise/pointwise "
+                f"interaction samplers, not the {self.loss_name!r} data path")
         if self.loss_name == "sasrec":
-            if c.train.neg_sampling != "uniform":
-                raise ValueError(
-                    f"train.neg_sampling={c.train.neg_sampling!r} applies to the pairwise/pointwise "
-                    "interaction samplers, not the 'sasrec' data path")
             # The time order's ties break by the run's seed on every rank.
             return SequenceSampler(self.dataset, bs, c.model.max_history, seed,
                                    order_seed=c.train.seed)
+        if self.loss_name == "sbpr":
+            return SBPRSampler(self.dataset, bs, seed)
         if self.loss_name in ("multvae", "cdae"):
             return UserHistorySampler(self.dataset, bs, c.model.max_history, seed)
         neg_cdf = None
@@ -892,9 +966,29 @@ class Trainer:
                 return name, rec[name], 1.0
         return "loss", rec.get("loss"), -1.0
 
+    def _train_closed_form(self) -> List[Dict[str, float]]:
+        """An epoch is one solver sweep; the loss is the solver's exact
+        objective, and ``examples_per_s`` the train interactions re-solved
+        a second of the sweep."""
+        c = self.config
+        history: List[Dict[str, float]] = []
+        nnz = len(self.dataset.train.users)
+        for epoch in range(self.start_epoch, c.train.epochs):
+            t0 = time.monotonic()
+            metrics = self.solver.epoch()  # its objective's value: the device has solved
+            dt = time.monotonic() - t0
+            self.state = {"step": epoch + 1, "tables": dict(self.solver.tables()), "dense": {}}
+            rec: Dict[str, float] = {"epoch": epoch, "loss": metrics["loss"],
+                                     "examples_per_s": nnz / max(dt, 1e-9)}
+            if self._post_epoch(epoch, rec, history):
+                break
+        return history
+
     def train(self) -> List[Dict[str, float]]:
         c = self.config
         history: List[Dict[str, float]] = []
+        if self.solver is not None:
+            return self._train_closed_form()
         if self.stream is None and self.sampler.num_batches() == 0:
             raise ValueError(
                 "0 train batches per epoch: the (remainder-dropping) sampler has fewer "
