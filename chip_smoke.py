@@ -258,6 +258,24 @@ non-zero if any phase fails:
     catalog gathers nothing. (P4) ``evaluate_dot_native`` over WRMF's
     tables against the device evaluator. Each model served from the trainer
     and from its checkpoint, bit for bit.
+33. (Q) the rest of the sharded subsystem, int8 serving, step profiles and
+    the matmul precision: (Q1) the lane-sliced step at world 1 over NCCL,
+    ``dcn_criteo`` at Criteo's shape with ``model.lane_pack=True`` (7 packs
+    of 4 fields), 8 steps of 8192 against the single-device packed step at
+    the reference's tolerance, the wire's float buffers d lanes wide, the
+    gather and Adagrad kernels at the owner's [rps·G, d] view shapes; in
+    phase M4's spawn of 4 ranks sharing the card over gloo, after M4 (so 4
+    ranks start once), (Q2) the port's ``dryrun_multichip`` modes (gspmd
+    said not ported), (Q3) FSDP bit for bit the replicated dense params at
+    ``dcn_criteo``'s full width, with the dense bytes a rank, and (Q4)
+    IRGAN's sharded steps against one card's; (Q5) ``recommend`` with
+    ``quantize=True`` at 1024 users over 1M items, k=100: the int8 table's
+    bytes, its top-k a plain top-k of its own scores, the overlap with the
+    f32 top-k, peak memory and latency beside the f32 call's; (Q6) config
+    4's proxy run profiled over one dispatch, its trace holding that
+    dispatch and its gather kernels; (Q7) the proxy run again at
+    ``train.matmul_precision="bfloat16"`` in the proxy band, its step time
+    beside "default"'s.
 
 So that the whole script stays inside its time limit with phase O, three
 earlier paths are cut in depth, each keeping its checks: phase K's
@@ -298,7 +316,13 @@ steps' shapes to the gather and Adagrad records as ``fism_step`` and
 ``multvae_step``; phase P adds ``trainer_<model>`` and ``serve_<model>``
 for its seven models, its steps' shapes to the gather and Adagrad records
 as ``irgan_step`` and ``sbpr_step``, and EASE's predict to the gather
-record as ``ease_predict``) and ``{"ok": true, ...}``.
+record as ``ease_predict``; phase Q adds ``train_lane_sliced`` (Q1, also
+among the grouped Adagrad record's paths), ``dryrun_4_ranks``,
+``train_fsdp`` and ``train_irgan_sharded`` (Q2-Q4, every rank's launches
+summed), ``serve_int8`` (Q5), ``trainer_profiled`` (Q6) and
+``trainer_proxy_bf16`` (Q7), and Q1's owner shapes to the gather and
+Adagrad records as ``lane_sliced``), the script's whole time, and
+``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -351,12 +375,14 @@ from tfrec_tpu_torch.kernels.gather_cuda import (
     gather_rows_multi_ref,
     gather_rows_ref,
 )
-from tfrec_tpu_torch.configs import OptimConfig
+from tfrec_tpu_torch.configs import MeshConfig, OptimConfig
 from tfrec_tpu_torch.eval.native import evaluate_dot_native
 from tfrec_tpu_torch.models import DataSpec, build_model
 from tfrec_tpu_torch.models.mf import MF
 from tfrec_tpu_torch.ops import sparse_optim
 from tfrec_tpu_torch.ops.embedding import combine_duplicate_ids
+from tfrec_tpu_torch.ops.precision import set_matmul_precision
+from tfrec_tpu_torch.parallel import dryrun
 from tfrec_tpu_torch.parallel import embedding as sharded_embedding
 from tfrec_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
@@ -490,6 +516,24 @@ SHARDED_SERVE_AUC_ATOL = 1e-3
 # its time limit.
 MESH_VALUE_RTOL = 1e-5
 MESH_RANK_TIMEOUT_S = 420
+# Phase Q: the lane-sliced step against the single-device packed step at the
+# reference's tolerance (tests/test_lane_pack.py:336-353); 4 ranks sharing
+# the card for the dry run, FSDP and IRGAN (3 steps each), IRGAN's sharded
+# steps against one card's at the 3-step tolerance of
+# tests/test_torch_social_adv_zoo.py (the global batch's sums split over 4
+# ranks); int8 serving's top-k against a plain top-k of its own scores
+# (the scale applied after the product or before it rounds apart), and its
+# least overlap with the f32 top-k (about 0.7% of a score's spread moves
+# with the rounding, against gaps of about 2.5% at rank 100 of 1M); the
+# profile window, one dispatch of 8 steps.
+LANE_RTOL, LANE_ATOL = 1e-5, 1e-6
+REST_RANKS = 4
+REST_STEPS = 3
+IRGAN_RTOL, IRGAN_ATOL = 1e-4, 1e-5
+IRGAN_ADAGRAD_INIT = 0.1
+QUANT_RTOL = 1e-5
+QUANT_MIN_OVERLAP = 0.8
+PROFILE_WINDOW = (8, 16)
 # Phase N: the rest of the CTR zoo at Criteo's shape (its steps against the
 # CPU as phase 6 holds DCN's, at tests/test_torch_layouts.py's step
 # tolerance), and the sequential zoo on the card, in the bands of
@@ -606,7 +650,7 @@ KERNELS = {
     },
 }
 GROUPED = "fused_rowwise_adagrad_multi_grouped"
-GROUPED_PATHS = ("layouts_lane_packed", "trainer_fm_packed")
+GROUPED_PATHS = ("layouts_lane_packed", "trainer_fm_packed", "train_lane_sliced")
 WRAPPERS = {"gather_rows_multi": gather_rows_multi, "gather_rows": gather_rows,
             "cross_v1_fwd": cross_v1_fwd, "cross_v1_bwd": cross_v1_bwd,
             "fused_rowwise_adagrad_multi": fused_rowwise_adagrad_multi,
@@ -3227,12 +3271,12 @@ def captured_sparse_calls(builder, state, batch) -> dict:
     return seen
 
 
-def sharded_kernel_checks(builder, state, batch) -> dict:
+def sharded_kernel_checks(builder, state, batch, key: str = "sharded") -> dict:
     """The gather and Adagrad kernels at the sharded step's shapes (the
     owner's gather of the received requests, the owner's update after the
     receive-side combine), on one step's own inputs: one launch each, bit
     for bit their plain versions and on repeat; times beside bounds, plain
-    versions and ``index_select``."""
+    versions and ``index_select``; the records under ``key``."""
     seen = captured_sparse_calls(builder, state, batch)
     tables, ids = seen["gather"]
     got, launches = launches_of(gather_rows_multi, lambda: gather_rows_multi(tables, ids))
@@ -3245,8 +3289,8 @@ def sharded_kernel_checks(builder, state, batch) -> dict:
           f"{repeat}")
     check(launches == 1 and bitwise and repeat,
           "gather_rows_multi at the sharded shapes: one launch, bit for bit its plain version and on repeat")
-    records = {"gather_rows_multi": {"sharded": {**gather_times(tables, ids, "the sharded owner gather"),
-                                                 "max_abs_err": 0.0}}}
+    records = {"gather_rows_multi": {key: {**gather_times(tables, ids, f"the {key} owner gather"),
+                                           "max_abs_err": 0.0}}}
     del got, again, want
     tabs, accs, uids, grads, lr, eps = seen["adagrad"]
 
@@ -3268,8 +3312,8 @@ def sharded_kernel_checks(builder, state, batch) -> dict:
     check(launches == 1 and bitwise and repeat,
           "fused_rowwise_adagrad_multi at the sharded shapes: one launch, bit for bit its plain version and on repeat")
     del got_t, got_a, again_t, again_a, ref_t, ref_a
-    records["fused_rowwise_adagrad_multi"] = {"sharded": {
-        **adagrad_times(list(zip(*copies(), uids, grads)), lr, "the sharded owner update"),
+    records["fused_rowwise_adagrad_multi"] = {key: {
+        **adagrad_times(list(zip(*copies(), uids, grads)), lr, f"the {key} owner update"),
         "distinct_ids": distinct, "max_abs_err": err}}
     return records
 
@@ -3733,8 +3777,8 @@ def mesh_col_mf_config(work: Path, table_axis: int = 2):
 def mesh_rank(rank: int, world: int, port: int, work: str) -> int:
     """One rank of phase M (``chip_smoke.py --mesh-rank R WORLD PORT DIR``),
     sharing the card over gloo: on 2 ranks M1 on a (1, 2) mesh, then M2 and
-    M3 on (2, 1); on 4 ranks M4 on (2, 2). Its results go to
-    ``DIR/rank<R>.json``."""
+    M3 on (2, 1); on 4 ranks M4 on (2, 2), then phase Q2-Q4 (``rest_work``:
+    one spawn of 4 ranks for both). Its results go to ``DIR/rank<R>.json``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     init_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo", device=DEVICE)
@@ -3747,6 +3791,7 @@ def mesh_rank(rank: int, world: int, port: int, work: str) -> int:
             mesh_topk(make_mesh(-1, 1, device=DEVICE), out)
         else:
             mesh_col_mf(work, out)
+            rest_work(out)
         with open(work / f"rank{rank}.json", "w") as f:
             json.dump(out, f, default=float)
     finally:
@@ -3831,7 +3876,8 @@ def phase_mesh_two(card: str, paths: dict) -> None:
 def phase_mesh_four(card: str, paths: dict) -> None:
     """(M4) MF under col sharding on a (2, 2) mesh of 4 ranks sharing the
     card, 2 epochs; its checkpoint served on one card by ``from_checkpoint``
-    gives the live mesh's top-k."""
+    gives the live mesh's top-k. The same ranks then run phase Q2-Q4
+    (``rest_checks``), so 4 ranks start once."""
     t_phase = time.perf_counter()
     work = DATA_DIR / "mesh4"
     res = mesh_ranks(4, work, MESH_RANK_TIMEOUT_S)
@@ -3859,7 +3905,8 @@ def phase_mesh_four(card: str, paths: dict) -> None:
               "each col rank: the col blocks' and the bias's gathers a step, the bias's Adagrad launch a step, "
               "none on the col tables")
     paths["trainer_col_mf"] = {n: sum(r["m4"]["launches"][n] for r in res) for n in WRAPPERS}
-    print(f"phase M4 took {time.perf_counter() - t_phase:.1f} s")
+    rest_checks(card, paths, res)
+    print(f"phase M4 (and Q2-Q4 in its ranks) took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---- phase N: the rest of the CTR zoo and the sequential zoo ----
@@ -4519,7 +4566,405 @@ def phase_long_tail(card: str, paths: dict) -> dict:
     return records
 
 
+
+# ---- phase Q: the rest of the sharded subsystem (the lane-sliced wire,
+# FSDP, IRGAN on a mesh, the port's dry run), int8 serving, step profiles
+# and the matmul precision ----
+
+def lane_config():
+    """``dcn_criteo`` at Criteo's shape (26 fields of 100 000 rows, d=32,
+    the data synthetic) with lane-packed tables: 7 packs of 4 fields (the
+    last of 2), each [100 000, 128]."""
+    cfg = zoo_configs.dcn_criteo(path="criteo")
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, lane_pack=True))
+
+
+def phase_lane_sliced_step(card: str, paths: dict) -> dict:
+    """(Q1) The lane-sliced step at world 1 over NCCL: ``lane_config()``, 8
+    steps of 8192 from one state through ``ShardedTrainStepBuilder`` (every
+    pack on the lane-sliced wire, f32) against the single-device packed
+    step, at the reference's tolerance (tests/test_lane_pack.py:336-353);
+    one gather, Adagrad, v1 forward and backward launch a step; the wire's
+    float buffers d = 32 lanes wide; repeating bit for bit; the gather and
+    Adagrad kernels at the owner's [rps * G, d] view shapes. Returns their
+    records."""
+    t_phase = time.perf_counter()
+    device = init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl", device=DEVICE)
+    try:
+        mesh = make_mesh(-1, 1, device=DEVICE)
+        cfg = lane_config()
+        vocabs = tuple(cfg.data.categorical_vocab_sizes)
+        model = build_model(cfg.model, DataSpec.ctr(vocabs, cfg.data.num_dense_features))
+        k = cfg.train.steps_per_dispatch
+        dense, cat, label = synthetic_ctr(k * BATCH, cfg.data.num_dense_features, vocabs, seed=SEED + 6)
+        batches = [{"dense": to_device(dense[i * BATCH:(i + 1) * BATCH]),
+                    "cat": to_device(cat[i * BATCH:(i + 1) * BATCH]),
+                    "label": to_device(label[i * BATCH:(i + 1) * BATCH])} for i in range(k)]
+        single = TrainStepBuilder(model, cfg.train.loss, cfg.optim)
+        start = single.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+        builder = ShardedTrainStepBuilder(model, cfg.train.loss, cfg.optim, mesh,
+                                          dataclasses.replace(cfg.mesh, a2a_dtype="float32"))
+        lanes = {n: p.lane_groups for n, p in builder.plans.items()}
+        sharded_start = builder.shard_state(copy_state(start))
+        print(f"lane-sliced (Q1): world 1 over {mesh.backend} on {device} ({card}); tables "
+              f"{[(n, tuple(t.shape)) for n, t in start['tables'].items()]}, lane groups {lanes}")
+        check(model.lane_pack and all(g > 1 for g in lanes.values()), "every table is a lane-packed row plan")
+
+        def run(b, state):
+            losses = []
+            for batch in batches:
+                state, metrics = b.step(state, batch)
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            return state, torch.stack(losses)
+
+        want, want_losses = run(single, copy_state(start))
+        wire = []
+        exchange = sharded_embedding._exchange
+
+        def recording(m, bufs):
+            wire.extend(tuple(b.shape) for b in bufs if b.is_floating_point())
+            return exchange(m, bufs)
+
+        sharded_embedding._exchange = recording
+        try:
+            reset_launches()
+            got, losses = run(builder, copy_state(sharded_start))
+            paths["train_lane_sliced"] = read_launches()
+        finally:
+            sharded_embedding._exchange = exchange
+        launches = {n: c for n, c in paths["train_lane_sliced"].items() if c}
+        widths = sorted({s[-1] for s in wire})
+        print(f"lane-sliced (Q1): {k} steps, launches {launches}; the wire's float buffers {sorted(set(wire))} "
+              f"(lanes a key {widths}, the packed row's {cfg.model.embed_dim * 4}); losses "
+              f"{[round(x, 6) for x in losses.tolist()]}")
+        check(launches == {"gather_rows_multi": k, "cross_v1_fwd": k, "cross_v1_bwd": k,
+                           "fused_rowwise_adagrad_multi": k},
+              "the lane-sliced step: one owner gather, Adagrad, v1 forward and backward launch a step, and no other")
+        check(widths == [cfg.model.embed_dim], "the wire carries d lanes a key, never the packed row")
+        pairs = [("tables", got["tables"], want["tables"]),
+                 ("accumulators", {n: s["acc"] for n, s in got["sparse_opt"].items()},
+                  {n: s["acc"] for n, s in want["sparse_opt"].items()}),
+                 ("dense", dict(enumerate(tree_leaves(got["dense"]))), dict(enumerate(tree_leaves(want["dense"]))))]
+        for what, a, b in pairs:
+            err = max(max_err(a[n], b[n]) for n in b)
+            close = all(torch.allclose(a[n], b[n], rtol=LANE_RTOL, atol=LANE_ATOL) for n in b)
+            same = all(torch.equal(a[n], b[n]) for n in b)
+            print(f"lane-sliced (Q1) against the single-device packed step, {what}: max_abs_err {err:.3e}, bit "
+                  f"for bit {same} (rtol {LANE_RTOL}, atol {LANE_ATOL})")
+            check(close, f"the lane-sliced step's {what} match the single-device packed step's")
+        check(torch.allclose(losses, want_losses, rtol=LANE_RTOL), "the lane-sliced losses match")
+        again, again_losses = run(builder, copy_state(sharded_start))
+        check(states_equal(again, got) and torch.equal(again_losses, losses),
+              "the lane-sliced step repeats bit for bit")
+        del want, again, got
+        records = sharded_kernel_checks(builder, copy_state(sharded_start), batches[0], key="lane_sliced")
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"phase Q1 took {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def rest_fsdp(mesh) -> dict:
+    """(Q3, in a rank) ``dcn_criteo`` at Criteo's shape on the (4, 1) mesh,
+    3 steps of 8192 from the single-device init under replicated and FSDP
+    dense params: their losses and logical states, bit for bit; the dense
+    bytes a rank; the FSDP run's launches."""
+    cfg = configs()["v1"]
+    vocabs = tuple(cfg.data.categorical_vocab_sizes)
+    model = build_model(cfg.model, DataSpec.ctr(vocabs, cfg.data.num_dense_features))
+    start = TrainStepBuilder(model, cfg.train.loss, cfg.optim).init_state(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    dense, cat, label = synthetic_ctr(REST_STEPS * BATCH, cfg.data.num_dense_features, vocabs, seed=SEED + 7)
+    b, lo = BATCH // mesh.size, mesh.data_index * (BATCH // mesh.size)
+    batches = [{"dense": to_device(dense[i * BATCH + lo:i * BATCH + lo + b]),
+                "cat": to_device(cat[i * BATCH + lo:i * BATCH + lo + b]),
+                "label": to_device(label[i * BATCH + lo:i * BATCH + lo + b])} for i in range(REST_STEPS)]
+    out, logical = {}, {}
+    for sharding in ("replicated", "fsdp"):
+        builder = ShardedTrainStepBuilder(model, cfg.train.loss, cfg.optim, mesh,
+                                          dataclasses.replace(cfg.mesh, dense_sharding=sharding))
+        state = builder.shard_state(copy_state(start))
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for batch in batches:
+            state, metrics = builder.step(state, batch)
+            losses.append(metrics["loss"].item())
+        seconds = time.perf_counter() - t0
+        leaves = tree_leaves(state["dense"]) + [x for k, v in state["dense_opt"].items() if k != "count"
+                                                for x in tree_leaves(v)]
+        out[sharding] = {"losses": losses, "launches": read_launches(), "seconds": seconds,
+                         "dense_bytes": sum(x.numel() * x.element_size() for x in leaves),
+                         "split": sum(a is not None for a in (builder._dense_axes or [])),
+                         "leaves": len(tree_leaves(state["dense"]))}
+        logical[sharding] = builder.logical_state(state)
+    out["bitwise"] = states_equal(logical["fsdp"], logical["replicated"])
+    return out
+
+
+def rest_irgan(mesh) -> dict:
+    """(Q4, in a rank) irgan_ml100k's model (d=64, six tables, a pool of 16)
+    on the (4, 1) mesh, 3 steps of 1024 from the single-device init; rank 0
+    also takes the 3 steps on one card from the same state (the same step
+    generator, so the same Gumbel draw of the global batch): the errors of
+    the losses, tables and accumulators. The accumulators start at
+    IRGAN_ADAGRAD_INIT, not the config's 0: from 0 Adagrad's first update
+    of a row is lr whatever its gradient's size, which turns the rounding
+    of a REINFORCE row whose terms cancel (the global baseline summed over
+    ranks in another order) into up to lr (phase P sets such rows apart
+    instead)."""
+    cfg = zoo_configs.irgan_ml100k()
+    users, items, k = cfg.data.num_users, cfg.data.num_items, cfg.train.num_negatives
+    model = build_model(cfg.model, DataSpec.interaction(users, items))
+    kw = dict(l2_reg=cfg.model.l2_reg, seed=cfg.train.seed)
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, adagrad_init=IRGAN_ADAGRAD_INIT))
+    single = TrainStepBuilder(model, "irgan", cfg.optim, **kw)
+    start = single.init_state(torch.Generator(device=DEVICE).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 8)
+    big = cfg.train.batch_size
+    batches = [{"user": rng.integers(0, users, big).astype(np.int32),
+                "pos": rng.integers(0, items, big).astype(np.int32),
+                "negs": rng.integers(0, items, (big, k)).astype(np.int32)} for _ in range(REST_STEPS)]
+    b, lo = big // mesh.size, mesh.data_index * (big // mesh.size)
+    builder = ShardedTrainStepBuilder(model, "irgan", cfg.optim, mesh, MeshConfig(a2a_dtype="float32"), **kw)
+    state = builder.shard_state(copy_state(start))
+    reset_launches()
+    losses = []
+    for batch in batches:
+        state, metrics = builder.step(state, {n: to_device(v[lo:lo + b]) for n, v in batch.items()})
+        losses.append(metrics["loss"].item())
+    out = {"losses": losses, "launches": read_launches(), "tables": len(state["tables"])}
+    logical = builder.logical_state(state)
+    if mesh.rank == 0:
+        want, want_losses = copy_state(start), []
+        for batch in batches:
+            want, metrics = single.step(want, {n: to_device(v) for n, v in batch.items()})
+            want_losses.append(metrics["loss"].item())
+        out["want_losses"] = want_losses
+        out["table_err"] = max(max_err(logical["tables"][n], t) for n, t in want["tables"].items())
+        out["acc_err"] = max(max_err(logical["sparse_opt"][n]["acc"], s["acc"])
+                             for n, s in want["sparse_opt"].items())
+        out["close"] = all(
+            torch.allclose(logical["tables"][n], t, rtol=IRGAN_RTOL, atol=IRGAN_ATOL)
+            and torch.allclose(logical["sparse_opt"][n]["acc"], want["sparse_opt"][n]["acc"], rtol=IRGAN_RTOL,
+                               atol=IRGAN_ATOL) for n, t in want["tables"].items())
+    return out
+
+
+def rest_work(out: dict) -> None:
+    """(Q2-Q4, in one of M4's 4 ranks, after M4) the port's dry run of every
+    mode (Q2), FSDP against replicated dense params (Q3) and IRGAN's
+    sharded steps (Q4), on the ranks' own meshes: the results under
+    ``out["rest"]``."""
+    reset_launches()
+    t0 = time.perf_counter()
+    checks, losses = dryrun.run_modes(REST_RANKS, DEVICE)
+    torch.cuda.synchronize()
+    rest = {"dryrun": {"checks": checks, "losses": losses, "launches": read_launches(),
+                       "seconds": time.perf_counter() - t0}}
+    mesh = make_mesh(-1, 1, device=DEVICE)
+    t0 = time.perf_counter()
+    rest["fsdp"] = rest_fsdp(mesh)
+    rest["fsdp"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rest["irgan"] = rest_irgan(mesh)
+    rest["irgan"]["phase_s"] = time.perf_counter() - t0
+    out["rest"] = rest
+
+
+def rest_checks(card: str, paths: dict, ranks: list) -> None:
+    """(Q2-Q4) the results of M4's spawn of 4 ranks sharing the card over
+    gloo: (Q2) the port's ``dryrun_multichip`` modes on a (2, 2) mesh,
+    every one ok and gspmd said not ported; (Q3) FSDP bit for bit the
+    replicated dense params at ``dcn_criteo``'s full width, at least one
+    leaf split, the dense bytes a rank; (Q4) IRGAN's sharded steps against
+    the single-card steps. Launches counted a path, every rank's summed."""
+    res = [r["rest"] for r in ranks]
+    dry = res[0]["dryrun"]
+    line = f"dryrun_multichip({REST_RANKS}): " + "; ".join(dry["checks"])
+    print(f"dry run (Q2), 4 ranks over gloo sharing the card ({card}), {dry['seconds']:.1f} s: {line}")
+    tags = [t for t, *_ in dryrun.modes(2)]
+    check(all(f"{t} ok loss=" in line for t in tags) and "gspmd not ported" in line and "gspmd ok" not in line
+          and line.endswith("sharded_topk ok"), "the dry run: every mode ok, gspmd not ported, the top-k ok")
+    check(all(r["dryrun"]["losses"] == dry["losses"] for r in res), "every rank's dry-run losses are the same")
+    paths["dryrun_4_ranks"] = {n: sum(r["dryrun"]["launches"][n] for r in res) for n in WRAPPERS}
+    fs = res[0]["fsdp"]
+    rep, fsdp = fs["replicated"], fs["fsdp"]
+    print(f"FSDP (Q3): dcn_criteo at Criteo's shape on 4 ranks, {REST_STEPS} steps of {BATCH}: {fsdp['split']} of "
+          f"{fsdp['leaves']} dense leaves split; dense params and moments a rank {fsdp['dense_bytes']} bytes "
+          f"against {rep['dense_bytes']} replicated; losses {fsdp['losses']} (replicated {rep['losses']}); "
+          f"bit for bit the replicated run: {fs['bitwise']}; {fsdp['seconds']:.2f} s against {rep['seconds']:.2f} s "
+          f"(host clock, gloo staging; {card})")
+    check(all(r["fsdp"]["bitwise"] for r in res) and fsdp["losses"] == rep["losses"],
+          "FSDP is bit for bit the replicated step")
+    check(fsdp["split"] >= 1 and fsdp["dense_bytes"] < rep["dense_bytes"], "FSDP splits dense leaves")
+    paths["train_fsdp"] = {n: sum(r["fsdp"]["fsdp"]["launches"][n] for r in res) for n in WRAPPERS}
+    check(all(r["fsdp"]["fsdp"]["launches"]["gather_rows_multi"] == REST_STEPS
+              and r["fsdp"]["fsdp"]["launches"]["fused_rowwise_adagrad_multi"] == REST_STEPS for r in res),
+          "each FSDP rank: one gather and one Adagrad launch a step")
+    ir = res[0]["irgan"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(ir["losses"], ir["want_losses"])]
+    print(f"IRGAN (Q4): irgan_ml100k's model on 4 ranks, {REST_STEPS} steps of "
+          f"{zoo_configs.irgan_ml100k().train.batch_size}: losses {ir['losses']} against one card's "
+          f"{ir['want_losses']} (relative gap {max(gaps):.2e}); tables max_abs_err {ir['table_err']:.3e}, "
+          f"accumulators {ir['acc_err']:.3e} (rtol {IRGAN_RTOL}, atol {IRGAN_ATOL}); rank 0's launches "
+          f"{ {n: c for n, c in ir['launches'].items() if c} }")
+    check(ir["close"] and max(gaps) <= IRGAN_RTOL, "IRGAN's sharded steps match the single-card steps")
+    check(all(r["irgan"]["launches"]["gather_rows_multi"] == REST_STEPS for r in res),
+          "each IRGAN rank: one gather launch a step")
+    paths["train_irgan_sharded"] = {n: sum(r["irgan"]["launches"][n] for r in res) for n in WRAPPERS}
+    print(f"Q2-Q4 took {dry['seconds'] + res[0]['fsdp']['phase_s'] + res[0]['irgan']['phase_s']:.1f} s in rank 0 "
+          f"(Q2 {dry['seconds']:.1f} s, Q3 {res[0]['fsdp']['phase_s']:.1f} s, Q4 {res[0]['irgan']['phase_s']:.1f} s), "
+          "inside M4's spawn")
+
+
+def peak_bytes(fn) -> int:
+    """Device memory ``fn`` allocated at its peak, above what was held before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+def phase_int8_serving(card: str, paths: dict) -> None:
+    """(Q5) ``Recommender(quantize=True)``: MF at bench.py's shape (1M items,
+    d=64), ``recommend`` of 1024 users, k=100: one gather launch a call; its
+    ids and values a plain top-k of the dequantized scores (ids where
+    untied); the int8 table a quarter of the f32 bytes; its overlap with the
+    f32 top-k, peak memory and latency beside the f32 call's."""
+    t_phase = time.perf_counter()
+    model = MF(DataSpec.interaction(MF_ROWS, MF_ROWS), MF_DIM)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 9), DEVICE)
+    f32 = Recommender(model, params)
+    quant = Recommender(model, params, quantize=True)
+    qt = quant._quant
+    f32_bytes = params["tables"]["item_emb"].numel() * 4
+    int8_bytes = qt.values.numel() * qt.values.element_size()
+    users = np.random.default_rng(SEED + 10).integers(0, MF_ROWS, TOPK_USERS).astype(np.int32)
+    reset_launches()
+    ids, vals = quant.recommend(users, TOPK_K)
+    paths["serve_int8"] = launches = read_launches()
+    check(launches["gather_rows_multi"] == 1 and sum(launches.values()) == 1,
+          "the int8 recommend ran one gather launch, and no other")
+    f_ids, _ = f32.recommend(users, TOPK_K)
+    overlap = float(np.mean([len(set(a) & set(b)) / TOPK_K for a, b in zip(ids, f_ids)]))
+    u = params["tables"]["user_emb"][to_device(users).long()]
+    deq = qt.values.to(torch.float32) * qt.scales[:, None]
+    scores = torch.matmul(u, deq.T) + params["tables"]["item_bias"][:, 0][None, :]
+    top = torch.topk(scores, TOPK_K)
+    same, near = untied_equal(ids, vals, top.indices.cpu().numpy(), top.values.cpu().numpy(), QUANT_RTOL)
+    del deq, scores, top, u
+    peaks = {"f32": peak_bytes(lambda: f32.recommend(users, TOPK_K)),
+             "int8": peak_bytes(lambda: quant.recommend(users, TOPK_K))}
+    medians = medians_in_turns({"f32": lambda: f32.recommend(users, TOPK_K),
+                                "int8": lambda: quant.recommend(users, TOPK_K)})
+    print(f"int8 serving (Q5): MF {MF_ROWS} items, d={MF_DIM}; item table int8 {int8_bytes} bytes (+ scales "
+          f"{qt.scales.numel() * 4}) against f32 {f32_bytes}; recommend {TOPK_USERS} users, k={TOPK_K}: launches "
+          f"{ {n: c for n, c in launches.items() if c} }; a plain top-k of the dequantized scores: {same} ({near} "
+          f"near-tied places, rtol {QUANT_RTOL}); overlap with the f32 top-k {overlap:.4f}; peak memory of a call "
+          f"int8 {peaks['int8']} bytes, f32 {peaks['f32']} bytes; latency (host clock, median in turns) int8 "
+          f"{medians['int8']:.3f} ms, f32 {medians['f32']:.3f} ms ({card})")
+    check(int8_bytes * 4 == f32_bytes and qt.values.dtype == torch.int8, "the int8 table is a quarter of the f32 bytes")
+    check(ids.shape == (TOPK_USERS, TOPK_K) and bool(np.isfinite(vals).all()) and same,
+          "the int8 recommend is a top-k of the int8 table's scores")
+    check(overlap >= QUANT_MIN_OVERLAP, f"the int8 top-k overlaps the f32 top-k by at least {QUANT_MIN_OVERLAP}")
+    print(f"phase Q5 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def count_window_launches(profiler, name: str) -> dict:
+    """Counts ``name``'s wrapper launches while ``profiler``'s trace is
+    open: the count at the window's start, taken from the count at its
+    close, into the returned dict's "launches" (the wrappers' own counts run
+    on for the path)."""
+    window = {}
+    wrapper, open_step, close = WRAPPERS[name], profiler.step, profiler.close
+
+    def step(step_idx):
+        was_open = profiler.active
+        open_step(step_idx)
+        if profiler.active and not was_open:
+            window["start"] = wrapper.launches
+
+    def closing():
+        if profiler.active:
+            window["launches"] = wrapper.launches - window["start"]
+        close()
+
+    profiler.step, profiler.close = step, closing
+    return window
+
+
+def profile_checks(card: str, trainer, cfg, window: dict) -> None:
+    """(Q6) the trace of ``train.profile_steps=(8, 16)`` over dispatches of
+    8 steps: one ``train_step`` range on the host (the card's copy of it
+    aside), the dispatch that starts at step 8, and its launches of the
+    gather kernel: exactly 8 by the wrapper's count inside the window
+    (``window``, from ``count_window_launches``), and in the trace at least
+    one of ``gather_rows_multi``'s ``gather_rows_kernel`` events and no more
+    than those 8. The profiler of a long process may lose a short kernel's
+    event (PERF.md §7): the lost ones are counted."""
+    events = json.loads(Path(trainer.profiler.path).read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    gathers = sum("gather_rows_kernel" in n for n in kernels)
+    ranges = sum(e.get("name") == "train_step" and e.get("cat") == "user_annotation" for e in events)
+    k = cfg.train.steps_per_dispatch
+    print(f"profile window (Q6): profile_steps={PROFILE_WINDOW} over dispatches of {k}: trace "
+          f"{os.path.getsize(trainer.profiler.path)} bytes, {ranges} train_step range(s), {len(kernels)} kernel "
+          f"events, {gathers} gather_rows_kernel events of the window's {window.get('launches')} "
+          f"gather_rows_multi launches by its count ({window.get('launches', 0) - gathers} events lost) ({card})")
+    check(window.get("launches") == k, f"the window's dispatch launched gather_rows_multi {k} times, by its count")
+    check(ranges == 1 and 1 <= gathers <= k, "the trace holds the window's dispatch only, with its gather kernels")
+
+
+def phase_profile_and_precision(card: str, paths: dict) -> None:
+    """(Q6-Q7) the proxy run at ``train.matmul_precision="default"``, its
+    window ``PROFILE_WINDOW`` profiled (Q6, ``profile_checks``), and at
+    "bfloat16" in the proxy band (Q7): AUC, examples/s and the step's host
+    median in turns (the precision set before each step)."""
+    t_phase = time.perf_counter()
+    base = trainer_configs()["proxy"]
+    trainers, finals = {}, {}
+    try:
+        for name in ("default", "bfloat16"):
+            train = dataclasses.replace(base.train, matmul_precision=name,
+                                        profile_steps=PROFILE_WINDOW if name == "default" else None)
+            cfg = dataclasses.replace(base, train=train)
+            trainers[name] = trainer = Trainer(cfg, quiet=True)
+            trainer.profiler.out_dir = str(DATA_DIR / "trace")
+            window = count_window_launches(trainer.profiler, "gather_rows_multi")
+            reset_launches()
+            finals[name] = trainer.train()[-1]
+            paths["trainer_profiled" if name == "default" else "trainer_proxy_bf16"] = read_launches()
+            if name == "default":
+                profile_checks(card, trainer, cfg, window)
+        batch = trainers["default"]._to_device_batch(next(trainers["default"].sampler.epoch(0)))
+
+        def stepper(name):
+            trainer = trainers[name]
+
+            def step():
+                set_matmul_precision(name)
+                trainer.builder.step(trainer.state, batch)
+            return step
+
+        medians = medians_in_turns({name: stepper(name) for name in trainers})
+    finally:
+        set_matmul_precision("default")
+    print(f"bf16 proxy (Q7): dcn_criteo() proxy, 300000 examples, 1 epoch: bfloat16 auc "
+          f"{finals['bfloat16']['auc']:.6f} logloss {finals['bfloat16']['logloss']:.6f} examples_per_s "
+          f"{finals['bfloat16']['examples_per_s']:.1f}; default (profiled over its window) auc "
+          f"{finals['default']['auc']:.6f} examples_per_s {finals['default']['examples_per_s']:.1f}; band "
+          f"{PROXY_AUC_BAND}; train step of {BATCH} (host clock, median in turns) bfloat16 "
+          f"{medians['bfloat16']:.3f} ms, default {medians['default']:.3f} ms; launches "
+          f"{ {n: c for n, c in paths['trainer_proxy_bf16'].items() if c} } ({card})")
+    check(PROXY_AUC_BAND[0] <= finals["bfloat16"]["auc"] <= PROXY_AUC_BAND[1], "the bf16 proxy AUC lies in its band")
+    print(f"phase Q6-Q7 took {time.perf_counter() - t_phase:.1f} s")
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -4593,6 +5038,14 @@ def main() -> int:
         long_tail = phase_long_tail(card, paths)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+    t_q = time.perf_counter()
+    lane_records = phase_lane_sliced_step(card, paths)
+    phase_int8_serving(card, paths)
+    try:
+        phase_profile_and_precision(card, paths)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    print(f"phase Q took {time.perf_counter() - t_q:.1f} s (Q2-Q4 inside phase M4)")
     for r in records:
         if r["name"] == GROUPED:  # the Adagrad kernel's launches on the packed paths
             by_path = {path: paths[path]["fused_rowwise_adagrad_multi"] for path in GROUPED_PATHS}
@@ -4610,6 +5063,8 @@ def main() -> int:
         r.update(zoo_records.get(r["name"], {}))  # phase N's 52 tables and sequential steps
         r.update(history_graph.get(r["name"], {}))  # phase O's FISM and Mult-VAE steps
         r.update(long_tail.get(r["name"], {}))  # phase P's SBPR and IRGAN steps, EASE's predict
+        r.update(lane_records.get(r["name"], {}))  # phase Q1's owner gather and update on the lane views
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s in all (the kernels' build included; {card})")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

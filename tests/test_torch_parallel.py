@@ -128,9 +128,22 @@ def _cpu_mesh(size=1, rank=0):
     ("lane-packed", lambda m: ShardedTrainStepBuilder(
         _ctr_model(lane_pack=True), "logloss", OptimConfig(), m, MeshConfig())),
 ])
-def test_the_remainder_of_item_11_is_refused_by_name(what, build):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        build(_cpu_mesh())
+def test_fsdp_and_lane_packed_tables_build_on_a_mesh(what, build):
+    """FSDP and the lane-sliced wire build (tests/test_torch_sharded_rest.py
+    holds their steps against JAX's): on one rank of 2, an FSDP state holds
+    half of each split dense leaf, a lane-packed table's plan its lane
+    groups; building runs no collective."""
+    builder = build(_cpu_mesh(2, 1))
+    state = builder.init_state(torch.Generator().manual_seed(0))
+    if what == "fsdp":
+        whole = builder.model.init_dense(torch.Generator().manual_seed(0), "cpu")
+        blocks = [(b.shape, w.shape) for b, w in zip(jax.tree.leaves(_np(state["dense"])),
+                                                     jax.tree.leaves(_np(whole)))]
+        assert any(b != w for b, w in blocks) and all(np.prod(b) * 2 in (np.prod(w), 2 * np.prod(w))
+                                                      for b, w in blocks)
+    else:
+        assert {p.lane_groups for p in builder.plans.values()} == {4}
+        assert all(t.shape[0] == builder.plans[k].rows_per_shard for k, t in state["tables"].items())
 
 
 def test_gspmd_is_refused_as_never_ported():

@@ -604,8 +604,9 @@ def test_recommender_from_trainer_and_refusals():
     np.testing.assert_array_equal(served.recommend([1, 2], 5)[0], rec.recommend([1, 2], 5)[0])
     no_data = Recommender(rec.model, rec.params, device="cpu")
     assert no_data._num_items() == NUM_ITEMS and no_data._train_exclusions([1]) == (None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        Recommender(rec.model, rec.params, device="cpu", quantize=True)
+    quant = Recommender(rec.model, rec.params, dataset=rec.dataset, device="cpu", quantize=True)
+    assert quant._quant.values.dtype == torch.int8
+    np.testing.assert_array_equal(quant.recommend([1, 2], 5)[0], rec.recommend([1, 2], 5)[0])
     for kw in ({"mesh": object()}, {"state": {}}):  # a live sharded state needs its layout
         with pytest.raises(ValueError, match="takes mesh=, state= and the builder="):
             Recommender(rec.model, rec.params, device="cpu", **kw)

@@ -426,16 +426,22 @@ def test_irgan_warm_starts_from_an_mf_checkpoint(tmp_path, no_tensorboard):
     assert got == want and len(got[0]["copied"]) == 6 and got[0]["skipped"] == []
 
 
-def test_irgan_is_refused_on_the_mesh_path_and_pools_are_required(monkeypatch):
+def test_irgan_takes_the_mesh_path_and_pools_are_required(monkeypatch):
+    """On 2 ranks IRGAN trains through the sharded step (its noise and
+    baseline the global batch's: tests/test_torch_sharded_rest.py holds the
+    steps against JAX's); building it runs no collective."""
+    from tfrec_tpu_torch.parallel.mesh import Mesh
+    from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
     from tfrec_tpu_torch.train import trainer as trainer_mod
 
     monkeypatch.setattr(trainer_mod, "world_size", lambda: 2)
-    monkeypatch.setattr(trainer_mod, "make_mesh", lambda *a: type("M", (), {
-        "device": torch.device("cpu"), "data_index": 0, "size": 2, "rank": 0})())
+    monkeypatch.setattr(trainer_mod, "make_mesh", lambda *a: Mesh(
+        shape={"data": 2, "table": 1}, rank=0, device=torch.device("cpu"), backend="gloo"))
     cfg = _config(configs, "irgan")
     cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, data_axis_size=-1))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        Trainer(cfg, quiet=True, device="cpu")
+    trainer = Trainer(cfg, quiet=True, device="cpu")
+    assert isinstance(trainer.builder, ShardedTrainStepBuilder) and trainer.loss_name == "irgan"
+    assert trainer.builder.loss_fn.keywords["batch_mean"] == trainer.builder._global_mean
     port, _, _, params = _pair("irgan")
     batch = {"user": torch.zeros(2, dtype=torch.int32), "pos": torch.zeros(2, dtype=torch.int32)}
     with pytest.raises(ValueError, match="explicit negative pools"):

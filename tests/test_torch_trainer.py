@@ -253,21 +253,45 @@ def test_trainer_logs_an_empty_epoch_and_a_dispatch_past_the_step_cap():
         Trainer(_config(configs, "dcn", batch_size=4096), quiet=True, device="cpu").train()
 
 
-@pytest.mark.parametrize("section,override,match", [
-    ("train", {"profile_steps": (0, 1)}, "item 10"),
-    ("train", {"profile_steps": (1, 2)}, "item 10"),
-    ("train", {"matmul_precision": "bfloat16"}, "item 5"),
-    ("train", {"matmul_precision": "highest"}, "item 5"),
+@pytest.mark.parametrize("section,override,check", [
+    ("train", {"profile_steps": (0, 1)}, "trace"),
+    ("train", {"profile_steps": (1, 2), "steps_per_dispatch": 1}, "trace"),
+    ("train", {"matmul_precision": "bfloat16"}, "bfloat16"),
+    ("train", {"matmul_precision": "highest"}, "highest"),
 ])
-def test_trainer_refuses_what_is_not_ported_by_naming_its_item(section, override, match):
-    cfg = _config(configs, "dcn")
-    override = dict(override)
-    for other in ("data", "model"):  # the sections of another data path, where given
-        if other in override:
-            cfg = cfg.replace(**{other: dataclasses.replace(getattr(cfg, other), **override.pop(other))})
+def test_trainer_takes_profile_steps_and_matmul_precision(section, override, check, tmp_path,
+                                                          monkeypatch):
+    """``train.profile_steps`` traces its window: the dispatches whose first
+    step lies in [start, stop), one ``train_step`` range each (the second
+    dispatch of 2 steps starts at step 2, so (1, 2) needs dispatches of 1);
+    ``train.matmul_precision`` is set for the process ("highest" is the
+    default's f32 arithmetic: the same history bit for bit)."""
+    import tempfile
+
+    from tfrec_tpu_torch.ops import precision
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    cfg = _config(configs, "dcn", epochs=1)
     cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **override)})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {match}"):
-        Trainer(cfg, quiet=True, device="cpu")
+    trainer = Trainer(cfg, quiet=True, device="cpu")
+    history = trainer.train()
+    assert np.isfinite(history[-1]["loss"])
+    if check == "trace":
+        start, stop = override["profile_steps"]
+        path = tmp_path / "tfrec_trace" / f"trace_{start}_{stop}.json"
+        assert trainer.profiler.path == str(path) and not trainer.profiler.active
+        events = json.loads(path.read_text())["traceEvents"]
+        assert sum(e.get("name") == "train_step" and e.get("cat") == "user_annotation" for e in events) == 1
+        return
+    assert precision.current()["bf16_operands"] == (check == "bfloat16")
+    default = Trainer(_config(configs, "dcn", epochs=1), quiet=True, device="cpu")
+    assert not precision.current()["bf16_operands"]
+    want = default.train()
+    if check == "highest":
+        assert [dict(h, examples_per_s=0) for h in history] == [dict(w, examples_per_s=0) for w in want]
+    else:
+        assert history[-1]["loss"] != want[-1]["loss"]
+        np.testing.assert_allclose(history[-1]["loss"], want[-1]["loss"], rtol=0.05)
 
 
 def test_trainer_and_run_default_to_cuda(monkeypatch):

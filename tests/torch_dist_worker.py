@@ -1,6 +1,7 @@
 """Rank processes for the port's sharded tests (tests/test_torch_parallel.py,
 tests/test_torch_sharded_trainer.py, tests/test_torch_colshard.py,
-tests/test_torch_mesh_retrieval.py, tests/test_torch_closed_form.py): ``run_ranks`` starts N processes of
+tests/test_torch_mesh_retrieval.py, tests/test_torch_closed_form.py,
+tests/test_torch_sharded_rest.py): ``run_ranks`` starts N processes of
 this file on the CPU, joined in one gloo group, each running one job (a
 function below) on a pickled spec, and returns rank 0's pickled result. A
 job gets the mesh of the spec's ``table_axis`` (default 1) over the N
@@ -198,11 +199,11 @@ def job_trainer(spec, mesh):
             shutil.copytree(*copy)
         mesh.barrier()
         trainer = Trainer(cfg, quiet=True, device="cpu")
-        restored = _unshard(trainer.state, trainer.builder.plans)
+        restored = _np(trainer.builder.logical_state(trainer.state))
         history = trainer.train()
         out[name] = {"history": history, "start_epoch": trainer.start_epoch, "restored": restored,
-                     "state": _unshard(trainer.state, trainer.builder.plans),
-                     "mesh": dict(trainer.mesh.shape)}
+                     "state": _np(trainer.builder.logical_state(trainer.state)),
+                     "mesh": dict(trainer.mesh.shape), "dense_params": _np(trainer.params["dense"])}
         if name in spec.get("serve", {}):  # the params and recommend of the live mesh
             from tfrec_tpu_torch.serve import Recommender
 
@@ -372,8 +373,108 @@ def job_als(spec, mesh):
     return out
 
 
+def _builder_steps(spec, mesh, mesh_kw, model=None, state_key="state"):
+    """``spec``'s batches (global) through the sharded builder with
+    ``mesh_kw`` from ``spec[state_key]`` -> {"state" (global, logical),
+    "losses", "overflow"}."""
+    import torch
+
+    from tfrec_tpu_torch.configs import MeshConfig, OptimConfig
+    from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
+
+    r, n = mesh.data_index, mesh.size
+    builder = ShardedTrainStepBuilder(model or _model(spec), spec["loss"], OptimConfig(**spec["optim"]),
+                                      mesh, MeshConfig(**mesh_kw), l2_reg=spec.get("l2_reg", 0.0),
+                                      seed=spec.get("seed", 0))
+    state = builder.shard_state(_tensors(spec[state_key]))
+    losses, overflow = [], []
+    for batch in spec["batches"]:
+        local = {k: torch.from_numpy(_rows(v, r, n)) for k, v in batch.items()}
+        state, metrics = builder.step(state, local)
+        losses.append(float(metrics["loss"]))
+        overflow.append(int(metrics["lookup_overflow"]))
+    return {"state": _np(builder.logical_state(state)), "losses": losses, "overflow": overflow,
+            "builder": builder, "live": state}
+
+
+def job_rest(spec, mesh):
+    """The lane-sliced wire (lookup and update under each optimizer and
+    wire, the float buffers it exchanges, 3 packed DCN steps under each
+    exchange option), FSDP against replicated dense params, and IRGAN's
+    sharded steps with the Gumbel draws of the spec."""
+    import torch
+
+    from tfrec_tpu_torch.ops.sparse_optim import make_sparse_optimizer
+    from tfrec_tpu_torch.parallel import embedding
+    from tfrec_tpu_torch.parallel.step import ShardedTrainStepBuilder
+
+    r, n = mesh.data_index, mesh.size
+    out = {}
+    widths = []
+    exchange = embedding._exchange
+
+    def recording(m, bufs):  # the float buffers' shapes, [F, N, C, lanes]
+        widths.extend(tuple(b.shape) for b in bufs if b.is_floating_point())
+        return exchange(m, bufs)
+
+    embedding._exchange = recording
+    t = spec["lanes"]["table"]
+    ids, slots = torch.from_numpy(_rows(t["ids"], r, n)), torch.from_numpy(_rows(t["slots"], r, n))
+    table = torch.from_numpy(t["table"])
+    for wire in ("float32", "bfloat16"):
+        plan = embedding.RowShardedTable(mesh, t["vocab"], t["dim"], lane_groups=t["groups"],
+                                         wire_dtype=torch.bfloat16 if wire == "bfloat16" else None)
+        rows, ovf, _ = embedding.exchange_lookup(mesh, [plan], [plan.shard_rows(table)], [ids], [slots])
+        out[f"lookup_{wire}"] = (_np(mesh.all_gather(rows[0])), int(ovf))
+        for opt_name in t["optimizers"] if wire == "float32" else ("rowwise_adagrad",):
+            opt = make_sparse_optimizer(opt_name, adagrad_init=0.05)
+            state = opt.init(table.clone(), lane_groups=t["groups"])
+            new_t, new_s, ovf = embedding.exchange_update(
+                mesh, [plan], [plan.shard_rows(table)], [{k: plan.shard_rows(v) for k, v in state.items()}],
+                [ids], [torch.from_numpy(_rows(t["grads"], r, n))], opt, 0.1, slots=[slots])
+            out[f"update_{opt_name}_{wire}"] = (
+                _np(plan.unshard_rows(new_t[0])),
+                _np({k: plan.unshard_rows(v) for k, v in new_s[0].items()}), int(ovf))
+    out["table_wire"] = sorted(set(widths))
+    widths.clear()
+    for name, steps in spec["lanes"]["steps"].items():
+        for variant, mesh_kw in steps["variants"].items():
+            run = _builder_steps(steps, mesh, mesh_kw)
+            out[f"{name}_{variant}"] = {k: run[k] for k in ("state", "losses", "overflow")}
+            out[f"{name}_{variant}"]["lanes"] = {s.name: s.lane_groups for s in run["builder"].model.table_specs()}
+            out[f"{name}_{variant}"]["plans"] = {k: type(p).__name__ for k, p in run["builder"].plans.items()}
+        out[f"{name}_wire"] = sorted(set(widths))
+        widths.clear()
+    embedding._exchange = exchange
+    f = spec["fsdp"]
+    for sharding in ("replicated", "fsdp"):
+        run = _builder_steps(f, mesh, dict(a2a_dtype="float32", dense_sharding=sharding))
+        live = run["live"]
+        out[f"fsdp_{sharding}"] = {
+            "state": run["state"], "losses": run["losses"],
+            "dense_bytes": sum(x.numel() * x.element_size() for x in _leaves(live["dense"])),
+            "split": sum(a is not None for a in (run["builder"]._dense_axes or [])),
+            "params": _np(run["builder"].dense_params(live))}
+    g = spec["irgan"]
+    model = _model(g)
+    draws = iter(torch.from_numpy(d) for d in g["draws"])
+    model.gumbel = lambda shape, generator, device: next(draws)
+    run = _builder_steps(g, mesh, dict(a2a_dtype="float32"), model=model)
+    out["irgan"] = {k: run[k] for k in ("state", "losses", "overflow")}
+    assert isinstance(run["builder"], ShardedTrainStepBuilder)
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 JOBS = {"parallel": job_parallel, "trainer": job_trainer, "colshard": job_colshard,
-        "retrieval": job_retrieval, "als": job_als}
+        "retrieval": job_retrieval, "als": job_als, "rest": job_rest}
 
 
 def main(job, rank, world, port, spec_path, out_path) -> None:

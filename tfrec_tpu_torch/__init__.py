@@ -11,10 +11,11 @@ Ported so far (serving, training and evaluating ``zoo_configs.dcn_criteo``,
 as DCN-v1 and as low-rank DCN-v2; retrieval, ``zoo_configs.mf_bpr_ml100k``,
 MF + BPR trained, ranked over the full catalog and served as top-k; FM over
 multi-field interaction data, ``fm_ctr_ml1m``; NeuMF with the
-sampled-candidate eval, ``neumf_ml20m``; config 5's row-sharded tables
-on N ranks, ``dcn_multihost``; the rest of the CTR zoo, the sequential,
-history and graph zoos, and the long tail: every model and zoo config of
-the reference):
+sampled-candidate eval, ``neumf_ml20m``; config 5's sharded tables and
+dense params on N ranks, ``dcn_multihost``; the rest of the CTR zoo, the
+sequential, history and graph zoos, and the long tail: every model, zoo
+config and module of the reference, but ``table_sharding="gspmd"`` and
+the non-ports ROADMAP.md lists with their reasons):
 
 - ``configs`` (with ``with_overrides``), ``zoo_configs.mf_bpr_ml100k``,
   ``fm_ctr_ml1m``, ``neumf_ml20m``, ``dcn_criteo``, ``dcn_multihost``,
@@ -33,8 +34,10 @@ the reference):
   (``build_sequences``, ``build_history``, ``SBPRSampler``; the trust
   graph on the dataset);
 - ``ops.embedding`` (table specs, seeded init, clip-semantics gather, the
-  duplicate-id combine per table, batched, flat, or from the host's sorts)
-  and ``ops.sparse_optim`` (with lane-grouped state);
+  duplicate-id combine per table, batched, flat, or from the host's sorts),
+  ``ops.sparse_optim`` (with lane-grouped state), ``ops.quantize`` (int8
+  item tables for serving) and ``ops.precision``
+  (``train.matmul_precision``);
 - ``kernels``: the row gather, the DCN-v1 and low-rank DCN-v2 cross stacks
   (forward and backward) and the fused rowwise-Adagrad update (lane-grouped
   rows too);
@@ -50,7 +53,8 @@ the reference):
   port's state as the JAX package's checkpoint keys and back;
 - ``utils.checkpoint``: checkpoints in the JAX package's on-disk layout
   (save, resume and warm starts in the trainer; serving from disk by
-  ``Recommender.from_checkpoint``);
+  ``Recommender.from_checkpoint``); ``utils.profile`` (step profiles on
+  ``torch.profiler``);
 - ``serve.Recommender`` (``predict``, ``predict_ctr``, ``score_catalog``,
   ``recommend``), ``train.step.TrainStepBuilder`` (with device negatives,
   the batched duplicate combine and the host's dedup sorts),
@@ -58,8 +62,10 @@ the reference):
   objective);
 - ``parallel``: ``mesh`` (process groups: NCCL, gloo, gloo over CUDA
   tensors for ranks sharing a card; the collectives), ``embedding``
-  (row-sharded tables: the all-to-all lookup and gradient combine) and
-  ``step`` (``ShardedTrainStepBuilder``);
+  (row-sharded tables: the all-to-all lookup and gradient combine, the
+  lane-sliced wire; column-sharded tables), ``step``
+  (``ShardedTrainStepBuilder``, FSDP dense params), ``eval`` and ``topk``
+  (retrieval on a mesh) and ``dryrun`` (the multi-rank dry run);
 - ``train.trainer.Trainer`` and ``run`` on one device or on N ranks (CTR
   data, row-sharded tables), with ``eval.metrics``
   (ranking metrics, ``auc``, ``logloss``), ``eval.retrieval`` (masking,

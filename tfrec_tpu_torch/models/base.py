@@ -127,6 +127,13 @@ class RecModel(nn.Module, abc.ABC):
         (dropout; Mult-VAE's reparameterisation too)."""
         return getattr(self, "dropout", 0.0) > 0.0
 
+    def step_noise(self, batch, generator: torch.Generator | None, ranks: int, index: int):
+        """Forward keywords of noise that a sharded step draws for the
+        global batch of ``ranks`` equal data shards from the step's
+        generator, shard ``index``'s rows of it; None where the forward draws
+        its own noise (or none)."""
+        return None
+
     def warm_start_aliases(self) -> Dict[str, str]:
         """Target table -> source table for warm starts across models
         (``train.init_from``); unmapped tables match by name."""

@@ -63,6 +63,16 @@ class IRGAN(RecModel):
         u = torch.rand(shape, generator=generator, device=device).clamp_min(torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
 
+    def step_noise(self, batch, generator, ranks: int, index: int):
+        """The global batch's Gumbel draw [B * ranks, K], shard ``index``'s
+        rows (a pool of K = 1 where the batch has one neg)."""
+        if generator is None or not self.is_pairwise(batch):
+            return None
+        b = batch["user"].shape[0]
+        k = batch["negs"].shape[1] if "negs" in batch else 1
+        noise = self.gumbel((b * ranks, k), generator, batch["user"].device)
+        return {"gumbel": noise[index * b:(index + 1) * b]}
+
     def lookup_ids(self, batch) -> Dict[str, torch.Tensor]:
         if not self.is_pairwise(batch):
             # Eval and serving read the generator's tables only.

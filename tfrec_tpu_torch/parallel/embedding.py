@@ -65,9 +65,22 @@ is the reference's route, not a fallback.
 
 ``shard`` and ``unshard`` of either plan map a logical [V, ...] leaf (a
 table or its optimizer state) to this rank's block and back (a
-collective). Lane-packed sharded tables (the reference's lane-sliced wire,
-``_lookup_grouped`` / ``local_update_grouped``) are not ported yet: ROADMAP
-Queue 1 item 11.
+collective).
+
+Lane-packed row-sharded tables (``lane_groups`` G > 1: a packed row holds G
+logical rows of d = D / G lanes) take the reference's lane-sliced wire
+(``_lookup_grouped`` / ``local_update_grouped``): the exchange dedups and
+routes ``(id, slot)`` keys ``id * G + slot`` (``_keys``; the key // (rps *
+G) is the id's owner, so routing is unchanged) and moves d lanes a key, the
+unpacked tables' volume. As views, this rank's [rps, G * d] block is a
+[rps * G, d] table whose row ``key - base * G`` is the key's lane group, and
+its [rps, G] rowwise statistics are [rps * G] (the kernels' ``_lane_rows``
+trick): the owner gathers those view rows in the same ``gather_rows_multi``
+launch as every other table (a copy, so the reference's values bit for
+bit), and the update combines received keys and applies the one-group
+rowwise rule to the view rows, which is the grouped rule (grouped Adam's
+touch mask is the received keys themselves). Returned rows are re-expanded
+to the packed [b, G * d] interface, the other groups zero.
 """
 
 from __future__ import annotations
@@ -167,11 +180,6 @@ class RowShardedTable:
     def __init__(self, mesh: Mesh, vocab: int, dim: int, *, capacity_factor: float = 2.0,
                  wire_dtype: torch.dtype | None = None, lane_groups: int = 1,
                  recv_combine: str = "sort", permute: bool = False):
-        if lane_groups > 1:
-            raise NotImplementedError(
-                f"a lane-packed row-sharded table (lane_groups={lane_groups}, the reference's "
-                "lane-sliced wire) is not ported yet: ROADMAP Queue 1 item 11; build per-field "
-                "tables (model.lane_pack=False)")
         if recv_combine not in ("sort", "merge"):
             raise ValueError(f"unknown recv_combine {recv_combine!r}")
         if wire_dtype not in (None, torch.bfloat16, torch.float32):
@@ -187,6 +195,15 @@ class RowShardedTable:
         self.lane_groups = lane_groups
         self.permute = permute
         self.sentinel = self.vocab_padded  # one past the padded end
+        if lane_groups > 1:
+            if dim % lane_groups:
+                raise ValueError(f"a lane-packed table's dim {dim} must divide by its "
+                                 f"{lane_groups} lane groups")
+            # (id, slot) keys are id * G + slot; they must fit int32.
+            if self.vocab_padded * lane_groups >= 2**31:
+                raise ValueError(
+                    f"lane-packed sharded table too large for int32 (vocab_padded="
+                    f"{self.vocab_padded} * G={lane_groups}); disable lane_pack for this table")
         # Each group led by this plan: its [F, 1] constants on a device.
         self._consts: Dict[tuple, tuple] = {}
 
@@ -250,8 +267,10 @@ class RowShardedTable:
 
 class _Group(NamedTuple):
     """Tables exchanged as one batch: their ids of one length, rows of one
-    width, one capacity and layout; ``members`` are their
-    places in the call, and the constants one row a table ([F, 1])."""
+    width, one capacity, layout and lane groups G; ``members`` are their
+    places in the call, and the constants one row a table ([F, 1]). The
+    exchange runs in key space, ``key_*``: the ids' own where G = 1, else
+    the (id, slot) keys' (each constant times G)."""
 
     members: List[int]
     plans: List["RowShardedTable"]
@@ -259,17 +278,31 @@ class _Group(NamedTuple):
     sentinel: torch.Tensor  # V_pad a table
     rps: torch.Tensor       # rows a shard a table
     base: torch.Tensor      # this rank's first row a table
+    lanes: int              # G, the lane groups of each member
+
+    @property
+    def key_sentinel(self) -> torch.Tensor:
+        return self.sentinel * self.lanes
+
+    @property
+    def key_rps(self) -> torch.Tensor:
+        return self.rps * self.lanes
+
+    @property
+    def key_base(self) -> torch.Tensor:
+        return self.base * self.lanes
 
 
 def _groups(plans: Sequence[RowShardedTable], ids, dims) -> List[_Group]:
     """The tables of a call batched by (ids' length, width, capacity
-    factor, layout), in the call's order; the same tables and ids give the
-    same groups, so a lookup's routes serve its update."""
+    factor, layout, lane groups), in the call's order; the same tables and
+    ids give the same groups, so a lookup's routes serve its update."""
     keys: Dict[tuple, List[int]] = {}
     for i, (plan, lids, dim) in enumerate(zip(plans, ids, dims)):
-        keys.setdefault((lids.shape[0], dim, plan.capacity_factor, plan.permute), []).append(i)
+        keys.setdefault((lids.shape[0], dim, plan.capacity_factor, plan.permute, plan.lane_groups),
+                        []).append(i)
     out = []
-    for (length, _, factor, _), members in keys.items():
+    for (length, _, factor, _, lanes), members in keys.items():
         group = [plans[i] for i in members]
         # Cached on the group's first plan (the group is held, so the ids
         # stay its members'): a host list copied to the card would sync.
@@ -281,7 +314,7 @@ def _groups(plans: Sequence[RowShardedTable], ids, dims) -> List[_Group]:
                                    for a in ("sentinel", "rows_per_shard", "base")))
         _, sentinel, rps, base = cache[key]
         out.append(_Group(members, group, capacity_for(length, group[0].num_shards, factor),
-                          sentinel, rps, base))
+                          sentinel, rps, base, lanes))
     return out
 
 
@@ -296,6 +329,28 @@ def _perm_ids(group: _Group, ids: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, (ids % n) * group.rps + torch.div(ids, n, rounding_mode="floor"), ids)
 
 
+def _keys(group: _Group, ids: torch.Tensor, slots: torch.Tensor | None) -> torch.Tensor:
+    """The exchange's keys of a batch [F, b] of physical ids: the ids
+    where G = 1; else ``id * G + slot`` ([F, b] slots), ids past the padded
+    end the key sentinel and negative (corrupt) ids as they are, so the
+    exchange counts them (the reference's ``_keys``)."""
+    if group.lanes == 1:
+        return ids
+    keys = torch.where(ids >= group.sentinel, group.key_sentinel, ids * group.lanes + slots)
+    return torch.where(ids < 0, ids, keys).to(ids.dtype)
+
+
+def _lane_view(leaf: torch.Tensor, key: str, lanes: int) -> torch.Tensor:
+    """A lane-packed block's leaf as its lane groups' rows: a [rps, G * d]
+    table (or Adam's ``m``) as [rps * G, d], a [rps, G] rowwise statistic
+    as [rps * G]; unchanged where G = 1."""
+    if lanes == 1:
+        return leaf
+    if key in ("table", "m"):
+        return leaf.view(leaf.shape[0] * lanes, leaf.shape[1] // lanes)
+    return leaf.view(-1)
+
+
 def _exchange(mesh: Mesh, bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """One ``all_to_all`` of many [F, N, ...] buffers of one dtype, side by
     side -> the received buffers, each of its own shape: row j of table f's
@@ -308,39 +363,53 @@ def _exchange(mesh: Mesh, bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
             for r, b in zip(torch.split(recv, widths, dim=1), bufs)]
 
 
-def _routes(mesh: Mesh, groups: Sequence[_Group], ids):
-    """Each group's route, every id request exchanged in one ``all_to_all``,
-    and the local overflow of them all (0-d)."""
+def _stack_slots(group: _Group, slots) -> torch.Tensor | None:
+    if group.lanes == 1:
+        return None
+    if slots is None or any(slots[i] is None for i in group.members):
+        raise ValueError("a lane-packed row-sharded table's exchange needs each id's lane group "
+                         "(model.lane_slot_widths)")
+    return torch.stack([slots[i] for i in group.members])
+
+
+def _routes(mesh: Mesh, groups: Sequence[_Group], ids, slots=None):
+    """Each group's route, every id (or key) request exchanged in one
+    ``all_to_all``, and the local overflow of them all (0-d)."""
     planned = []
     for g in groups:
         lids = _perm_ids(g, torch.stack([ids[i] for i in g.members]))
-        uids, inv, order = dedup_ids_sorted(lids, g.sentinel)
+        keys = _keys(g, lids, _stack_slots(g, slots))
+        uids, inv, order = dedup_ids_sorted(keys, g.key_sentinel)
         send_ids, send_pos, overflow = bucket_by_dest(
-            uids, g.plans[0].num_shards, g.rps, g.capacity, g.sentinel, ids_sorted=True)
+            uids, g.plans[0].num_shards, g.key_rps, g.capacity, g.key_sentinel, ids_sorted=True)
         planned.append((send_ids, Route(inv, order, send_pos, None), overflow))
     recv = _exchange(mesh, [send for send, _, _ in planned])
     routes = [r._replace(recv_ids=rv) for (_, r, _), rv in zip(planned, recv)]
     return routes, torch.stack([o for _, _, o in planned]).sum()
 
 
-def exchange_lookup(mesh: Mesh, plans: Sequence[RowShardedTable], tables, ids):
+def exchange_lookup(mesh: Mesh, plans: Sequence[RowShardedTable], tables, ids, slots=None):
     """The lookup of many row-sharded tables, one id and one row exchange
     for all -> (rows [b_f, D_f] per table, overflow summed over tables and
-    ranks, the routes of their groups). The tables share one wire dtype."""
+    ranks, the routes of their groups). The tables share one wire dtype.
+    ``slots``: each lane-packed table's [b_f] lane groups (None for the
+    others), by the tables' places."""
     wire = plans[0].wire_dtype
     if any(p.wire_dtype != wire for p in plans):
         raise ValueError("tables exchanged together share one wire dtype")
     groups = _groups(plans, ids, [t.shape[1] for t in tables])
-    routes, overflow = _routes(mesh, groups, ids)
-    # The owner's gather: every table's block in one launch on a card.
-    local, valid = {}, {}
+    routes, overflow = _routes(mesh, groups, ids, slots)
+    # The owner's gather: every table's block (a lane-packed one as its
+    # [rps * G, d] view) in one launch on a card.
+    local, valid, views = {}, {}, list(tables)
     for g, r in zip(groups, routes):
-        ok = (r.recv_ids >= g.base[:, :, None]) & (r.recv_ids < (g.base + g.rps)[:, :, None])
-        rows = torch.minimum(torch.clamp(r.recv_ids - g.base[:, :, None], min=0),
-                             g.rps[:, :, None] - 1).to(torch.int32)
+        base, rps = g.key_base[:, :, None], g.key_rps[:, :, None]
+        ok = (r.recv_ids >= base) & (r.recv_ids < base + rps)
+        rows = torch.minimum(torch.clamp(r.recv_ids - base, min=0), rps - 1).to(torch.int32)
         for j, i in enumerate(g.members):
             local[i], valid[i] = rows[j].reshape(-1), ok[j]
-    gathered = gather_many(list(tables), [local[i] for i in range(len(tables))])
+            views[i] = _lane_view(tables[i], "table", g.lanes)
+    gathered = gather_many(views, [local[i] for i in range(len(tables))])
     sent = []
     for g in groups:
         rows = torch.stack([gathered[i] for i in g.members])
@@ -356,23 +425,28 @@ def exchange_lookup(mesh: Mesh, plans: Sequence[RowShardedTable], tables, ids):
         pos = route.send_pos.reshape(f, -1, 1).expand(-1, -1, dim)
         unique.scatter_(1, pos, back.reshape(f, -1, dim).to(torch.float32))
         rows = unique[:, :size].gather(1, route.inv[:, :, None].expand(-1, -1, dim))
+        if g.lanes > 1:  # back to the packed [b, G * d] rows, each in its slot's lanes
+            lanes = _stack_slots(g, slots)[:, :, None, None].expand(-1, -1, 1, dim)
+            rows = rows.new_zeros((f, size, g.lanes, dim)).scatter_(
+                2, lanes, rows[:, :, None, :]).view(f, size, g.lanes * dim)
         for j, i in enumerate(g.members):
             outs[i] = rows[j]
     return outs, mesh.all_sum(overflow), routes
 
 
 def exchange_update(mesh: Mesh, plans: Sequence[RowShardedTable], tables, states, ids, grads,
-                    sparse_opt, lr, routes: Sequence[Route] | None = None):
+                    sparse_opt, lr, routes: Sequence[Route] | None = None, slots=None):
     """The update of many row-sharded tables, one gradient exchange for all
     (and one id exchange without the lookup's ``routes``) -> (tables,
     states, overflow summed over ranks, 0 with ``routes``). The owners'
     updates are one ``apply_deduped_many`` (one launch for rowwise Adagrad
-    on a card)."""
+    on a card), a lane-packed table's on its lane groups' views; its
+    gradient rows travel as the d lanes of their ids' ``slots``."""
     n = mesh.size
     wire = plans[0].wire_dtype
     groups = _groups(plans, ids, [t.shape[1] for t in tables])
     if routes is None:
-        routes, overflow = _routes(mesh, groups, ids)
+        routes, overflow = _routes(mesh, groups, ids, slots)
         overflow = mesh.all_sum(overflow)
     else:
         overflow = torch.zeros((), dtype=torch.int64, device=mesh.device)
@@ -380,6 +454,12 @@ def exchange_update(mesh: Mesh, plans: Sequence[RowShardedTable], tables, states
     for g, route in zip(groups, routes):
         f, b = route.inv.shape
         g_rows = torch.stack([grads[i] for i in g.members])  # [F, b, D]
+        if g.lanes > 1:
+            # A position's gradient lies in its own slot's lanes only (the
+            # model reads no other), so its d lanes are all it has.
+            d = g_rows.shape[-1] // g.lanes
+            lanes = _stack_slots(g, slots)[:, :, None, None].expand(-1, -1, 1, d)
+            g_rows = g_rows.view(f, b, g.lanes, d).gather(2, lanes)[:, :, 0]
         dim = g_rows.shape[-1]
         # One row a distinct id, its rows summed in batch order, each
         # table's segments apart (bit for bit a sum a table).
@@ -391,17 +471,21 @@ def exchange_update(mesh: Mesh, plans: Sequence[RowShardedTable], tables, states
         rows = torch.where((pos < b)[:, :, None], rows, 0.0).view(f, n, g.capacity, dim)
         sent.append(rows.to(wire) if wire is not None else rows)
     uids, combined = [None] * len(plans), [None] * len(plans)
+    views, view_states = list(tables), list(states)
     for g, route, recv in zip(groups, routes, _exchange(mesh, sent)):
         f = len(g.members)
-        lrow = route.recv_ids.reshape(f, -1) - g.base
-        lrow = torch.where((lrow >= 0) & (lrow < g.rps), lrow, g.rps).to(torch.int32)
+        lrow = route.recv_ids.reshape(f, -1) - g.key_base
+        lrow = torch.where((lrow >= 0) & (lrow < g.key_rps), lrow, g.key_rps).to(torch.int32)
         rows = recv.reshape(f, lrow.shape[1], -1).to(torch.float32)
         # One batched sort for the group: bit for bit a combine a table.
-        u, c = combine_duplicate_ids_grouped(lrow, rows, [p.rows_per_shard for p in g.plans])
+        u, c = combine_duplicate_ids_grouped(lrow, rows, [p.rows_per_shard * g.lanes for p in g.plans])
         for j, i in enumerate(g.members):
             uids[i], combined[i] = u[j], c[j]
-    new_tables, new_states = sparse_opt.apply_deduped_many(list(tables), list(states), uids, combined, lr)
-    return new_tables, new_states, overflow
+            views[i] = _lane_view(tables[i], "table", g.lanes)
+            view_states[i] = {k: _lane_view(v, k, g.lanes) for k, v in states[i].items()}
+    # In place on the views, so on the blocks themselves.
+    sparse_opt.apply_deduped_many(views, view_states, uids, combined, lr)
+    return list(tables), list(states), overflow
 
 
 class ColShardedTable:

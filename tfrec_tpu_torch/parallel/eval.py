@@ -133,7 +133,8 @@ class ShardedRetrievalEvaluator:
             ulong = users.long()
             tst_c = self.test_counts[ulong].clone()
             tst_c[n_real:] = 0
-            q = spec.user_vecs(state["dense"], gather_rows(builder, tables, spec.user_table, users))
+            q = spec.user_vecs(builder.dense_params(state),
+                               gather_rows(builder, tables, spec.user_table, users))
             _, topk_ids = sharded_topk_dot(
                 self.mesh, q, items, max_k, self.num_items, item_bias=bias,
                 exclude_padded=self.train_padded[ulong], exclude_counts=self.train_counts[ulong])

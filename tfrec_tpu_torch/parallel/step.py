@@ -9,7 +9,16 @@ shardings; N is the data axis' size):
   only);
 - dense params and their optimizer state: replicated; each rank's gradient
   is of its local mean, so the dense gradients are averaged over ``data``
-  (one ``all_reduce`` that also carries the loss);
+  (one ``all_reduce`` that also carries the loss). Under
+  ``mesh.dense_sharding="fsdp"`` each data index holds one block of every
+  leaf that splits (the reference's ``_dense_sharding``: the first axis
+  whose size divides by N and is at least N; scalars and leaves that do
+  not divide stay whole), and of its optimizer moments. Before the forward
+  one ``all_gather`` rebuilds every split leaf; after the same
+  ``all_reduce`` each rank updates its blocks only. The dense optimizers
+  are elementwise, so this is the replicated step bit for bit;
+  ``dense_params`` and ``logical_state`` give the whole leaves back (a
+  collective);
 - tables (``mesh.table_sharding="row"``): a block of V_pad / N rows a data
   index, replicated over ``table``, looked up and updated through
   ``parallel/embedding.py``'s all-to-all exchange over ``data`` (all tables
@@ -24,6 +33,9 @@ shardings; N is the data axis' size):
 - tables under ``"replicated"``: whole on every rank, gathered locally,
   and updated from every data rank's ids and gradient rows
   (``all_gather``), so the replicas stay equal;
+- lane-packed tables (``model.lane_pack=True``) under "row": the lane-sliced
+  wire of ``parallel/embedding.py``, each position's lane group from
+  ``model.lane_slot_widths``;
 - every sharded table's gradient rows are scaled by 1/N before they leave
   the rank, so that the combine sums the gradient of the GLOBAL mean, as
   the reference differentiates it;
@@ -39,11 +51,14 @@ this step, summed over tables and ranks}``.
 
 With ``device_negatives`` the step draws the global batch's negatives from
 its generator and takes this data index's rows, so they are the
-single-device step's at any mesh shape.
+single-device step's at any mesh shape. A model's forward noise is drawn
+the same way, through its ``step_noise`` hook (IRGAN's Gumbel draw), and a
+loss that takes a batch mean of its own (``make_loss(batch_mean=)``, IRGAN's
+REINFORCE baseline) gets the global batch's, one scalar ``all_sum`` before
+the backward, as the reference's step over the global batch computes them.
 
-Refused: ``mesh.dense_sharding="fsdp"`` (ROADMAP Queue 1 item 11),
-lane-packed tables on the row path (item 11) and under "col" (the feature
-split would cut across lane groups, as the reference refuses),
+Refused: lane-packed tables under "col" (the feature split would cut
+across lane groups, as the reference refuses),
 ``mesh.table_sharding="gspmd"`` (an A/B of XLA's partitioner against the
 explicit exchange, docs/DESIGN.md:35, which has no PyTorch counterpart: not
 ported), and ``train.host_dedup`` (host sorts of local ids mean nothing
@@ -72,6 +87,7 @@ from tfrec_tpu_torch.parallel.embedding import (
     wire_dtype,
 )
 from tfrec_tpu_torch.parallel.mesh import Mesh
+from tfrec_tpu_torch.train.losses import make_loss
 from tfrec_tpu_torch.train.step import (
     State,
     TrainStepBuilder,
@@ -79,7 +95,20 @@ from tfrec_tpu_torch.train.step import (
     apply_updates,
     batch_size_of,
     tree_leaves,
+    tree_map,
 )
+
+DENSE_SHARDINGS = ("replicated", "fsdp")
+
+
+def fsdp_axis(shape, n: int) -> int | None:
+    """The axis FSDP splits a dense leaf of ``shape`` on over ``n`` data
+    ranks (the reference's ``_dense_sharding``): the first whose size
+    divides by n and is at least n; None keeps the leaf whole."""
+    for axis, size in enumerate(shape):
+        if size % n == 0 and size >= n:
+            return axis
+    return None
 
 
 class ShardedTrainStepBuilder(TrainStepBuilder):
@@ -92,6 +121,7 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
         super().__init__(model, loss_name, optim_cfg, l2_reg=l2_reg, seed=seed, device=mesh.device,
                          device_negatives=device_negatives, num_items=num_items)
         self.mesh = mesh
+        self.loss_fn = make_loss(loss_name, batch_mean=self._global_mean)
         self.mesh_cfg = mesh_cfg = mesh_cfg or MeshConfig()
         mode = mesh_cfg.table_sharding
         if mode not in ("row", "col", "gspmd", "replicated"):
@@ -101,12 +131,11 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
                 "mesh.table_sharding='gspmd' is not ported: it is an A/B of XLA's SPMD "
                 "partitioner against the explicit exchange (docs/DESIGN.md:35), with no PyTorch "
                 "counterpart; use 'row'")
-        if mesh_cfg.dense_sharding == "fsdp":
-            raise NotImplementedError(
-                "mesh.dense_sharding='fsdp' is not ported yet: ROADMAP Queue 1 item 11; dense "
-                "params are replicated")
-        if mesh_cfg.dense_sharding != "replicated":
+        if mesh_cfg.dense_sharding not in DENSE_SHARDINGS:
             raise ValueError(f"unknown mesh.dense_sharding {mesh_cfg.dense_sharding!r}")
+        self.fsdp = mesh_cfg.dense_sharding == "fsdp"
+        self._dense_axes: list | None = None  # each dense leaf's FSDP axis, from shard_state
+        self._dense_full = None  # (the blocks' tree, its gathered leaves)
         if mesh_cfg.row_permute:
             if mode != "row":
                 raise ValueError("mesh.row_permute applies to table_sharding='row' only")
@@ -152,7 +181,65 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
     def init_state(self, generator: torch.Generator) -> State:
         """The single-device state from ``generator`` (the same draws at any
         world size), as this rank's blocks."""
-        return convert.shard_state(super().init_state(generator), self.mesh, self.plans)
+        return self.shard_state(super().init_state(generator))
+
+    def shard_state(self, state: State) -> State:
+        """A global logical state -> this rank's: the tables by their plans
+        (``convert.shard_state``) and, under FSDP, the blocks of the dense
+        leaves and their optimizer moments."""
+        out = convert.shard_state(state, self.mesh, self.plans)
+        if self.fsdp:
+            n = self.mesh.size
+            self._dense_axes = [fsdp_axis(tuple(leaf.shape), n) for leaf in tree_leaves(out["dense"])]
+            out["dense"] = self._dense_blocks(out["dense"])
+            out["dense_opt"] = {k: (v if k == "count" else self._dense_blocks(v))
+                                for k, v in out["dense_opt"].items()}
+        return out
+
+    def _dense_blocks(self, tree):
+        """This data index's block of each leaf of a dense-shaped tree
+        (params, gradients or a moment) on its FSDP axis."""
+        n, i = self.mesh.size, self.mesh.data_index
+        it = iter(self._dense_axes)
+
+        def block(leaf):
+            axis = next(it)
+            if axis is None:
+                return leaf
+            size = leaf.shape[axis] // n
+            return leaf.narrow(axis, i * size, size).contiguous()
+
+        return tree_map(block, tree)
+
+    def _dense_whole(self, tree):
+        """The whole leaves of a tree of FSDP blocks: every split leaf in
+        one ``all_gather`` over ``data`` (a collective)."""
+        leaves = tree_leaves(tree)
+        split = [(leaf, a) for leaf, a in zip(leaves, self._dense_axes) if a is not None]
+        if not split:
+            return tree
+        n = self.mesh.size
+        moved = [leaf.movedim(a, 0) for leaf, a in split]
+        flat = self.mesh.all_gather(torch.cat([m.reshape(1, -1) for m in moved], dim=1))
+        parts = iter(torch.split(flat, [m.numel() for m in moved], dim=1))
+        whole = []
+        for leaf, a in zip(leaves, self._dense_axes):
+            if a is None:
+                whole.append(leaf)
+                continue
+            m = leaf.movedim(a, 0)
+            x = next(parts).reshape((n * m.shape[0],) + tuple(m.shape[1:]))
+            whole.append(x.movedim(0, a).contiguous())
+        return _unflatten(tree, whole)
+
+    def dense_params(self, state: State):
+        """The whole dense params (under FSDP gathered from every rank's
+        blocks, a collective, once per state)."""
+        if not self.fsdp:
+            return state["dense"]
+        if self._dense_full is None or self._dense_full[0] is not state["dense"]:
+            self._dense_full = (state["dense"], self._dense_whole(state["dense"]))
+        return self._dense_full[1]
 
     def unpadded_tables(self, state: State) -> Dict[str, torch.Tensor]:
         """The logical [V, D] tables, de-permuted and unpadded, on every rank
@@ -160,12 +247,25 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
         return {name: (self.plans[name].unshard(t) if self.plans.get(name) is not None else t)
                 for name, t in state["tables"].items()}
 
+    def logical_dense(self, state: State) -> State:
+        """``state`` with whole dense params and optimizer moments (under
+        FSDP a collective; the state itself otherwise)."""
+        if not self.fsdp:
+            return state
+        opt = {k: (v if k == "count" else self._dense_whole(v)) for k, v in state["dense_opt"].items()}
+        return {**state, "dense": self.dense_params(state), "dense_opt": opt}
+
     def logical_state(self, state: State) -> State:
         """The global logical train state, on every rank (a collective)."""
         tables = self.unpadded_tables(state)
         sparse = {name: {k: (self.plans[name].unshard(v) if self.plans.get(name) is not None else v)
                          for k, v in st.items()} for name, st in state["sparse_opt"].items()}
-        return {**state, "tables": tables, "sparse_opt": sparse}
+        return {**self.logical_dense(state), "tables": tables, "sparse_opt": sparse}
+
+    def _slots(self, names, ids):
+        """Each lane-packed table's [b] lane groups (None for the others)."""
+        return [self._slots_for(n, ids[n].shape[0]) if self.plans[n].lane_groups > 1 else None
+                for n in names]
 
     def _row_names(self, names):
         return [n for n in names if isinstance(self.plans.get(n), RowShardedTable)]
@@ -187,7 +287,7 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
         if sharded:
             out, ovf, routes = exchange_lookup(
                 self.mesh, [self.plans[n] for n in sharded], [tables[n] for n in sharded],
-                [ids[n] for n in sharded])
+                [ids[n] for n in sharded], self._slots(sharded, ids))
             rows.update(zip(sharded, out))
             overflow = overflow + ovf
             if want_route and self.mesh_cfg.route_reuse:
@@ -225,7 +325,8 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
             tables, states, _ = exchange_update(
                 self.mesh, [self.plans[n] for n in sharded], [state["tables"][n] for n in sharded],
                 [state["sparse_opt"][n] for n in sharded], [ids[n] for n in sharded],
-                [gathered_grad[n] for n in sharded], self.sparse_opt, lr, route)
+                [gathered_grad[n] for n in sharded], self.sparse_opt, lr, route,
+                self._slots(sharded, ids))
             new_tables.update(zip(sharded, tables))
             new_sparse.update(zip(sharded, states))
         for name in gathered_grad:
@@ -233,9 +334,20 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
                 continue
             all_ids = self.mesh.all_gather(ids[name])
             all_grads = self.mesh.all_gather(gathered_grad[name])
+            if self._grouped_adam(name):  # each rank's lane groups beside its ids
+                slots = self.mesh.all_gather(self._slots_for(name, ids[name].shape[0]))
+                new_tables[name], new_sparse[name] = self.sparse_opt.apply(
+                    state["tables"][name], state["sparse_opt"][name], all_ids, all_grads, lr,
+                    slots=slots)
+                continue
             new_tables[name], new_sparse[name] = self.sparse_update(
                 name, state["tables"][name], state["sparse_opt"][name], all_ids, all_grads, lr)
         return new_tables, new_sparse
+
+    def _global_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch's mean of a detached per-row ``t``: one scalar
+        all_sum over the data axis."""
+        return self.mesh.all_sum(t.sum()) / (t.shape[0] * self.mesh.size)
 
     def objective(self, logits, batch, gathered, dense_leaves) -> torch.Tensor:
         """The local objective whose gradients, the rows' scaled by 1/N and
@@ -275,7 +387,9 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
         batch = self._draw_negatives(batch, generator)
         ids = self.model.lookup_ids(batch)
         gathered, aux = self.lookup(state["tables"], ids, want_route=True)
-        loss, dense_grad, row_grads = self.grads_at(state, batch, gathered, generator)
+        forward_kw = self.model.step_noise(batch, generator, self.mesh.size, self.mesh.data_index)
+        loss, dense_grad, row_grads = self.grads_at(
+            {**state, "dense": self.dense_params(state)}, batch, gathered, generator, forward_kw)
         # One all_reduce: the dense gradients' mean and the global loss.
         leaves = tree_leaves(dense_grad)
         flat = torch.cat([g.reshape(-1) for g in leaves] + [loss.reshape(1)])
@@ -283,6 +397,8 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
         sizes = [g.numel() for g in leaves]
         parts = torch.split(flat[:-1], sizes) if sizes else []
         dense_grad = _unflatten(state["dense"], [p.view_as(g) for p, g in zip(parts, leaves)])
+        if self.fsdp:  # each rank updates its own blocks
+            dense_grad = self._dense_blocks(dense_grad)
         row_grads = {k: g * (1.0 / n) for k, g in row_grads.items()}
         updates, new_dense_opt = self.dense_tx.update(dense_grad, state["dense_opt"], state["dense"])
         new_dense = apply_updates(state["dense"], updates)

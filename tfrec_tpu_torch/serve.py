@@ -56,8 +56,10 @@ scorer without a dot decomposition take the logical tables, gathered once.
 A row-permuted state (``mesh.row_permute``, CTR models only) is served from
 its logical tables, as in the reference.
 
-Refused by naming the ROADMAP Queue 1 item: int8 serving
-(``quantize=True``, item 13).
+``quantize=True`` (MF only, as in the reference) scores the catalog
+against an int8 copy of the item table (``ops/quantize.py``: rowwise
+scales, the values widened a chunk of items at a time); ``predict`` keeps
+the f32 rows.
 """
 
 from __future__ import annotations
@@ -68,7 +70,9 @@ import numpy as np
 import torch
 
 from tfrec_tpu_torch.eval.retrieval import TOPK_METHODS, padded_positives, topk_scores
+from tfrec_tpu_torch.models.mf import MF
 from tfrec_tpu_torch.ops.embedding import gather_many
+from tfrec_tpu_torch.ops.quantize import quantize_table, quantized_scores
 from tfrec_tpu_torch.parallel.eval import gather_rows, table_rows
 from tfrec_tpu_torch.parallel.topk import sharded_topk_dot
 
@@ -94,10 +98,9 @@ class Recommender:
         ``state`` is a live sharded train state, laid out by ``builder``
         (``parallel.step.ShardedTrainStepBuilder``) on ``mesh``, its
         device's; ``params`` is then unused (None)."""
-        if quantize:
-            raise NotImplementedError(
-                "Recommender(quantize=True) (int8 item tables, ops/quantize.py) is not ported "
-                "yet: ROADMAP Queue 1 item 13")
+        if quantize and type(model) is not MF:
+            raise ValueError("quantize=True supports the MF dot-product scorer only; "
+                             f"got {type(model).__name__}")
         if topk_method not in TOPK_METHODS:
             raise ValueError(f"unknown topk method {topk_method!r}")
         self.mesh, self.state, self.builder = mesh, state, builder
@@ -122,6 +125,8 @@ class Recommender:
         self.topk_method = topk_method
         self.recall_target = recall_target
         self._train_padded = None
+        # int8 item rows and their scales, on the device (ops/quantize.py).
+        self._quant = quantize_table(self._params()["tables"]["item_emb"]) if quantize else None
 
     @classmethod
     def from_checkpoint(cls, config, checkpoint_dir: str | None = None,
@@ -169,7 +174,7 @@ class Recommender:
             return self.params
         if self._logical is None:
             self._logical = self.builder.unpadded_tables(self.state)
-        return {"tables": self._logical, "dense": self.state["dense"]}
+        return {"tables": self._logical, "dense": self.builder.dense_params(self.state)}
 
     def _ids(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
@@ -179,7 +184,7 @@ class Recommender:
         if self._sharded():
             tables = self.state["tables"]
             gathered = {k: gather_rows(self.builder, tables, k, v) for k, v in ids.items()}
-            return self.model(self.state["dense"], gathered, batch)
+            return self.model(self.builder.dense_params(self.state), gathered, batch)
         params = self._params()
         tables = params["tables"]
         gathered = dict(zip(ids, gather_many([tables[k] for k in ids], list(ids.values()))))
@@ -217,10 +222,20 @@ class Recommender:
             return self.dataset.num_items
         return self.model.data_spec.num_items
 
+    def _score_all(self, users: torch.Tensor) -> torch.Tensor:
+        """[B, V] scores of every item: the model's ``score_all``, or with
+        ``quantize`` the user rows against the int8 item table."""
+        if self._quant is None:
+            return self.model.score_all(self._params(), users)
+        tables = self._params()["tables"]
+        (u,) = gather_many([tables["user_emb"]], [users])
+        bias = tables["item_bias"][:, 0] if "item_bias" in tables else None
+        return quantized_scores(u, self._quant, bias)
+
     @torch.inference_mode()
     def score_catalog(self, user_ids) -> np.ndarray:
         """[B, num_items] scores of every item for each user."""
-        scores = self.model.score_all(self._params(), self._ids(user_ids))
+        scores = self._score_all(self._ids(user_ids))
         return scores[:, : self._num_items()].cpu().numpy()
 
     def _train_exclusions(self, user_ids: np.ndarray):
@@ -244,9 +259,9 @@ class Recommender:
         built once, as in the reference."""
         exc_p, exc_c = self._train_exclusions(user_ids) if exclude_train else (None, None)
         spec = self.model.dot_decomposition()
-        if self._sharded() and spec is not None:
+        if self._sharded() and spec is not None and self._quant is None:
             return self._recommend_sharded(spec, user_ids, k, exc_p, exc_c)
-        scores = self.model.score_all(self._params(), self._ids(user_ids))[:, : self._num_items()]
+        scores = self._score_all(self._ids(user_ids))[:, : self._num_items()]
         vals, ids = topk_scores(scores, k, exc_p, exc_c, method=self.topk_method,
                                 recall_target=self.recall_target)
         return ids.cpu().numpy(), vals.cpu().numpy()
@@ -256,7 +271,8 @@ class Recommender:
         the users' rows, the query transform, the sharded top-k."""
         tables = self.state["tables"]
         users = self._ids(user_ids)
-        q = spec.user_vecs(self.state["dense"], gather_rows(self.builder, tables, spec.user_table, users))
+        q = spec.user_vecs(self.builder.dense_params(self.state),
+                           gather_rows(self.builder, tables, spec.user_table, users))
         items, _ = table_rows(self.builder, tables, spec.item_table)
         bias = (table_rows(self.builder, tables, spec.bias_table)[0][:, 0]
                 if spec.bias_table is not None else None)

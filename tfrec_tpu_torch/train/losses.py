@@ -13,6 +13,7 @@ their models' dict outputs.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict
 
 import torch
@@ -140,14 +141,15 @@ def sbpr(out: Dict[str, torch.Tensor], batch: Dict) -> torch.Tensor:
     return torch.mean(has * social + (1.0 - has) * plain)
 
 
-def irgan(out: Dict[str, torch.Tensor], batch: Dict) -> torch.Tensor:
+def irgan(out: Dict[str, torch.Tensor], batch: Dict, batch_mean: Callable = torch.mean) -> torch.Tensor:
     """IRGAN's minimax step: the discriminator's BCE (the true positive up,
     the generator's pick down) plus the generator's REINFORCE term with the
     batch mean of the reward as its baseline. ``out`` is IRGAN's training
     forward, {"d_pos", "d_sel", "logp", "reward"} [B], the reward already
-    detached; the two players' gradients never meet."""
+    detached; the two players' gradients never meet. ``batch_mean`` takes
+    the baseline (a sharded step's is the global batch's mean)."""
     d_loss = _softplus(-out["d_pos"]) + _softplus(out["d_sel"])
-    advantage = out["reward"] - torch.mean(out["reward"])
+    advantage = out["reward"] - batch_mean(out["reward"])
     return torch.mean(d_loss) + torch.mean(-(advantage * out["logp"]))
 
 
@@ -167,7 +169,19 @@ _LOSSES: Dict[str, Callable] = {
 }
 
 
-def make_loss(name: str) -> Callable[[torch.Tensor, Dict], torch.Tensor]:
+# Losses whose value enters their own gradient through a mean over the
+# batch (IRGAN's REINFORCE baseline): a sharded step must take it over the
+# global batch, where every other mean may stay local.
+_BATCH_MEAN_LOSSES = ("irgan",)
+
+
+def make_loss(name: str, batch_mean: Callable | None = None) -> Callable[[torch.Tensor, Dict], torch.Tensor]:
+    """The loss ``name`` as ``fn(out, batch)``. ``batch_mean``: the mean
+    over the whole batch of a detached per-row tensor, for the losses that
+    take one (a sharded step passes the global batch's; default the local
+    ``torch.mean``)."""
     if name not in _LOSSES:
         raise ValueError(f"unknown loss {name!r}; options: {sorted(_LOSSES)}")
+    if batch_mean is not None and name in _BATCH_MEAN_LOSSES:
+        return functools.partial(_LOSSES[name], batch_mean=batch_mean)
     return _LOSSES[name]

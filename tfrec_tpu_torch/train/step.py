@@ -322,6 +322,16 @@ class TrainStepBuilder:
         return torch.repeat_interleave(torch.arange(len(widths), device=self.device),
                                        torch.tensor([w * b for w in widths], device=self.device))
 
+    def dense_params(self, state: State):
+        """The dense params as the model reads them (the sharded builder
+        gathers its FSDP blocks)."""
+        return state["dense"]
+
+    def logical_dense(self, state: State) -> State:
+        """``state`` with whole dense params and optimizer moments (the
+        sharded builder gathers its FSDP blocks)."""
+        return state
+
     # ---- seams a sharded subsystem overrides ----
 
     def lookup(self, tables: Dict[str, torch.Tensor], ids: Dict[str, torch.Tensor]):
@@ -450,15 +460,16 @@ class TrainStepBuilder:
         gathered, _ = self.lookup(state["tables"], ids)
         return (*self.grads_at(state, batch, gathered, generator), ids)
 
-    def grads_at(self, state: State, batch, gathered, generator):
+    def grads_at(self, state: State, batch, gathered, generator, forward_kw=None):
         """(loss, dense grads, gathered-row grads per table) of ``batch`` at
-        its gathered rows."""
+        its gathered rows; ``forward_kw`` goes to the model's forward (the
+        sharded step's IRGAN noise)."""
         dense = tree_map(lambda p: p.detach().requires_grad_(), state["dense"])
         gathered = {k: v.requires_grad_() for k, v in gathered.items()}
         dense_leaves = tree_leaves(dense)
         names = list(gathered)
         with torch.enable_grad():
-            logits = self.model(dense, gathered, batch, generator=generator)
+            logits = self.model(dense, gathered, batch, generator=generator, **(forward_kw or {}))
             loss = self.objective(logits, batch, gathered, dense_leaves)
             grads = torch.autograd.grad(loss, dense_leaves + [gathered[n] for n in names])
         dense_grad = _unflatten(state["dense"], grads[: len(dense_leaves)])

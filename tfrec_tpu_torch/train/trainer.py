@@ -74,12 +74,11 @@ saved it), and ``train.init_from`` copies another run's embedding tables
 first (the model's ``warm_start_aliases``, then the same name).
 
 The device is the card unless the caller passes ``device="cpu"`` (the
-kernels' plain versions); without CUDA the default raises. What the port
-does not take yet it refuses by naming the ROADMAP Queue 1 item, never
-passing it over: step profiles (item 10), FSDP and lane-packed sharded
-tables (item 11), irgan on the mesh path (item 11: its REINFORCE baseline
-and its Gumbel draw are the global batch's), and
-``train.matmul_precision`` other than "default" (item 5).
+kernels' plain versions); without CUDA the default raises.
+``train.matmul_precision`` is set for the process by every Trainer
+(``ops/precision.py``), and ``train.profile_steps`` traces that window of
+steps with ``utils/profile.StepProfiler`` (each step a ``train_step``
+range in the trace).
 
 On D x T ranks (a ``torch.distributed`` process group, ``parallel.mesh.
 init_distributed``; the CLI starts one from the reference's ``JAX_*``
@@ -87,8 +86,10 @@ variables), the reference's rule picks the mesh path: ``mesh.data_axis_size
 != 0`` and a world size above 1 or a table axis above 1 (which needs as
 many ranks); ``mesh.data_axis_size=0`` on more than one rank is refused.
 Then the step is ``parallel.step.ShardedTrainStepBuilder`` on the ``data``
-x ``table`` mesh (row- or column-sharded or replicated tables, replicated
-dense params). The batch splits over ``data`` only: each rank samples its
+x ``table`` mesh (row- or column-sharded or replicated tables, lane-packed
+ones over the lane-sliced wire; dense params replicated or, under
+``mesh.dense_sharding="fsdp"``, in blocks over ``data``). The batch splits
+over ``data`` only: each rank samples its
 B / D rows of every global batch with the seed ``seed * D + d``, d its data
 index, so the ranks that share a d (the table axis' replicas) draw the same
 rows (a stream takes its data index's round-robin stripe, the evals split
@@ -109,7 +110,9 @@ and the sampled eval (and the full-catalog eval of a scorer without a dot
 decomposition) runs on ``Trainer.params``, the logical tables gathered
 from every rank. Rank 0 alone writes the metric stream. On a one-axis
 row-sharded mesh every rank writes its blocks of a checkpoint; any other
-mesh saves the logical state, gathered over both axes, which rank 0 writes.
+mesh saves the logical state, gathered over both axes, which rank 0 writes;
+dense params are whole in either (under FSDP gathered first), so a run
+resumes under either ``dense_sharding``.
 A checkpoint of any mesh shape (the port's or JAX's) resumes at any other
 through the global state (``convert.shard_state``), under the reference's
 row-permute guards.
@@ -123,6 +126,7 @@ per-field, as the reference does.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -153,6 +157,7 @@ from tfrec_tpu_torch.eval.metrics import logloss as logloss_metric
 from tfrec_tpu_torch.eval.retrieval import RetrievalEvaluator
 from tfrec_tpu_torch.eval.sampled import SampledEvaluator
 from tfrec_tpu_torch.models import DataSpec, build_model
+from tfrec_tpu_torch.ops.precision import PRECISIONS, set_matmul_precision
 from tfrec_tpu_torch.parallel.embedding import ColShardedTable
 from tfrec_tpu_torch.parallel.eval import ShardedRetrievalEvaluator
 from tfrec_tpu_torch.parallel.mesh import make_mesh, world_size
@@ -161,6 +166,7 @@ from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, host_dedup_
 from tfrec_tpu_torch.utils import checkpoint
 from tfrec_tpu_torch.utils.logging import MetricLogger
 from tfrec_tpu_torch.utils.prefetch import prefetch
+from tfrec_tpu_torch.utils.profile import StepProfiler, annotate
 
 INTERACTION_SOURCES = ("movielens", "synthetic_implicit")
 CTR_SOURCES = ("criteo", "synthetic_ctr")
@@ -182,19 +188,16 @@ def _criteo_vocabs(sizes) -> tuple:
     return sizes
 
 
-def _refuse_unported(c: Config) -> None:
-    """Raise on every setting the port does not take yet, naming the
-    ROADMAP Queue 1 item that ports it."""
+def _check_config(c: Config) -> None:
+    """Raise on a data source, matmul precision or profile window the port
+    does not know."""
     if c.data.source not in INTERACTION_SOURCES + CTR_SOURCES:
         raise ValueError(f"unknown data source {c.data.source!r}")
-    t = c.train
-    if t.profile_steps is not None:
-        raise NotImplementedError(
-            "train.profile_steps (utils/profile.py) is not ported yet: ROADMAP Queue 1 item 10")
-    if t.matmul_precision != "default":
-        raise NotImplementedError(
-            f"train.matmul_precision={t.matmul_precision!r} is not ported yet: ROADMAP Queue 1 "
-            "item 5; the port runs f32 matmuls with TF32 off")
+    if c.train.matmul_precision not in PRECISIONS:
+        raise ValueError(f"unknown train.matmul_precision {c.train.matmul_precision!r}; "
+                         f"options: {PRECISIONS}")
+    if c.train.profile_steps is not None and len(c.train.profile_steps) != 2:
+        raise ValueError(f"train.profile_steps is (start, stop), got {c.train.profile_steps!r}")
 
 
 class Trainer:
@@ -211,8 +214,11 @@ class Trainer:
             raise RuntimeError(
                 "Trainer trains on device='cuda' by default, but CUDA is not available; "
                 "pass device='cpu' to train on the CPU")
-        _refuse_unported(config)
+        _check_config(config)
+        # Every Trainer sets it, so no earlier run's setting leaks into this one.
+        set_matmul_precision(config.train.matmul_precision)
         self.config = c = config
+        self.profiler = StepProfiler(c.train.profile_steps)
         # The reference's rule: the mesh path where the data axis is not
         # forced off and there is more than one rank.
         self.mesh = None
@@ -397,10 +403,6 @@ class Trainer:
                 raise ValueError(
                     f"train.batch_size={c.train.batch_size} must be divisible by the data mesh "
                     f"axis ({n_data} ranks); use e.g. {(c.train.batch_size // n_data + 1) * n_data}")
-            if loss == "irgan":
-                raise NotImplementedError(
-                    "irgan on the mesh path is not ported yet: ROADMAP Queue 1 item 11 (its REINFORCE "
-                    "baseline and its Gumbel draw are the global batch's); train it on one rank")
         elif c.mesh.row_permute:
             raise ValueError(
                 "mesh.row_permute requires the sharded (mesh) path; this run resolved to the "
@@ -442,9 +444,15 @@ class Trainer:
     def checkpoint_state(self) -> Dict[str, np.ndarray]:
         """The train state as the flat keys the JAX package saves for the
         same model and optimizer (``convert.flat_from_state``); on a mesh,
-        this rank's blocks."""
+        this rank's blocks of the tables, and whole dense leaves."""
         o = self.config.optim
-        return convert.flat_from_state(self.state, o.dense_optimizer, o.weight_decay, model=self.model)
+        return convert.flat_from_state(self._logical_dense(), o.dense_optimizer, o.weight_decay,
+                                       model=self.model)
+
+    def _logical_dense(self):
+        """The train state with whole dense leaves (the closed-form path has
+        no builder and no dense params)."""
+        return self.state if self.builder is None else self.builder.logical_dense(self.state)
 
     def _row_keys(self) -> Dict[str, object]:
         """On a mesh, each sharded leaf's flat key -> its table's plan."""
@@ -519,8 +527,9 @@ class Trainer:
         ``{"tables", "dense"}``, in this model's layout (the optimizer state
         only from a checkpoint of the same layout)."""
         keys = set(checkpoint.read_tree(ckpt_dir, step).get("keys", []))
+        whole = self._logical_dense()
         template = {k: np.shape(v) for k, v in convert.flat_from_state(
-            self.state, self.config.optim.dense_optimizer, self.config.optim.weight_decay,
+            whole, self.config.optim.dense_optimizer, self.config.optim.weight_decay,
             leaf=lambda t: np.broadcast_to(np.float32(0), t.shape), model=self.model).items()}
         permuted = self._row_permute_active()
         rows = self._row_keys()
@@ -549,15 +558,15 @@ class Trainer:
             params = {"tables": dict(self.solver.tables()), "dense": {}}
             return params if params_only else {"step": int(flat["step"]), **params}
         if params_only:
-            params = convert.params_from_flat(flat, self.model, self.state["dense"])
+            params = convert.params_from_flat(flat, self.model, whole["dense"])
             if self.mesh is not None:
                 params["tables"] = {n: (self.builder.plans[n].shard(t)
                                         if self.builder.plans.get(n) is not None else t)
                                     for n, t in params["tables"].items()}
             return copy_state(params, self.device)
-        state = convert.train_state_from_flat(flat, self.model, self.state)
+        state = convert.train_state_from_flat(flat, self.model, whole)
         if self.mesh is not None:
-            return convert.shard_state(state, self.mesh, self.builder.plans)
+            return self.builder.shard_state(state)
         return copy_state(state, self.device)
 
     def _warm_start(self, ckpt_dir: str) -> None:
@@ -757,7 +766,8 @@ class Trainer:
         """``{"tables", "dense"}``; on a mesh the logical tables, gathered
         from every rank (a collective: every rank reads it)."""
         if self.mesh is not None:
-            return {"tables": self.builder.unpadded_tables(self.state), "dense": self.state["dense"]}
+            return {"tables": self.builder.unpadded_tables(self.state),
+                    "dense": self.builder.dense_params(self.state)}
         return {"tables": self.state["tables"], "dense": self.state["dense"]}
 
     # ---- evaluation ----
@@ -837,7 +847,7 @@ class Trainer:
         gathered, aux = self.builder.lookup(self.state["tables"], self.model.lookup_ids(batch))
         if "lookup_overflow" in aux:
             self._eval_overflow += aux["lookup_overflow"]
-        return self.model.forward(self.state["dense"], gathered, batch)
+        return self.model.forward(self.builder.dense_params(self.state), gathered, batch)
 
     def _eval_ctr(self, dense, cat, label) -> Dict[str, float]:
         max_n = self.config.train.eval_ctr_max_rows
@@ -982,6 +992,7 @@ class Trainer:
                                      "examples_per_s": nnz / max(dt, 1e-9)}
             if self._post_epoch(epoch, rec, history):
                 break
+        self.profiler.close()
         return history
 
     def train(self) -> List[Dict[str, float]]:
@@ -1036,7 +1047,9 @@ class Trainer:
             for i, dev_batch in enumerate(batch_stream):
                 if cap_dispatch > 0 and i >= cap_dispatch:
                     break
-                self.state, metrics = step(self.state, dev_batch)
+                self.profiler.step(self.global_step)
+                with annotate("train_step") if self.profiler.active else contextlib.nullcontext():
+                    self.state, metrics = step(self.state, dev_batch)
                 if "lookup_overflow" in metrics:
                     dropped = dropped + metrics["lookup_overflow"]
                 prev_step = self.global_step
@@ -1069,6 +1082,7 @@ class Trainer:
             self._log_overflow(epoch, int(dropped), n_examples, dev_batch)
             if self._post_epoch(epoch, rec, history):
                 break
+        self.profiler.close()
         return history
 
 

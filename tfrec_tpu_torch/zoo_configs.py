@@ -60,7 +60,7 @@ def fm_ctr_ml1m(path: str | None = None) -> Config:
     categoricals (user, item, and gender, age, occupation and genre side
     fields). With a ``path`` the data is MovieLens' files and
     ``data.user_features_path`` / ``item_features_path`` name users.dat and
-    movies.dat (not ported yet); without one, the seeded
+    movies.dat; without one, the seeded
     ``synthetic_implicit`` stand-in at ML-1M's shape (6040 users, 3706
     items, 64 interactions a user) with synthetic side fields."""
     return Config(
