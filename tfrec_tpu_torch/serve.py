@@ -56,6 +56,11 @@ scorer without a dot decomposition take the logical tables, gathered once.
 A row-permuted state (``mesh.row_permute``, CTR models only) is served from
 its logical tables, as in the reference.
 
+While a profiler records, ``predict_ctr`` opens ``tfrec.serve.predict_ctr``
+around the call and inside it ``tfrec.serve.inputs`` (the request to the
+device), ``tfrec.lookup`` (ids and gather), ``tfrec.forward`` and
+``tfrec.serve.outputs`` (the logits to numpy) (``utils/profile.span``).
+
 ``quantize=True`` (MF only, as in the reference) scores the catalog
 against an int8 copy of the item table (``ops/quantize.py``: rowwise
 scales, the values widened a chunk of items at a time); ``predict`` keeps
@@ -75,6 +80,7 @@ from tfrec_tpu_torch.ops.embedding import gather_many
 from tfrec_tpu_torch.ops.quantize import quantize_table, quantized_scores
 from tfrec_tpu_torch.parallel.eval import gather_rows, table_rows
 from tfrec_tpu_torch.parallel.topk import sharded_topk_dot
+from tfrec_tpu_torch.utils.profile import span
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -180,15 +186,19 @@ class Recommender:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
 
     def _forward(self, batch) -> torch.Tensor:
-        ids = self.model.lookup_ids(batch)
-        if self._sharded():
-            tables = self.state["tables"]
-            gathered = {k: gather_rows(self.builder, tables, k, v) for k, v in ids.items()}
-            return self.model(self.builder.dense_params(self.state), gathered, batch)
-        params = self._params()
-        tables = params["tables"]
-        gathered = dict(zip(ids, gather_many([tables[k] for k in ids], list(ids.values()))))
-        return self.model(params["dense"], gathered, batch)
+        sharded = self._sharded()
+        with span("tfrec.lookup"):
+            ids = self.model.lookup_ids(batch)
+            if sharded:
+                tables = self.state["tables"]
+                gathered = {k: gather_rows(self.builder, tables, k, v) for k, v in ids.items()}
+            else:
+                params = self._params()
+                tables = params["tables"]
+                gathered = dict(zip(ids, gather_many([tables[k] for k in ids], list(ids.values()))))
+        with span("tfrec.forward"):
+            dense = self.builder.dense_params(self.state) if sharded else params["dense"]
+            return self.model(dense, gathered, batch)
 
     # ---- pointwise scoring ----
 
@@ -209,11 +219,15 @@ class Recommender:
     def predict_ctr(self, dense, cat) -> np.ndarray:
         """CTR logits [N] for dense [N, Dd] f32 (may have 0 columns) and
         cat [N, sum(widths)] int32 ids (negative and sentinel ids clamp)."""
-        batch = {
-            "dense": torch.from_numpy(np.ascontiguousarray(dense, np.float32)).to(self.device),
-            "cat": self._ids(cat),
-        }
-        return self._forward(batch).cpu().numpy()
+        with span("tfrec.serve.predict_ctr"):
+            with span("tfrec.serve.inputs"):
+                batch = {
+                    "dense": torch.from_numpy(np.ascontiguousarray(dense, np.float32)).to(self.device),
+                    "cat": self._ids(cat),
+                }
+            logits = self._forward(batch)
+            with span("tfrec.serve.outputs"):
+                return logits.cpu().numpy()
 
     # ---- catalog scoring and top-k ----
 

@@ -38,6 +38,12 @@ tables (the graph models) looks nothing up and updates no table.
 Lane-packed tables (``TableSpec.lane_groups`` > 1) keep [V, G] optimizer
 state: grouped Adagrad goes to the same kernel launch as the others, and
 grouped rowwise Adam through the per-table seam with each id's lane group.
+
+While a profiler records, each step opens the spans ``tfrec.step`` and,
+inside it in this order, ``tfrec.lookup``, ``tfrec.forward``,
+``tfrec.backward``, ``tfrec.dense_update``, ``tfrec.combine`` and
+``tfrec.sparse_update`` (``utils/profile.span``); the per-table seams do
+their own combine inside ``tfrec.sparse_update``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from tfrec_tpu_torch.ops.embedding import (
 )
 from tfrec_tpu_torch.ops.sparse_optim import SparseOptimizer, make_sparse_optimizer
 from tfrec_tpu_torch.train.losses import make_loss
+from tfrec_tpu_torch.utils.profile import span
 
 State = Dict[str, Any]
 
@@ -396,37 +403,42 @@ class TrainStepBuilder:
                 ids[name], gathered_grad[name], lr, order=host_sort.get(name))
 
         if self._per_table_seams():
-            for name in gathered_grad:
-                per_table(name)
+            with span("tfrec.sparse_update"):
+                for name in gathered_grad:
+                    per_table(name)
             return new_tables, new_sparse
-        uids, grads, groups = {}, {}, {}
-        for name in gathered_grad:
-            if ids[name].dim() != 1 or self._grouped_adam(name):
+        uids, grads, groups, alone = {}, {}, {}, []
+        with span("tfrec.combine"):
+            for name in gathered_grad:
+                if ids[name].dim() != 1 or self._grouped_adam(name):
+                    alone.append(name)
+                    continue
+                key = ((tuple(ids[name].shape), ids[name].dtype, tuple(gathered_grad[name].shape))
+                       if name not in host_sort else name)
+                groups.setdefault(key, []).append(name)
+            for members in groups.values():
+                if len(members) == 1:
+                    name = members[0]
+                    uids[name], grads[name] = combine_duplicate_ids(
+                        ids[name], gathered_grad[name], sentinel=state["tables"][name].shape[0],
+                        order=host_sort.get(name))
+                    continue
+                u, c = combine_duplicate_ids_grouped(
+                    torch.stack([ids[n] for n in members]),
+                    torch.stack([gathered_grad[n] for n in members]),
+                    [state["tables"][n].shape[0] for n in members])
+                uids.update(zip(members, u))
+                grads.update(zip(members, c))
+        with span("tfrec.sparse_update"):
+            for name in alone:  # through the per-table seam, its own combine
                 per_table(name)
-                continue
-            key = ((tuple(ids[name].shape), ids[name].dtype, tuple(gathered_grad[name].shape))
-                   if name not in host_sort else name)
-            groups.setdefault(key, []).append(name)
-        for members in groups.values():
-            if len(members) == 1:
-                name = members[0]
-                uids[name], grads[name] = combine_duplicate_ids(
-                    ids[name], gathered_grad[name], sentinel=state["tables"][name].shape[0],
-                    order=host_sort.get(name))
-                continue
-            u, c = combine_duplicate_ids_grouped(
-                torch.stack([ids[n] for n in members]),
-                torch.stack([gathered_grad[n] for n in members]),
-                [state["tables"][n].shape[0] for n in members])
-            uids.update(zip(members, u))
-            grads.update(zip(members, c))
-        if uids:
-            names = [n for n in gathered_grad if n in uids]  # the tables' order
-            tables, states = self.sparse_update_deduped_all(
-                state["tables"], state["sparse_opt"], {n: uids[n] for n in names},
-                {n: grads[n] for n in names}, lr)
-            new_tables.update(tables)
-            new_sparse.update(states)
+            if uids:
+                names = [n for n in gathered_grad if n in uids]  # the tables' order
+                tables, states = self.sparse_update_deduped_all(
+                    state["tables"], state["sparse_opt"], {n: uids[n] for n in names},
+                    {n: grads[n] for n in names}, lr)
+                new_tables.update(tables)
+                new_sparse.update(states)
         return new_tables, new_sparse
 
     def _generator(self, step: int) -> torch.Generator | None:
@@ -456,8 +468,9 @@ class TrainStepBuilder:
         the step's own."""
         if generator is None:
             generator = self._generator(state["step"])
-        ids = self.model.lookup_ids(batch)
-        gathered, _ = self.lookup(state["tables"], ids)
+        with span("tfrec.lookup"):
+            ids = self.model.lookup_ids(batch)
+            gathered, _ = self.lookup(state["tables"], ids)
         return (*self.grads_at(state, batch, gathered, generator), ids)
 
     def grads_at(self, state: State, batch, gathered, generator, forward_kw=None):
@@ -469,9 +482,11 @@ class TrainStepBuilder:
         dense_leaves = tree_leaves(dense)
         names = list(gathered)
         with torch.enable_grad():
-            logits = self.model(dense, gathered, batch, generator=generator, **(forward_kw or {}))
-            loss = self.objective(logits, batch, gathered, dense_leaves)
-            grads = torch.autograd.grad(loss, dense_leaves + [gathered[n] for n in names])
+            with span("tfrec.forward"):
+                logits = self.model(dense, gathered, batch, generator=generator, **(forward_kw or {}))
+                loss = self.objective(logits, batch, gathered, dense_leaves)
+            with span("tfrec.backward"):
+                grads = torch.autograd.grad(loss, dense_leaves + [gathered[n] for n in names])
         dense_grad = _unflatten(state["dense"], grads[: len(dense_leaves)])
         return loss.detach(), dense_grad, dict(zip(names, grads[len(dense_leaves):]))
 
@@ -491,18 +506,21 @@ class TrainStepBuilder:
         pointwise {"user", "item", "label"}; any "_sort_<table>" keys are
         the host's dedup sorts) -> (new state, {"loss"}); the loss stays on
         the device."""
-        # The host's dedup sorts (train.host_dedup) ride the batch as
-        # "_sort_<table>" keys; the model never sees them.
-        host_sort = {k[len("_sort_"):]: v for k, v in batch.items() if k.startswith("_sort_")}
-        if host_sort:
-            batch = {k: v for k, v in batch.items() if not k.startswith("_sort_")}
-        generator = self._generator(state["step"])
-        batch = self._draw_negatives(batch, generator)
-        loss, dense_grad, gathered_grad, ids = self.loss_and_grads(state, batch, generator)
-        updates, new_dense_opt = self.dense_tx.update(dense_grad, state["dense_opt"], state["dense"])
-        new_dense = apply_updates(state["dense"], updates)
-        lr = self.sparse_schedule(state["step"])
-        new_tables, new_sparse = self.sparse_update_all(state, ids, gathered_grad, lr, host_sort)
+        with span("tfrec.step"):
+            # The host's dedup sorts (train.host_dedup) ride the batch as
+            # "_sort_<table>" keys; the model never sees them.
+            host_sort = {k[len("_sort_"):]: v for k, v in batch.items() if k.startswith("_sort_")}
+            if host_sort:
+                batch = {k: v for k, v in batch.items() if not k.startswith("_sort_")}
+            generator = self._generator(state["step"])
+            batch = self._draw_negatives(batch, generator)
+            loss, dense_grad, gathered_grad, ids = self.loss_and_grads(state, batch, generator)
+            with span("tfrec.dense_update"):
+                updates, new_dense_opt = self.dense_tx.update(dense_grad, state["dense_opt"],
+                                                              state["dense"])
+                new_dense = apply_updates(state["dense"], updates)
+            lr = self.sparse_schedule(state["step"])
+            new_tables, new_sparse = self.sparse_update_all(state, ids, gathered_grad, lr, host_sort)
         new_state = {
             "step": state["step"] + 1,
             "tables": new_tables,

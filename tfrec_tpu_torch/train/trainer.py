@@ -126,7 +126,6 @@ per-field, as the reference does.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import time
@@ -166,7 +165,7 @@ from tfrec_tpu_torch.train.step import TrainStepBuilder, copy_state, host_dedup_
 from tfrec_tpu_torch.utils import checkpoint
 from tfrec_tpu_torch.utils.logging import MetricLogger
 from tfrec_tpu_torch.utils.prefetch import prefetch
-from tfrec_tpu_torch.utils.profile import StepProfiler, annotate
+from tfrec_tpu_torch.utils.profile import StepProfiler, span
 
 INTERACTION_SOURCES = ("movielens", "synthetic_implicit")
 CTR_SOURCES = ("criteo", "synthetic_ctr")
@@ -1048,7 +1047,7 @@ class Trainer:
                 if cap_dispatch > 0 and i >= cap_dispatch:
                     break
                 self.profiler.step(self.global_step)
-                with annotate("train_step") if self.profiler.active else contextlib.nullcontext():
+                with span("train_step"):
                     self.state, metrics = step(self.state, dev_batch)
                 if "lookup_overflow" in metrics:
                     dropped = dropped + metrics["lookup_overflow"]

@@ -9,9 +9,13 @@
   ``tfrec_trace`` under the temporary directory (the reference's
   ``/tmp/tfrec_trace`` where ``TMPDIR`` is unset). The card's kernels are
   in it where CUDA is available.
-- ``annotate``: a named range in the trace (``record_function``).
-- ``Timer``: wall time fenced by a ``torch.cuda.synchronize`` of the
-  result's devices.
+- ``span``: a named range in the trace (``record_function``) while a
+  profiler records, else one shared no-op context: an unguarded
+  ``record_function`` costs microseconds even with no profiler running,
+  the guard a fraction of one. The program's layers open ``tfrec.*`` spans
+  (``train/step.TrainStepBuilder.step``, ``serve.Recommender.predict_ctr``),
+  and the trainer a ``train_step`` span a dispatch. They are the profiler's
+  own ranges, on its clock, in the same trace as the card's activity.
 """
 
 from __future__ import annotations
@@ -19,10 +23,10 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
-import time
-from typing import Any, Iterator
 
 import torch
+
+_OFF = contextlib.nullcontext()
 
 
 def default_trace_dir() -> str:
@@ -70,31 +74,9 @@ class StepProfiler:
         self._prof = None
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    with torch.profiler.record_function(name):
-        yield
-
-
-def _devices(tree: Any, out: set) -> set:
-    if isinstance(tree, dict):
-        for v in tree.values():
-            _devices(v, out)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            _devices(v, out)
-    elif isinstance(tree, torch.Tensor) and tree.device.type == "cuda":
-        out.add(tree.device)
-    return out
-
-
-class Timer:
-    """Wall timer fenced by a synchronize of the devices a result lives on."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-
-    def stop(self, result: Any = None) -> float:
-        for dev in _devices(result, set()):
-            torch.cuda.synchronize(dev)
-        return time.perf_counter() - self.t0
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler records;
+    otherwise a shared ``nullcontext``."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
