@@ -165,14 +165,17 @@ def _reach_the_device_check(batch, dim, rank, layers):
 
 # dcn_criteo's widths as low-rank v2 (r=64) at embed_dim 32, 72 and 128
 # (d = 26 e + 13), the widest the tiles take, the first widths past it, and
-# embed_dim 160 (d = 4173); at r=128 the widest the tiles take and the next.
+# embed_dim 160 (d = 4173); at r=128 the widest the tiles take and the next;
+# the benchmark's DCN-v2 (d = 3341, r = 512).
 @pytest.mark.parametrize("dim,rank", [(845, 64), (1776, 64), (1885, 64), (3341, 64), (3560, 64),
-                                      (3561, 64), (3565, 64), (4173, 64), (3496, 128), (3497, 128)])
+                                      (3561, 64), (3565, 64), (4173, 64), (3496, 128), (3497, 128),
+                                      (3341, 512)])
 def test_cross_v2_takes_wide_inputs_up_to_its_shared_memory_limit(dim, rank):
     """The kernels' tiles take d while 16 rows of the products' [B, d] and
-    [B, r] operands fit 227 KB (d <= 3560 at r=64, 3496 at r=128); past
-    that both kernels take the general route. No width is refused."""
-    limit = {64: 3560, 128: 3496}[rank]
+    [B, r] operands fit 227 KB (d <= 3560 at r=64, 3496 at r=128, 3112 at
+    r=512); past that both kernels take the general route. No width is
+    refused."""
+    limit = {64: 3560, 128: 3496, 512: 3112}[rank]
     assert (_smem_bytes(dim, rank) <= 227 * 1024) == (dim <= limit)
     route = "tiles" if dim <= limit else "general"
     assert _fwd_route(dim, rank) == _bwd_route(dim, rank, 3) == route
@@ -190,17 +193,20 @@ def test_cross_v2_backward_takes_any_depth(layers):
     _reach_the_device_check(4, 845, 64, layers)
 
 
-# (batch, d, r, slices): the wide phase's general-route shapes (8 and 64
-# tiles of the [B, r] product over k = d, 5 and 4 slices of at least 1024);
-# a d within one slice; a batch of one at the widest d (528 blocks); a rank
-# whose tiles alone pass 528 blocks.
-@pytest.mark.parametrize("batch,dim,rank,slices", [(8192, 4173, 64, 5), (8192, 3565, 64, 4),
-                                                   (8192, 845, 64, 1), (1, 2**31 - 1, 1, 528),
-                                                   (8192, 4173, 1024, 1)])
+# (batch, d, r, slices): the wide phase's general-route shapes (64 tiles
+# of the [B, r] product over k = d: 2 slices fill 128 of 132 blocks); a d
+# within one slice; a batch of one at the widest d (132 blocks); a rank
+# whose tiles alone fill a wave; the benchmark's serving call (128 tiles of
+# 132, none) and training step (1024 tiles, none).
+@pytest.mark.parametrize("batch,dim,rank,slices", [(8192, 4173, 64, 2), (8192, 3565, 64, 2),
+                                                   (8192, 845, 64, 1), (1, 2**31 - 1, 1, 132),
+                                                   (8192, 4173, 1024, 1), (4096, 3341, 512, 1),
+                                                   (32768, 3341, 512, 1)])
 def test_cross_v2_general_route_splits_long_walks_over_d(batch, dim, rank, slices):
     """The general route's x_l V_l and df U_l walk all of d for a [B, r]
-    output of few 64 x 64 tiles: d splits into slices of at least 1024 until
-    the launch has about 528 blocks."""
+    output of few 128 x 128 tiles: where they fill less than a wave of 132
+    blocks (one an SM), d splits into slices of at least 1024, as many as
+    fill the waves best."""
     assert _splits(batch, dim, rank) == slices
 
 

@@ -232,11 +232,14 @@ def _v2_inputs(device, batch, dim, rank, layers):
 # the general route: d = 3561 and 3565 (past the tiles' 3560 at r=64) and
 # 4173 (dcn_criteo at embed_dim 160), 3497 at r=128 (past 3496), L = 48 at
 # the flagship's width (past the weight pass's 47 layers of f), and r
-# larger than d there.
+# larger than d there; the benchmark's DCN-v2 width (d = 3341, r = 512),
+# whole and on a ragged batch and rank; one past a 128-wide tile in every
+# dimension.
 V2_SHAPES = [(1000, 845, 64, 3), (33, 13, 7, 1), (257, 140, 16, 2), (300, 1500, 130, 2), (1, 8, 3, 2),
              (4099, 200, 72, 3), (300, 1885, 64, 2), (64, 3341, 64, 3), (40, 13, 70, 3),
              (70, 3561, 64, 2), (65, 3565, 64, 3), (300, 4173, 64, 3), (33, 3497, 128, 2),
-             (100, 845, 64, 48), (17, 100, 120, 48)]
+             (100, 845, 64, 48), (17, 100, 120, 48), (300, 3341, 512, 3), (4099, 3341, 511, 2),
+             (129, 4173, 129, 3)]
 
 
 @pytest.mark.parametrize("batch,dim,rank,layers", V2_SHAPES)

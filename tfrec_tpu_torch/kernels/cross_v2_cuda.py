@@ -24,10 +24,19 @@ These designs hold 16 rows of the products' [B, d] and [B, r] operands in
 a block's shared memory, and the backward's weight pass stages L - 1
 layers of f there. Where either does not fit (d > 3560 at r=64, d > 3496
 at r=128, L >= 48: ``_fwd_route``, ``_bwd_route``, the one owner of the
-choice), the wrappers send the C entry points down a general route of
-tiled f32 products on the CUDA cores instead, with the same contract: any
-d, r >= 1 and L. It reads U and V as they are; its calls are also counted
-in ``general_launches``.
+choice), the wrappers send the C entry points down a general route
+instead, with the same contract: any d, r >= 1 and L. It runs each product
+as its own launch of 3xTF32 tiled products on the tensor cores (Hopper's
+warpgroup mma, ``wgmma``: a 128 x 128 tile of the output a block of two
+warpgroups, operands streamed from device memory through a ring of
+``cp.async`` stages, B split into TF32 high parts and remainders once a
+block, A as it is loaded), with the elementwise steps fused into the
+products' prologues and epilogues. Its bound is the tiles': 3 x 4
+B d r L TF32 operations forward and twice that backward at 495 TFLOP/s
+(4.08 and 8.15 ms at B=32768, d=3341, r=512, L=3), plus the elementwise
+steps; the products over d that store [B, r] split d into slices where a
+small batch gives them too few tiles (``_splits``). It reads U and V as
+they are; its calls are also counted in ``general_launches``.
 """
 
 from __future__ import annotations
@@ -61,12 +70,14 @@ _MAX_SMEM = 227 * 1024
 _MAX_CHUNKS = 16
 _MIN_CHUNK_ROWS = 256
 # The general route's products over k = d that store [B, r] (x_l V_l, df
-# U_l) have one 64 x 64 tile a block, few at a small B and r, each walking
-# all of d: they split d into slices of at least 1024, up to about 528
-# blocks (4 of 256 threads on each of the H100's 132 SMs), and a second
-# kernel adds the slices in order.
+# U_l) have one 128 x 128 tile a block, few at a small B and r, each
+# walking all of d: where the tiles fill less than one wave of 132 blocks
+# (one of 256 threads on each of the H100's 132 SMs), they split d into
+# slices of at least 1024 so that the waves of blocks are as full as they
+# can be, and a second kernel adds the slices in order.
+_TILE_ROWS, _TILE_COLS = 128, 128
 _MIN_SPLIT_K = 1024
-_SPLIT_BLOCKS = 528
+_SPLIT_BLOCKS = 132
 
 
 def _round8(n: int) -> int:
@@ -107,9 +118,16 @@ def _bwd_route(dim: int, rank: int, layers: int) -> str:
 
 
 def _splits(batch: int, dim: int, rank: int) -> int:
-    """Slices of d for the general route's x_l V_l and df U_l."""
-    tiles = -(-batch // 64) * -(-rank // 64)
-    return max(1, min(-(-dim // _MIN_SPLIT_K), -(-_SPLIT_BLOCKS // tiles)))
+    """Slices of d for the general route's x_l V_l and df U_l: none where
+    the tiles fill a wave of blocks, else the count, up to d / 1024, whose
+    waves are fullest (the fewest on a tie; 8192 rows at r=64: 64 tiles, 2
+    slices fill 128 of 132 blocks)."""
+    tiles = -(-batch // _TILE_ROWS) * -(-rank // _TILE_COLS)
+    if tiles >= _SPLIT_BLOCKS:
+        return 1
+    fill = [tiles * s / (-(-tiles * s // _SPLIT_BLOCKS) * _SPLIT_BLOCKS)
+            for s in range(1, min(-(-dim // _MIN_SPLIT_K), _SPLIT_BLOCKS) + 1)]
+    return 1 + fill.index(max(fill))
 
 
 def _fragments(w: torch.Tensor) -> torch.Tensor:

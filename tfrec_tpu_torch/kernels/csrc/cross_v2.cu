@@ -115,8 +115,9 @@
 // 3496 at r=128), and the weight pass two stages of L - 1 layers of f (L
 // <= 47). Past either, the C entry points take a general route instead
 // (general_rows_kernel, general_weights_kernel below): each product a
-// launch of tiled f32 products on the CUDA cores over device memory, with
-// its elementwise steps fused, in fixed orders, no atomics. The wrapper
+// launch of 3xTF32 tiled products on the tensor cores that stream their
+// operands from device memory, with its elementwise steps fused, in fixed
+// orders, no atomics. The wrapper
 // (cross_v2_cuda.py) chooses the route by shape and passes it in; shapes
 // the tiles take run exactly as before.
 
@@ -845,30 +846,27 @@ sum_chunks_kernel(const float* __restrict__ partial, float* __restrict__ out,
   out[e] = sum;
 }
 
-// ---- The general route: tiled f32 products on the CUDA cores ----
+// ---- The general route: 3xTF32 tiled products over device memory ----
 //
 // Where the tiles above do not fit (16 rows of the products' [B, d] and
 // [B, r] operands past 227 KB, or the weight pass's stages of L - 1 layers
 // of f), each layer's products run as separate launches of two kernels
 // over device memory, with their elementwise steps fused in:
-// - general_rows_kernel<A, BTrans, Epi>: C [batch, n] = A [batch, k] B, a
-//   64 x 64 tile of C a block, 16 k-steps of A and B staged in shared
-//   memory at a time, 4 x 4 outputs a thread, each a sequential fmaf over k
-//   in order. A is read as it is, or as df = g * x0 (prologue); B is W [k,
-//   n] or W^T with W [n, k], read from U_l or V_l [d, r] as they are. The
-//   epilogue stores C, or computes the forward's f = C + b_l and x_{l+1} =
-//   x0 * f + x_l, or the backward's g += C with dx0 += g * f_l. The
-//   products over k = d that store C [batch, r] (x_l V_l, df U_l) have few
-//   tiles and a long walk: they split k into `splits` slices of
-//   k_per_split (blockIdx.y), each storing its C into a [splits, batch, r]
-//   scratch that sum_chunks_kernel then adds in slice order.
-// - general_weights_kernel<Df>: C [d, r] = sum over a chunk of the batch
-//   of A^T B, a 64 (j of d) x 64 (k of r) tile a block, 16 rows staged at a
-//   time, each output a sequential fmaf over the chunk's rows in order,
-//   into partial[chunk]. A is df = g * x0 (and the k-tile-0 blocks also sum
-//   db_l's columns, in row order), or x_l rebuilt as x0 * f_{l-1} + x_{l-1}
-//   from the x_{l-1} the previous layer's launch kept, rounded as the
-//   forward rounded it, and kept in turn for the next layer.
+// - general_rows_kernel<A, BTrans, Epi>: C [batch, n] = A [batch, k] B. A
+//   is read as it is, or as df = g * x0 (prologue); B is W [k, n] or W^T
+//   with W [n, k], read from U_l or V_l [d, r] as they are. The epilogue
+//   stores C, or computes the forward's f = C + b_l and x_{l+1} = x0 * f +
+//   x_l, or the backward's g += C with dx0 += g * f_l. The products over
+//   k = d that store C [batch, r] (x_l V_l, df U_l) have few tiles at a
+//   small batch: they split k into `splits` slices of k_per_split
+//   (blockIdx.y), each storing its C into a [splits, batch, r] scratch that
+//   sum_chunks_kernel then adds in slice order.
+// - general_weights_kernel<A>: C [d, r] = sum over a chunk of the batch of
+//   A^T B into partial[chunk]. A is df = g * x0 (and the blocks of the
+//   first tile of r also sum db_l's columns, in row order), x0 (l = 0), or
+//   x_l rebuilt as x0 * f_{l-1} + x_{l-1} from the x_{l-1} the previous
+//   layer's launch kept, rounded as the forward rounded it, and kept in
+//   turn for the next layer.
 // Forward, per layer: xv_l = x_l V_l, then f and x_{l+1} = x0 * (xv_l
 // U_l^T + b_l) + x_l in place in out. Backward, from the top layer: t_l =
 // df U_l (kept, [L, B, r]), then dU_l and db_l from df and xv_l, then g +=
@@ -877,24 +875,397 @@ sum_chunks_kernel(const float* __restrict__ partial, float* __restrict__ out,
 // the chunks' partials in chunk order. No atomics: bit for bit on repeat.
 // Columns, k-steps and tile counts are 64-bit, so d and r up to 2^31 - 1
 // walk without wrapping.
-// Bound: operations, as the tiles' (each product 2 B d r f32 operations),
-// but on the CUDA cores in f32: 4 B d r L / 67 TFLOP/s forward, twice that
-// backward. These kernels are simple, not fast.
+//
+// Bound: operations. Every product is 2 B d r operations, run as 3xTF32
+// on the tensor cores like the tiles': 3 x 4 B d r L TF32 operations
+// forward and 3 x 8 B d r L backward at 495 TFLOP/s, plus the elementwise
+// steps. At B=32768, d=3341, r=512, L=3: 2018 G TF32 operations, 4.08 ms,
+// forward (0.51 ms at B=4096, serving) and 8.15 ms backward; the
+// elementwise steps are 15 us at 67 TFLOP/s, and the bytes (x0, x_L, f
+// and xv written once, 1.8 GB forward) 0.53 ms, under the operations.
+//
+// Design. Both kernels share one tiled product (gen_product) on Hopper's
+// warpgroup mma (wgmma.mma_async m64n128k8, TF32 in, f32 sums): a block of
+// two warpgroups owns a 128 x 128 tile of C, each warpgroup 64 rows of it
+// (64 sums a thread, and 64 of a fresh sum). Stages of 16 k-steps (rows,
+// in the weight products) of A and B stream from device memory into a
+// ring of up to 6 stages in shared memory with cp.async (16-byte copies
+// where the rows allow, else 4-byte), so that the next stages load while
+// one multiplies; no whole row is held. A stage is raw f32, laid out as the
+// source lies (K-major [128][16] or M- and N-major [16][128]) with an XOR
+// swizzle of 16-byte chunks, so that the reads below hit 32 distinct banks.
+// B is split once a block into its TF32 high parts and remainders, written
+// in the K-major layout that wgmma reads from shared memory (split_b); A
+// is split as each lane loads its fragment (with the prologue: g * x0, or
+// x_l's rebuild) and handed to wgmma in registers, so that every operand,
+// whatever its major order in device memory, reaches the tensor cores
+// K-major. A stage's products, lo B_hi, hi B_lo and hi B_hi for each of
+// its two k8 steps, are summed by the tensor cores into a fresh sum, which
+// is then added to the f32 sum with __fadd_rn (mma_3xtf32 does the same a
+// k8 step; over two, the errors stay within the tolerances the tiles
+// keep); while they run, the block stages, splits and loads the next stage
+// (two split stages of B, two sets of A's fragments). What holds it at the
+// benchmark's shape is not the tensor cores but this stage pipeline, one
+// block an SM: with the products and splits taken out it takes 34 of the
+// 49 ms of a training call's products (tools/ab_cross_v2.py; PERF.md).
 
-constexpr int kGTile = 64;  // a block's 64 x 64 tile of C
-constexpr int kGStep = 16;  // k-steps (rows, in the weight kernel) staged at once
-constexpr int kGThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kGPad = kGTile + 4;  // row stride of the staged tiles
+constexpr int kGM = 128;  // a block's tile of C: 128 rows (M) ...
+constexpr int kGN = 128;  // ... by 128 columns (N)
+constexpr int kGK = 16;  // k-steps (rows, in the weight products) of a stage
+// Two warpgroups; warp w owns rows 16 w .. 16 w + 15 of the tile, and
+// warpgroup w / 4 rows 64 (w / 4) .. 64 (w / 4) + 63.
+constexpr int kGThreads = 256;
+constexpr int kGFloatsA = kGM * kGK;  // a staged tile of A, 8 KB
+constexpr int kGFloatsB = kGN * kGK;  // a staged tile of B, 8 KB
+constexpr size_t kGMaxSmem = kMaxSmem;  // one block an SM
 
-enum GenA { kAPlain, kADf };
+// How A is read: K-major ([m][k] rows of the source: x_l, xv, t) as it is
+// or as g * x0; M-major ([k][m]: the weight products' df^T and x_l^T) as
+// it is (x0), as g * x0, or as x0 * f_{l-1} + x_{l-1}.
+enum GenA { kAK, kAKDf, kAM, kAMDf, kAMX };
 enum GenEpi { kEStore, kEFwdX, kEBwdG };
 
+__host__ __device__ constexpr int a_tiles(int a) {
+  return a == kAKDf || a == kAMDf ? 2 : a == kAMX ? 3 : 1;
+}
+__host__ __device__ constexpr bool a_kmajor(int a) { return a == kAK || a == kAKDf; }
+__host__ __device__ constexpr int g_stage_bytes(int a) {
+  return (a_tiles(a) * kGFloatsA + kGFloatsB) * 4;
+}
+// Stages of the ring: as many as fit beside B's two split stages (4 x 8
+// KB), at most 6.
+__host__ __device__ constexpr int g_stages(int a) {
+  return (kGMaxSmem - 4 * kGFloatsB * 4) / g_stage_bytes(a) > 6
+             ? 6
+             : (int)((kGMaxSmem - 4 * kGFloatsB * 4) / g_stage_bytes(a));
+}
+__host__ __device__ constexpr size_t g_smem(int a) {
+  return (size_t)g_stages(a) * g_stage_bytes(a) + 4 * kGFloatsB * 4;
+}
+
+// Word of element (m, k) of a K-major staged tile of A [128][16]: 16-byte
+// chunk k / 4 of row m XOR (m & 2), so that the fragment reads (rows gid,
+// columns 2 tid4, 8 bytes) hit 32 distinct banks in each half warp.
+__device__ __forceinline__ int rows_at(int m, int k) {
+  return m * kGK + (((k >> 2) ^ (m & 2)) << 2) + (k & 3);
+}
+
+// Word of element (n, k) of a K-major staged tile of B [128][16]: chunk k /
+// 4 of row n XOR (n / 2 % 4), so that eight threads reading a chunk of
+// eight consecutive rows hit 32 distinct banks.
+__device__ __forceinline__ int rows_b_at(int n, int k) {
+  return n * kGK + (((k >> 2) ^ ((n >> 1) & 3)) << 2) + (k & 3);
+}
+
+// Word of element (k, m) of an M- or N-major staged tile [16][W]: 16-byte
+// chunk m / 4 of row k XOR (k & 6), so that the fragment reads (rows 2 tid4
+// and 2 tid4 + 1, columns gid) and the reads of one column a thread hit 32
+// distinct banks.
+template <int W>
+__device__ __forceinline__ int cols_at(int k, int m) {
+  return k * W + ((((m >> 2) ^ (k & 6))) << 2) + (m & 3);
+}
+
+// Stage rows [r0, r0 + W) x columns [c0, c0 + 16) of src (row stride ld)
+// into a K-major tile (B's swizzle with kB, else A's), zero past row rlim
+// and column clim. Thread t copies column t % 16 (16-byte chunk t % 4) of
+// every 16th (64th) row.
+template <int W, bool kB>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int64_t ld,
+                                           int64_t r0, int64_t rlim, int64_t c0, int64_t clim,
+                                           bool vec) {
+  auto at = [](int m, int k) { return kB ? rows_b_at(m, k) : rows_at(m, k); };
+  if (vec) {
+    constexpr int kDown = kGThreads / 4;  // rows a pass
+    const int m = threadIdx.x / 4;
+    const int k = threadIdx.x % 4 * 4;
+    const bool kok = c0 + k < clim;
+    const float* from = src + (r0 + m) * ld + c0 + k;
+#pragma unroll
+    for (int it = 0; it < W / kDown; ++it) {
+      const bool ok = kok && r0 + m + kDown * it < rlim;
+      cp_async16(dst + at(m + kDown * it, k), ok ? from + (int64_t)kDown * it * ld : src, ok);
+    }
+  } else {
+    constexpr int kDown = kGThreads / 16;  // rows a pass
+    const int m = threadIdx.x / 16;
+    const int k = threadIdx.x % 16;
+    const bool kok = c0 + k < clim;
+    const float* from = src + (r0 + m) * ld + c0 + k;
+#pragma unroll
+    for (int it = 0; it < W / kDown; ++it) {
+      const bool ok = kok && r0 + m + kDown * it < rlim;
+      cp_async4(dst + at(m + kDown * it, k), ok ? from + (int64_t)kDown * it * ld : src, ok);
+    }
+  }
+}
+
+// Stage rows [r0, r0 + 16) x columns [c0, c0 + W) of src into an M- or
+// N-major tile, zero past row rlim and column clim.
+template <int W>
+__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ src, int64_t ld,
+                                           int64_t r0, int64_t rlim, int64_t c0, int64_t clim,
+                                           bool vec) {
+  if (vec) {
+    constexpr int kAcross = W / 4;  // 16-byte chunks a row
+    const int k = threadIdx.x / kAcross;
+    const int m = threadIdx.x % kAcross * 4;
+    const bool mok = c0 + m < clim;
+    const float* from = src + (r0 + k) * ld + c0 + m;
+#pragma unroll
+    for (int it = 0; it < kGK * kAcross / kGThreads; ++it) {
+      const int kk = k + it * (kGThreads / kAcross);
+      const bool ok = mok && r0 + kk < rlim;
+      cp_async16(dst + cols_at<W>(kk, m), ok ? from + (int64_t)(kk - k) * ld : src, ok);
+    }
+  } else {
+    const int k = threadIdx.x / W;
+    const int m = threadIdx.x % W;
+    const bool mok = c0 + m < clim;
+    const float* from = src + (r0 + k) * ld + c0 + m;
+#pragma unroll
+    for (int it = 0; it < kGK * W / kGThreads; ++it) {
+      const int kk = k + it * (kGThreads / W);
+      const bool ok = mok && r0 + kk < rlim;
+      cp_async4(dst + cols_at<W>(kk, m), ok ? from + (int64_t)(kk - k) * ld : src, ok);
+    }
+  }
+}
+
+__device__ __forceinline__ bool vec_ok(const float* p, int64_t ld) {
+  return (ld & 3) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Element (m, k) of a stage's M-major A, prologue applied: the tiles are x0
+// (kAM), g and x0 (kAMDf) or x0, f_{l-1} and x_{l-1} (kAMX).
+template <int kA>
+__device__ __forceinline__ float a_elem(const float* st, int m, int k) {
+  const int at = cols_at<kGM>(k, m);
+  if (kA == kAM) return st[at];
+  if (kA == kAMDf) return __fmul_rn(st[at], st[kGFloatsA + at]);
+  return __fadd_rn(__fmul_rn(st[at], st[kGFloatsA + at]), st[2 * kGFloatsA + at]);
+}
+
+// B's split stage: bs holds B's TF32 high parts, [4 k/4][16 n/8][8 n % 8][4
+// k % 4] words (the K-major layout of wgmma's B without swizzle: core
+// matrices of 8 rows of 16 bytes, 128 bytes apart along n, 2048 along k),
+// then its remainders in the same layout. Within a k8 step the positions
+// are a permutation of the staged columns: position q holds column 2 q and
+// position 4 + q column 2 q + 1 (q < 4), so that a lane's A fragment, whose
+// logical k are tid4 and tid4 + 4, is columns 2 tid4 and 2 tid4 + 1 of A
+// (one 8-byte read). Thread t splits k8 step t / 128 of row t % 128.
+static_assert(kGThreads == 2 * kGN && kGK == 16, "split_b's threads");
+template <bool kBTrans>
+__device__ __forceinline__ void split_b(const float* bt, uint32_t* bs) {
+  const int n = threadIdx.x % kGN;
+  const int ks = threadIdx.x / kGN;
+  float v[8];
+  if (kBTrans) {
+#pragma unroll
+    for (int c = 0; c < 8; c += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(bt + rows_b_at(n, 8 * ks + c));
+      v[c] = q.x;
+      v[c + 1] = q.y;
+      v[c + 2] = q.z;
+      v[c + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[c] = bt[cols_at<kGN>(8 * ks + c, n)];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // positions 4 h .. 4 h + 3 of the k8 step: columns h, h + 2, ...
+    uint4 hi, lo;
+    split(v[h], hi.x, lo.x);
+    split(v[h + 2], hi.y, lo.y);
+    split(v[h + 4], hi.z, lo.z);
+    split(v[h + 6], hi.w, lo.w);
+    const int at = (2 * ks + h) * (kGN * 4) + n * 4;
+    *reinterpret_cast<uint4*>(bs + at) = hi;
+    *reinterpret_cast<uint4*>(bs + kGFloatsB + at) = lo;
+  }
+}
+
+// The shared-memory matrix descriptor of a K-major tile in bs's layout:
+// start address, leading (k) byte offset 2048, stride (n) byte offset 128,
+// no swizzle.
+__device__ __forceinline__ uint64_t b_desc(const uint32_t* tile) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(2048 >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// d = A B (scale_d 0) or d += A B (scale_d 1) for the warpgroup's 64 x 128
+// tile over one k8 step, TF32 in, f32 sums, issued asynchronously: a holds
+// the lane's A fragment in the m16n8k8 order (rows 16 warp + gid (+8),
+// logical k tid4 (+4)), desc B's K-major hi or lo tile in shared memory.
+// d's element 4 j + q is row 16 warp + gid + 8 (q / 2), column 8 j + 2 tid4
+// + q % 2.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// acc += A B over k in [k_first, k_last) for the block's 128 x 128 tile of
+// C at rows m0.. (< mlim) and columns n0.. (< nlim); warpgroup w holds rows
+// 64 w .. 64 w + 63 of it, in wgmma_tf32's order. A's sources a0, a1, a2
+// (row stride lda; a1 and a2 where the prologue reads them), B's b (row
+// stride ldb): N-major (B[k][n] = b[k ldb + n]) or, with kBTrans, K-major
+// (B[k][n] = b[n ldb + k]). on_stage(stage, k) sees each staged stage of
+// rows k.. before its products. Each stage: B is split once into its high
+// parts and remainders (split_b), the lanes split their A fragments as they
+// load them, and the tensor cores run lo B_hi, hi B_lo and hi B_hi of both
+// k8 steps into a fresh sum, which is added to acc with __fadd_rn.
+template <int kA, bool kBTrans, typename OnStage>
+__device__ __forceinline__ void gen_product(const float* a0, const float* a1, const float* a2,
+                                            int64_t lda, const float* b, int64_t ldb, int64_t m0,
+                                            int64_t mlim, int64_t n0, int64_t nlim,
+                                            int64_t k_first, int64_t k_last, float (&acc)[64],
+                                            OnStage on_stage) {
+  constexpr int kNA = a_tiles(kA);
+  constexpr int kStages = g_stages(kA);
+  constexpr int kStage = g_stage_bytes(kA) / 4;
+  extern __shared__ float4 gsmem4[];
+  float* smem = reinterpret_cast<float*>(gsmem4);
+  uint32_t* bs = reinterpret_cast<uint32_t*>(smem + kStages * kStage);
+  const float* asrc[3] = {a0, a1, a2};
+  bool avec[3];
+#pragma unroll
+  for (int i = 0; i < kNA; ++i) avec[i] = vec_ok(asrc[i], lda);
+  const bool bvec = vec_ok(b, ldb);
+  const int64_t steps = k_last > k_first ? (k_last - k_first + kGK - 1) / kGK : 0;
+  auto issue = [&](int64_t s) {
+    if (s < steps) {
+      float* st = smem + (int)(s % kStages) * kStage;
+      const int64_t k0 = k_first + s * kGK;
+#pragma unroll
+      for (int i = 0; i < kNA; ++i) {
+        if (a_kmajor(kA)) {
+          stage_rows<kGM, false>(st + i * kGFloatsA, asrc[i], lda, m0, mlim, k0, k_last, avec[i]);
+        } else {
+          stage_cols<kGM>(st + i * kGFloatsA, asrc[i], lda, k0, k_last, m0, mlim, avec[i]);
+        }
+      }
+      if (kBTrans) {
+        stage_rows<kGN, true>(st + kNA * kGFloatsA, b, ldb, n0, nlim, k0, k_last, bvec);
+      } else {
+        stage_cols<kGN>(st + kNA * kGFloatsA, b, ldb, k0, k_last, n0, nlim, bvec);
+      }
+    }
+    asm volatile("cp.async.commit_group;");
+  };
+  const int lane = threadIdx.x % 32;
+  const int m = (threadIdx.x / 32) * 16 + lane / 4;  // the lane's rows of A: m and m + 8
+  float p[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) p[i] = 0.0f;
+  // Stage s's B, split, in bs[s % 2]; its A fragments, split, in registers.
+  // Stage s + 1 is prepared while the tensor cores run stage s.
+  auto prepare = [&](int64_t s, uint32_t (&ahi)[kGK / 8][4], uint32_t (&alo)[kGK / 8][4]) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 2) : "memory");
+    __syncthreads();  // stage s has landed; every thread is done with stage s - 1's raw slot
+    issue(s + kStages - 1);  // into stage s - 1's slot
+    const float* st = smem + (int)(s % kStages) * kStage;
+    on_stage(st, k_first + s * kGK);
+    split_b<kBTrans>(st + kNA * kGFloatsA, bs + (int)(s % 2) * 2 * kGFloatsB);
+#pragma unroll
+    for (int ks = 0; ks < kGK / 8; ++ks) {
+      const int c = ks * 8 + 2 * (lane % 4);
+      float e[4];  // A[m][c], A[m + 8][c], A[m][c + 1], A[m + 8][c + 1]
+      if (a_kmajor(kA)) {
+        float2 top = *reinterpret_cast<const float2*>(st + rows_at(m, c));
+        float2 bot = *reinterpret_cast<const float2*>(st + rows_at(m + 8, c));
+        if (kA == kAKDf) {
+          const float2 xt = *reinterpret_cast<const float2*>(st + kGFloatsA + rows_at(m, c));
+          const float2 xb = *reinterpret_cast<const float2*>(st + kGFloatsA + rows_at(m + 8, c));
+          top = make_float2(__fmul_rn(top.x, xt.x), __fmul_rn(top.y, xt.y));
+          bot = make_float2(__fmul_rn(bot.x, xb.x), __fmul_rn(bot.y, xb.y));
+        }
+        e[0] = top.x;
+        e[1] = bot.x;
+        e[2] = top.y;
+        e[3] = bot.y;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) e[q] = a_elem<kA>(st, m + 8 * (q & 1), c + (q >> 1));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split(e[q], ahi[ks][q], alo[ks][q]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for wgmma's reads
+    __syncthreads();
+  };
+  // Stage s on the tensor cores: per k8 step, small terms first as
+  // mma_3xtf32 (lo B_hi, hi B_lo, hi B_hi), both k8 steps into one fresh
+  // sum p that is then added to acc; a k8 step's core matrices start 2 x
+  // 2048 bytes on (256 in the descriptor's 16-byte units). Stage s + 1 is
+  // prepared while they run.
+  auto run = [&](int64_t s, uint32_t (&ahi)[kGK / 8][4], uint32_t (&alo)[kGK / 8][4],
+                 uint32_t (&nhi)[kGK / 8][4], uint32_t (&nlo)[kGK / 8][4]) {
+    const int half = (int)(s % 2) * 2 * kGFloatsB;
+    const uint64_t desc_hi = b_desc(bs + half);
+    const uint64_t desc_lo = b_desc(bs + half + kGFloatsB);
+    wgmma_fence_operands(p);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < kGK / 8; ++ks) {
+      wgmma_tf32(p, alo[ks], desc_hi + 256 * ks, ks > 0);
+      wgmma_tf32(p, ahi[ks], desc_lo + 256 * ks, 1);
+      wgmma_tf32(p, ahi[ks], desc_hi + 256 * ks, 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    if (s + 1 < steps) prepare(s + 1, nhi, nlo);
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    wgmma_fence_operands(p);
+#pragma unroll
+    for (int ks = 0; ks < kGK / 8; ++ks) {  // the products read these until they are done
+#pragma unroll
+      for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(ahi[ks][q]), "+r"(alo[ks][q])::"memory");
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], p[i]);
+  };
+  uint32_t hi0[kGK / 8][4], lo0[kGK / 8][4], hi1[kGK / 8][4], lo1[kGK / 8][4];
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  if (steps > 0) prepare(0, hi0, lo0);
+#pragma unroll 1
+  for (int64_t s = 0; s < steps; s += 2) {
+    run(s, hi0, lo0, hi1, lo1);
+    if (s + 1 < steps) run(s + 1, hi1, lo1, hi0, lo0);
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
 struct RowsArgs {
-  const float* a;     // A [batch, k]; kADf: g, with A = g * x0
+  const float* a;     // A [batch, k]; kAKDf: g, with A = g * x0
   const float* x0;    // [batch, d]
   const float* w;     // B = W [k, n] row-major, or W^T with W [n, k] (BTrans)
   int64_t batch, k, n;
-  int64_t k_per_split;  // kEStore: k-steps of a slice (blockIdx.y), a multiple of kGStep
+  int64_t k_per_split;  // kEStore: k-steps of a slice (blockIdx.y), a multiple of kGK
   float* out;         // kEStore: C, [gridDim.y, batch, n]; kEFwdX: x_{l+1}; kEBwdG: g after
   const float* in;    // kEFwdX: x_l; kEBwdG: g before (either may be out)
   const float* bias;  // kEFwdX: b_l
@@ -905,177 +1276,188 @@ struct RowsArgs {
 };
 
 template <int kA, bool kBTrans, int kEpi>
-__global__ void __launch_bounds__(kGThreads) general_rows_kernel(const RowsArgs p) {
-  __shared__ float sa[kGStep][kGPad];  // [k][row]
-  __shared__ float sb[kGStep][kGPad];  // [k][column]
-  const int64_t ncols = (p.n + kGTile - 1) / kGTile;
-  const int64_t row0 = (int64_t)blockIdx.x / ncols * kGTile;
-  const int64_t col0 = (int64_t)blockIdx.x % ncols * kGTile;
+__global__ void __launch_bounds__(kGThreads, 1) general_rows_kernel(const RowsArgs p) {
+  const int64_t ncols = (p.n + kGN - 1) / kGN;
+  const int64_t row0 = (int64_t)blockIdx.x / ncols * kGM;
+  const int64_t col0 = (int64_t)blockIdx.x % ncols * kGN;
   const int64_t k_first = kEpi == kEStore ? (int64_t)blockIdx.y * p.k_per_split : 0;
-  const int64_t k_last = kEpi == kEStore && k_first + p.k_per_split < p.k ? k_first + p.k_per_split : p.k;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int64_t k0 = k_first; k0 < k_last; k0 += kGStep) {
-    for (int e = threadIdx.x; e < kGTile * kGStep; e += kGThreads) {
-      const int rr = e / kGStep;
-      const int kk = e % kGStep;
-      const int64_t row = row0 + rr;
-      float a = 0.0f;
-      if (row < p.batch && k0 + kk < k_last) {
-        const int64_t at = row * p.k + k0 + kk;
-        a = kA == kADf ? __fmul_rn(p.a[at], p.x0[at]) : p.a[at];
+  const int64_t k_last =
+      kEpi == kEStore && k_first + p.k_per_split < p.k ? k_first + p.k_per_split : p.k;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  gen_product<kA, kBTrans>(p.a, p.x0, nullptr, p.k, p.w, kBTrans ? p.k : p.n, row0, p.batch,
+                           col0, p.n, k_first, k_last, acc, [](const float*, int64_t) {});
+  // Thread (warp, lane) holds rows rbase and rbase + 8 and columns cbase + 8
+  // j + e of C. Eight j of a row load all their inputs before they store
+  // anything, so that those loads are in flight together (out may be in, so
+  // the compiler may not move a load past a store).
+  const int lane = threadIdx.x % 32;
+  const int64_t rbase = row0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const int64_t cbase = col0 + 2 * (lane % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t row = rbase + 8 * h;
+    if (row >= p.batch) continue;
+    const int64_t at0 = row * p.n;
+    if constexpr (kEpi == kEStore) {
+      float* out = p.out + (int64_t)blockIdx.y * p.batch * p.n + at0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t c = cbase + 8 * j + e;
+          if (c < p.n) out[c] = acc[4 * j + 2 * h + e];
+        }
       }
-      sa[kk][rr] = a;
-      const int kb = kBTrans ? e % kGStep : e / kGTile;
-      const int cb = kBTrans ? e / kGStep : e % kGTile;
-      float b = 0.0f;
-      if (k0 + kb < k_last && col0 + cb < p.n) {
-        b = kBTrans ? p.w[(col0 + cb) * p.k + k0 + kb] : p.w[(k0 + kb) * p.n + col0 + cb];
-      }
-      sb[kb][cb] = b;
-    }
-    __syncthreads();
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < kGStep; ++kk) {
-      float av[4], bv[4];
+      for (int jh = 0; jh < 16; jh += 8) {
+        float u0[8][2], u1[8][2], u2[8][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = sa[kk][ty + 16 * i];
-        bv[i] = sb[kk][tx + 16 * i];
-      }
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+          for (int e = 0; e < 2; ++e) {
+            const int64_t c = cbase + 8 * (jh + j) + e;
+            const bool ok = c < p.n;
+            if (kEpi == kEFwdX) {
+              u0[j][e] = ok ? p.x0[at0 + c] : 0.0f;
+              u1[j][e] = ok ? p.in[at0 + c] : 0.0f;
+              u2[j][e] = ok ? p.bias[c] : 0.0f;
+            } else {
+              u0[j][e] = ok ? p.in[at0 + c] : 0.0f;
+              u1[j][e] = ok ? p.f[at0 + c] : 0.0f;
+              u2[j][e] = ok && !p.top ? p.dx0[at0 + c] : 0.0f;
+            }
+          }
+        }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t row = row0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t c = col0 + tx + 16 * j;
-      if (row >= p.batch || c >= p.n) continue;
-      const int64_t at = row * p.n + c;
-      if (kEpi == kEStore) {
-        p.out[(int64_t)blockIdx.y * p.batch * p.n + at] = acc[i][j];
-      } else if (kEpi == kEFwdX) {
-        const float fv = __fadd_rn(acc[i][j], p.bias[c]);
-        p.out[at] = __fadd_rn(__fmul_rn(p.x0[at], fv), p.in[at]);
-        if (p.f_out != nullptr) p.f_out[at] = fv;
-      } else {
-        const float g_old = p.in[at];
-        const float g_new = __fadd_rn(g_old, acc[i][j]);
-        p.out[at] = g_new;
-        const float gf = __fmul_rn(g_old, p.f[at]);
-        const float dx = p.top ? gf : __fadd_rn(p.dx0[at], gf);
-        p.dx0[at] = p.bottom ? __fadd_rn(dx, g_new) : dx;
+          for (int e = 0; e < 2; ++e) {
+            const int64_t c = cbase + 8 * (jh + j) + e;
+            if (c >= p.n) continue;
+            const float v = acc[4 * (jh + j) + 2 * h + e];
+            const int64_t at = at0 + c;
+            if (kEpi == kEFwdX) {
+              const float fv = __fadd_rn(v, u2[j][e]);
+              p.out[at] = __fadd_rn(__fmul_rn(u0[j][e], fv), u1[j][e]);
+              if (p.f_out != nullptr) p.f_out[at] = fv;
+            } else {
+              const float g_old = u0[j][e];
+              const float g_new = __fadd_rn(g_old, v);
+              p.out[at] = g_new;
+              const float gf = __fmul_rn(g_old, u1[j][e]);
+              const float dx = p.top ? gf : __fadd_rn(u2[j][e], gf);
+              p.dx0[at] = p.bottom ? __fadd_rn(dx, g_new) : dx;
+            }
+          }
+        }
       }
     }
   }
 }
 
 struct WeightsArgs {
-  const float* g;       // Df: the gradient with respect to x_{l+1}
+  const float* g;       // kAMDf: the gradient with respect to x_{l+1}
   const float* x0;      // [batch, d]
-  const float* f_prev;  // !Df, l >= 1: f_{l-1}
-  const float* x_prev;  // !Df: x_{l-1} (x0 at l = 1); null at l = 0 (x_l = x0)
-  float* x_keep;        // !Df: where x_l is kept for the next layer, or null
-  const float* bm;      // B rows [batch, r]: xv_l (Df) or t_l
+  const float* f_prev;  // kAMX: f_{l-1}
+  const float* x_prev;  // kAMX: x_{l-1} (x0 at l = 1)
+  float* x_keep;        // kAMX: where x_l is kept for the next layer, or null
+  const float* bm;      // B rows [batch, r]: xv_l (kAMDf) or t_l
   float* partial;       // [chunks][total]
   int64_t batch, rows_per_chunk, total;
   int64_t d, r;
   int64_t out_at;       // dU_l's or dV_l's offset in a chunk's partial
-  int64_t db_at;        // Df: db_l's offset
+  int64_t db_at;        // kAMDf: db_l's offset
 };
 
-template <bool kDf>
-__global__ void __launch_bounds__(kGThreads) general_weights_kernel(const WeightsArgs p) {
-  __shared__ float sa[kGStep][kGPad];  // [row][j]
-  __shared__ float sb[kGStep][kGPad];  // [row][k]
-  const int64_t jtiles = (p.d + kGTile - 1) / kGTile;
-  const int64_t j0 = (int64_t)blockIdx.x % jtiles * kGTile;
-  const int64_t k0 = (int64_t)blockIdx.x / jtiles * kGTile;
+template <int kA>
+__global__ void __launch_bounds__(kGThreads, 1) general_weights_kernel(const WeightsArgs p) {
+  const int64_t ktiles = (p.r + kGN - 1) / kGN;
+  const int64_t j0 = (int64_t)blockIdx.x / ktiles * kGM;
+  const int64_t k0 = (int64_t)blockIdx.x % ktiles * kGN;
   const int64_t first = (int64_t)blockIdx.y * p.rows_per_chunk;
   const int64_t last = first + p.rows_per_chunk < p.batch ? first + p.rows_per_chunk : p.batch;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const bool sums_db = kDf && k0 == 0 && threadIdx.x < kGTile;
-  float acc[4][4] = {};
+  const bool sums_db = kA == kAMDf && k0 == 0;
   float db = 0.0f;
-  for (int64_t i0 = first; i0 < last; i0 += kGStep) {
-    for (int e = threadIdx.x; e < kGTile * kGStep; e += kGThreads) {
-      const int rr = e / kGTile;
-      const int cc = e % kGTile;
-      const int64_t row = i0 + rr;
-      float a = 0.0f;
-      float b = 0.0f;
-      if (row < last && j0 + cc < p.d) {
-        const int64_t at = row * p.d + j0 + cc;
-        if (kDf) {
-          a = __fmul_rn(p.g[at], p.x0[at]);
-        } else if (p.x_prev == nullptr) {
-          a = p.x0[at];
-        } else {
-          a = __fadd_rn(__fmul_rn(p.x0[at], p.f_prev[at]), p.x_prev[at]);
-          if (p.x_keep != nullptr && k0 == 0) p.x_keep[at] = a;
-        }
-      }
-      if (row < last && k0 + cc < p.r) b = p.bm[row * p.r + k0 + cc];
-      sa[rr][cc] = a;
-      sb[rr][cc] = b;
-    }
-    __syncthreads();
+  float acc[64];
 #pragma unroll
-    for (int rr = 0; rr < kGStep; ++rr) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = sa[rr][ty + 16 * i];
-        bv[i] = sb[rr][tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  const float* a0 = kA == kAMDf ? p.g : p.x0;
+  const float* a1 = kA == kAMDf ? p.x0 : p.f_prev;
+  float* x_keep = k0 == 0 ? p.x_keep : nullptr;
+  gen_product<kA, false>(a0, a1, p.x_prev, p.d, p.bm, p.r, j0, p.d, k0, p.r, first, last, acc,
+                         [&](const float* st, int64_t i0) {
+    // Thread c < 128: column j0 + c of the stage's rows, in order: db's sum
+    // of df (kAMDf), or x_l kept for the next layer (kAMX).
+    const int c = threadIdx.x;
+    if (c >= kGM || j0 + c >= p.d) return;
+    const int rows = last - i0 < kGK ? (int)(last - i0) : kGK;
     if (sums_db) {
-      for (int rr = 0; rr < kGStep; ++rr) db = __fadd_rn(db, sa[rr][threadIdx.x]);
+      for (int rr = 0; rr < rows; ++rr) {
+        const int at = cols_at<kGM>(rr, c);
+        db = __fadd_rn(db, __fmul_rn(st[at], st[kGFloatsA + at]));
+      }
+    } else if (kA == kAMX && x_keep != nullptr) {
+      for (int rr = 0; rr < rows; ++rr) x_keep[(i0 + rr) * p.d + j0 + c] = a_elem<kAMX>(st, c, rr);
     }
-    __syncthreads();
-  }
+  });
+  const int lane = threadIdx.x % 32;
+  const int64_t jbase = j0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const int64_t kbase = k0 + 2 * (lane % 4);
   float* out = p.partial + (int64_t)blockIdx.y * p.total;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t j = j0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int64_t j = jbase + 8 * h;
+    if (j >= p.d) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int64_t k = k0 + tx + 16 * c;
-      if (j < p.d && k < p.r) out[p.out_at + j * p.r + k] = acc[i][c];
+    for (int n = 0; n < 16; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t k = kbase + 8 * n + e;
+        if (k < p.r) out[p.out_at + j * p.r + k] = acc[4 * n + 2 * h + e];
+      }
     }
   }
-  if (sums_db && j0 + threadIdx.x < p.d) out[p.db_at + j0 + threadIdx.x] = db;
+  if (sums_db && threadIdx.x < kGM && j0 + threadIdx.x < p.d) {
+    out[p.db_at + j0 + threadIdx.x] = db;
+  }
+}
+
+int set_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+}
+
+// The general route's kernels take g_smem bytes; ask for the largest carveout
+// of shared memory, so that two blocks fit an SM.
+int set_general_smem(const void* kernel, size_t smem) {
+  const int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared));
 }
 
 template <int kA, bool kBTrans, int kEpi>
 int launch_rows(const RowsArgs& p, int splits, cudaStream_t s) {
-  const int64_t tiles = (p.batch + kGTile - 1) / kGTile * ((p.n + kGTile - 1) / kGTile);
+  const int64_t tiles = (p.batch + kGM - 1) / kGM * ((p.n + kGN - 1) / kGN);
   if (tiles > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  general_rows_kernel<kA, kBTrans, kEpi><<<dim3((unsigned)tiles, splits), kGThreads, 0, s>>>(p);
+  auto kernel = general_rows_kernel<kA, kBTrans, kEpi>;
+  const int err = set_general_smem((const void*)kernel, g_smem(kA));
+  if (err != 0) return err;
+  kernel<<<dim3((unsigned)tiles, splits), kGThreads, g_smem(kA), s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// C [batch, r] = A [batch, d] W (x_l V_l, or df U_l with kADf) into c, in
+// C [batch, r] = A [batch, d] W (x_l V_l, or df U_l with kAKDf) into c, in
 // `splits` slices of k through split_scratch [splits, batch, r] where
 // splits > 1.
 template <int kA>
 int launch_rows_split(RowsArgs p, float* c, float* split_scratch, int splits, cudaStream_t s) {
-  const int64_t steps = (p.k + kGStep - 1) / kGStep;
-  p.k_per_split = (steps + splits - 1) / splits * kGStep;
+  const int64_t steps = (p.k + kGK - 1) / kGK;
+  p.k_per_split = (steps + splits - 1) / splits * kGK;
   p.out = splits > 1 ? split_scratch : c;
   int err = launch_rows<kA, false, kEStore>(p, splits, s);
   if (err != 0 || splits == 1) return err;
@@ -1085,11 +1467,14 @@ int launch_rows_split(RowsArgs p, float* c, float* split_scratch, int splits, cu
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kDf>
+template <int kA>
 int launch_weights(const WeightsArgs& p, int chunks, cudaStream_t s) {
-  const int64_t tiles = (p.d + kGTile - 1) / kGTile * ((p.r + kGTile - 1) / kGTile);
+  const int64_t tiles = (p.d + kGM - 1) / kGM * ((p.r + kGN - 1) / kGN);
   if (tiles > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  general_weights_kernel<kDf><<<dim3((unsigned)tiles, chunks), kGThreads, 0, s>>>(p);
+  auto kernel = general_weights_kernel<kA>;
+  const int err = set_general_smem((const void*)kernel, g_smem(kA));
+  if (err != 0) return err;
+  kernel<<<dim3((unsigned)tiles, chunks), kGThreads, g_smem(kA), s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1110,7 +1495,7 @@ int general_fwd(const float* x0, const float* u, const float* v, const float* b,
     p.batch = batch;
     p.k = d;
     p.n = r;
-    int err = launch_rows_split<kAPlain>(p, xvl, split_scratch, splits, s);
+    int err = launch_rows_split<kAK>(p, xvl, split_scratch, splits, s);
     if (err != 0) return err;
     p.a = xvl;
     p.w = u + (int64_t)l * d * r;
@@ -1120,7 +1505,7 @@ int general_fwd(const float* x0, const float* u, const float* v, const float* b,
     p.in = xl;
     p.bias = b + (int64_t)l * d;
     p.f_out = f_out != nullptr ? f_out + (int64_t)l * batch * d : nullptr;
-    err = launch_rows<kAPlain, true, kEFwdX>(p, 1, s);
+    err = launch_rows<kAK, true, kEFwdX>(p, 1, s);
     if (err != 0) return err;
   }
   return 0;
@@ -1155,13 +1540,13 @@ int general_bwd(const float* x0, const float* u, const float* v, const float* f,
     p.batch = batch;
     p.k = d;
     p.n = r;
-    int err = launch_rows_split<kADf>(p, tl, split_scratch, splits, s);
+    int err = launch_rows_split<kAKDf>(p, tl, split_scratch, splits, s);
     if (err != 0) return err;
     w.g = gl;  // dU_l = df^T xv_l, db_l = sum df
     w.bm = xv + (int64_t)l * batch * r;
     w.out_at = (int64_t)l * d * r;
     w.db_at = 2 * width + (int64_t)l * d;
-    err = launch_weights<true>(w, chunks, s);
+    err = launch_weights<kAMDf>(w, chunks, s);
     if (err != 0) return err;
     p.a = tl;  // g += t_l V_l^T, dx0 += g * f_l
     p.w = v + (int64_t)l * d * r;
@@ -1173,7 +1558,7 @@ int general_bwd(const float* x0, const float* u, const float* v, const float* f,
     p.dx0 = dx0;
     p.top = l == layers - 1;
     p.bottom = l == 0;
-    err = launch_rows<kAPlain, true, kEBwdG>(p, 1, s);
+    err = launch_rows<kAK, true, kEBwdG>(p, 1, s);
     if (err != 0) return err;
   }
   for (int l = 0; l < layers; ++l) {  // dV_l = x_l^T t_l
@@ -1182,7 +1567,8 @@ int general_bwd(const float* x0, const float* u, const float* v, const float* f,
     w.x_keep = l >= 1 && l < layers - 1 ? x_scratch + (int64_t)(l & 1) * bd : nullptr;
     w.bm = t + (int64_t)l * batch * r;
     w.out_at = width + (int64_t)l * d * r;
-    const int err = launch_weights<false>(w, chunks, s);
+    const int err =
+        l == 0 ? launch_weights<kAM>(w, chunks, s) : launch_weights<kAMX>(w, chunks, s);
     if (err != 0) return err;
   }
   sum_chunks_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
@@ -1195,12 +1581,6 @@ int general_bwd(const float* x0, const float* u, const float* v, const float* f,
 // block's 227 KB. The wrapper sends other shapes to the general route.
 bool tiles_take(long long d, long long r) {
   return d <= (1 << 20) && r <= (1 << 20) && fwd_smem_bytes((int)d, (int)r, 1, false) <= kMaxSmem;
-}
-
-int set_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
 }
 
 }  // namespace

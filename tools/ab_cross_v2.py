@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """A/B variants of the low-rank DCN-v2 cross kernels on one CUDA card.
 
-    python3 tools/ab_cross_v2.py [--dims D,D,...] [pr5=|parent=]DIR[:CHUNKS] ...
+    python3 tools/ab_cross_v2.py [--dims D,D,... [--layers L] | --bench] [pr5=|tilesonly=|parent=]DIR[:CHUNKS] ...
 
 Each DIR holds a variant ``cross_v2.cu`` with the C interface of
 ``tfrec_tpu_torch/kernels/csrc/cross_v2.cu`` (``tfrec_tpu_torch/kernels/csrc``
-itself is the current one). ``pr5=DIR`` marks the interface of commit
+itself is the current one; ``parent=DIR`` labels a parent commit's copy,
+which has the same interface). ``pr5=DIR`` marks the interface of commit
 88036c9's kernels, which this tool then calls with its layouts: the f32
 CUDA-core forward (V zero padded to [L, d, r4], U transposed and zero
 padded to [L, r4, d4]) beside the tensor-core backward without the g
-scratch. ``parent=DIR`` marks the interface of commit 61543c0's kernels
-(before the general route: no U, V, scratch, splits or route arguments). For each argument,
+scratch. ``tilesonly=DIR`` marks the interface of commit 61543c0's kernels
+(before the general route: no U, V, scratch, splits or route arguments).
+
+``--bench`` runs the benchmark's DCN-v2 shapes instead (d0=3341, r=512,
+L=3, the general route): a training step's forward saving f and xv and
+its backward at B=32768, and a serving call's forward at B=4096. For each
+variant it holds them against their plain versions, checks bit-for-bit
+repeat, prints their device times beside their 3xTF32 bounds (3 x 2 B d r
+TF32 operations a product at 495 TFLOP/s) and each kernel's time and
+launches, with the bound of the products it ran. For each argument,
 in order, it builds the variant into ``build/ab/<n>_<DIR name>/``, holds
 the forward and backward against their plain versions at the flagship's
 shape (B=8192, d=845, r=64, L=3; rtol 1e-5, atol 1e-5 x max|ref|), and at
-each d of ``--dims`` in its place, says whether their outputs are bit for
+each d of ``--dims`` in its place (with ``--layers``' depth in place of 3), says whether their outputs are bit for
 bit the first variant's, and prints their device times (a CUDA graph of 3
 calls on inputs that rotate past L2, median of 7 replays) and the
 backward's time by kernel. CHUNKS caps the weight pass's batch chunks
@@ -123,7 +132,7 @@ def pr5_bwd(x0, u, v, f, xv, g):
             grads[2 * width:].view(layers, dim))
 
 
-def parent_fwd(x0, u, v, b, want_saved=False):
+def tilesonly_fwd(x0, u, v, b, want_saved=False):
     """``cross_v2_fwd`` as commit 61543c0's wrapper called its kernels."""
     layers, dim, rank = u.shape
     batch = x0.shape[0]
@@ -136,11 +145,11 @@ def parent_fwd(x0, u, v, b, want_saved=False):
     rc = fn(x0.data_ptr(), vfrag.data_ptr(), utfrag.data_ptr(), b.data_ptr(), out.data_ptr(),
             f.data_ptr() if want_saved else None, xv.data_ptr() if want_saved else None,
             batch, dim, rank, layers, torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(rc, "parent cross_v2_fwd")
+    _build.check_launch(rc, "tilesonly cross_v2_fwd")
     return (out, f, xv) if want_saved else out
 
 
-def parent_bwd(x0, u, v, f, xv, g):
+def tilesonly_bwd(x0, u, v, f, xv, g):
     """``cross_v2_bwd`` as commit 61543c0's wrapper called its kernels."""
     layers, dim, rank = u.shape
     batch, width = x0.shape[0], layers * dim * rank
@@ -160,15 +169,16 @@ def parent_bwd(x0, u, v, f, xv, g):
             dx0.data_ptr(), grads.data_ptr(), df.data_ptr(), t.data_ptr(),
             None if g_scratch is None else g_scratch.data_ptr(), partial.data_ptr(),
             batch, dim, rank, layers, chunks, torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(rc, "parent cross_v2_bwd")
+    _build.check_launch(rc, "tilesonly cross_v2_bwd")
     return (dx0, grads[:width].view(layers, dim, rank), grads[width:2 * width].view(layers, dim, rank),
             grads[2 * width:].view(layers, dim))
 
 
 def hmma_counts(lib: Path) -> dict:
-    """HMMA instructions in the SASS of each kernel of ``lib``, by kernel
-    and template arguments (``<rows / 16>`` or ``<rows / 16, g in shared
-    memory>``; the general route's ``<A, BTrans, Epi>`` and ``<Df>``)."""
+    """Tensor-core instructions (HMMA for ``mma.sync``, HGMMA for
+    ``wgmma``) in the SASS of each kernel of ``lib``, by kernel and template
+    arguments (``<rows / 16>`` or ``<rows / 16, g in shared memory>``; the
+    general route's ``<A, BTrans, Epi>`` and ``<A>``)."""
     sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "--dump-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
@@ -182,23 +192,96 @@ def hmma_counts(lib: Path) -> dict:
             if template:
                 name += "<" + ", ".join(template) + ">"
             counts[name] = 0
-        elif name and "HMMA" in line:
+        elif name and ("HMMA" in line or "HGMMA" in line):
             counts[name] += 1
     return counts
 
 
-def main() -> None:
+PEAK_TF32 = 495e12
+BENCH_DIM, BENCH_RANK, BENCH_LAYERS = 3341, 512, 3
+BENCH_SHAPES = (("train", 32768), ("serve", 4096))  # (what, B): training saves f, xv and runs the backward
+KERNEL_NAME = re.compile(r"(cross_v2_\w+_kernel|general_rows_kernel|general_weights_kernel|sum_chunks_kernel)"
+                         r"(<[^>]*>)?")
+
+
+def kernel_times(fn) -> dict:
+    """Device time (us) and launches of each kernel of one call of fn, by
+    kernel name and template arguments."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            found = KERNEL_NAME.search(e.key)
+            name = "".join(found.groups("")) if found else e.key[:60]
+            us, n = times.get(name, (0.0, 0))
+            times[name] = (us + e.self_device_time_total, n + e.count)
+    return times
+
+
+def bench(arg: str, fwd_fn, bwd_fn) -> None:
+    """The benchmark's shapes (``--bench``) for one variant."""
+    dim, rank, layers = BENCH_DIM, BENCH_RANK, BENCH_LAYERS
+    for what, batch in BENCH_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(batch)
+        x0 = torch.randn(batch, dim, device="cuda", generator=gen)
+        g = torch.randn(batch, dim, device="cuda", generator=gen)
+        u = torch.randn(layers, dim, rank, device="cuda", generator=gen) / dim**0.5
+        v = torch.randn(layers, dim, rank, device="cuda", generator=gen) / dim**0.5
+        b = 0.1 * torch.randn(layers, dim, device="cuda", generator=gen)
+        product = 3 * 2 * batch * dim * rank / PEAK_TF32 * 1e6  # us, 3xTF32
+        train = what == "train"
+        out, f, xv = fwd_fn(x0, u, v, b, want_saved=True)
+        want, f_ref, xv_ref = m.cross_v2_fwd_ref(x0, u, v, b, want_saved=True)
+        ok = within(out, want) and (not train or (within(f, f_ref) and within(xv, xv_ref)))
+        errs = [f"x_L {(out - want).abs().max().item():.3e} (max |ref| {want.abs().max().item():.3e})"]
+        bitwise = torch.equal(out, fwd_fn(x0, u, v, b))
+        del want, f_ref, xv_ref
+        fwd = device_ms(lambda: fwd_fn(x0, u, v, b, want_saved=train), 1)
+        line = (f"{arg} {what} B={batch} d={dim} r={rank} L={layers}: forward{' saving f and xv' if train else ''} "
+                f"{fwd * 1e3:.1f} us (bound {2 * layers * product:.1f})")
+        calls = [lambda: fwd_fn(x0, u, v, b, want_saved=train)]
+        if train:
+            grads = bwd_fn(x0, u, v, f, xv, g)
+            ref = m.cross_v2_bwd_ref(x0, u, v, f, xv, g)
+            ok &= all(within(a, e) for a, e in zip(grads, ref))
+            errs += [f"{name} {(a - e).abs().max().item():.3e} (max |ref| {e.abs().max().item():.3e})"
+                     for name, a, e in zip(("dx0", "dU", "dV", "db"), grads, ref)]
+            bitwise &= all(torch.equal(a, e) for a, e in zip(grads, bwd_fn(x0, u, v, f, xv, g)))
+            del grads, ref
+            bwd = device_ms(lambda: bwd_fn(x0, u, v, f, xv, g), 1)
+            line += f", backward {bwd * 1e3:.1f} us (bound {4 * layers * product:.1f})"
+            calls.append(lambda: bwd_fn(x0, u, v, f, xv, g))
+        print(f"{line}; within tolerance {ok}, repeats bit for bit {bitwise}; errors {', '.join(errs)}", flush=True)
+        for call, label in zip(calls, ("forward", "backward")):
+            for name, (us, n) in sorted(kernel_times(call).items(), key=lambda kv: -kv[1][0]):
+                products = n if name.startswith(("general_rows", "general_weights")) else 0
+                bound = f", bound of its {products} products {products * product:.1f} us" if products else ""
+                print(f"    {label} {us:10.1f} us  {n:3d} launches  {name}{bound}", flush=True)
+        del x0, g, u, v, b, out, f, xv
+        torch.cuda.empty_cache()
+
+
+def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     args = sys.argv[1:]
     dims = [D]
+    benchmark = args[:1] == ["--bench"]
+    if benchmark:
+        args = args[1:]
     if args[:1] == ["--dims"]:
         dims = [int(d) for d in args[1].split(",")]
         args = args[2:]
+    if args[:1] == ["--layers"]:
+        global L
+        L = int(args[1])
+        args = args[2:]
     inputs = {}
-    for dim in dims:
+    for dim in ([] if benchmark else dims):
         gen = torch.Generator(device="cuda").manual_seed(0)
         inputs[dim] = ([torch.randn(B, dim, device="cuda", generator=gen) for _ in range(3)],
                        [torch.randn(B, dim, device="cuda", generator=gen) for _ in range(3)],
@@ -207,8 +290,7 @@ def main() -> None:
                        0.1 * torch.randn(L, dim, device="cuda", generator=gen))
     first = {}  # the first variant's outputs at each d
     default_chunks = m._MAX_CHUNKS
-    for arg, dim in ((a, d) for a in args for d in dims):
-        x0s, gs, u, v, b = inputs[dim]
+    for arg, dim in ((a, d) for a in args for d in ([None] if benchmark else dims)):
         iface, _, rest = arg.rpartition("=")
         variant, _, chunks = rest.partition(":")
         m._MAX_CHUNKS = int(chunks) if chunks else default_chunks
@@ -217,8 +299,13 @@ def main() -> None:
         _build._loaded.clear()
         _build._functions.clear()
         _build.build(["cross_v2"])
-        fwd_fn = {"pr5": pr5_fwd, "parent": parent_fwd}.get(iface, m.cross_v2_fwd)
-        bwd_fn = {"pr5": pr5_bwd, "parent": parent_bwd}.get(iface, m.cross_v2_bwd)
+        fwd_fn = {"pr5": pr5_fwd, "tilesonly": tilesonly_fwd}.get(iface, m.cross_v2_fwd)
+        bwd_fn = {"pr5": pr5_bwd, "tilesonly": tilesonly_bwd}.get(iface, m.cross_v2_bwd)
+        if benchmark:
+            bench(arg, fwd_fn, bwd_fn)
+            print(f"    HMMA in SASS {hmma_counts(_build.library_path('cross_v2'))}", flush=True)
+            continue
+        x0s, gs, u, v, b = inputs[dim]
         saved = [fwd_fn(x, u, v, b, want_saved=True) for x in x0s]
         out, f, xv = saved[0]
         want, f_ref, xv_ref = m.cross_v2_fwd_ref(x0s[0], u, v, b, want_saved=True)
@@ -244,12 +331,8 @@ def main() -> None:
               f"{fwd * 1e3:.1f} us, saving f and xv {fwd_saved * 1e3:.1f} us, backward {bwd * 1e3:.1f} us; "
               f"forward errors {fwd_errs}; backward errors {errs}; "
               f"HMMA in SASS {hmma_counts(_build.library_path('cross_v2'))}", flush=True)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            bwd_fn(x0s[0], u, v, f, xv, gs[0])
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-                print(f"    {e.self_device_time_total:8.1f} us  {e.key[:70]}")
+        for name, (us, n) in kernel_times(lambda: bwd_fn(x0s[0], u, v, f, xv, gs[0])).items():
+            print(f"    {us:8.1f} us  {n:3d} launches  {name}")
 
 
 if __name__ == "__main__":
