@@ -336,7 +336,7 @@ def test_grouped_and_host_ordered_combines_are_the_per_table_combine():
     sentinels = [50, 50, 50, 50]
     tid, tg = torch.from_numpy(ids), torch.from_numpy(grads)
     per = [combine_duplicate_ids(tid[i], tg[i], 50) for i in range(4)]
-    gu, gc = combine_duplicate_ids_grouped(tid, tg, sentinels)
+    gu, gc = combine_duplicate_ids_grouped(tid, tg, torch.tensor(sentinels)[:, None])
     for i, (u, c) in enumerate(per):
         assert torch.equal(gu[i], u) and torch.equal(gc[i], c)
         key = np.where(ids[i] < 0, 50, ids[i]).astype(np.int64) * 300 + np.arange(300)

@@ -413,9 +413,9 @@ def job_rest(spec, mesh):
     widths = []
     exchange = embedding._exchange
 
-    def recording(m, bufs):  # the float buffers' shapes, [F, N, C, lanes]
+    def recording(m, bufs, tag):  # the float buffers' shapes, [F, N, C, lanes]
         widths.extend(tuple(b.shape) for b in bufs if b.is_floating_point())
-        return exchange(m, bufs)
+        return exchange(m, bufs, tag)
 
     embedding._exchange = recording
     t = spec["lanes"]["table"]
@@ -473,8 +473,36 @@ def _leaves(tree):
     return [tree]
 
 
+def job_multihot(spec, mesh):
+    """DLRM with the DCN interaction and summed multi-hot bags through the
+    sharded builder (f32 wire, contiguous row blocks): 3 steps, what each
+    step's exchange counted, and one more step under the profiler (rank 0's
+    ``tfrec.*`` spans, counted by name)."""
+    import torch
+
+    from tfrec_tpu_torch.models import DataSpec
+    from tfrec_tpu_torch.models.dlrm import DLRM
+
+    m = spec["dlrm"]
+    model = DLRM(DataSpec.ctr(m["vocabs"], m["num_dense"], m["widths"]), m["dim"], **m["kw"])
+    counted = []
+
+    def step_counts(builder):
+        c = builder.mesh.counters
+        counted.append({k: float(v) for k, v in c.items()})
+
+    run = _builder_steps(spec, mesh, spec["mesh_kw"], model=model)
+    step_counts(run["builder"])
+    local = {k: torch.from_numpy(_rows(v, mesh.data_index, mesh.size)) for k, v in spec["batches"][0].items()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run["builder"].step(run["live"], local)
+    names = [e.name for e in prof.events() if e.name.startswith("tfrec.")]
+    return {"state": run["state"], "losses": run["losses"], "overflow": run["overflow"],
+            "counters": counted[0], "spans": {n: names.count(n) for n in sorted(set(names))}}
+
+
 JOBS = {"parallel": job_parallel, "trainer": job_trainer, "colshard": job_colshard,
-        "retrieval": job_retrieval, "als": job_als, "rest": job_rest}
+        "retrieval": job_retrieval, "als": job_als, "rest": job_rest, "multihot": job_multihot}
 
 
 def main(job, rank, world, port, spec_path, out_path) -> None:

@@ -899,11 +899,16 @@ sum_chunks_kernel(const float* __restrict__ partial, float* __restrict__ out,
 // is split as each lane loads its fragment (with the prologue: g * x0, or
 // x_l's rebuild) and handed to wgmma in registers, so that every operand,
 // whatever its major order in device memory, reaches the tensor cores
-// K-major. A stage's products, lo B_hi, hi B_lo and hi B_hi for each of
-// its two k8 steps, are summed by the tensor cores into a fresh sum, which
-// is then added to the f32 sum with __fadd_rn (mma_3xtf32 does the same a
-// k8 step; over two, the errors stay within the tolerances the tiles
-// keep); while they run, the block stages, splits and loads the next stage
+// K-major. A stage's products, lo B_hi and hi B_lo of both its k8 steps,
+// then hi B_hi of both, are summed by the tensor cores into a fresh sum,
+// which is then added to the f32 sum with __fadd_rn (mma_3xtf32 does the
+// same a k8 step; over two, the errors stay within the tolerances the tiles
+// keep). The tensor cores' sums shrink toward zero (they truncate), and
+// every product added after a large one is cut at that one's last bit: with
+// the high parts' products last, a stage's sum shrinks a third less (dU and
+// dV at the benchmark's shapes 1.2e-7 of themselves against float64, not
+// 1.8e-7; cuBLAS f32 shrinks 1e-8 but errs 1.2e-6 either way, this route
+// 3.2e-7). While they run, the block stages, splits and loads the next stage
 // (two split stages of B, two sets of A's fragments). What holds it at the
 // benchmark's shape is not the tensor cores but this stage pipeline, one
 // block an SM: with the products and splits taken out it takes 34 of the
@@ -1137,8 +1142,9 @@ __device__ __forceinline__ void wgmma_fence_operands(float (&d)[64]) {
 // (B[k][n] = b[n ldb + k]). on_stage(stage, k) sees each staged stage of
 // rows k.. before its products. Each stage: B is split once into its high
 // parts and remainders (split_b), the lanes split their A fragments as they
-// load them, and the tensor cores run lo B_hi, hi B_lo and hi B_hi of both
-// k8 steps into a fresh sum, which is added to acc with __fadd_rn.
+// load them, and the tensor cores run lo B_hi and hi B_lo of both k8 steps,
+// then hi B_hi of both, into a fresh sum, which is added to acc with
+// __fadd_rn.
 template <int kA, bool kBTrans, typename OnStage>
 __device__ __forceinline__ void gen_product(const float* a0, const float* a1, const float* a2,
                                             int64_t lda, const float* b, int64_t ldb, int64_t m0,
@@ -1218,8 +1224,8 @@ __device__ __forceinline__ void gen_product(const float* a0, const float* a1, co
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for wgmma's reads
     __syncthreads();
   };
-  // Stage s on the tensor cores: per k8 step, small terms first as
-  // mma_3xtf32 (lo B_hi, hi B_lo, hi B_hi), both k8 steps into one fresh
+  // Stage s on the tensor cores: the small terms of both k8 steps (lo B_hi,
+  // hi B_lo), then their high parts' products (hi B_hi), into one fresh
   // sum p that is then added to acc; a k8 step's core matrices start 2 x
   // 2048 bytes on (256 in the descriptor's 16-byte units). Stage s + 1 is
   // prepared while they run.
@@ -1234,8 +1240,9 @@ __device__ __forceinline__ void gen_product(const float* a0, const float* a1, co
     for (int ks = 0; ks < kGK / 8; ++ks) {
       wgmma_tf32(p, alo[ks], desc_hi + 256 * ks, ks > 0);
       wgmma_tf32(p, ahi[ks], desc_lo + 256 * ks, 1);
-      wgmma_tf32(p, ahi[ks], desc_hi + 256 * ks, 1);
     }
+#pragma unroll
+    for (int ks = 0; ks < kGK / 8; ++ks) wgmma_tf32(p, ahi[ks], desc_hi + 256 * ks, 1);
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     if (s + 1 < steps) prepare(s + 1, nhi, nlo);
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");

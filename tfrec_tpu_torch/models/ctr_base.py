@@ -4,7 +4,11 @@ The counterpart of ``tfrec_tpu/models/ctr_base.py``. Batch convention:
 {"dense": [B, Dd] f32 (Dd may be 0), "cat": [B, sum(W_f)] int32}. A
 width-W_f multi-hot field occupies W_f columns, padded with the sentinel
 ``vocab_f`` (clamped by the gather, masked out of the combine). Multi-hot
-bags are mean-combined over their valid ids, linear terms summed.
+bags are combined over their valid ids by the model's ``combiner``: their
+mean (the default, the reference's rule) or their sum (MLPerf DLRM-DCNv2's
+``EmbeddingBag`` pooling); linear terms are summed. While a profiler
+records, a model with bags opens the span ``tfrec.bag_pool`` around the
+combine of its field embeddings.
 
 Three table layouts, the reference's, each read by the same model code
 through ``_all_field_rows``:
@@ -36,8 +40,10 @@ import torch
 
 from tfrec_tpu_torch.models.base import DataSpec, RecModel
 from tfrec_tpu_torch.ops.embedding import TableSpec, init_tables
+from tfrec_tpu_torch.utils.profile import span
 
 LANES = 128  # a pack's width: the TPU's lanes, which the layout was made for
+COMBINERS = ("mean", "sum")  # a multi-hot bag's pooling
 
 
 class CTRBase(RecModel):
@@ -46,7 +52,7 @@ class CTRBase(RecModel):
     # concat-based towers (DCN) accept mixed dims.
     supports_mixed_dims = False
 
-    def __init__(self, data_spec: DataSpec, embed_dim: int, field_dims=None):
+    def __init__(self, data_spec: DataSpec, embed_dim: int, field_dims=None, *, combiner: str = "mean"):
         super().__init__()
         if data_spec.kind != "ctr":
             raise ValueError(f"{type(self).__name__} needs a ctr DataSpec, got {data_spec.kind!r}")
@@ -66,6 +72,7 @@ class CTRBase(RecModel):
         else:
             self.field_dims = (embed_dim,) * nf
         self.widths = data_spec.field_widths or (1,) * nf
+        self.combiner = combiner
         self._offsets = []
         off = 0
         for w in self.widths:
@@ -82,6 +89,18 @@ class CTRBase(RecModel):
         self.total_vocab = voff
         self.layout = "field"  # or "pack", "stack"
         self._columns = {}  # device -> (vocab, offset) of each cat column
+
+    @property
+    def combiner(self) -> str:
+        """How a multi-hot bag's rows pool into its field's embedding:
+        "mean" or "sum" (settable on any CTR model)."""
+        return self._combiner
+
+    @combiner.setter
+    def combiner(self, name: str) -> None:
+        if name not in COMBINERS:
+            raise ValueError(f"unknown bag combiner {name!r}; options: {COMBINERS}")
+        self._combiner = name
 
     @property
     def lane_pack(self) -> bool:
@@ -345,9 +364,15 @@ class CTRBase(RecModel):
         return [gathered[f"{prefix}_{f}"] for f in range(self.num_fields)]
 
     def field_list(self, gathered, batch) -> List[torch.Tensor]:
-        """Per-field combined embeddings: list of [B, d_f]."""
-        return [self._combine(rows, batch, f)
-                for f, rows in enumerate(self._all_field_rows(gathered, batch))]
+        """Per-field combined embeddings: list of [B, d_f], each bag pooled
+        by the model's ``combiner`` (inside ``tfrec.bag_pool`` where the
+        model has a bag)."""
+        mean = self.combiner == "mean"
+        rows = self._all_field_rows(gathered, batch)
+        if max(self.widths) == 1:
+            return rows
+        with span("tfrec.bag_pool"):
+            return [self._combine(r, batch, f, mean=mean) for f, r in enumerate(rows)]
 
     def field_stack(self, gathered, batch) -> torch.Tensor:
         """[B, F, D] combined field embeddings (equal dims required)."""

@@ -113,6 +113,15 @@ def _run_starts(sorted_keys: torch.Tensor) -> torch.Tensor:
     return starts
 
 
+SUM_RUN = 512  # the longest run of rows that one thread sums in a pass
+
+
+def _one_pass(seg: torch.Tensor, sorted_grads: torch.Tensor) -> torch.Tensor:
+    lengths = torch.zeros(seg.shape[0], dtype=torch.int64, device=seg.device).index_add_(
+        0, seg, torch.ones_like(seg))
+    return torch.segment_reduce(sorted_grads, "sum", lengths=lengths, axis=0, unsafe=True)
+
+
 def _segment_sums(seg: torch.Tensor, sorted_grads: torch.Tensor) -> torch.Tensor:
     """[M, D] sums of the rows of ``sorted_grads`` by ``seg``, [M] int64,
     ascending, each row's segment: row j of the result is segment j's sum
@@ -124,11 +133,27 @@ def _segment_sums(seg: torch.Tensor, sorted_grads: torch.Tensor) -> torch.Tensor
     (``chip_smoke.py`` checks it on the card at the training path's shapes
     and against the CPU). Neither ``index_add_`` (float atomics on CUDA) nor
     ``index_put_(accumulate=True)`` (parallel adds on a multi-threaded CPU)
-    repeats. Segment lengths are integer adds, exact in any order."""
+    repeats. Segment lengths are integer adds, exact in any order.
+
+    One thread walking a segment of a hot id would be the whole kernel's
+    time (a Zipf id that takes a sixth of a 1.6 M-id bag field: 0.4 s on an
+    H100), so a segment sums in two passes, still in a fixed order: its runs
+    of ``SUM_RUN`` rows first, then those partial sums. A segment of at most
+    ``SUM_RUN`` rows is one run: its sum is the one-pass sum bit for bit."""
     m = seg.shape[0]
-    lengths = torch.zeros(m, dtype=torch.int64, device=seg.device).index_add_(
-        0, seg, torch.ones_like(seg))
-    return torch.segment_reduce(sorted_grads, "sum", lengths=lengths, axis=0, unsafe=True)
+    # Each segment's first row and length by binary search (no atomics on a
+    # hot segment's count), each row's place in its segment, then its run.
+    every = torch.arange(m, device=seg.device)
+    first = torch.searchsorted(seg, every)
+    lengths = torch.searchsorted(seg, every, right=True) - first
+    pos = every - first[seg]
+    run = torch.cumsum((pos % SUM_RUN == 0).to(torch.int64), 0) - 1
+    partial = _one_pass(run, sorted_grads)
+    # A segment's runs are consecutive rows of ``partial``, as many as its
+    # length takes; the rows past the last run (zeros) belong to no segment,
+    # and the sum leaves them out.
+    runs = torch.div(lengths + (SUM_RUN - 1), SUM_RUN, rounding_mode="floor")
+    return torch.segment_reduce(partial, "sum", lengths=runs, axis=0, unsafe=True)
 
 
 def combine_duplicate_ids(
@@ -167,16 +192,17 @@ def combine_duplicate_ids(
 
 
 def combine_duplicate_ids_grouped(
-    ids: torch.Tensor, grads: torch.Tensor, sentinels: Sequence[int]
+    ids: torch.Tensor, grads: torch.Tensor, sentinels: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``combine_duplicate_ids`` of F same-shaped tables in one batched
     sort, gather, segment sum and scatter: ids [F, N] int32 (row f
-    addressing table f), grads [F, N, D] f32, ``sentinels`` F pad ids (each
-    table's vocab) -> (uids [F, N], combined [F, N, D]), row f bit for bit
-    ``combine_duplicate_ids(ids[f], grads[f], sentinels[f])``: the same
-    stable order within a row, and each segment summed alone in it."""
+    addressing table f), grads [F, N, D] f32, ``sentinels`` [F, 1] pad ids
+    on ids' device (each table's vocab) -> (uids [F, N], combined [F, N,
+    D]), row f bit for bit ``combine_duplicate_ids(ids[f], grads[f],
+    sentinels[f])``: the same stable order within a row, and each segment
+    summed alone in it."""
     f, n = ids.shape
-    sent = torch.tensor([int(s) for s in sentinels], dtype=ids.dtype, device=ids.device)[:, None]
+    sent = sentinels.to(ids.dtype).reshape(f, 1)
     ids = torch.where(ids < 0, sent.expand(f, n), ids)
     sids, order = torch.sort(ids, dim=-1, stable=True)
     sg = torch.take_along_dim(grads, order[..., None], dim=1)

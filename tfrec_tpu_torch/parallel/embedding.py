@@ -26,10 +26,17 @@ reference's ``recv_combine="merge"`` (a merge network over the N sorted
 received blocks, cheaper than a sort on a TPU) yields the stable sort's
 permutation, so it takes the same sort here.
 
+Each call counts into the mesh's ``counters`` (``Mesh.count``): every
+``all_to_all`` its buffer's bytes (``a2a_bytes.ids``, ``.lookup``,
+``.update``), and ``exchange_lookup`` the ids it was given
+(``lookup_ids``), the distinct ids it sent (``distinct_sent``) and its
+local overflow (``lookup_overflow``).
+
 ``exchange_lookup`` and ``exchange_update`` run the steps for many tables
 at once with ONE ``all_to_all`` a direction (the tables' buffers side by
-side), and the tables whose ids and rows share a shape as one [F, ...]
-batch (one sort, bucketing, segmented sum and receive combine for the
+side), and the tables whose rows share a width and whose ids' lengths lie
+within ``MERGE_LENGTHS`` of each other as one [F, ...] batch, the shorter
+ids padded (one sort, bucketing, segmented sum and receive combine for the
 group: ``_Group``); each table's arithmetic is the reference's per-table
 arithmetic, bit for bit, so ``mesh.fused_tables`` changes nothing here. On a rank there is
 no shard_map region: the two functions are the reference's
@@ -96,11 +103,11 @@ from tfrec_tpu_torch.ops.embedding import (
     dedup_ids_sorted,
     fill_like,
     gather_many,
-    run_first_index,
 )
 from tfrec_tpu_torch.parallel.mesh import Mesh
 
 WIRE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}  # mesh.a2a_dtype -> the wire's
+MERGE_LENGTHS = 2  # ids whose lengths lie within this factor are exchanged as one padded batch
 
 
 def pad_vocab(vocab: int, num_shards: int, row_align: int = 8) -> int:
@@ -144,16 +151,21 @@ def bucket_by_dest(ids: torch.Tensor, num_shards: int, rows_per_shard, capacity:
     else:
         sd, order = torch.sort(dest, dim=-1, stable=True)  # batch order within a destination
         sids = clean.gather(-1, order)
-    rank = torch.arange(n, device=dev) - run_first_index(sd)
+    # Each id's place in its destination's run: the run's first index by
+    # binary search over an ascending key (sorted ids put the negative ones,
+    # whose destination is the sentinel's, first: they key -1).
+    key = torch.where(ids < 0, -1, sd) if ids_sorted else sd
+    rank = torch.arange(n, device=dev) - torch.searchsorted(key, key)
     real = sids < sentinel
     ok = (rank < capacity) & real
     slots = num_shards * capacity
-    # Dropped ids all land on one extra slot, cut off below.
-    slot = torch.where(ok, sd.long() * capacity + rank, slots)
+    # Each dropped id lands on an extra slot of its own (no two writes to
+    # one place), cut off below.
+    slot = torch.where(ok, sd.long() * capacity + rank, slots + torch.arange(n, device=dev))
     lead = tuple(ids.shape[:-1])
-    send_ids = fill_like(torch.empty(lead + (slots + 1,), dtype=torch.int32, device=dev), sentinel)
+    send_ids = fill_like(torch.empty(lead + (slots + n,), dtype=torch.int32, device=dev), sentinel)
     send_ids = send_ids.scatter_(-1, slot, sids.to(torch.int32))[..., :slots]
-    send_pos = torch.full(lead + (slots + 1,), n, dtype=torch.int64, device=dev).scatter_(
+    send_pos = torch.full(lead + (slots + n,), n, dtype=torch.int64, device=dev).scatter_(
         -1, slot, order)[..., :slots]
     overflow = (~ok & real).sum() + (ids < 0).sum()
     return (send_ids.reshape(lead + (num_shards, capacity)),
@@ -266,14 +278,15 @@ class RowShardedTable:
 
 
 class _Group(NamedTuple):
-    """Tables exchanged as one batch: their ids of one length, rows of one
-    width, one capacity, layout and lane groups G; ``members`` are their
-    places in the call, and the constants one row a table ([F, 1]). The
-    exchange runs in key space, ``key_*``: the ids' own where G = 1, else
-    the (id, slot) keys' (each constant times G)."""
+    """Tables exchanged as one batch: their ids padded to one length, rows
+    of one width, one capacity, layout and lane groups G; ``members`` are
+    their places in the call, and the constants one row a table ([F, 1]).
+    The exchange runs in key space, ``key_*``: the ids' own where G = 1,
+    else the (id, slot) keys' (each constant times G)."""
 
     members: List[int]
     plans: List["RowShardedTable"]
+    length: int             # the ids of each member, padded (sentinels; zero gradient rows)
     capacity: int
     sentinel: torch.Tensor  # V_pad a table
     rps: torch.Tensor       # rows a shard a table
@@ -293,16 +306,41 @@ class _Group(NamedTuple):
         return self.base * self.lanes
 
 
+def _length_classes(lengths) -> Dict[int, int]:
+    """Each ids' length -> the length it is padded to: ascending, a length
+    joins the class of the shortest one still within ``MERGE_LENGTHS`` of
+    it, and the class pads to its longest."""
+    out: Dict[int, int] = {}
+    cls: List[int] = []
+    for n in sorted(set(lengths)) + [None]:
+        if cls and (n is None or n > MERGE_LENGTHS * cls[0]):
+            out.update((m, cls[-1]) for m in cls)
+            cls = []
+        if n is not None:
+            cls.append(n)
+    return out
+
+
 def _groups(plans: Sequence[RowShardedTable], ids, dims) -> List[_Group]:
-    """The tables of a call batched by (ids' length, width, capacity
-    factor, layout, lane groups), in the call's order; the same tables and
-    ids give the same groups, so a lookup's routes serve its update."""
+    """The tables of a call batched by (width, capacity factor, layout,
+    lane groups, and the length class of their ids), in the call's order;
+    the same tables and ids give the same groups, so a lookup's routes serve
+    its update. Ids of lengths within a factor of ``MERGE_LENGTHS`` share a
+    batch, the shorter ones padded (multi-hot bags give each field its own
+    length; a batch a length would make a dozen launches of every step of
+    the exchange); lane-packed tables keep a batch a length."""
+    kinds: Dict[tuple, List[int]] = {}
+    for i, (plan, dim) in enumerate(zip(plans, dims)):
+        kinds.setdefault((dim, plan.capacity_factor, plan.permute, plan.lane_groups), []).append(i)
     keys: Dict[tuple, List[int]] = {}
-    for i, (plan, lids, dim) in enumerate(zip(plans, ids, dims)):
-        keys.setdefault((lids.shape[0], dim, plan.capacity_factor, plan.permute, plan.lane_groups),
-                        []).append(i)
+    for kind, members in kinds.items():
+        lengths = [ids[i].shape[0] for i in members]
+        padded = ({n: n for n in lengths} if kind[3] > 1 else _length_classes(lengths))
+        for i, n in zip(members, lengths):
+            keys.setdefault((padded[n],) + kind, []).append(i)
+    order = sorted(keys.items(), key=lambda kv: kv[1][0])  # by each batch's first table
     out = []
-    for (length, _, factor, _, lanes), members in keys.items():
+    for (length, _, factor, _, lanes), members in order:
         group = [plans[i] for i in members]
         # Cached on the group's first plan (the group is held, so the ids
         # stay its members'): a host list copied to the card would sync.
@@ -313,9 +351,24 @@ def _groups(plans: Sequence[RowShardedTable], ids, dims) -> List[_Group]:
             cache[key] = (group, *(torch.tensor([[getattr(p, a)] for p in group], device=dev)
                                    for a in ("sentinel", "rows_per_shard", "base")))
         _, sentinel, rps, base = cache[key]
-        out.append(_Group(members, group, capacity_for(length, group[0].num_shards, factor),
+        out.append(_Group(members, group, length, capacity_for(length, group[0].num_shards, factor),
                           sentinel, rps, base, lanes))
     return out
+
+
+def _padded(group: _Group, parts, fill: torch.Tensor | None = None) -> torch.Tensor:
+    """The members' [b_f, ...] tensors stacked [F, length, ...], each
+    padded with zeros, or with its row of ``fill`` (the group's [F, 1]
+    sentinels)."""
+    rows = []
+    for j, i in enumerate(group.members):
+        x = parts[i]
+        short = group.length - x.shape[0]
+        if short:
+            pad = x.new_zeros((short,) + tuple(x.shape[1:]))
+            x = torch.cat([x, pad if fill is None else pad.add_(fill[j, 0])])
+        rows.append(x)
+    return torch.stack(rows)
 
 
 def _perm_ids(group: _Group, ids: torch.Tensor) -> torch.Tensor:
@@ -351,14 +404,14 @@ def _lane_view(leaf: torch.Tensor, key: str, lanes: int) -> torch.Tensor:
     return leaf.view(-1)
 
 
-def _exchange(mesh: Mesh, bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def _exchange(mesh: Mesh, bufs: Sequence[torch.Tensor], tag: str) -> List[torch.Tensor]:
     """One ``all_to_all`` of many [F, N, ...] buffers of one dtype, side by
     side -> the received buffers, each of its own shape: row j of table f's
-    came from rank j."""
+    came from rank j. ``tag`` names its byte counter."""
     n = mesh.size
     flat = [b.transpose(0, 1).reshape(n, -1) for b in bufs]
     widths = [f.shape[1] for f in flat]
-    recv = mesh.all_to_all(torch.cat(flat, dim=1) if len(flat) > 1 else flat[0])
+    recv = mesh.all_to_all(torch.cat(flat, dim=1) if len(flat) > 1 else flat[0], tag=tag)
     return [r.reshape((n, b.shape[0]) + tuple(b.shape[2:])).transpose(0, 1)
             for r, b in zip(torch.split(recv, widths, dim=1), bufs)]
 
@@ -372,18 +425,22 @@ def _stack_slots(group: _Group, slots) -> torch.Tensor | None:
     return torch.stack([slots[i] for i in group.members])
 
 
-def _routes(mesh: Mesh, groups: Sequence[_Group], ids, slots=None):
+def _routes(mesh: Mesh, groups: Sequence[_Group], ids, slots=None, count: bool = False):
     """Each group's route, every id (or key) request exchanged in one
-    ``all_to_all``, and the local overflow of them all (0-d)."""
+    ``all_to_all``, and the local overflow of them all (0-d). ``count``
+    adds the ids and the distinct ids sent to the mesh's counters."""
     planned = []
     for g in groups:
-        lids = _perm_ids(g, torch.stack([ids[i] for i in g.members]))
+        lids = _perm_ids(g, _padded(g, ids, g.sentinel))
         keys = _keys(g, lids, _stack_slots(g, slots))
         uids, inv, order = dedup_ids_sorted(keys, g.key_sentinel)
         send_ids, send_pos, overflow = bucket_by_dest(
             uids, g.plans[0].num_shards, g.key_rps, g.capacity, g.key_sentinel, ids_sorted=True)
         planned.append((send_ids, Route(inv, order, send_pos, None), overflow))
-    recv = _exchange(mesh, [send for send, _, _ in planned])
+        if count:
+            mesh.count("lookup_ids", sum(ids[i].numel() for i in g.members))
+            mesh.count("distinct_sent", (send_ids < g.key_sentinel[:, :, None]).sum())
+    recv = _exchange(mesh, [send for send, _, _ in planned], "ids")
     routes = [r._replace(recv_ids=rv) for (_, r, _), rv in zip(planned, recv)]
     return routes, torch.stack([o for _, _, o in planned]).sum()
 
@@ -398,7 +455,8 @@ def exchange_lookup(mesh: Mesh, plans: Sequence[RowShardedTable], tables, ids, s
     if any(p.wire_dtype != wire for p in plans):
         raise ValueError("tables exchanged together share one wire dtype")
     groups = _groups(plans, ids, [t.shape[1] for t in tables])
-    routes, overflow = _routes(mesh, groups, ids, slots)
+    routes, overflow = _routes(mesh, groups, ids, slots, count=True)
+    mesh.count("lookup_overflow", overflow)
     # The owner's gather: every table's block (a lane-packed one as its
     # [rps * G, d] view) in one launch on a card.
     local, valid, views = {}, {}, list(tables)
@@ -417,20 +475,27 @@ def exchange_lookup(mesh: Mesh, plans: Sequence[RowShardedTable], tables, ids, s
         rows = torch.where(mask, rows, 0.0).view(len(g.members), mesh.size, g.capacity, -1)
         sent.append(rows.to(wire) if wire is not None else rows)
     outs: List[torch.Tensor] = [None] * len(tables)
-    for g, route, back in zip(groups, routes, _exchange(mesh, sent)):
+    for g, route, back in zip(groups, routes, _exchange(mesh, sent, "lookup")):
         f, size = route.inv.shape
         dim = back.shape[-1]
-        # Row ``size`` takes the empty slots, and is cut off.
-        unique = torch.zeros((f, size + 1, dim), dtype=torch.float32, device=back.device)
-        pos = route.send_pos.reshape(f, -1, 1).expand(-1, -1, dim)
-        unique.scatter_(1, pos, back.reshape(f, -1, dim).to(torch.float32))
-        rows = unique[:, :size].gather(1, route.inv[:, :, None].expand(-1, -1, dim))
+        # Each distinct id's slot in the returned rows (the one past the
+        # last, a zero row, for an id not sent), then each id's row by one
+        # gather; an empty slot marks a place of its own past ``size``.
+        pos = route.send_pos.reshape(f, -1)
+        nc = pos.shape[1]
+        every = torch.arange(nc, device=back.device)
+        slot_of = torch.full((f, size + nc), nc, dtype=torch.int64, device=back.device).scatter_(
+            1, torch.where(pos < size, pos, size + every), every.expand(f, nc))
+        src = torch.cat([back.reshape(f, nc, dim).to(torch.float32),
+                         back.new_zeros((f, 1, dim), dtype=torch.float32)], dim=1)
+        idx = slot_of.gather(1, route.inv)
+        rows = src.gather(1, idx[:, :, None].expand(-1, -1, dim))
         if g.lanes > 1:  # back to the packed [b, G * d] rows, each in its slot's lanes
             lanes = _stack_slots(g, slots)[:, :, None, None].expand(-1, -1, 1, dim)
             rows = rows.new_zeros((f, size, g.lanes, dim)).scatter_(
                 2, lanes, rows[:, :, None, :]).view(f, size, g.lanes * dim)
         for j, i in enumerate(g.members):
-            outs[i] = rows[j]
+            outs[i] = rows[j, :ids[i].shape[0]]
     return outs, mesh.all_sum(overflow), routes
 
 
@@ -453,7 +518,7 @@ def exchange_update(mesh: Mesh, plans: Sequence[RowShardedTable], tables, states
     sent = []
     for g, route in zip(groups, routes):
         f, b = route.inv.shape
-        g_rows = torch.stack([grads[i] for i in g.members])  # [F, b, D]
+        g_rows = _padded(g, grads)  # [F, b, D]
         if g.lanes > 1:
             # A position's gradient lies in its own slot's lanes only (the
             # model reads no other), so its d lanes are all it has.
@@ -462,7 +527,8 @@ def exchange_update(mesh: Mesh, plans: Sequence[RowShardedTable], tables, states
             g_rows = g_rows.view(f, b, g.lanes, d).gather(2, lanes)[:, :, 0]
         dim = g_rows.shape[-1]
         # One row a distinct id, its rows summed in batch order, each
-        # table's segments apart (bit for bit a sum a table).
+        # table's segments apart (bit for bit a sum a table), a hot id's
+        # rows in runs (multi-hot bags repeat an id 10^5 times).
         seg = route.inv.gather(1, route.order) + torch.arange(f, device=route.inv.device)[:, None] * b
         combined = _segment_sums(seg.reshape(-1), g_rows.gather(
             1, route.order[:, :, None].expand(-1, -1, dim)).reshape(-1, dim)).view(f, b, dim)
@@ -472,13 +538,15 @@ def exchange_update(mesh: Mesh, plans: Sequence[RowShardedTable], tables, states
         sent.append(rows.to(wire) if wire is not None else rows)
     uids, combined = [None] * len(plans), [None] * len(plans)
     views, view_states = list(tables), list(states)
-    for g, route, recv in zip(groups, routes, _exchange(mesh, sent)):
+    for g, route, recv in zip(groups, routes, _exchange(mesh, sent, "update")):
         f = len(g.members)
         lrow = route.recv_ids.reshape(f, -1) - g.key_base
         lrow = torch.where((lrow >= 0) & (lrow < g.key_rps), lrow, g.key_rps).to(torch.int32)
         rows = recv.reshape(f, lrow.shape[1], -1).to(torch.float32)
-        # One batched sort for the group: bit for bit a combine a table.
-        u, c = combine_duplicate_ids_grouped(lrow, rows, [p.rows_per_shard * g.lanes for p in g.plans])
+        # One batched sort for the group: bit for bit a combine a table
+        # (the sentinels as the group's cached [F, 1] tensor: no host copy;
+        # the capacity's empty slots, one run of the sentinel, in runs).
+        u, c = combine_duplicate_ids_grouped(lrow, rows, g.key_rps)
         for j, i in enumerate(g.members):
             uids[i], combined[i] = u[j], c[j]
             views[i] = _lane_view(tables[i], "table", g.lanes)
@@ -587,23 +655,23 @@ def col_update(mesh: Mesh, plans: Sequence[ColShardedTable], tables, states, ids
         sids, pos, ovf = bucket_by_dest(uids, 1, vocab, cap, vocab, ids_sorted=True)
         pos = pos.reshape(f, cap)
         rows = combined.gather(1, pos.clamp(max=b - 1)[:, :, None].expand(-1, -1, dl))
-        groups.append((members, group))
+        groups.append((members, group, vocab))
         send_ids.append(sids.reshape(f, cap))
         send_rows.append(torch.where((pos < b)[:, :, None], rows, 0.0))
         overflow.append(ovf)
     recv = zip(_data_all_gather(mesh, send_ids), _data_all_gather(mesh, send_rows))
     combined = []
-    for (members, group), (all_ids, all_rows) in zip(groups, recv):
+    for (members, group, vocab), (all_ids, all_rows) in zip(groups, recv):
         # Every data rank's rows of a table, one batched combine for the group.
-        combined.append(combine_duplicate_ids_grouped(all_ids, all_rows, [p.vocab for p in group]))
+        combined.append(combine_duplicate_ids_grouped(all_ids, all_rows, vocab))
     stats = [None] * len(groups)
     if sparse_opt.name != "sgd":
         sumsq = [(g * g).sum(dim=-1) for _, g in combined]
         total = mesh.all_sum(torch.cat([s.reshape(-1) for s in sumsq]), "table")
-        stats = [t.view(s.shape) / group[0].dim for t, s, (_, group) in
+        stats = [t.view(s.shape) / group[0].dim for t, s, (_, group, _) in
                  zip(torch.split(total, [s.numel() for s in sumsq]), sumsq, groups)]
     new_tables, new_states = list(tables), list(states)
-    for (members, _), (uids, g), stat in zip(groups, combined, stats):
+    for (members, _, _), (uids, g), stat in zip(groups, combined, stats):
         for j, i in enumerate(members):
             new_tables[i], new_states[i] = sparse_opt.apply_deduped(
                 tables[i], states[i], uids[j], g[j], lr, stat=None if stat is None else stat[j])

@@ -21,7 +21,12 @@ The collectives are ``Mesh`` methods named by axis, each counted in
 ``Mesh.calls``: an equal-split ``all_to_all`` of an [n, ...] buffer (row j
 goes to the axis' j-th rank; row j of the result came from it, the
 reference's ``all_to_all(split_axis=0, concat_axis=0, tiled=True)``),
-``all_sum``, ``all_mean`` and ``all_gather`` (tiled on a dim). An axis that
+``all_sum``, ``all_mean`` and ``all_gather`` (tiled on a dim). Beside
+``calls``, ``Mesh.counters`` keeps what the row exchange moves, cumulative
+from the mesh's start (``count``): ``a2a_bytes.<tag>`` the bytes of each
+``all_to_all``'s buffer as it goes, padding and this rank's own row included
+(``parallel/embedding.py`` tags ``ids``, ``lookup`` and ``update``), and the
+exchange's ``lookup_ids``, ``distinct_sent`` and ``lookup_overflow``. An axis that
 holds every rank runs over the default group, so with T = 1 the data axis'
 calls are those of a one-axis mesh, and at world size 1 each still goes
 through the group as an identity; an axis of size 1 on more ranks is local (no call);
@@ -110,7 +115,8 @@ class Mesh:
     ``rank`` this process's global rank, ``device`` its device, ``backend``
     the group's; ``groups`` the process group of each axis that neither
     holds every rank nor has size 1 (``make_mesh`` fills it). ``calls``
-    counts its collective calls."""
+    counts its collective calls, ``counters`` what the exchange moves: host
+    ints, or 0-d device tensors that add up without a synchronize."""
 
     shape: Dict[str, int]
     rank: int
@@ -118,6 +124,11 @@ class Mesh:
     backend: str
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
     calls: int = 0
+    counters: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def count(self, name: str, value) -> None:
+        """Adds ``value`` (an int or a 0-d device tensor) to ``counters[name]``."""
+        self.counters[name] = self.counters.get(name, 0) + value
 
     @property
     def size(self) -> int:
@@ -159,10 +170,10 @@ class Mesh:
     def _back(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self.device) if self._staged else t
 
-    def all_to_all(self, buf: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    def all_to_all(self, buf: torch.Tensor, axis: str = "data", tag: str = "other") -> torch.Tensor:
         """[n, ...] -> [n, ...] over ``axis`` (n its size): row j goes to its
         j-th rank, row j of the result came from it. Any dtype: the bytes
-        are moved."""
+        are moved, and counted in ``counters["a2a_bytes.<tag>"]``."""
         n = self.shape[axis]
         if buf.shape[0] != n:
             raise ValueError(f"all_to_all takes [{n}, ...] buffers, got {tuple(buf.shape)}")
@@ -173,6 +184,7 @@ class Mesh:
         wire = self._host(wire)
         out = torch.empty_like(wire)
         self.calls += 1
+        self.count(f"a2a_bytes.{tag}", wire.numel() * wire.element_size())
         dist.all_to_all_single(out, wire, group=self._group(axis))
         out = self._back(out)
         return out.view(torch.bfloat16) if src.dtype == torch.bfloat16 else out

@@ -64,6 +64,13 @@ explicit exchange, docs/DESIGN.md:35, which has no PyTorch counterpart: not
 ported), and ``train.host_dedup`` (host sorts of local ids mean nothing
 after the exchange; the reference refuses it too). As in the reference
 (``group_dedup=False``), each table's ids are combined alone.
+
+While a profiler records, each step opens ``tfrec.step`` and, inside it in
+this order, ``tfrec.lookup`` (around ``tfrec.exchange.lookup``, the row
+exchange), ``tfrec.forward``, ``tfrec.backward``, ``tfrec.dense_allreduce``
+(the dense gradients' mean), ``tfrec.dense_update`` and
+``tfrec.sparse_update`` (around ``tfrec.exchange.update``); what the
+exchange moves is counted in ``Mesh.counters``.
 """
 
 from __future__ import annotations
@@ -97,6 +104,7 @@ from tfrec_tpu_torch.train.step import (
     tree_leaves,
     tree_map,
 )
+from tfrec_tpu_torch.utils.profile import span
 
 DENSE_SHARDINGS = ("replicated", "fsdp")
 
@@ -285,9 +293,10 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
         aux: Dict[str, object] = {}
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         if sharded:
-            out, ovf, routes = exchange_lookup(
-                self.mesh, [self.plans[n] for n in sharded], [tables[n] for n in sharded],
-                [ids[n] for n in sharded], self._slots(sharded, ids))
+            with span("tfrec.exchange.lookup"):
+                out, ovf, routes = exchange_lookup(
+                    self.mesh, [self.plans[n] for n in sharded], [tables[n] for n in sharded],
+                    [ids[n] for n in sharded], self._slots(sharded, ids))
             rows.update(zip(sharded, out))
             overflow = overflow + ovf
             if want_route and self.mesh_cfg.route_reuse:
@@ -322,11 +331,12 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
             new_tables.update(zip(cols, tables))
             new_sparse.update(zip(cols, states))
         if sharded:
-            tables, states, _ = exchange_update(
-                self.mesh, [self.plans[n] for n in sharded], [state["tables"][n] for n in sharded],
-                [state["sparse_opt"][n] for n in sharded], [ids[n] for n in sharded],
-                [gathered_grad[n] for n in sharded], self.sparse_opt, lr, route,
-                self._slots(sharded, ids))
+            with span("tfrec.exchange.update"):
+                tables, states, _ = exchange_update(
+                    self.mesh, [self.plans[n] for n in sharded], [state["tables"][n] for n in sharded],
+                    [state["sparse_opt"][n] for n in sharded], [ids[n] for n in sharded],
+                    [gathered_grad[n] for n in sharded], self.sparse_opt, lr, route,
+                    self._slots(sharded, ids))
             new_tables.update(zip(sharded, tables))
             new_sparse.update(zip(sharded, states))
         for name in gathered_grad:
@@ -382,29 +392,35 @@ class ShardedTrainStepBuilder(TrainStepBuilder):
         rank."""
         if any(k.startswith("_sort_") for k in batch):
             raise ValueError("train.host_dedup is not supported on the mesh path")
-        n = self.mesh.size
-        generator = self._generator(state["step"])
-        batch = self._draw_negatives(batch, generator)
-        ids = self.model.lookup_ids(batch)
-        gathered, aux = self.lookup(state["tables"], ids, want_route=True)
-        forward_kw = self.model.step_noise(batch, generator, self.mesh.size, self.mesh.data_index)
-        loss, dense_grad, row_grads = self.grads_at(
-            {**state, "dense": self.dense_params(state)}, batch, gathered, generator, forward_kw)
-        # One all_reduce: the dense gradients' mean and the global loss.
-        leaves = tree_leaves(dense_grad)
-        flat = torch.cat([g.reshape(-1) for g in leaves] + [loss.reshape(1)])
-        flat = self.mesh.all_mean(flat)
-        sizes = [g.numel() for g in leaves]
-        parts = torch.split(flat[:-1], sizes) if sizes else []
-        dense_grad = _unflatten(state["dense"], [p.view_as(g) for p, g in zip(parts, leaves)])
-        if self.fsdp:  # each rank updates its own blocks
-            dense_grad = self._dense_blocks(dense_grad)
-        row_grads = {k: g * (1.0 / n) for k, g in row_grads.items()}
-        updates, new_dense_opt = self.dense_tx.update(dense_grad, state["dense_opt"], state["dense"])
-        new_dense = apply_updates(state["dense"], updates)
-        lr = self.sparse_schedule(state["step"])
-        new_tables, new_sparse = self.sparse_update_all(state, ids, row_grads, lr,
-                                                        route=aux.get("_route"))
+        with span("tfrec.step"):
+            n = self.mesh.size
+            generator = self._generator(state["step"])
+            batch = self._draw_negatives(batch, generator)
+            with span("tfrec.lookup"):
+                ids = self.model.lookup_ids(batch)
+                gathered, aux = self.lookup(state["tables"], ids, want_route=True)
+            forward_kw = self.model.step_noise(batch, generator, self.mesh.size, self.mesh.data_index)
+            loss, dense_grad, row_grads = self.grads_at(
+                {**state, "dense": self.dense_params(state)}, batch, gathered, generator, forward_kw)
+            with span("tfrec.dense_allreduce"):
+                # One all_reduce: the dense gradients' mean and the global loss.
+                leaves = tree_leaves(dense_grad)
+                flat = torch.cat([g.reshape(-1) for g in leaves] + [loss.reshape(1)])
+                flat = self.mesh.all_mean(flat)
+                sizes = [g.numel() for g in leaves]
+                parts = torch.split(flat[:-1], sizes) if sizes else []
+                dense_grad = _unflatten(state["dense"], [p.view_as(g) for p, g in zip(parts, leaves)])
+            if self.fsdp:  # each rank updates its own blocks
+                dense_grad = self._dense_blocks(dense_grad)
+            row_grads = {k: g * (1.0 / n) for k, g in row_grads.items()}
+            with span("tfrec.dense_update"):
+                updates, new_dense_opt = self.dense_tx.update(dense_grad, state["dense_opt"],
+                                                              state["dense"])
+                new_dense = apply_updates(state["dense"], updates)
+            lr = self.sparse_schedule(state["step"])
+            with span("tfrec.sparse_update"):
+                new_tables, new_sparse = self.sparse_update_all(state, ids, row_grads, lr,
+                                                                route=aux.get("_route"))
         new_state = {
             "step": state["step"] + 1,
             "tables": new_tables,

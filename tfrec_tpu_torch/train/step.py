@@ -51,7 +51,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from concurrent.futures import Executor
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -297,6 +297,7 @@ class TrainStepBuilder:
         )
         self.sparse_schedule = make_schedule(optim_cfg, self.sparse_lr)
         self._groups = {s.name: s.lane_groups for s in model.table_specs()}
+        self._sentinels_on_device: Dict[tuple, torch.Tensor] = {}
 
     def init_state(self, generator: torch.Generator) -> State:
         """A fresh state, params drawn from ``generator`` (on this device);
@@ -378,6 +379,17 @@ class TrainStepBuilder:
             [uids[n] for n in names], [grads[n] for n in names], lr)
         return dict(zip(names, new_tables)), dict(zip(names, new_states))
 
+    def _sentinels(self, tables: Dict[str, torch.Tensor], members: Sequence[str]) -> torch.Tensor:
+        """The [F, 1] pad ids (each table's vocab) of a group of tables for
+        ``combine_duplicate_ids_grouped``, made once on their device: a
+        tensor made from a list each step would copy from the host, and wait."""
+        vocabs = tuple(tables[n].shape[0] for n in members)
+        device = tables[members[0]].device
+        key = (vocabs, device)
+        if key not in self._sentinels_on_device:
+            self._sentinels_on_device[key] = torch.tensor(vocabs, device=device)[:, None]
+        return self._sentinels_on_device[key]
+
     def _per_table_seams(self) -> bool:
         """True where ``sparse_update`` or ``sparse_update_deduped`` is
         overridden (by a subclass or on the instance): the update then goes
@@ -426,7 +438,7 @@ class TrainStepBuilder:
                 u, c = combine_duplicate_ids_grouped(
                     torch.stack([ids[n] for n in members]),
                     torch.stack([gathered_grad[n] for n in members]),
-                    [state["tables"][n].shape[0] for n in members])
+                    self._sentinels(state["tables"], members))
                 uids.update(zip(members, u))
                 grads.update(zip(members, c))
         with span("tfrec.sparse_update"):
