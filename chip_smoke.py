@@ -56,7 +56,13 @@ non-zero if any phase fails:
    cross stack runs the v2 kernels; then their times beside their bounds
    and plain versions (both bounds count their 3xTF32 products on the
    tensor cores) and the backward's time by kernel, predict_ctr's
-   latency, the step's median and a profile of one step;
+   latency, the step's median and a profile of one step; then DLRM's dot
+   interaction at the benchmark's DLRM cell (B=32768, 27 vectors, d=128;
+   ``interaction.cu``, no Pallas site): both kernels against their plain
+   versions, bit for bit on repeat, one launch each way, their device
+   times beside their bounds, the plain versions' and the former bmm and
+   triangle's with autograd's backward (``dot_interaction_fwd`` and
+   ``dot_interaction_bwd`` records);
 9. the trainer: ``trainer.run`` on the card at Criteo's shape (dcn_criteo
    from synthetic_ctr at 26 fields of 100 000 rows, 300 000 examples, one
    epoch of 32 steps in dispatches of 8, then the eval pass over the
@@ -308,7 +314,8 @@ summed) to ``launches_by_path``, and its shapes to the gather and Adagrad
 records as ``sharded``; phase M adds ``train_col`` (M1), ``trainer_mesh_mf``
 (M2), ``serve_mesh_mf`` (M3's first call) and ``trainer_col_mf`` (M4),
 every rank's launches summed; phase N adds ``serve_<model>``,
-``train_<model>`` and ``trainer_<model>`` for its models, and its shapes to
+``train_<model>`` and ``trainer_<model>`` for its models (DLRM's among them
+the interaction kernels' launches), and its shapes to
 the gather record as ``deepfm_52``, ``sasrec_ml1m``, ``caser_ml1m`` and
 ``gru4rec_ml1m`` and to the Adagrad record as ``deepfm_52``; phase O adds
 ``trainer_<model>`` and ``serve_<model>`` for its seven models, and its
@@ -374,6 +381,12 @@ from tfrec_tpu_torch.kernels.gather_cuda import (
     gather_rows_multi,
     gather_rows_multi_ref,
     gather_rows_ref,
+)
+from tfrec_tpu_torch.kernels.interaction_cuda import (
+    dot_interaction_bwd,
+    dot_interaction_bwd_ref,
+    dot_interaction_fwd,
+    dot_interaction_fwd_ref,
 )
 from tfrec_tpu_torch.configs import MeshConfig, OptimConfig
 from tfrec_tpu_torch.eval.native import evaluate_dot_native
@@ -648,6 +661,16 @@ KERNELS = {
         "source": "tfrec_tpu_torch/kernels/csrc/adagrad.cu",
         "replaces": "tfrec_tpu/kernels/scatter_pallas.py:182",
     },
+    # DLRM's dot interaction: no Pallas site (the reference's einsum in
+    # tfrec_tpu/models/dlrm.py, left to XLA).
+    "dot_interaction_fwd": {
+        "source": "tfrec_tpu_torch/kernels/csrc/interaction.cu",
+        "replaces": "none (tfrec_tpu/models/dlrm.py's einsum)",
+    },
+    "dot_interaction_bwd": {
+        "source": "tfrec_tpu_torch/kernels/csrc/interaction.cu",
+        "replaces": "none (tfrec_tpu/models/dlrm.py's einsum)",
+    },
 }
 GROUPED = "fused_rowwise_adagrad_multi_grouped"
 GROUPED_PATHS = ("layouts_lane_packed", "trainer_fm_packed", "train_lane_sliced")
@@ -655,7 +678,11 @@ WRAPPERS = {"gather_rows_multi": gather_rows_multi, "gather_rows": gather_rows,
             "cross_v1_fwd": cross_v1_fwd, "cross_v1_bwd": cross_v1_bwd,
             "fused_rowwise_adagrad_multi": fused_rowwise_adagrad_multi,
             "fused_rowwise_adagrad": fused_rowwise_adagrad,
-            "cross_v2_fwd": cross_v2_fwd, "cross_v2_bwd": cross_v2_bwd}
+            "cross_v2_fwd": cross_v2_fwd, "cross_v2_bwd": cross_v2_bwd,
+            "dot_interaction_fwd": dot_interaction_fwd, "dot_interaction_bwd": dot_interaction_bwd}
+# DLRM's dot interaction at the benchmark's DLRM cell (dlrm_criteo_tb): a
+# batch of 32 768, the bottom output and 26 fields of d = 128.
+INTERACTION_SHAPE = (32768, 27, 128)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1848,6 +1875,72 @@ def phase_v2_times(rec, requests, builder, per_table, state, batches, errs) -> l
          "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by, "library_ms": None},
         {"name": "cross_v2_bwd", "route": "cuda", "max_abs_err": errs["cross_v2_bwd"], "ms": b_ms,
          "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by, "library_ms": None},
+    ]
+
+
+def former_interaction(bottom, fields) -> torch.Tensor:
+    """DLRM's interaction as the model computed it before its kernels: the
+    library's way (stack, cat, ``bmm``, the triangle by advanced indexing,
+    cat), differentiated by autograd."""
+    z = torch.cat([bottom[:, None, :], torch.stack(fields, dim=1)], dim=1)
+    rows, cols = torch.tril_indices(z.shape[1], z.shape[1], -1, device=z.device)
+    return torch.cat([bottom, torch.bmm(z, z.transpose(1, 2))[:, rows, cols]], dim=-1)
+
+
+def phase_interaction(card: str) -> list:
+    """DLRM's dot interaction at the DLRM cell's shape (INTERACTION_SHAPE;
+    the fields [B, D] views of one allocation, as the gather lays them
+    out): both kernels against their plain versions, bit for bit on
+    repeat, one launch a call; their device times beside their bounds
+    (each input read once, each output written once, at 3.35 TB/s; the
+    products at 67 TFLOP/s), the plain versions' and the library's (the
+    former bmm and triangle; its backward is autograd's, timed as its
+    forward and backward less its forward, issued eagerly)."""
+    bsz, n, dim = INTERACTION_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+    z = torch.randn((n, bsz, dim), generator=g, device=DEVICE)
+    bottom, fields = z[0].contiguous(), list(z[1:].unbind(0))
+    pairs = n * (n - 1) // 2
+    grad = torch.randn((bsz, dim + pairs), generator=g, device=DEVICE)
+    f_out, f_launches = launches_of(dot_interaction_fwd, lambda: dot_interaction_fwd(bottom, fields))
+    (d_bottom, d_fields), b_launches = launches_of(dot_interaction_bwd,
+                                                    lambda: dot_interaction_bwd(bottom, fields, grad))
+    f_again = dot_interaction_fwd(bottom, fields)
+    b_again = dot_interaction_bwd(bottom, fields, grad)
+    f_want = dot_interaction_fwd_ref(bottom, fields)
+    want_bottom, want_fields = dot_interaction_bwd_ref(bottom, fields, grad)
+    torch.cuda.synchronize()
+    check(f_launches == 1 and b_launches == 1, "the interaction launches one kernel each way")
+    got, want = torch.stack([d_bottom, *d_fields]), torch.stack([want_bottom, *want_fields])
+    f_err, b_err = max_err(f_out, f_want), max_err(got, want)
+    check(within(f_out, f_want, RTOL, ATOL_REL), "dot_interaction_fwd within tolerance of its plain version")
+    check(within(got, want, RTOL, ATOL_REL), "dot_interaction_bwd within tolerance of its plain version")
+    check(torch.equal(f_out, f_again) and torch.equal(d_bottom, b_again[0])
+          and all(torch.equal(a, b) for a, b in zip(d_fields, b_again[1])),
+          "the interaction's kernels repeat bit for bit")
+    del got, want, want_fields, f_again, b_again
+
+    f_ms = device_ms(lambda: dot_interaction_fwd(bottom, fields), 1)
+    b_ms = device_ms(lambda: dot_interaction_bwd(bottom, fields, grad), 1)
+    f_plain = device_ms(lambda: dot_interaction_fwd_ref(bottom, fields), 1)
+    b_plain = device_ms(lambda: dot_interaction_bwd_ref(bottom, fields, grad), 1)
+    leaves = [t.clone().requires_grad_() for t in (bottom, *fields)]
+    lib_f = dispatch_ms(lambda: former_interaction(leaves[0], leaves[1:]), 1)
+    lib_fb = dispatch_ms(lambda: torch.autograd.grad(former_interaction(leaves[0], leaves[1:]), leaves, grad), 1)
+    vec_bytes, out_bytes = n * bsz * dim * 4, bsz * (dim + pairs) * 4
+    flops = 2 * bsz * pairs * dim
+    f_bound, f_by = bound_ms(vec_bytes + out_bytes, flops)
+    b_bound, b_by = bound_ms(vec_bytes + out_bytes + vec_bytes, 2 * flops)
+    print(f"dot_interaction [B={bsz}, n={n}, D={dim}] ({card}): forward kernel {f_ms:.4f} ms, plain "
+          f"{f_plain:.4f} ms, library (stack, bmm, triangle, cat) {lib_f:.4f} ms, bound {f_bound:.4f} ms "
+          f"({f_by}); backward kernel {b_ms:.4f} ms, plain {b_plain:.4f} ms, library (autograd of the "
+          f"indexing and bmm) {lib_fb - lib_f:.4f} ms, bound {b_bound:.4f} ms ({b_by}); max_abs_err "
+          f"{f_err:.3e} / {b_err:.3e} [kernels and plain: device time, CUDA graph; library: issued eagerly]")
+    return [
+        {"name": "dot_interaction_fwd", "route": "cuda", "max_abs_err": f_err, "ms": f_ms, "plain_ms": f_plain,
+         "bound_ms": f_bound, "bound_by": f_by, "library_ms": lib_f, "shape": list(INTERACTION_SHAPE)},
+        {"name": "dot_interaction_bwd", "route": "cuda", "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
+         "bound_ms": b_bound, "bound_by": b_by, "library_ms": lib_fb - lib_f, "shape": list(INTERACTION_SHAPE)},
     ]
 
 
@@ -3914,10 +4007,12 @@ def phase_mesh_four(card: str, paths: dict) -> None:
 def phase_ctr_zoo(card: str, paths: dict) -> dict:
     """(N1) DeepFM, Wide & Deep, NFM and DLRM at Criteo's shape: each
     served (4 batches of 8192 through ``predict_ctr``: one gather launch a
-    batch for all tables, and no other kernel; the logits finite, within
+    batch for all tables, DLRM's one interaction launch a batch too, and no
+    other kernel; the logits finite, within
     LOGIT_TOL of the plain versions on the card and of the CPU) and trained
     (8 ``multi_step`` steps of 8192 Zipf(1.2) ids: one gather and one
-    Adagrad launch a step; the held loss falls; one step bit for bit on
+    Adagrad launch a step, and DLRM one interaction launch each way; the
+    held loss falls; one step bit for bit on
     repeat and against the CPU as phase 6 holds DCN's, ReLU flips found);
     serving latency, the step's host median, busy share and kernels a step;
     the gather and Adagrad kernels at DeepFM's 52 tables (26 fields and 26
@@ -3942,8 +4037,10 @@ def phase_ctr_zoo(card: str, paths: dict) -> dict:
         torch.cuda.synchronize()
         paths[f"serve_{name}"] = launches = read_launches()
         n_tables = len(model.table_specs())
-        check_launches(launches, {"gather_rows_multi": NUM_BATCHES},
-                       f"{name} serving ran one gather launch a batch for its {n_tables} tables, and no other")
+        dot = name == "dlrm"  # its interaction's kernels
+        check_launches(launches, {"gather_rows_multi": NUM_BATCHES, "dot_interaction_fwd": NUM_BATCHES * dot},
+                       f"{name} serving ran one gather launch a batch for its {n_tables} tables"
+                       + (" and one interaction launch" if dot else "") + ", and no other")
         err = 0.0
         for (dense, cat), got in zip(requests, logits):
             check(got.shape == (BATCH,) and bool(np.isfinite(got).all()), f"{name} logits are finite [{BATCH}]")
@@ -3984,8 +4081,10 @@ def phase_ctr_zoo(card: str, paths: dict) -> dict:
         after = held_loss(builder, state, held)
         print(f"{name} training (N1): multi_step K={k} x {BATCH}, launches {launches}; loss mean "
               f"{metrics['loss_mean'].item():.6f}, held batch {before:.6f} -> {after:.6f}")
-        check_launches(launches, {"gather_rows_multi": k, "fused_rowwise_adagrad_multi": k},
-                       f"{name} training ran one gather and one Adagrad launch a step, and no other")
+        check_launches(launches, {"gather_rows_multi": k, "fused_rowwise_adagrad_multi": k,
+                                  "dot_interaction_fwd": k * dot, "dot_interaction_bwd": k * dot},
+                       f"{name} training ran one gather and one Adagrad launch a step"
+                       + (" and one interaction launch each way" if dot else "") + ", and no other")
         check(bool(np.isfinite([metrics["loss_mean"].item(), after]).all()) and after < before,
               f"{name}'s loss is finite and falls on the held batch")
         batch = {key: v[0] for key, v in batches.items()}
@@ -4010,10 +4109,14 @@ def phase_ctr_zoo(card: str, paths: dict) -> dict:
               f"training {train_counts}, in the eval pass {evals[0][1]}")
         check(all(np.isfinite(v) for v in rec.values()) and rec["auc"] > 0.5,
               f"the {name} trainer's history is finite and its AUC above 0.5")
-        check_launches(train_counts, {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps},
-                       f"the {name} trainer ran one gather and one Adagrad launch a step, and no other")
-        check_launches(evals[0][1], {"gather_rows_multi": eval_batches},
-                       f"the {name} eval pass ran one gather launch a batch, and no other")
+        dot = name == "dlrm"
+        check_launches(train_counts, {"gather_rows_multi": steps, "fused_rowwise_adagrad_multi": steps,
+                                      "dot_interaction_fwd": steps * dot, "dot_interaction_bwd": steps * dot},
+                       f"the {name} trainer ran one gather and one Adagrad launch a step"
+                       + (" and one interaction launch each way" if dot else "") + ", and no other")
+        check_launches(evals[0][1], {"gather_rows_multi": eval_batches, "dot_interaction_fwd": eval_batches * dot},
+                       f"the {name} eval pass ran one gather launch a batch"
+                       + (" and one interaction launch" if dot else "") + ", and no other")
         del trainer
     print(f"phase N1 took {time.perf_counter() - t_phase:.1f} s")
     return records
@@ -4985,6 +5088,7 @@ def main() -> int:
     builder, per_table, state, batches, paths["train_v2"] = phase_train(cfgs["v2"])
     records += phase_v2_times(rec, requests, builder, per_table, state, batches, errs)
     del rec, requests, builder, per_table, state, batches
+    records += phase_interaction(card)
     phase_trainer(card, paths)
     phase_proxy_band(card)
     phase_trainer_card_vs_cpu()
@@ -5050,7 +5154,7 @@ def main() -> int:
         if r["name"] == GROUPED:  # the Adagrad kernel's launches on the packed paths
             by_path = {path: paths[path]["fused_rowwise_adagrad_multi"] for path in GROUPED_PATHS}
         else:
-            by_path = {path: launches[r["name"]] for path, launches in paths.items()}
+            by_path = {path: launches.get(r["name"], 0) for path, launches in paths.items()}
         r.update({"launches": sum(by_path.values()), "launches_by_path": by_path})
         r.update({k: KERNELS[r["name"]][k] for k in ("source", "replaces")})
         if r["name"].startswith("cross_v2"):

@@ -223,7 +223,7 @@ def test_cross_v1_fwd_contract():
 
 
 def test_build_targets_hopper_from_repo_sources(tmp_path, monkeypatch):
-    assert _build.sources() == ["adagrad", "cross", "cross_v2", "gather"]
+    assert _build.sources() == ["adagrad", "cross", "cross_v2", "gather", "interaction"]
     assert _build.BUILD_DIR.parts[-2:] == ("build", "tfrec_tpu_torch")
     cmd = _build.nvcc_command("nvcc", "gather", Path("lib.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd

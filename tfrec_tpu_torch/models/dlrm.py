@@ -2,12 +2,13 @@
 interaction of {bottom output, field embeddings}, and a top MLP over it.
 
 The counterpart of ``tfrec_tpu/models/dlrm.py``, whose interaction is the
-default here, ``interaction="dot"``: the pairwise dot products, one batched
-matmul [B, F', D] x [B, D, F'] (the reference's einsum, outside any Pallas
-kernel), the strict lower triangle taken in ``np.tril_indices(F', k=-1)``'s
-row-major order, which ``torch.tril_indices(F', F', -1)`` gives too (the top
-MLP's first weight reads the pairs in the reference's order), and the top
-MLP over [bottom ; products].
+default here, ``interaction="dot"``: the pairwise dot products of the F' =
+F + 1 vectors (the reference's einsum, outside any Pallas kernel), their
+strict lower triangle in ``np.tril_indices(F', k=-1)``'s row-major order (the
+top MLP's first weight reads the pairs in the reference's order), and the
+top MLP over [bottom ; products]. ``kernels/interaction_cuda.dot_interaction``
+computes [bottom ; products] from the bottom output and the field embeddings
+where they lie (``interaction.cu`` on a card, one launch each way).
 
 ``interaction="dcn"`` is the port's alone: MLPerf Training's DLRM-DCNv2
 (torchrec's ``DLRM_DCN``: ``DenseArch``, ``InteractionDCNArch`` over a
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from tfrec_tpu_torch.kernels.cross import cross_stack
+from tfrec_tpu_torch.kernels.interaction_cuda import dot_interaction
 from tfrec_tpu_torch.models.base import DataSpec
 from tfrec_tpu_torch.models.ctr_base import CTRBase
 from tfrec_tpu_torch.models.layers import apply_mlp, init_mlp
@@ -83,16 +85,9 @@ class DLRM(CTRBase):
         """Logits [B]; the top MLP's dropout runs only with a ``generator``."""
         if self.interaction == "dcn":
             return self._forward_dcn(dense, gathered, batch, generator)
-        z = self.field_stack(gathered, batch)  # [B, F, D]
-        bottom = None
-        if self.has_bottom:
-            bottom = apply_mlp(dense["bottom"], batch["dense"])  # [B, D]
-            z = torch.cat([bottom[:, None, :], z], dim=1)  # [B, F', D]
-        inter = torch.bmm(z, z.transpose(1, 2))  # [B, F', F']
-        nv = z.shape[1]
-        rows, cols = torch.tril_indices(nv, nv, -1, device=z.device)
-        pairs = inter[:, rows, cols]  # [B, F'(F'-1)/2]
-        top_in = torch.cat([bottom, pairs], dim=-1) if bottom is not None else pairs
+        fields = self.field_list(gathered, batch)  # F of [B, D]
+        bottom = apply_mlp(dense["bottom"], batch["dense"]) if self.has_bottom else None  # [B, D]
+        top_in = dot_interaction(bottom, fields)  # [B, D + F'(F'-1)/2]
         return apply_mlp(dense["top"], top_in, dropout=self.dropout, generator=generator)[:, 0]
 
     def _forward_dcn(self, dense, gathered, batch, generator) -> torch.Tensor:
